@@ -27,7 +27,19 @@ failure):
    data); checks the kernel launch count, the ladder rounds, every
    verdict against the known ones, and every device UNSAT against the
    port's own CDCL;
-5. one JSON line per kernel, the card line, then the result line.
+5. analyze: ``myth analyze`` on the card through the port's analyzer
+   (``mythril.MythrilAnalyzer``, as ``python3 -m mythril_tpu_torch
+   analyze`` runs it) over the runs of ``contracts.CHIP_RUNS`` (the
+   ``bench.py`` scale contract at -t 1 and -t 2, two vendored fixtures,
+   killbilly); per run, checks the SWC set against the JAX package's,
+   that no deadline cut the run, that the scale runs reached the dense
+   tier and its kernel, and that every audited sweep equals
+   ``sweep_plain`` bit for bit; prints the wall, states, prune calls,
+   dense dispatches, lanes decided on the device and on the tail, and
+   kernel launches; runs each scale contract once more with the batched
+   path off (per-state CDCL only, the yardstick) and checks its SWC set
+   too;
+6. one JSON line per kernel, the card line, then the result line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -264,6 +276,10 @@ class SweepAudit:
             self.checked[key] = self.checked.get(key, 0) + 1
         return got
 
+    def hot_prefix_calls(self):
+        """Calls that swept a hot row prefix (rows < C)."""
+        return sum(n for k, n in self.calls.items() if k[3] < k[0])
+
     def summary(self):
         return "; ".join(
             f"C={k[0]} V={k[1]} B={k[2]} rows={k[3]} scores={k[4]}: "
@@ -323,6 +339,97 @@ def main_path_phase(name, build, device="cuda"):
     return launches
 
 
+#: wall-clock limit of one chip-check analysis (no run comes close)
+ANALYZE_TIMEOUT_S = 600
+
+
+def analyze_once(run, batched_solving=True):
+    """One chip run through the port's analyzer on ``cuda``: (report,
+    analyzer, wall seconds)."""
+    import torch
+
+    from mythril_tpu_torch.mythril import MythrilAnalyzer, MythrilDisassembler
+    from mythril_tpu_torch.mythril.mythril_analyzer import (
+        reset_analysis_state,
+    )
+
+    reset_analysis_state()
+    disassembler = MythrilDisassembler()
+    address, _ = disassembler.load_from_bytecode(run.code(), bin_runtime=True)
+    analyzer = MythrilAnalyzer(
+        disassembler, address=address, strategy="bfs", max_depth=128,
+        execution_timeout=ANALYZE_TIMEOUT_S, create_timeout=10,
+        loop_bound=3, batched_solving=batched_solving, device="cuda",
+    )
+    started = time.perf_counter()
+    report = analyzer.fire_lasers(transaction_count=run.transaction_count)
+    torch.cuda.synchronize()
+    return report, analyzer, time.perf_counter() - started
+
+
+def analyze_phase(card):
+    """The chip runs through the port's analyzer on ``cuda``; returns
+    the sweep-kernel launches of all runs."""
+    from mythril_tpu_torch.contracts import CHIP_RUNS
+    from mythril_tpu_torch.laser.batch import prune_stats
+    from mythril_tpu_torch.laser.ethereum.time_handler import time_handler
+    from mythril_tpu_torch.ops import batched_sat as bs
+    from mythril_tpu_torch.ops import dense_prop
+    from mythril_tpu_torch.ops import dense_sweep as ds
+    from mythril_tpu_torch.smt import SolverStatistics
+
+    launches = 0
+    for run in CHIP_RUNS:
+        audit = SweepAudit(dense_prop.dense_sweep)
+        dense_prop.dense_sweep = audit
+        try:
+            ds.reset_launch_count()
+            report, analyzer, wall = analyze_once(run)
+            wall -= audit.seconds
+            ran = ds.launch_count
+        finally:
+            dense_prop.dense_sweep = audit.sweep
+        launches += ran
+        check(not report.exceptions,
+              f"{run.name}: the analysis failed:\n"
+              + "\n".join(report.exceptions))
+        stats = bs.dispatch_stats
+        laser = analyzer.last_sym.laser
+        found = {issue.swc_id for issue in report.issues.values()}
+        log(f"analyze {run.name} [{card}]: wall {wall:.3f} s without the "
+            f"sweep audit's {audit.seconds:.3f} s, {laser.total_states} "
+            f"states, {prune_stats.calls} prune calls "
+            f"({prune_stats.batched_calls} through the funnel), "
+            f"{stats.dispatches} dense dispatches ({stats.lanes} lanes, "
+            f"{stats.dense_declines} declined by the caps), lanes decided "
+            f"on the device {stats.unsat + stats.sat_verified} "
+            f"({stats.unsat} unsat, {stats.sat_verified} sat), on the "
+            f"tail {prune_stats.tail_states}, {stats.rounds} rounds, "
+            f"{stats.device_sweeps} sweeps, {ran} kernel launches, "
+            f"dense tier {stats.device_s:.3f} s (with the audit), native "
+            f"CDCL {SolverStatistics().native_s:.3f} s, SWC {sorted(found)}")
+        log(f"analyze {run.name} sweeps vs plain: "
+            f"{audit.summary() or 'no sweep'}; hot-prefix sweeps "
+            f"{audit.hot_prefix_calls()}")
+        check(found == run.swc_ids,
+              f"{run.name}: SWC {sorted(found)} != {sorted(run.swc_ids)}")
+        check(not laser.timed_out and time_handler.time_remaining() > 0,
+              f"{run.name}: the execution deadline cut the run")
+        if run.dense:
+            check(stats.dispatches >= 1, f"{run.name}: no dense dispatch")
+            check(ran > 0, f"{run.name}: the sweep kernel never launched")
+            check(audit.checked, f"{run.name}: no sweep was audited")
+            report, analyzer, wall = analyze_once(run, batched_solving=False)
+            found = {issue.swc_id for issue in report.issues.values()}
+            log(f"analyze {run.name} CDCL only [{card}]: wall {wall:.3f} s, "
+                f"{analyzer.last_sym.laser.total_states} states, native "
+                f"CDCL {SolverStatistics().native_s:.3f} s, "
+                f"SWC {sorted(found)}")
+            check(not report.exceptions and found == run.swc_ids,
+                  f"{run.name} CDCL only: SWC {sorted(found)}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -360,6 +467,7 @@ def main() -> int:
         ran = main_path_phase(name, build)
         check(ran > 0, f"{name}: the sweep kernel never launched")
         launches += ran
+    launches += analyze_phase(card)
     entry["launches"] = launches
 
     print(json.dumps({"kernels": [entry]}))

@@ -1,0 +1,42 @@
+"""Framework-level exceptions (reference: mythril/exceptions.py; own copy
+of the JAX package's, with the classes bytecode analysis raises)."""
+
+
+class MythrilBaseException(Exception):
+    """Base class for all framework errors."""
+
+
+class UnsatError(MythrilBaseException):
+    """No model exists for the queried constraints (or solver gave up)."""
+
+
+class CriticalError(MythrilBaseException):
+    """Fatal user-facing error (bad input, bad flags, ...)."""
+
+
+class DetectorNotFoundError(CriticalError):
+    """Unknown detection-module name passed to the module loader."""
+
+
+class LoaderError(CriticalError):
+    """Input-loading failure with a machine-readable ``code``: the CLI
+    maps these to a one-line structured error on stderr and exit 2,
+    never a traceback.  Subclasses pin the code so scripts can branch
+    on it."""
+
+    code = "loader_error"
+
+    def to_line(self) -> str:
+        """One-line structured rendering (stable key order)."""
+        import json
+
+        return json.dumps(
+            {"error": self.code, "detail": str(self)}, sort_keys=True
+        )
+
+
+class BytecodeInputError(LoaderError):
+    """Input is not hex-encoded bytecode (the normalizer's only
+    rejection)."""
+
+    code = "bad_bytecode"

@@ -1,0 +1,210 @@
+"""Contract-corpus analysis orchestration (own copy of
+``mythril_tpu/mythril/mythril_analyzer.py``).
+
+Builds a symbolic executor per contract, harvests detection issues
+(salvaging partial results on interrupt or crash) and assembles the
+final :class:`Report`.  The port runs the JAX package's analyzer under
+the slice pins (``support/support_args.py``): no concrete replay of
+exploit sequences, no corpus sharding over devices, no governor, no
+checkpoints, no fleet, no statespace or graph dumps.  Its one new knob
+is ``device``: the dense tier runs on the card unless ``device="cpu"``
+is passed.
+
+Reference counterpart: mythril/mythril/mythril_analyzer.py (the
+per-contract loop + statistics toggles).
+"""
+
+import logging
+import traceback
+from dataclasses import dataclass
+from typing import List, Optional
+
+from mythril_tpu_torch.analysis.report import Issue, Report
+from mythril_tpu_torch.analysis.security import (
+    fire_lasers,
+    retrieve_callback_issues,
+)
+from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
+from mythril_tpu_torch.exceptions import DetectorNotFoundError
+from mythril_tpu_torch.smt import SolverStatistics
+from mythril_tpu_torch.solidity.evmcontract import EVMContract
+from mythril_tpu_torch.support.loader import DynLoader
+from mythril_tpu_torch.support.source_support import Source
+from mythril_tpu_torch.support.start_time import StartTime
+from mythril_tpu_torch.support.support_args import args
+
+log = logging.getLogger(__name__)
+
+
+def reset_analysis_state() -> None:
+    """Forget everything an earlier analysis in this process left
+    behind (a fresh CLI process starts this way): the blast context with
+    its term interner and model cache, the detection modules' issues
+    and caches, the transaction-id counter, the keccak function
+    manager, and the funnel's and prune's counters."""
+    from mythril_tpu_torch.laser.batch import prune_stats
+    from mythril_tpu_torch.laser.ethereum.keccak_function_manager import (
+        keccak_function_manager,
+    )
+    from mythril_tpu_torch.laser.ethereum.transaction import (
+        reset_transaction_ids,
+    )
+    from mythril_tpu_torch.analysis.module.loader import ModuleLoader
+    from mythril_tpu_torch.ops.batched_sat import dispatch_stats
+    from mythril_tpu_torch.smt.solver import reset_blast_context
+
+    reset_blast_context()
+    for module in ModuleLoader().get_detection_modules():
+        module.reset_module()
+        module.cache.clear()
+    reset_transaction_ids()
+    keccak_function_manager.reset()
+    dispatch_stats.reset()
+    prune_stats.reset()
+    SolverStatistics().reset()
+
+
+@dataclass
+class _Campaign:
+    """Settings for one analysis campaign, resolved once at analyzer
+    construction."""
+
+    strategy: str = "dfs"
+    address: Optional[str] = None
+    max_depth: Optional[int] = None
+    execution_timeout: Optional[int] = None
+    loop_bound: Optional[int] = None
+    create_timeout: Optional[int] = None
+    disable_dependency_pruning: bool = False
+    custom_modules_directory: str = ""
+
+
+class MythrilAnalyzer:
+    def __init__(
+        self,
+        disassembler,
+        strategy: str = "dfs",
+        address: Optional[str] = None,
+        max_depth: Optional[int] = None,
+        execution_timeout: Optional[int] = None,
+        loop_bound: Optional[int] = None,
+        create_timeout: Optional[int] = None,
+        enable_iprof: bool = False,
+        disable_dependency_pruning: bool = False,
+        solver_timeout: Optional[int] = None,
+        custom_modules_directory: str = "",
+        sparse_pruning: bool = False,
+        unconstrained_storage: bool = False,
+        call_depth_limit: int = 3,
+        batched_solving: bool = True,
+        device: Optional[str] = None,
+    ):
+        self.contracts: List[EVMContract] = disassembler.contracts or []
+        self.campaign = _Campaign(
+            strategy=strategy,
+            address=address,
+            max_depth=max_depth,
+            execution_timeout=execution_timeout,
+            loop_bound=loop_bound,
+            create_timeout=create_timeout,
+            disable_dependency_pruning=disable_dependency_pruning,
+            custom_modules_directory=custom_modules_directory,
+        )
+        # the laser stack reads these through the global args bus
+        args.sparse_pruning = sparse_pruning
+        args.solver_timeout = solver_timeout or args.solver_timeout
+        args.unconstrained_storage = unconstrained_storage
+        args.call_depth_limit = call_depth_limit
+        args.iprof = enable_iprof
+        args.batched_solving = batched_solving
+        args.device = device
+        #: the last contract's executor (its LaserEVM carries the run's
+        #: state count and whether a deadline cut it)
+        self.last_sym: Optional[SymExecWrapper] = None
+
+    def _symbolize(self, contract, **overrides) -> SymExecWrapper:
+        cfg = self.campaign
+        settings = dict(
+            dynloader=DynLoader(),
+            max_depth=cfg.max_depth,
+            execution_timeout=cfg.execution_timeout,
+            create_timeout=cfg.create_timeout,
+            disable_dependency_pruning=cfg.disable_dependency_pruning,
+            custom_modules_directory=cfg.custom_modules_directory,
+        )
+        settings.update(overrides)
+        # None uniformly means "use the executor's default"
+        settings = {
+            key: value for key, value in settings.items()
+            if value is not None
+        }
+        return SymExecWrapper(
+            contract or self.contracts[0],
+            cfg.address,
+            cfg.strategy,
+            **settings,
+        )
+
+    def _analyze_contract(self, contract, modules, transaction_count):
+        """Symbolically execute one contract and return (issues,
+        execution_info, traceback-or-None).  Interrupts and crashes
+        salvage whatever the callback modules had already found."""
+        StartTime()  # per-contract wall-clock epoch for report timestamps
+        failure = None
+        execution_info = None
+        try:
+            sym = self._symbolize(
+                contract,
+                loop_bound=self.campaign.loop_bound,
+                transaction_count=transaction_count,
+                modules=modules,
+                compulsory_statespace=False,
+            )
+            self.last_sym = sym
+            issues = fire_lasers(sym, modules)
+            execution_info = sym.execution_info
+        except DetectorNotFoundError:
+            raise
+        except KeyboardInterrupt:
+            log.critical("Keyboard Interrupt")
+            issues = retrieve_callback_issues(modules)
+        except Exception:
+            failure = traceback.format_exc()
+            log.critical(
+                "Exception occurred, aborting analysis:\n" + failure
+            )
+            issues = retrieve_callback_issues(modules)
+        return issues, execution_info, failure
+
+    def fire_lasers(
+        self,
+        modules: Optional[List[str]] = None,
+        transaction_count: Optional[int] = None,
+    ) -> Report:
+        SolverStatistics().enabled = True
+        all_issues: List[Issue] = []
+        exceptions: List[str] = []
+        execution_info = None
+        for contract in self.contracts:
+            issues, info, failure = self._analyze_contract(
+                contract, modules, transaction_count
+            )
+            if info is not None:
+                execution_info = info
+            if failure:
+                exceptions.append(failure)
+            for issue in issues:
+                issue.add_code_info(contract)
+            all_issues.extend(issues)
+            log.info("Solver statistics: \n%s", SolverStatistics())
+
+        # resolve source mappings for the final report
+        Source().get_source_from_contracts_list(self.contracts)
+        report = Report(
+            contracts=self.contracts,
+            exceptions=exceptions,
+            execution_info=execution_info,
+        )
+        for issue in all_issues:
+            report.append_issue(issue)
+        return report

@@ -1,7 +1,7 @@
-"""Native components of the port: the CDCL SAT solver and the clause
-pool / gate layer, built from C++ at first import.
+"""Native components of the port: the CDCL SAT solver, the clause
+pool / gate layer and a fast keccak-256, built from C++ at first import.
 
-Own copy of ``mythril_tpu/native`` (cdcl.cpp without the keccak helper,
+Own copy of ``mythril_tpu/native`` (cdcl.cpp with its keccak helper,
 pool.cpp unchanged), compiled into this package's own ``_native.so``.
 The two libraries export the same C symbol names; ctypes loads each with
 ``RTLD_LOCAL``, so both packages can live in one process (the parity
@@ -144,8 +144,19 @@ def load() -> ctypes.CDLL:
         lib.pool_subset_csr.argtypes = [
             ctypes.c_void_p, i64p, ctypes.c_int64, i32p, i64p,
         ]
+        lib.keccak256_native.argtypes = [
+            ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
+        ]
+        lib.keccak256_native.restype = None
         _lib = lib
         return lib
+
+
+def keccak256(data: bytes) -> bytes:
+    lib = load()
+    out = ctypes.create_string_buffer(32)
+    lib.keccak256_native(data, len(data), out)
+    return out.raw
 
 
 class SatSolver:

@@ -1188,4 +1188,79 @@ int64_t cdcl_proof_fetch(void* s, int32_t* out, int64_t cap) {
 }
 void cdcl_proof_clear(void* s) { ((Solver*)s)->proof_clear(); }
 
+
+// ---------------------------------------------------------------------------
+// keccak-256 (Ethereum variant: original Keccak padding 0x01)
+// ---------------------------------------------------------------------------
+
+static const uint64_t KECCAK_RC[24] = {
+    0x0000000000000001ULL, 0x0000000000008082ULL, 0x800000000000808aULL,
+    0x8000000080008000ULL, 0x000000000000808bULL, 0x0000000080000001ULL,
+    0x8000000080008081ULL, 0x8000000000008009ULL, 0x000000000000008aULL,
+    0x0000000000000088ULL, 0x0000000080008009ULL, 0x000000008000000aULL,
+    0x000000008000808bULL, 0x800000000000008bULL, 0x8000000000008089ULL,
+    0x8000000000008003ULL, 0x8000000000008002ULL, 0x8000000000000080ULL,
+    0x000000000000800aULL, 0x800000008000000aULL, 0x8000000080008081ULL,
+    0x8000000000008080ULL, 0x0000000080000001ULL, 0x8000000080008008ULL};
+
+static inline uint64_t rotl64(uint64_t x, int s) {
+  return (x << s) | (x >> (64 - s));
+}
+
+static void keccak_f(uint64_t st[25]) {
+  // lanes indexed st[x + 5*y]
+  static const int rot[5][5] = {{0, 36, 3, 41, 18},
+                                {1, 44, 10, 45, 2},
+                                {62, 6, 43, 15, 61},
+                                {28, 55, 25, 21, 56},
+                                {27, 20, 39, 8, 14}};
+  for (int round = 0; round < 24; ++round) {
+    uint64_t c[5], d[5], b[25];
+    for (int x = 0; x < 5; ++x)
+      c[x] = st[x] ^ st[x + 5] ^ st[x + 10] ^ st[x + 15] ^ st[x + 20];
+    for (int x = 0; x < 5; ++x) {
+      d[x] = c[(x + 4) % 5] ^ rotl64(c[(x + 1) % 5], 1);
+      for (int y = 0; y < 5; ++y) st[x + 5 * y] ^= d[x];
+    }
+    for (int x = 0; x < 5; ++x)
+      for (int y = 0; y < 5; ++y)
+        b[y + 5 * ((2 * x + 3 * y) % 5)] = rotl64(st[x + 5 * y], rot[x][y]);
+    for (int x = 0; x < 5; ++x)
+      for (int y = 0; y < 5; ++y)
+        st[x + 5 * y] =
+            b[x + 5 * y] ^ ((~b[(x + 1) % 5 + 5 * y]) & b[(x + 2) % 5 + 5 * y]);
+    st[0] ^= KECCAK_RC[round];
+  }
+}
+
+void keccak256_native(const uint8_t* data, uint64_t len, uint8_t out[32]) {
+  const size_t rate = 136;
+  uint64_t st[25];
+  std::memset(st, 0, sizeof(st));
+  // absorb full blocks
+  while (len >= rate) {
+    for (size_t i = 0; i < rate / 8; ++i) {
+      uint64_t lane;
+      std::memcpy(&lane, data + 8 * i, 8);
+      st[i] ^= lane;  // little-endian host assumed (x86/ARM)
+    }
+    keccak_f(st);
+    data += rate;
+    len -= rate;
+  }
+  // last (partial) block with pad 0x01 ... 0x80
+  uint8_t block[136];
+  std::memset(block, 0, sizeof(block));
+  std::memcpy(block, data, len);
+  block[len] = 0x01;
+  block[rate - 1] |= 0x80;
+  for (size_t i = 0; i < rate / 8; ++i) {
+    uint64_t lane;
+    std::memcpy(&lane, block + 8 * i, 8);
+    st[i] ^= lane;
+  }
+  keccak_f(st);
+  std::memcpy(out, st, 32);
+}
+
 }  // extern "C"

@@ -7,16 +7,20 @@ under the slice's configuration (``MYTHRIL_TPU_RESIDENT_KERNEL=0``,
 ``MYTHRIL_TPU_WORD_TIER=0``, ``MYTHRIL_TPU_AUTOPILOT=0``):
 
 1. structural fold: constraints that folded to literal False;
-2. dense tier (``ops/dense_prop.py``) over the deduped open lanes, on
-   the card unless the caller passes ``device="cpu"``;
-3. host verification of every SAT candidate against the terms (device
-   UNSAT verdicts become assumption nogoods in the pool);
-4. the native CDCL tail for everything still undecided.
+2. memo hits: the context's permanent UNSAT memo and the verdicts the
+   per-query funnel (``support/model.py``) has cached;
+3. dense tier (``ops/dense_prop.py``) over the deduped open lanes, on
+   the card unless the caller passes ``device="cpu"``, behind the JAX
+   funnel's adaptive fuse; host verification of every SAT candidate
+   against the terms (device UNSAT verdicts become assumption nogoods
+   in the pool);
+4. the native CDCL tail for everything still undecided (or None for
+   the caller's own tail, ``tail=False``).
 
-Left out of this slice: the host word-level probe phase before the
-dispatch, the word tier, the autopilot router, the lane ledger, the
-coalescer and async prefetch, the adaptive profit gate and fuse, and
-the gather / resident / frontier solvers.
+Left out of this slice: the host word-level model probing before the
+dispatch (``word_probing``; the slice pins it off), the word tier, the
+autopilot router, the lane ledger, the coalescer and async prefetch,
+the adaptive profit gate, and the gather / resident / frontier solvers.
 """
 
 import time
@@ -29,6 +33,11 @@ from torch.profiler import record_function
 #: the resident/gather solvers that read them come with a later slice
 MAX_CONE_GATHER_CLAUSES = 16384
 MAX_CONE_GATHER_VARS = 8192
+#: the adaptive dispatch fuse of the JAX package (batched_sat.py:63-68)
+FUTILE_DISPATCH_FUSE = 3
+SLOW_DISPATCH_FUSE_S = 10.0
+FUSE_RETRY_PERIOD = 8
+MAX_FUSE_RETRIES = 3
 
 
 def effective_min_lanes() -> int:
@@ -70,13 +79,76 @@ class DispatchStats:
         self.device_dispatch_calls = 0
         self.warm_start_hits = 0
         self.cone_memo_hits = 0
+        self.dense_declines = 0    # dispatches no dense layout could fit
         # per-lane tier that decided each lane of the last
-        # batch_check_states call: "structural", "device", "tail" or
-        # None (the tail answered UNKNOWN)
+        # batch_check_states call: "structural", "memo", "device",
+        # "tail" or None (left open, or the tail answered UNKNOWN)
         self.last_tiers: List[Optional[str]] = []
 
 
 dispatch_stats = DispatchStats()
+
+
+class DispatchFuse:
+    """The JAX funnel's adaptive fuse (``batched_sat.py:2186-2212``,
+    ``:2382-2432``): after :data:`FUTILE_DISPATCH_FUSE` consecutive
+    dispatches that decide no lane (or one zero-decision dispatch slower
+    than :data:`SLOW_DISPATCH_FUSE_S`), a context stops dispatching and
+    sends its frontiers to the tail; every :data:`FUSE_RETRY_PERIOD`-th
+    eligible frontier retries, at most :data:`MAX_FUSE_RETRIES` times,
+    and a retry that decides a lane re-arms it.  Kept because it
+    decides which lanes reach the CDCL, and so the CDCL's models."""
+
+    def __init__(self):
+        self.arm(-1)
+
+    def arm(self, generation: int):
+        self.generation = generation
+        self.futile = 0
+        self.fused_generation = -1
+        self.skips = 0
+        self.retries = 0
+        self.was_slow = False
+        self.retrying = False
+
+    def admit(self, ctx) -> bool:
+        """Whether this frontier may dispatch."""
+        if self.generation != ctx.generation:
+            self.arm(ctx.generation)
+        self.retrying = False
+        if self.fused_generation != ctx.generation:
+            return True
+        self.skips += 1
+        if (self.was_slow or self.retries >= MAX_FUSE_RETRIES
+                or self.skips % FUSE_RETRY_PERIOD != 0):
+            return False
+        self.retries += 1
+        self.retrying = True
+        return True
+
+    def refund(self):
+        """A retry that reached no device layout was no retry."""
+        if self.retrying:
+            self.retries -= 1
+
+    def settle(self, ctx, decided: int, elapsed_s: float):
+        """Account one engaged dispatch that decided ``decided`` lanes."""
+        if decided:
+            self.futile = 0
+            if self.fused_generation == ctx.generation:
+                self.fused_generation = -1
+                self.skips = 0
+                self.retries = 0
+            return
+        self.futile += 1
+        if elapsed_s > SLOW_DISPATCH_FUSE_S:
+            self.futile = FUTILE_DISPATCH_FUSE
+            self.was_slow = True
+        if self.futile >= FUTILE_DISPATCH_FUSE:
+            self.fused_generation = ctx.generation
+
+
+dispatch_fuse = DispatchFuse()
 
 
 def warm_pref_row(ctx, width: int, cone_vars=None, offset: int = 1,
@@ -129,14 +201,19 @@ def _holds(constraints, env) -> bool:
     return True
 
 
-def batch_check_states(constraint_sets, device=None) -> List[Optional[bool]]:
+def batch_check_states(constraint_sets, device=None,
+                       tail: bool = True) -> List[Optional[bool]]:
     """Feasibility verdicts for a frontier of constraint sets: True =
     SAT (model verified against the terms), False = UNSAT (sound),
-    None = the CDCL tail answered UNKNOWN (budget).  The dense tier
-    runs on ``cuda`` unless ``device="cpu"`` is passed."""
+    None = undecided.  The dense tier runs on ``cuda`` unless
+    ``device="cpu"`` is passed.  With ``tail=True`` the native CDCL
+    answers every lane the funnel leaves open (None then means the CDCL
+    answered UNKNOWN); ``tail=False`` returns them as None, for a caller
+    that runs its own tail (``laser/batch.py``)."""
     from mythril_tpu_torch.ops.dense_prop import get_dense_backend
     from mythril_tpu_torch.smt import terms as T
     from mythril_tpu_torch.smt.solver import get_blast_context
+    from mythril_tpu_torch.support.model import peek_model_verdict
 
     ctx = get_blast_context()
     node_sets: List[Optional[List]] = []
@@ -168,6 +245,20 @@ def batch_check_states(constraint_sets, device=None) -> List[Optional[bool]]:
         else:
             node_sets.append(nodes)
 
+    # 2. memo hits: a permanent UNSAT verdict of the context, or a
+    # verdict the per-query funnel (support/model.py) already paid for
+    for i, nodes in enumerate(node_sets):
+        if nodes is None:
+            continue
+        if ctx.unsat_memo_hit(tuple(sorted(n.id for n in nodes))):
+            decided[i] = False
+            tiers[i] = "memo"
+            continue
+        cached = peek_model_verdict(constraint_sets[i])
+        if cached is not None:
+            decided[i] = cached
+            tiers[i] = "memo"
+
     open_indices = [i for i, d in enumerate(decided) if d is None]
     backend = get_dense_backend(device)
     if len(open_indices) >= effective_min_lanes() and backend.available_for(
@@ -179,11 +270,12 @@ def batch_check_states(constraint_sets, device=None) -> List[Optional[bool]]:
             if decided[i] is not None:
                 tiers[i] = "device"
 
-    # 4. CDCL tail
-    started = time.perf_counter()
-    with record_function("funnel.tail"):
-        _tail(ctx, node_sets, decided, tiers)
-    dispatch_stats.tail_s += time.perf_counter() - started
+    if tail:
+        # 4. CDCL tail
+        started = time.perf_counter()
+        with record_function("funnel.tail"):
+            _tail(ctx, node_sets, decided, tiers)
+        dispatch_stats.tail_s += time.perf_counter() - started
     return decided
 
 
@@ -206,7 +298,7 @@ def _tail(ctx, node_sets, decided, tiers):
 
 def _dense_phase(ctx, backend, constraint_sets, node_sets, decided,
                  open_indices):
-    """2.-3.: blast the open lanes, dispatch the deduped assumption sets
+    """3.: blast the open lanes, dispatch the deduped assumption sets
     to the dense tier, fold its verdicts into ``decided``."""
     assumption_sets: List[Optional[List[int]]] = [None] * len(node_sets)
     with record_function("funnel.blast"):
@@ -234,19 +326,29 @@ def _dense_phase(ctx, backend, constraint_sets, node_sets, decided,
         lane_of.append(lane)
     rep_sets = [assumption_sets[i] for i in rep_indices]
 
+    if not dispatch_fuse.admit(ctx):
+        return  # fused off for this context: every lane to the tail
     started = time.perf_counter()
     dense = backend.check_assumption_sets(ctx, rep_sets)
-    dispatch_stats.device_s += time.perf_counter() - started
+    elapsed = time.perf_counter() - started
+    dispatch_stats.device_s += elapsed
     if dense is None:
+        dispatch_stats.dense_declines += 1
+        dispatch_fuse.refund()
         return  # no layout fits the caps: every lane goes to the tail
     verdicts, assignments = dense
     dispatch_stats.dispatches += 1
     dispatch_stats.lanes += len(rep_indices)
 
+    before = dispatch_stats.unsat + dispatch_stats.sat_verified
     with record_function("funnel.verify"):
         _fold_verdicts(ctx, constraint_sets, node_sets, decided,
                        open_indices, assumption_sets, rep_indices, lane_of,
                        verdicts, assignments)
+    dispatch_fuse.settle(
+        ctx, dispatch_stats.unsat + dispatch_stats.sat_verified - before,
+        elapsed,
+    )
 
 
 def _fold_verdicts(ctx, constraint_sets, node_sets, decided, open_indices,

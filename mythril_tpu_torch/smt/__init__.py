@@ -3,7 +3,7 @@
 Own copy of ``mythril_tpu/smt/__init__.py`` for the PyTorch port.
 Mirrors the surface of the reference's mythril/laser/smt/__init__.py
 (symbol_factory, BitVec, Bool, Array, K, Function, helpers, Solver,
-Model) so everything above L0 reads the
+Optimize, Model) so everything above L0 reads the
 same, but the implementation wraps our own interned term DAG
 (``smt/terms.py``) instead of z3 ASTs, and satisfiability is decided by
 the native CDCL and the dense device tier (``smt/solver/``,
@@ -590,6 +590,7 @@ symbol_factory = SymbolFactory()
 
 from mythril_tpu_torch.smt.model import Model  # noqa: E402  (re-export)
 from mythril_tpu_torch.smt.solver import (  # noqa: E402
+    Optimize,
     Solver,
     SolverStatistics,
 )
@@ -600,5 +601,5 @@ __all__ = [
     "SDiv", "URem", "SRem", "LShR", "Concat", "Extract", "ZeroExt", "SignExt",
     "Sum", "BVAddNoOverflow", "BVMulNoOverflow", "BVSubNoUnderflow", "And",
     "Or", "Not", "Xor", "Implies", "is_true", "is_false", "simplify",
-    "symbol_factory", "Model", "Solver", "SolverStatistics",
+    "symbol_factory", "Model", "Solver", "Optimize", "SolverStatistics",
 ]

@@ -1,15 +1,78 @@
-"""Analysis-flag singleton (own copy of the flags of
-``mythril_tpu/support/support_args.py`` that the solver funnel reads)."""
+"""Analysis-flag singleton (own copy of
+``mythril_tpu/support/support_args.py``, with the flags LASER, the
+analyzer and the solver funnel of the port read), and the slice pins.
+
+The CLI and the analyzer write these once per analysis; LASER and the
+funnel read them from anywhere.
+"""
+
+from mythril_tpu_torch.support.support_utils import Singleton
+
+#: The configuration of the JAX package that this port implements (the
+#: "slice pins").  The port has none of the features these switch off,
+#: so it runs this configuration whatever the environment says; the
+#: parity tests apply the same pins to the JAX package.
+#:
+#: Environment knobs of the JAX package:
+SLICE_PINS_ENV = {
+    "MYTHRIL_TPU_RESIDENT_KERNEL": "0",  # dense tier, no resident solver
+    "MYTHRIL_TPU_WORD_TIER": "0",
+    "MYTHRIL_TPU_AUTOPILOT": "0",
+    "MYTHRIL_TPU_SYM_LOCKSTEP": "0",
+    "MYTHRIL_TPU_VERITEST": "0",
+    "MYTHRIL_TPU_FLEET": "0",
+    "MYTHRIL_TPU_PERSIST": "0",
+    "MYTHRIL_TPU_GOVERNOR": "0",
+    "MYTHRIL_TPU_LEDGER": "0",
+}
+#: ... plus, on a CPU, the Pallas tier in interpret mode (what the port's
+#: CPU tier is held against):
+SLICE_PINS_CPU_ENV = {"MYTHRIL_TPU_PALLAS": "force"}
+#: Module constants of the JAX package (relative to ``mythril_tpu``):
+#: its gather and cone-gather solvers decline every frontier, so that,
+#: as in the port, the dense tier and the CDCL answer all of them (a
+#: cone past the dense tier's caps goes to the CDCL, not to a gather
+#: ladder that learns clauses of its own).
+SLICE_PINS_JAX_CONSTANTS = {
+    "ops.batched_sat.MAX_GATHER_VARS": 0,
+    "ops.batched_sat.MAX_CONE_GATHER_CLAUSES": 0,
+}
+#: Analysis flags of the JAX package.  ``word_probing`` is off: the JAX
+#: funnel reads it for its host probe phase before the dispatch, which
+#: the port does not have, and the CDCL tail reads it for the same
+#: probe; off, every open lane reaches the dense tier and the tail's
+#: models come from the CDCL alone, on both sides.
+SLICE_PINS_ARGS = {
+    "device_force_dispatch": True,
+    "device_coalesce": False,
+    "async_dispatch": False,
+    "lockstep_dispatch": False,
+    "concrete_replay": False,
+    "proof_log": False,
+    "fleet_workers": 0,
+    "word_probing": False,
+}
 
 
-class Args:
+class Args(object, metaclass=Singleton):
     def __init__(self):
-        self.word_probing = True     # host word-level model probing (CDCL tail)
-        self.cone_decisions = True   # CDCL decisions restricted to query cone
+        self.solver_timeout = 10000          # ms per query
+        self.exact_gas_tracking = False      # concolic conformance runs only
+        self.sparse_pruning = False
+        self.unconstrained_storage = False
+        self.call_depth_limit = 3
+        self.iprof = False
+        self.batched_solving = True          # batch frontier feasibility checks
+        self.word_probing = SLICE_PINS_ARGS["word_probing"]
+        self.cone_decisions = True           # CDCL decisions restricted to query cone
+        self.batch_width = 16                # VM states stepped per scheduler round
         # below this many undecided lanes the native CDCL wins outright;
         # the funnel's structural floor is derived from it
         # (ops/batched_sat.effective_min_lanes)
         self.device_min_lanes = 8
+        # where the dense tier runs: None = the card (an error without
+        # one), "cpu" only when asked for
+        self.device = None
 
 
 args = Args()

@@ -1,0 +1,419 @@
+"""``myth analyze`` on the port against the JAX package, on the CPU.
+
+Each case runs the JAX package's ``SymExecWrapper`` + ``fire_lasers``
+and the port's, one after the other in this process, under the slice
+pins (``mythril_tpu_torch/support/support_args.py``), with the port's
+dense tier on ``device="cpu"``.  The issue lists (field by field, with
+the exploit transactions' calldata, value and caller), the total state
+count, the number of prune calls and every prune call's per-state
+verdicts must be exactly equal; neither side may time out.
+"""
+
+import importlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import bench
+from mythril_tpu.laser.ethereum import svm as jax_svm
+from mythril_tpu.ops import batched_sat as jax_bs
+from mythril_tpu.support.support_args import args as jax_args
+from mythril_tpu_torch import contracts
+from mythril_tpu_torch.laser.ethereum import svm as port_svm
+from mythril_tpu_torch.ops import batched_sat as port_bs
+from mythril_tpu_torch.support.support_args import (
+    SLICE_PINS_ARGS,
+    SLICE_PINS_CPU_ENV,
+    SLICE_PINS_ENV,
+    SLICE_PINS_JAX_CONSTANTS,
+)
+from mythril_tpu_torch.support.support_args import args as port_args
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(ROOT, "tests", "fixtures", "mainnet")
+ADDRESS = 0x901D12EBE1B195E5AA8748E62BD7734AE19B51F
+EXEC_TIMEOUT = 600
+
+
+@pytest.fixture(autouse=True)
+def slice_pins(monkeypatch):
+    for name, value in {**SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV}.items():
+        monkeypatch.setenv(name, value)
+    for name, value in SLICE_PINS_ARGS.items():
+        monkeypatch.setattr(jax_args, name, value)
+    # the analysis flags both packages read, at the port's values (a test
+    # that ran earlier in this process may have left others behind)
+    for name, value in vars(port_args).items():
+        if name != "device" and hasattr(jax_args, name):
+            monkeypatch.setattr(jax_args, name, value)
+    for path, value in SLICE_PINS_JAX_CONSTANTS.items():
+        module, attr = path.rsplit(".", 1)
+        monkeypatch.setattr(
+            importlib.import_module("mythril_tpu." + module), attr, value
+        )
+    monkeypatch.setattr(port_args, "device", "cpu")
+    yield
+
+
+def _reset_jax():
+    from mythril_tpu.analysis.module.loader import ModuleLoader
+    from mythril_tpu.laser.ethereum.keccak_function_manager import (
+        keccak_function_manager,
+    )
+    from mythril_tpu.laser.ethereum.transaction import reset_transaction_ids
+    from mythril_tpu.smt.solver import reset_blast_context
+
+    reset_blast_context()  # also clears the model cache
+    for module in ModuleLoader().get_detection_modules():
+        module.reset_module()
+        module.cache.clear()
+    reset_transaction_ids()
+    keccak_function_manager.reset()
+    jax_bs.dispatch_stats.reset()
+
+
+def _issue_fields(issue):
+    sequence = issue.transaction_sequence or {}
+    return {
+        "swc_id": issue.swc_id,
+        "address": issue.address,
+        "function": issue.function,
+        "title": issue.title,
+        "severity": issue.severity,
+        "description": issue.description,
+        "steps": [(step["calldata"], step["value"], step["origin"])
+                  for step in sequence.get("steps", [])],
+    }
+
+
+def _run(side, code, tx_count):
+    """One analysis on ``side`` ("jax" or "port"); returns what the
+    parity tests compare."""
+    if side == "jax":
+        import mythril_tpu.analysis.security as security
+        import mythril_tpu.analysis.symbolic as symbolic
+        import mythril_tpu.solidity.evmcontract as evmcontract
+        from mythril_tpu.laser.ethereum.time_handler import time_handler
+
+        svm, stats = jax_svm, jax_bs.dispatch_stats
+        _reset_jax()
+    else:
+        import mythril_tpu_torch.analysis.security as security
+        import mythril_tpu_torch.analysis.symbolic as symbolic
+        import mythril_tpu_torch.solidity.evmcontract as evmcontract
+        from mythril_tpu_torch.laser.ethereum.time_handler import time_handler
+        from mythril_tpu_torch.mythril.mythril_analyzer import (
+            reset_analysis_state,
+        )
+
+        svm, stats = port_svm, port_bs.dispatch_stats
+        reset_analysis_state()
+
+    prunes = []
+    real_prune = svm.prune_infeasible
+
+    def recording_prune(states):
+        kept = {id(s) for s in real_prune(states)}
+        prunes.append([id(s) in kept for s in states])
+        return [s for s in states if id(s) in kept]
+
+    cut = []
+    real_round = svm.LaserEVM._exec_round
+
+    def watched_round(self, *a, **kw):
+        timed_out = real_round(self, *a, **kw)
+        cut.append(timed_out is not None)
+        return timed_out
+
+    svm.prune_infeasible = recording_prune
+    svm.LaserEVM._exec_round = watched_round
+    try:
+        time_handler.start_execution(EXEC_TIMEOUT)
+        sym = symbolic.SymExecWrapper(
+            evmcontract.EVMContract(code=code, name="MAIN"),
+            address=ADDRESS,
+            strategy="bfs",
+            max_depth=128,
+            execution_timeout=EXEC_TIMEOUT,
+            create_timeout=10,
+            transaction_count=tx_count,
+            compulsory_statespace=False,
+        )
+        issues = security.fire_lasers(sym)
+    finally:
+        svm.prune_infeasible = real_prune
+        svm.LaserEVM._exec_round = real_round
+    assert not any(cut), f"{side}: a round hit the execution deadline"
+    assert time_handler.time_remaining() > 0, f"{side}: timed out"
+    return {
+        "issues": sorted((_issue_fields(i) for i in issues),
+                         key=lambda f: (f["address"], f["title"])),
+        "total_states": sym.laser.total_states,
+        "prunes": prunes,
+        "dispatches": stats.dispatches,
+        "sweeps": (stats.rounds, stats.device_sweeps),
+    }
+
+
+def _parity(code, tx_count):
+    jax = _run("jax", code, tx_count)
+    port = _run("port", code, tx_count)
+    assert port["issues"] == jax["issues"]
+    assert port["total_states"] == jax["total_states"]
+    assert len(port["prunes"]) == len(jax["prunes"])
+    assert port["prunes"] == jax["prunes"]
+    assert port["dispatches"] == jax["dispatches"]
+    assert port["sweeps"] == jax["sweeps"]
+    return jax, port
+
+
+CORPUS = {name: (code, tx) for name, code, tx, _ in bench._corpus()}
+
+
+@pytest.mark.parametrize("name", ["killbilly", "overflow_token",
+                                  "origin_gate"])
+def test_corpus_findings_match_jax(name):
+    code, tx_count = CORPUS[name]
+    jax, _port = _parity(code, tx_count)
+    expected = {n: swcs for n, _c, _t, swcs in bench._corpus()}[name]
+    assert {i["swc_id"] for i in jax["issues"]} == expected
+
+
+@pytest.mark.parametrize("name,tx_count", [
+    ("suicide_anyone", 1), ("origin_check", 1), ("assert_fail", 1),
+    ("delegate_call", 1), ("calldata_echo", 1),
+    ("unchecked_add", 2), ("vault_withdraw", 2), ("erc20_transfer", 2),
+])
+def test_fixture_findings_match_jax(name, tx_count):
+    _parity(contracts.fixture(name), tx_count)
+
+
+#: the CPU tier's cell cap (2^22, the JAX package's interpret tier) is
+#: below every LASER frontier of these contracts: the smallest union
+#: cone, the selector tree's first fork, is 5521 clauses x 1628 vars,
+#: i.e. 8192 x 2048 cells bucketed.  The scale test raises the cap on
+#: both sides to let that frontier in, and cuts the step budget to one
+#: 48-step round (the JAX interpret sweep of that plane takes ~0.3 s).
+SCALE_CPU_CELLS = 1 << 24
+SCALE_CPU_STEPS = 48
+
+
+def test_scale_contract_dispatches_on_both_sides(monkeypatch):
+    """A dense dispatch on both sides on the path ``myth analyze``
+    takes, with equal rounds and sweeps, and the SWC-106 suicide leaves
+    found.  Both sides run the CPU tier with the cell cap and step
+    budget of :data:`SCALE_CPU_CELLS` / :data:`SCALE_CPU_STEPS`.  What
+    reads the wall clock is set out of reach on both sides, so that the
+    parity does not depend on the machine: the slow-dispatch fuse, and
+    the JAX package's dispatch watchdog."""
+    import mythril_tpu.ops.pallas_prop as jax_pp
+    from mythril_tpu.resilience import watchdog
+    from mythril_tpu_torch.ops import dense_prop
+
+    monkeypatch.setattr(jax_pp, "MAX_CELLS_DENSE", SCALE_CPU_CELLS)
+    monkeypatch.setattr(jax_pp, "DPLL_STEPS_INTERPRET", SCALE_CPU_STEPS)
+    monkeypatch.setattr(jax_pp, "ROUND_BUDGETS_INTERPRET",
+                        (SCALE_CPU_STEPS,))
+    monkeypatch.setattr(dense_prop, "CPU_TIER", dense_prop.CPU_TIER._replace(
+        max_cells=SCALE_CPU_CELLS, steps=SCALE_CPU_STEPS,
+        round_budgets=(SCALE_CPU_STEPS,)))
+    monkeypatch.setattr(dense_prop, "_backends", {})
+    monkeypatch.setattr(jax_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
+    monkeypatch.setattr(port_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
+    monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
+    code = bench.scale_contract(depth=3, guard_bits=16, guard="mul")
+    jax, port = _parity(code, 1)
+    assert jax["dispatches"] >= 1 and port["dispatches"] >= 1
+    assert {i["swc_id"] for i in port["issues"]} == {"106"}
+
+
+class _State:
+    """Stand-in for a GlobalState: ``prune_infeasible`` reads only the
+    path constraints."""
+
+    def __init__(self, constraints):
+        class _World:
+            pass
+
+        self.world_state = _World()
+        self.world_state.constraints = constraints
+
+
+def _distinct_states(count):
+    from mythril_tpu_torch.laser.ethereum.state.constraints import (
+        Constraints,
+    )
+    from mythril_tpu_torch.smt import symbol_factory
+
+    x = symbol_factory.BitVecSym("prune_x", 256)
+    return [_State(Constraints([x == i])) for i in range(count)]
+
+
+def test_prune_propagates_a_dense_tier_failure(monkeypatch):
+    """A failure of the dense tier (or of its kernel) reaches the caller
+    of ``prune_infeasible``: no fallback hands the frontier to the CDCL
+    in its place."""
+    from mythril_tpu_torch.laser.batch import prune_infeasible
+    from mythril_tpu_torch.mythril.mythril_analyzer import (
+        reset_analysis_state,
+    )
+    from mythril_tpu_torch.ops.dense_prop import DenseSatBackend
+
+    def broken(self, ctx, assumption_sets):
+        raise RuntimeError("sweep kernel failed")
+
+    reset_analysis_state()
+    states = _distinct_states(6)
+    assert len(prune_infeasible(states)) == 6  # the working path
+    reset_analysis_state()
+    monkeypatch.setattr(DenseSatBackend, "check_assumption_sets", broken)
+    with pytest.raises(RuntimeError, match="sweep kernel failed"):
+        prune_infeasible(_distinct_states(6))
+
+
+def test_dispatch_fuse_follows_the_jax_rule():
+    """The funnel's fuse, as ``mythril_tpu/ops/batched_sat.py`` runs it:
+    three zero-decision dispatches blow it for the context; then every
+    8th eligible frontier retries, at most three times; a retry that
+    decides a lane re-arms it; a slow zero-decision dispatch blows it at
+    once and stops the retries; a new context starts armed."""
+    from types import SimpleNamespace
+
+    fuse = port_bs.DispatchFuse()
+    ctx = SimpleNamespace(generation=101)
+    for _ in range(port_bs.FUTILE_DISPATCH_FUSE):
+        assert fuse.admit(ctx)
+        fuse.settle(ctx, 0, 0.1)
+    admitted = [fuse.admit(ctx) for _ in range(port_bs.FUSE_RETRY_PERIOD)]
+    assert admitted == [False] * (port_bs.FUSE_RETRY_PERIOD - 1) + [True]
+    fuse.settle(ctx, 0, 0.1)  # the retry decided nothing: still fused
+    retries = sum(fuse.admit(ctx) or 0 for _ in range(64))
+    assert retries == port_bs.MAX_FUSE_RETRIES - 1
+    assert fuse.admit(SimpleNamespace(generation=102))  # new context
+
+    ctx = SimpleNamespace(generation=103)
+    for _ in range(port_bs.FUTILE_DISPATCH_FUSE):
+        fuse.admit(ctx)
+        fuse.settle(ctx, 0, 0.1)
+    for _ in range(port_bs.FUSE_RETRY_PERIOD):
+        retried = fuse.admit(ctx)
+    assert retried
+    fuse.settle(ctx, 2, 0.1)  # the retry decided lanes: re-armed
+    assert all(fuse.admit(ctx) for _ in range(4))
+
+    ctx = SimpleNamespace(generation=104)
+    assert fuse.admit(ctx)
+    fuse.settle(ctx, 0, port_bs.SLOW_DISPATCH_FUSE_S + 1)
+    assert not any(fuse.admit(ctx) for _ in range(64))
+
+
+#: ``python3 myth analyze`` with the slice pins that have no CLI flag
+JAX_MYTH = """
+import importlib, json, runpy, sys
+pins = json.loads(sys.argv.pop(1))
+from mythril_tpu.support.support_args import args
+for name, value in pins["args"].items():
+    setattr(args, name, value)
+for path, value in pins["constants"].items():
+    module, attr = path.rsplit(".", 1)
+    setattr(importlib.import_module("mythril_tpu." + module), attr, value)
+sys.argv[0] = "myth"
+runpy.run_path("myth", run_name="__main__")
+"""
+
+
+def _jsonv2_issues(stdout):
+    issues = json.loads(stdout)[0]["issues"]
+    for issue in issues:
+        issue["extra"].pop("discoveryTime")
+    return issues
+
+
+def test_cli_report_matches_jax_cli():
+    """``python -m mythril_tpu_torch analyze --device cpu`` and the JAX
+    package's ``myth analyze``, each in its own process under the slice
+    pins, report the same issues."""
+    hexfile = os.path.join(FIXTURES, "suicide_anyone.hex")
+    common = ["-f", hexfile, "--bin-runtime", "-t", "1",
+              "--no-onchain-data", "-o", "jsonv2"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **SLICE_PINS_ENV,
+               **SLICE_PINS_CPU_ENV)
+    pins = json.dumps({"args": SLICE_PINS_ARGS,
+                       "constants": SLICE_PINS_JAX_CONSTANTS})
+    jax = subprocess.run(
+        [sys.executable, "-c", JAX_MYTH, pins, "analyze", *common,
+         "--device-force-dispatch", "--no-lockstep-dispatch",
+         "--no-async-dispatch", "--workers", "0"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert jax.returncode == 0, jax.stderr[-2000:]
+    port = subprocess.run(
+        [sys.executable, "-m", "mythril_tpu_torch", "analyze", *common,
+         "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert port.returncode == 0, port.stderr[-2000:]
+    want = _jsonv2_issues(jax.stdout)
+    assert want and [i["swcID"] for i in want] == ["SWC-106"]
+    assert _jsonv2_issues(port.stdout) == want
+
+
+def test_cli_refuses_missing_card_and_unported_options():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    hexfile = os.path.join(FIXTURES, "suicide_anyone.hex")
+    run = subprocess.run(
+        [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
+         hexfile, "--bin-runtime", "-t", "1", "--no-onchain-data"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert run.returncode == 2
+    assert "CUDA" in run.stderr and "--device cpu" in run.stderr
+    assert "SWC" not in run.stdout
+    run = subprocess.run(
+        [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
+         hexfile, "--bin-runtime", "--workers", "2"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert run.returncode == 2 and "--workers" in run.stderr
+
+
+def test_port_assembler_builds_the_bench_contracts():
+    assert contracts.scale_contract(6, 16, "mul") == bench.scale_contract(
+        6, 16, "mul")
+    assert contracts.scale_contract(3, 16, "mul") == bench.scale_contract(
+        3, 16, "mul")
+    assert contracts.corpus() == bench._corpus()
+
+
+def test_native_keccak_matches_python_and_jax():
+    from mythril_tpu.support.crypto import keccak256 as jax_keccak
+    from mythril_tpu_torch.native import keccak256 as native_keccak
+    from mythril_tpu_torch.support import crypto
+
+    rng = np.random.default_rng(20261016)
+    for _ in range(200):
+        data = rng.integers(0, 256, size=int(rng.integers(0, 301)),
+                            dtype=np.uint8).tobytes()
+        want = crypto._keccak256_py(data)
+        assert native_keccak(data) == want
+        assert crypto.keccak256(data) == want
+        assert jax_keccak(data) == want
+    assert crypto._load_native() is native_keccak
+
+
+def test_recorded_swc_sets_match_jax():
+    """The SWC sets the chip check holds the card's runs to
+    (``contracts.CHIP_RUNS``) are the JAX package's, on the CPU, under
+    the slice pins; the port builds the same contracts."""
+    for run in contracts.CHIP_RUNS:
+        code = run.code()
+        if run.name.startswith("scale_mul"):
+            depth = int(run.name.split()[1][1:])
+            assert code == bench.scale_contract(depth, 16, "mul")
+        jax = _run("jax", code, run.transaction_count)
+        assert {i["swc_id"] for i in jax["issues"]} == run.swc_ids, run.name
