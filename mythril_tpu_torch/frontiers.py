@@ -132,3 +132,95 @@ def guard_chain_frontier(lanes: int = 64, guard_bits: int = 32,
         out.append(chain + tests)
         expected.append(not dead)
     return out, expected
+
+
+def learning_problem(C: int, V1: int, B: int, E: int, seed: int = 1,
+                     prefill: int = 0):
+    """A clause-row problem on which the frontier solvers learn from the
+    first iterations on, for holding the frontier kernels against their
+    plain versions where learning and the shared pool matter.
+
+    ``C`` rows of width 8 over ``V1 - 1`` variables (row 0 the unit of
+    the TRUE anchor, var 1), ``B`` lanes (a multiple of 4).  Gadget
+    ``g`` has a selector ``s``, a decision variable ``x`` and ``a``,
+    ``b``, ``c`` with rows ``(-s, -x, a)``, ``(-s, -x, b)``,
+    ``(-a, -b, c)``, ``(-a, -b, -c)``, placed first so that ``x``'s
+    adjacency holds them, and boosters ``(x, p, q)`` over filler
+    variables that make DLIS decide ``x = +1`` early.  A lane assumes
+    its gadget's selector true and every other false, so deciding its
+    ``x`` forces ``a`` and ``b``, then ``c`` both ways, then conflicts
+    at depth >= 1: the first-UIP walk resolves three rows and learns
+    ``(-x, -s)``.  Lanes ``4i`` and ``4i + 1`` are twins (they learn an
+    equal row in one iteration), lane ``4i + 2`` shares their gadget but
+    first decides a delay variable (it conflicts on the shared row they
+    appended and learns it again), lane ``4i + 3`` has a gadget of its
+    own.  An eighth of the variables occur in no pool row (the don't-care
+    cascade assigns them); the rest of the rows are random 3-clauses
+    over the filler variables.  ``prefill`` random rows over unused and
+    filler variables start the shared pool, so ``B / 2`` distinct
+    learned rows overflow a pool of ``E`` rows when ``prefill + B / 2 >
+    E``.
+
+    Returns ``(rows [C, 8] int32, assign [B, V1] int8, extra [E + 1, 8]
+    int32)``; ``extra``'s first ``prefill`` rows are live."""
+    import numpy as np
+
+    if B % 4 or B < 4:
+        raise ValueError("learning_problem: B must be a positive multiple "
+                         "of 4")
+    rng = np.random.default_rng(seed)
+    G = B // 2
+    delay = 2
+    gadget0 = 3
+    first_free = gadget0 + 5 * G
+    n_unused = (V1 - first_free) // 8
+    unused = np.arange(V1 - n_unused, V1)
+    filler = np.arange(first_free, V1 - n_unused)
+    boosts = [40 + (G - g) for g in range(G)]
+    if first_free >= V1 - n_unused - 8 or (
+        1 + 4 * G + 64 + sum(boosts) >= C
+    ):
+        raise ValueError("learning_problem: C or V1 too small for B")
+    rows = np.zeros((C, 8), np.int32)
+    rows[0, 0] = 1
+    n = 1
+    for g in range(G):
+        s, x, a, b, c = gadget0 + 5 * g + np.arange(5)
+        for row in ((-s, -x, a), (-s, -x, b), (-a, -b, c), (-a, -b, -c)):
+            rows[n, :3] = row
+            n += 1
+
+    def pq():
+        return rng.choice(filler, size=2, replace=False) * rng.choice(
+            [1, -1], size=2)
+
+    for _ in range(64):
+        rows[n, 0] = delay
+        rows[n, 1:3] = pq()
+        n += 1
+    for g in range(G):
+        x = gadget0 + 5 * g + 1
+        for _ in range(boosts[g]):
+            rows[n, 0] = x
+            rows[n, 1:3] = pq()
+            n += 1
+    live = C - C // 16
+    for i in range(n, live):
+        rows[i, :3] = rng.choice(filler, size=3, replace=False) * rng.choice(
+            [1, -1], size=3)
+    assign = np.zeros((B, V1), np.int8)
+    assign[:, 1] = 1
+    selectors = gadget0 + 5 * np.arange(G)
+    assign[:, selectors] = -1
+    for lane in range(B):
+        group, role = divmod(lane, 4)
+        gadget = 2 * group + (1 if role == 3 else 0)
+        assign[lane, selectors[gadget]] = 1
+        if role != 2:
+            assign[lane, delay] = 1
+    extra = np.zeros((E + 1, 8), np.int32)
+    for e in range(min(prefill, E)):
+        vs = np.concatenate([rng.choice(unused, size=2, replace=False),
+                             rng.choice(filler, size=2, replace=False)])
+        extra[e, :4] = vs * rng.choice([1, -1], size=4)
+    return rows, assign, extra

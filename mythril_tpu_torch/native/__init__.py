@@ -125,6 +125,8 @@ def load() -> ctypes.CDLL:
         lib.pool_congruence.argtypes = [
             ctypes.c_void_p, ctypes.c_int32, i32p, i32p, ctypes.c_int32,
         ]
+        lib.pool_absorb_learnts.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        lib.pool_absorb_learnts.restype = ctypes.c_int64
         lib.pool_nogood.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int32]
         lib.pool_nogood.restype = ctypes.c_int32
         lib.pool_relevant_cone.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int64]
@@ -132,13 +134,19 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p, i32p, ctypes.c_int64, ctypes.c_int32, i64p, i64p,
         ]
         lib.pool_cone_fetch.argtypes = [ctypes.c_void_p, i64p, i32p]
-        for name in ("pool_num_clauses", "pool_lits_len", "pool_version"):
+        for name in ("pool_num_clauses", "pool_lits_len", "pool_version",
+                     "pool_absorbed_count"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p]
             fn.restype = ctypes.c_int64
         lib.pool_csr_into.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, i32p, i64p,
         ]
+        lib.pool_padded_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+            i32p, i64p,
+        ]
+        lib.pool_padded_rows.restype = ctypes.c_int64
         lib.pool_subset_sizes.argtypes = [ctypes.c_void_p, i64p, ctypes.c_int64]
         lib.pool_subset_sizes.restype = ctypes.c_int64
         lib.pool_subset_csr.argtypes = [
@@ -353,7 +361,12 @@ class NativePool:
         ba = (ctypes.c_int32 * n)(*b_bits)
         self._lib.pool_congruence(self._handle, same, aa, ba, n)
 
-    # ---- nogoods ----
+    # ---- learned clauses + nogoods ----
+
+    def absorb_learnts(self, max_width: int = 8) -> int:
+        """Copy the clauses the CDCL learned since the last call, up to
+        ``max_width`` literals, into the clause store; returns how many."""
+        return int(self._lib.pool_absorb_learnts(self._handle, max_width))
 
     def nogood(self, assumption_lits) -> bool:
         arr = (ctypes.c_int32 * len(assumption_lits))(*assumption_lits)
@@ -402,6 +415,10 @@ class NativePool:
     def version(self) -> int:
         return int(self._lib.pool_version(self._handle))
 
+    @property
+    def absorbed_count(self) -> int:
+        return int(self._lib.pool_absorbed_count(self._handle))
+
     def csr(self):
         """(lits int32, indptr int64) copies of the whole clause store."""
         import numpy as np
@@ -418,6 +435,24 @@ class NativePool:
             indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         )
         return lits[: indptr[-1]], indptr
+
+    def padded_rows(self, from_clause: int, to_clause: int, max_width: int):
+        """(rows [N, max_width] int32, dropped): zero-padded clause rows
+        of clauses [from_clause, to_clause) for the device pools; clauses
+        wider than ``max_width`` are skipped and counted."""
+        import numpy as np
+
+        from_clause = max(0, from_clause)
+        to_clause = min(self.num_clauses, to_clause)
+        count = max(0, to_clause - from_clause)
+        out = np.zeros((count, max_width), dtype=np.int32)
+        dropped = ctypes.c_int64()
+        rows = self._lib.pool_padded_rows(
+            self._handle, from_clause, to_clause, max_width,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.byref(dropped),
+        )
+        return out[:rows], int(dropped.value)
 
     def subset_csr(self, clause_ids):
         """(lits int32, indptr int64) for an arbitrary clause-id list

@@ -1,38 +1,67 @@
-"""Frontier feasibility funnel of the PyTorch port (counterpart of
-``mythril_tpu/ops/batched_sat.py``, trimmed to this slice).
+"""Frontier feasibility funnel and solver tiers of the PyTorch port
+(counterpart of ``mythril_tpu/ops/batched_sat.py``, trimmed to this
+slice).
 
 :func:`batch_check_states` takes a frontier of term-level path
 constraint sets and returns one verdict per set.  It is the JAX funnel
-under the slice's configuration (``MYTHRIL_TPU_RESIDENT_KERNEL=0``,
-``MYTHRIL_TPU_WORD_TIER=0``, ``MYTHRIL_TPU_AUTOPILOT=0``):
+under the slice's configuration (``MYTHRIL_TPU_WORD_TIER=0``,
+``MYTHRIL_TPU_AUTOPILOT=0``, ``MYTHRIL_TPU_FRONTIER=1``):
 
 1. structural fold: constraints that folded to literal False;
 2. memo hits: the context's permanent UNSAT memo and the verdicts the
    per-query funnel (``support/model.py``) has cached;
-3. dense tier (``ops/dense_prop.py``) over the deduped open lanes, on
-   the card unless the caller passes ``device="cpu"``, behind the JAX
-   funnel's adaptive fuse; host verification of every SAT candidate
-   against the terms (device UNSAT verdicts become assumption nogoods
-   in the pool);
+3. the solver tiers (:class:`BatchedSatBackend`) over the deduped open
+   lanes, on the card unless the caller passes ``device="cpu"``, behind
+   the JAX funnel's adaptive fuse:
+
+   - the dense tier (``ops/dense_prop.py``), which delegates every
+     frontier whose union cone fits the cone caps while the resident
+     solver is on;
+   - the full-pool gather tier (pools up to :data:`MAX_GATHER_VARS` /
+     :data:`MAX_GATHER_CLAUSES`) and the union-cone tier
+     (:meth:`BatchedSatBackend.check_cone_gather`), both solving on the
+     frontier solvers: the resident solver (``ops/resident.py``) or,
+     with ``MYTHRIL_TPU_RESIDENT_KERNEL=0``, the multi-dispatch frontier
+     ladder (``ops/frontier.py``);
+
+   then host verification of every SAT candidate against the terms
+   (device UNSAT verdicts become assumption nogoods in the pool);
 4. the native CDCL tail for everything still undecided (or None for
    the caller's own tail, ``tail=False``).
 
 Left out of this slice: the host word-level model probing before the
 dispatch (``word_probing``; the slice pins it off), the word tier, the
 autopilot router, the lane ledger, the coalescer and async prefetch,
-the adaptive profit gate, and the gather / resident / frontier solvers.
+the adaptive profit gate, the sharded mesh, the dense round lanes of
+``MYTHRIL_TPU_FRONTIER=0``, and the ladder's resilience seams (watchdog,
+retry, bisection, quarantine, drain).  A failure in a tier reaches the
+caller.
 """
 
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 from torch.profiler import record_function
 
-#: union-cone gather tier caps of the JAX package (batched_sat.py:60-61);
-#: the resident/gather solvers that read them come with a later slice
+#: clause rows of the gather tiers are at most this wide (wider clauses
+#: stay with the CDCL: BCP is weaker, verdicts stay sound)
+MAX_CLAUSE_WIDTH = 8
+#: the frontier ladder's sweep budget and decision-stack depth
+GATHER_STEPS = 768
+GATHER_DECISIONS = 256
+#: per-round sweep budgets of the ladder (the last repeats until
+#: GATHER_STEPS is covered)
+GATHER_ROUND_BUDGETS = (64, 256, 512)
+#: the full-pool gather tier takes pools up to these sizes ...
+MAX_GATHER_CLAUSES = 8192
+MAX_GATHER_VARS = 8192
+#: ... and the union-cone tier union cones up to these
 MAX_CONE_GATHER_CLAUSES = 16384
 MAX_CONE_GATHER_VARS = 8192
+#: absorbed CDCL learnts exempt from the gather tier's clause cap
+MAX_LEARNT_EXEMPTION = 8192
 #: the adaptive dispatch fuse of the JAX package (batched_sat.py:63-68)
 FUTILE_DISPATCH_FUSE = 3
 SLOW_DISPATCH_FUSE_S = 10.0
@@ -53,36 +82,55 @@ def effective_min_lanes() -> int:
 
 
 class DispatchStats:
-    """Device-dispatch telemetry of the funnel and the dense tier."""
+    """Device-dispatch telemetry of the funnel and the solver tiers."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
-        self.dispatches = 0        # dense-tier dispatches that engaged
+        self.dispatches = 0        # dispatches that engaged a device tier
         self.lanes = 0             # lanes sent to the device
         self.unsat = 0             # lanes decided UNSAT on the device
         self.sat_verified = 0      # lanes whose device model verified
         self.undecided = 0         # device lanes handed to the CDCL tail
         self.tail_sat = 0          # CDCL-tail verdicts
         self.tail_unsat = 0
-        self.device_sweeps = 0     # DPLL steps run (one sweep each)
+        self.device_sweeps = 0     # full sweeps run (dense: DPLL steps)
         self.lane_sweeps_active = 0
         self.lane_sweeps_total = 0
         self.rounds = 0            # budgeted solve rounds executed
         self.repacks = 0           # survivor re-packs into smaller buckets
         self.lane_slots_filled = 0
         self.lane_slots_total = 0
-        self.device_s = 0.0        # wall-clock inside dense dispatches
+        self.device_s = 0.0        # wall-clock inside the solver tiers
         self.tail_s = 0.0          # wall-clock inside the CDCL tail
-        self.h2d_bytes = 0         # coordinates + assignment planes shipped
+        self.h2d_bytes = 0         # coordinates, rows, planes shipped
         self.device_dispatch_calls = 0
         self.warm_start_hits = 0
         self.cone_memo_hits = 0
         self.dense_declines = 0    # dispatches no dense layout could fit
+        # frontier solvers (ops/frontier.py, ops/resident.py): gather
+        # steps beside the full sweeps, first-UIP clauses the pool
+        # accepted, full pool uploads vs delta appends, and dispatches
+        # no gather tier took (pool too large; union cone too large)
+        self.frontier_steps = 0
+        self.learned_clauses = 0
+        self.pool_uploads = 0
+        self.delta_uploads = 0
+        self.size_bailouts = 0
+        self.cone_bailouts = 0
+        # resident solves, their exits, and the dense dispatches that
+        # delegated their frontier to it
+        self.resident_dispatches = 0
+        self.resident_exit_all_decided = 0
+        self.resident_exit_budget = 0
+        self.resident_exit_watchdog = 0
+        self.resident_delegations = 0
         # per-lane tier that decided each lane of the last
         # batch_check_states call: "structural", "memo", "device",
-        # "tail" or None (left open, or the tail answered UNKNOWN)
+        # "probe" (a zero assignment that verified after no tier took
+        # the frontier), "tail" or None (left open, or the tail
+        # answered UNKNOWN)
         self.last_tiers: List[Optional[str]] = []
 
 
@@ -127,7 +175,7 @@ class DispatchFuse:
         return True
 
     def refund(self):
-        """A retry that reached no device layout was no retry."""
+        """A retry that reached no device tier was no retry."""
         if self.retrying:
             self.retries -= 1
 
@@ -156,8 +204,9 @@ def warm_pref_row(ctx, width: int, cone_vars=None, offset: int = 1,
     """Warm-start decision-phase row for one dispatch, or None: the
     newest tagged SAT model's phases (BlastContext.warm_phase_vector),
     remapped onto compact cone columns (``cone_vars[i] -> column
-    i + offset``).  Counts ``lanes`` into ``warm_start_hits`` when a
-    usable row exists.  Honors ``MYTHRIL_TPU_WARM_START``."""
+    i + offset``; None = the identity layout of the full-pool tier).
+    Counts ``lanes`` into ``warm_start_hits`` when a usable row exists.
+    Honors ``MYTHRIL_TPU_WARM_START``."""
     from mythril_tpu_torch.ops.incremental import warm_start_enabled
 
     if not warm_start_enabled():
@@ -180,6 +229,520 @@ def warm_pref_row(ctx, width: int, cone_vars=None, offset: int = 1,
         return None
     dispatch_stats.warm_start_hits += lanes
     return row
+
+
+def lane_bucket(n: int, floor: int = 4) -> int:
+    """Power-of-two lane-bucket width of the frontier solvers."""
+    size = floor
+    while size < n:
+        size *= 2
+    return size
+
+
+class DevicePool:
+    """The clause pool as ``[C, K]`` int32 rows on one device (signed
+    literals, 0 = pad), refreshed when the pool outgrows its buckets and
+    otherwise extended in place by the delta rows."""
+
+    def __init__(self, device):
+        self.device = device
+        self.version = -1
+        self.lits: Optional[torch.Tensor] = None
+        self.lits_np: Optional[np.ndarray] = None
+        self.num_vars = 0
+        self.num_clauses = 0
+        self.consumed = 0       # pool clauses reflected on the device
+        self.filled = 0         # non-pad rows in the bucket
+        self.used = np.zeros(1, dtype=bool)
+        # literal->row adjacency of the frontier solvers (host + device),
+        # invalidated with the rows it indexes
+        self._adj_np = None
+        self._adj_dev = None
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        """Power of two (floor 256), so shapes stay stable as the pool
+        grows."""
+        size = 256
+        while size < n:
+            size *= 2
+        return size
+
+    def refresh(self, ctx, num_vars: int):
+        """Full rebuild from the native pool (one bulk padded-row fetch)."""
+        total = ctx.pool.num_clauses
+        rows, _dropped = ctx.pool.padded_rows(0, total, MAX_CLAUSE_WIDTH)
+        real_rows = max(1, len(rows))  # keep one inert all-zero row
+        target_c = self._bucket(real_rows)
+        mat = np.zeros((target_c, MAX_CLAUSE_WIDTH), dtype=np.int32)
+        if len(rows):
+            mat[: len(rows)] = rows
+        self.lits_np = mat
+        self.lits = torch.from_numpy(mat).to(self.device)
+        dispatch_stats.pool_uploads += 1
+        dispatch_stats.h2d_bytes += int(mat.nbytes)
+        self._adj_np = None
+        self._adj_dev = None
+        self.num_vars = self._bucket(num_vars)
+        self.num_clauses = target_c
+        self.consumed = total
+        self.filled = real_rows
+        # vars in no retained row (bucket padding, vars defined only by
+        # wide clauses) are preassigned so the search never decides them
+        self.used = np.zeros(self.num_vars + 1, dtype=bool)
+        occurring = np.abs(self.lits_np[:real_rows]).ravel()
+        self.used[occurring[occurring <= self.num_vars]] = True
+
+    def append(self, ctx, num_vars: int) -> bool:
+        """Write the pool delta since ``consumed`` over pad rows, on the
+        host and on the device (an ``index_copy_`` of the delta rows),
+        when it fits the existing buckets; False asks for a refresh."""
+        if self.lits is None or self._bucket(num_vars) > self.num_vars:
+            return False
+        total = ctx.pool.num_clauses
+        rows, _dropped = ctx.pool.padded_rows(
+            self.consumed, total, MAX_CLAUSE_WIDTH
+        )
+        if self.filled + len(rows) > self.num_clauses:
+            return False
+        if len(rows):
+            at = np.arange(self.filled, self.filled + len(rows))
+            self.lits_np[at] = rows
+            self.lits.index_copy_(
+                0, torch.from_numpy(at).to(self.device),
+                torch.from_numpy(rows).to(self.device),
+            )
+            self.filled += len(rows)
+            occurring = np.abs(rows).ravel()
+            self.used[occurring[occurring <= self.num_vars]] = True
+            dispatch_stats.delta_uploads += 1
+            dispatch_stats.h2d_bytes += int(rows.nbytes)
+            self._adj_np = None
+            self._adj_dev = None
+        self.consumed = total
+        return True
+
+    def adjacency_dev(self) -> torch.Tensor:
+        """Device copy of the adjacency over the resident rows, built at
+        most once per refresh or append."""
+        if self._adj_dev is not None:
+            return self._adj_dev
+        from mythril_tpu_torch.ops.frontier import build_adjacency
+
+        if self._adj_np is None:
+            self._adj_np = build_adjacency(
+                self.lits_np[: self.filled], self.num_vars + 1
+            )
+        self._adj_dev = torch.from_numpy(self._adj_np).to(self.device)
+        dispatch_stats.h2d_bytes += int(self._adj_np.nbytes)
+        return self._adj_dev
+
+
+class BatchedSatBackend:
+    """The solver tiers behind the funnel on one device (counterpart of
+    the JAX package's ``BatchedSatBackend``, single device, happy path
+    of its dispatch supervision)."""
+
+    def __init__(self, device=None):
+        from mythril_tpu_torch.ops import default_device
+
+        self.device = default_device(device)
+        self.pool = DevicePool(self.device)
+        self.pool_generation = -1  # BlastContext.generation of the pool
+        # True iff the last check_assumption_sets ran a device tier
+        self.device_engaged = False
+        self.last_assignments: Optional[np.ndarray] = None
+
+    def check_assumption_sets(self, ctx, assumption_sets: List[List[int]]
+                              ) -> List[Optional[bool]]:
+        """Per assumption set: False (sound UNSAT) or None (the host
+        verifies ``last_assignments[lane]``, else the CDCL decides).
+        Routes dense tier -> full-pool gather tier -> union-cone tier
+        (``batched_sat.py:799-944`` of the JAX package)."""
+        from mythril_tpu_torch.ops.dense_prop import get_dense_backend
+
+        self.device_engaged = False
+        dense_backend = get_dense_backend(self.device)
+        if dense_backend.available_for(ctx):
+            dense = dense_backend.check_assumption_sets(ctx, assumption_sets)
+            if dense is not None:
+                results, assignments = dense
+                self.last_assignments = assignments
+                self.device_engaged = True
+                return results
+
+        verdict, num_vars = self._gather_eligibility(ctx)
+        if verdict is not None:
+            # the pool is too big, but the batch's union cone may still
+            # fit the cone tier
+            cone_result = self.check_cone_gather(ctx, assumption_sets)
+            if cone_result is not None:
+                return cone_result
+            dispatch_stats.cone_bailouts += 1
+            dispatch_stats.size_bailouts += 1
+            self.last_assignments = np.zeros(
+                (len(assumption_sets), num_vars + 1), np.int8
+            )
+            return [None] * len(assumption_sets)
+
+        assign = self._sync_pool_and_assign(ctx, assumption_sets, num_vars)
+        batch = len(assumption_sets)
+        self.device_engaged = True
+        # column space is the pool's own variable space: learned clauses
+        # harvest with no remap
+        frontier = {"adj": self.pool.adjacency_dev(), "ctx": ctx,
+                    "col_to_var": None}
+        status, final_assign = self._solve_gather_ladder(
+            self.pool.lits, assign,
+            pref=warm_pref_row(ctx, assign.shape[1], lanes=batch),
+            frontier=frontier,
+        )
+        self.last_assignments = final_assign
+        return [False if status[lane] == 2 else None
+                for lane in range(batch)]
+
+    def _harvest_round_learnts(self, state, live, frontier) -> None:
+        """Feed the round's first-UIP clauses to the blast context's
+        nogood channel: they reach the CDCL at once and the device pool
+        as delta rows on the next dispatch."""
+        from mythril_tpu_torch.ops.frontier import harvest_learned
+
+        counts = state["nlearn"][: live.size]
+        if not counts.any():
+            return
+        rows = []
+        for lane in np.nonzero(counts)[0]:
+            rows.extend(state["learned"][lane, : int(counts[lane])])
+        dispatch_stats.learned_clauses += harvest_learned(
+            frontier["ctx"], rows, frontier.get("col_to_var")
+        )
+
+    def _dispatch_round(self, step_fn, state: dict) -> dict:
+        """One device round: the JAX supervisor's happy path (its retry,
+        bisection, quarantine and drain seams are not ported)."""
+        dispatch_stats.device_dispatch_calls += 1
+        return step_fn(state)
+
+    @staticmethod
+    def _pref_row(pref, V1: int):
+        if pref is None:
+            return None
+        row = np.zeros(V1, np.int8)
+        n = min(V1, len(pref))
+        row[:n] = np.asarray(pref[:n], np.int8)
+        return row
+
+    def _account_sweeps(self, state, n_live: int, B: int) -> None:
+        """Full sweeps count once per round (the slowest lane's), gather
+        steps per lane."""
+        full_live = state["fullsw"][:n_live]
+        steps_used = int(full_live.max()) if n_live else 0
+        dispatch_stats.device_sweeps += steps_used
+        dispatch_stats.lane_sweeps_total += steps_used * B
+        dispatch_stats.lane_sweeps_active += int(full_live.sum())
+        dispatch_stats.frontier_steps += int(state["fsteps"][:n_live].sum())
+
+    def _solve_resident(self, lits, assign, pref=None, frontier=None):
+        """One resident dispatch (ops/resident.py) over the
+        assumption-seeded ``assign [batch, V1]``.  Returns (status[batch]
+        with bails mapped to undecided, final assign[batch, V1])."""
+        from mythril_tpu_torch.ops import resident as RK
+
+        assign = np.asarray(assign, dtype=np.int8)
+        batch, V1 = assign.shape
+        B = lane_bucket(batch)
+        dispatch_stats.lane_slots_filled += batch
+        dispatch_stats.lane_slots_total += B
+        seed = np.ones((B, V1), np.int8)
+        seed[:batch] = assign
+        state = RK.resident_state0(
+            seed, batch, GATHER_DECISIONS, width=MAX_CLAUSE_WIDTH,
+            pref_row=self._pref_row(pref, V1),
+        )
+        budget = RK.resident_budget()
+        watchdog = RK.resident_watchdog_limit()
+
+        def step_fn(st):
+            out = RK.resident_solve(lits, frontier["adj"], st)
+            reason = RK.exit_reason(out["status"], int(out["stall"][0]),
+                                    int(out["itc"][0]), watchdog, budget)
+            dispatch_stats.resident_dispatches += 1
+            counter = f"resident_exit_{reason}"
+            setattr(dispatch_stats, counter,
+                    getattr(dispatch_stats, counter) + 1)
+            return out
+
+        with record_function("resident.solve"):
+            state = self._dispatch_round(step_fn, state)
+        dispatch_stats.rounds += 1
+        self._account_sweeps(state, batch, B)
+        self._harvest_round_learnts(state, np.arange(batch), frontier)
+        statuses_out = state["status"][:batch].astype(np.int32)
+        assign_out = state["assign"][:batch].astype(np.int8)
+        return (np.where(statuses_out == 3, 0, statuses_out), assign_out)
+
+    def _solve_gather_ladder(self, lits, assign, pref=None, frontier=None):
+        """The frontier solve of a gather tier: the resident solver, or
+        with ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` the multi-dispatch ladder
+        (budgeted rounds, decided lanes retired between rounds,
+        survivors re-packed into the smallest lane bucket, queues and
+        trails riding the re-pack).  Returns (status[batch] with bails
+        mapped to undecided, final assign[batch, V1] int8)."""
+        from mythril_tpu_torch.ops import frontier as FR
+        from mythril_tpu_torch.ops.resident import resident_kernel_enabled
+
+        if resident_kernel_enabled():
+            return self._solve_resident(lits, assign, pref=pref,
+                                        frontier=frontier)
+        assign = np.asarray(assign, dtype=np.int8)
+        batch, V1 = assign.shape
+        B = lane_bucket(batch)
+        dispatch_stats.lane_slots_filled += batch
+        dispatch_stats.lane_slots_total += B
+        seed = np.ones((B, V1), np.int8)
+        seed[:batch] = assign
+        state = FR.frontier_state0(
+            seed, batch, GATHER_DECISIONS, width=MAX_CLAUSE_WIDTH,
+            pref_row=self._pref_row(pref, V1),
+        )
+        order = FR.FRONTIER_STATE_FIELDS
+        statuses_out = np.zeros(batch, np.int32)
+        assign_out = np.array(assign, copy=True)
+        live = np.arange(batch)
+
+        budgets, spent, i = [], 0, 0
+        while spent < GATHER_STEPS:
+            budgets.append(
+                GATHER_ROUND_BUDGETS[min(i, len(GATHER_ROUND_BUDGETS) - 1)]
+            )
+            spent += budgets[-1]
+            i += 1
+
+        for budget in budgets:
+            if live.size == 0:
+                break
+            for k in ("fullsw", "fsteps", "nlearn"):  # per-round counters
+                state[k][:] = 0
+            with record_function("frontier.round"):
+                state = self._dispatch_round(
+                    lambda st: FR.frontier_round(lits, frontier["adj"], st,
+                                                 budget),
+                    state,
+                )
+            dispatch_stats.rounds += 1
+            self._account_sweeps(state, live.size, B)
+            self._harvest_round_learnts(state, live, frontier)
+            st = state["status"][: live.size]
+            done = st != 0
+            if not done.any():
+                continue
+            for local in np.nonzero(done)[0]:
+                statuses_out[live[local]] = st[local]
+                assign_out[live[local]] = state["assign"][local]
+            keep = np.nonzero(~done)[0]
+            live = live[keep]
+            if live.size == 0:
+                break
+            B_new = lane_bucket(int(keep.size))
+            idx = np.concatenate(
+                [keep, np.repeat(keep[:1], B_new - keep.size)]
+            )
+            for k in order:
+                state[k] = np.ascontiguousarray(state[k][idx])
+            state["status"][keep.size:] = 3
+            if B_new < B:
+                dispatch_stats.repacks += 1
+            B = B_new
+        # budget spent: survivors stay undecided with their final partial
+        # assignment
+        for local in range(live.size):
+            statuses_out[live[local]] = state["status"][local]
+            assign_out[live[local]] = state["assign"][local]
+        return np.where(statuses_out == 3, 0, statuses_out), assign_out
+
+    def _build_cone_batch(self, ctx, assumption_sets):
+        """Inputs of the union-cone tier: (rows [N, K] int32 over compact
+        var ids, assign [batch, n+1] int8, cone_vars [n] int64, roots)
+        or None when the union cone is past the tier's caps (or empty).
+        The cone walk and remap go through the cone memo."""
+        roots = tuple(
+            sorted({lit for lane in assumption_sets for lit in lane})
+        )
+        if not roots:
+            return None
+        from mythril_tpu_torch.ops.incremental import get_cone_memo
+
+        built = get_cone_memo().get_or_build(
+            ctx, ("cone_rows", roots),
+            lambda: self._build_cone_rows(ctx, roots),
+        )
+        if built is None:
+            return None
+        rows, cone_vars, anchor = built
+        n = int(cone_vars.size)
+        assign = np.zeros((len(assumption_sets), n + 1), np.int8)
+        assign[:, anchor] = 1
+        for lane, assumptions in enumerate(assumption_sets):
+            for lit in assumptions:
+                var = abs(lit)
+                pos = int(np.searchsorted(cone_vars, var))
+                if pos < n and cone_vars[pos] == var:
+                    assign[lane, pos + 1] = 1 if lit > 0 else -1
+        dispatch_stats.h2d_bytes += int(assign.nbytes)
+        return rows, assign, cone_vars, roots
+
+    def _build_cone_rows(self, ctx, roots):
+        """Cone walk, row fetch, width filter, compact remap and the
+        anchor row: (rows, cone_vars, anchor column) or None."""
+        try:
+            clause_ids, cone_vars = ctx.pool.cone(list(roots))
+        except Exception:  # noqa: BLE001 — the JAX tier declines alike
+            return None
+        if (
+            clause_ids.size == 0
+            or clause_ids.size > MAX_CONE_GATHER_CLAUSES
+            or cone_vars.size > MAX_CONE_GATHER_VARS
+        ):
+            return None
+        lits, indptr = ctx.pool.subset_csr(clause_ids)
+        cone_vars = np.union1d(
+            np.asarray(cone_vars, dtype=np.int64), [1]
+        )  # the TRUE anchor must be mappable (the synthetic row below)
+        n = int(cone_vars.size)
+        widths = np.diff(indptr)
+        keep = widths <= MAX_CLAUSE_WIDTH
+        kept_widths = widths[keep]
+        row_count = DevicePool._bucket(int(keep.sum()) + 1)
+        rows = np.zeros((row_count, MAX_CLAUSE_WIDTH), np.int32)
+        if lits.size:
+            mask = np.arange(MAX_CLAUSE_WIDTH)[None, :] < kept_widths[:, None]
+            kept_lits = lits[np.repeat(keep, widths)]
+            pos = np.searchsorted(
+                cone_vars, np.abs(kept_lits).astype(np.int64)
+            )
+            if not np.all(cone_vars[np.minimum(pos, n - 1)]
+                          == np.abs(kept_lits)):
+                # a clause references a var outside the walked cone:
+                # remapping it would be unsound, so decline
+                return None
+            compact = pos + 1
+            rows[: len(kept_widths)][mask] = np.where(
+                kept_lits < 0, -compact, compact
+            ).astype(np.int32)
+        # synthetic anchor unit {TRUE}: a lane asserting FALSE conflicts
+        anchor = int(np.searchsorted(cone_vars, 1)) + 1
+        rows[len(kept_widths), 0] = anchor
+        return rows, cone_vars, anchor
+
+    def check_cone_gather(self, ctx, assumption_sets):
+        """Solve the batch against its union cone only (compact var
+        ids).  Per-lane verdicts like check_assumption_sets, or None when
+        the cone does not fit the tier."""
+        from mythril_tpu_torch.ops.frontier import build_adjacency
+        from mythril_tpu_torch.ops.incremental import get_cone_memo
+
+        built = self._build_cone_batch(ctx, assumption_sets)
+        if built is None:
+            return None
+        rows, assign, cone_vars, roots = built
+        n = int(cone_vars.size)
+        self.device_engaged = True
+        bucket = DevicePool._bucket(n)
+        if bucket + 1 > assign.shape[1]:
+            # padding vars preassigned true: never decided
+            assign = np.concatenate(
+                [assign, np.ones((assign.shape[0],
+                                  bucket + 1 - assign.shape[1]), np.int8)],
+                axis=1,
+            )
+        memo = get_cone_memo()
+
+        def _upload_rows():
+            dispatch_stats.h2d_bytes += int(rows.nbytes)
+            return torch.from_numpy(rows).to(self.device)
+
+        def _upload_adj():
+            adj = build_adjacency(rows, assign.shape[1])
+            dispatch_stats.h2d_bytes += int(adj.nbytes)
+            return torch.from_numpy(adj).to(self.device)
+
+        rows_dev = memo.get_or_build(ctx, ("cone_dev", roots), _upload_rows)
+        adj_dev = memo.get_or_build(ctx, ("cone_adj", roots), _upload_adj)
+        col_to_var = np.zeros(n + 1, np.int64)
+        col_to_var[1:] = cone_vars
+        frontier = {"adj": adj_dev, "ctx": ctx, "col_to_var": col_to_var}
+        status, final_assign = self._solve_gather_ladder(
+            rows_dev, assign,
+            pref=warm_pref_row(ctx, assign.shape[1], cone_vars=cone_vars,
+                               offset=1, lanes=len(assumption_sets)),
+            frontier=frontier,
+        )
+        # back to the full var space for the caller's model extraction
+        full = np.zeros((len(assumption_sets), ctx.solver.num_vars + 1),
+                        np.int8)
+        full[:, cone_vars] = final_assign[:, 1:n + 1]
+        self.last_assignments = full
+        return [False if status[lane] == 2 else None
+                for lane in range(len(assumption_sets))]
+
+    def _gather_eligibility(self, ctx):
+        """(None | "size_bailouts", num_vars): None means the full-pool
+        tier takes the frontier.  CDCL learnts are absorbed into the
+        pool BEFORE the size check (the JAX order: it grows the pool and
+        its version), with a bounded exemption from the clause cap."""
+        num_vars = ctx.solver.num_vars
+        if num_vars > MAX_GATHER_VARS:
+            return "size_bailouts", num_vars
+        ctx.absorb_learnts(max_width=MAX_CLAUSE_WIDTH)
+        absorbed = min(ctx.absorbed_learnt_count, MAX_LEARNT_EXEMPTION)
+        if ctx.pool.num_clauses - absorbed > MAX_GATHER_CLAUSES:
+            return "size_bailouts", num_vars
+        return None, num_vars
+
+    def _sync_pool_and_assign(self, ctx, assumption_sets, num_vars):
+        """Reflect the pool on the device (refresh for a new context or
+        a grown bucket, else the delta rows) and build the
+        assumption-seeded assignment matrix."""
+        from mythril_tpu_torch.ops.incremental import resident_pool_enabled
+
+        if self.pool_generation != ctx.generation or (
+            not resident_pool_enabled()
+        ):
+            self.pool.refresh(ctx, num_vars)
+            self.pool.version = ctx.pool_version
+            self.pool_generation = ctx.generation
+        elif self.pool.version != ctx.pool_version or (
+            self.pool.num_vars < num_vars
+        ):
+            if not self.pool.append(ctx, num_vars):
+                self.pool.refresh(ctx, num_vars)
+            self.pool.version = ctx.pool_version
+
+        V1 = self.pool.num_vars + 1
+        assign = np.zeros((len(assumption_sets), V1), dtype=np.int8)
+        assign[:, ~self.pool.used] = 1
+        assign[:, 1] = 1  # constant-TRUE anchor
+        for lane, assumptions in enumerate(assumption_sets):
+            for lit in assumptions:
+                var = abs(lit)
+                if var < V1:
+                    assign[lane, var] = 1 if lit > 0 else -1
+        dispatch_stats.h2d_bytes += int(assign.nbytes)
+        return assign
+
+
+_backends: Dict[torch.device, BatchedSatBackend] = {}
+
+
+def get_backend(device=None) -> BatchedSatBackend:
+    """Process-wide solver tiers per device (``cuda`` unless asked)."""
+    from mythril_tpu_torch.ops import default_device
+
+    dev = default_device(device)
+    backend = _backends.get(dev)
+    if backend is None:
+        backend = _backends[dev] = BatchedSatBackend(dev)
+    return backend
 
 
 def _env_from_assignment(ctx, assignment: np.ndarray):
@@ -205,16 +768,16 @@ def batch_check_states(constraint_sets, device=None,
                        tail: bool = True) -> List[Optional[bool]]:
     """Feasibility verdicts for a frontier of constraint sets: True =
     SAT (model verified against the terms), False = UNSAT (sound),
-    None = undecided.  The dense tier runs on ``cuda`` unless
+    None = undecided.  The solver tiers run on ``cuda`` unless
     ``device="cpu"`` is passed.  With ``tail=True`` the native CDCL
     answers every lane the funnel leaves open (None then means the CDCL
     answered UNKNOWN); ``tail=False`` returns them as None, for a caller
     that runs its own tail (``laser/batch.py``)."""
-    from mythril_tpu_torch.ops.dense_prop import get_dense_backend
     from mythril_tpu_torch.smt import terms as T
     from mythril_tpu_torch.smt.solver import get_blast_context
     from mythril_tpu_torch.support.model import peek_model_verdict
 
+    backend = get_backend(device)
     ctx = get_blast_context()
     node_sets: List[Optional[List]] = []
     decided: List[Optional[bool]] = [None] * len(constraint_sets)
@@ -260,15 +823,9 @@ def batch_check_states(constraint_sets, device=None,
             tiers[i] = "memo"
 
     open_indices = [i for i, d in enumerate(decided) if d is None]
-    backend = get_dense_backend(device)
-    if len(open_indices) >= effective_min_lanes() and backend.available_for(
-        ctx
-    ):
-        _dense_phase(ctx, backend, constraint_sets, node_sets, decided,
-                     open_indices)
-        for i in open_indices:
-            if decided[i] is not None:
-                tiers[i] = "device"
+    if len(open_indices) >= effective_min_lanes():
+        _device_phase(ctx, backend, constraint_sets, node_sets, decided,
+                      tiers, open_indices)
 
     if tail:
         # 4. CDCL tail
@@ -296,10 +853,10 @@ def _tail(ctx, node_sets, decided, tiers):
             dispatch_stats.tail_unsat += 1
 
 
-def _dense_phase(ctx, backend, constraint_sets, node_sets, decided,
-                 open_indices):
-    """3.: blast the open lanes, dispatch the deduped assumption sets
-    to the dense tier, fold its verdicts into ``decided``."""
+def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
+                  open_indices):
+    """3.: blast the open lanes, dispatch the deduped assumption sets to
+    the solver tiers, fold their verdicts into ``decided``."""
     assumption_sets: List[Optional[List[int]]] = [None] * len(node_sets)
     with record_function("funnel.blast"):
         for i in list(open_indices):
@@ -329,40 +886,44 @@ def _dense_phase(ctx, backend, constraint_sets, node_sets, decided,
     if not dispatch_fuse.admit(ctx):
         return  # fused off for this context: every lane to the tail
     started = time.perf_counter()
-    dense = backend.check_assumption_sets(ctx, rep_sets)
+    verdicts = backend.check_assumption_sets(ctx, rep_sets)
     elapsed = time.perf_counter() - started
     dispatch_stats.device_s += elapsed
-    if dense is None:
-        dispatch_stats.dense_declines += 1
+    engaged = backend.device_engaged
+    if engaged:
+        dispatch_stats.dispatches += 1
+        dispatch_stats.lanes += len(rep_indices)
+    else:
         dispatch_fuse.refund()
-        return  # no layout fits the caps: every lane goes to the tail
-    verdicts, assignments = dense
-    dispatch_stats.dispatches += 1
-    dispatch_stats.lanes += len(rep_indices)
 
     before = dispatch_stats.unsat + dispatch_stats.sat_verified
     with record_function("funnel.verify"):
-        _fold_verdicts(ctx, constraint_sets, node_sets, decided,
+        _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,
                        open_indices, assumption_sets, rep_indices, lane_of,
-                       verdicts, assignments)
-    dispatch_fuse.settle(
-        ctx, dispatch_stats.unsat + dispatch_stats.sat_verified - before,
-        elapsed,
-    )
+                       verdicts, backend.last_assignments, engaged)
+    if engaged:
+        dispatch_fuse.settle(
+            ctx, dispatch_stats.unsat + dispatch_stats.sat_verified - before,
+            elapsed,
+        )
 
 
-def _fold_verdicts(ctx, constraint_sets, node_sets, decided, open_indices,
-                   assumption_sets, rep_indices, lane_of, verdicts,
-                   assignments):
+def _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,
+                   open_indices, assumption_sets, rep_indices, lane_of,
+                   verdicts, assignments, engaged):
     """3.: device UNSAT -> memo + nogood; SAT candidates -> verified by
-    evaluating the terms under the decoded model, else left open."""
+    evaluating the terms under the decoded model, else left open.  When
+    no tier took the frontier the assignment is all zeros, and a lane
+    it satisfies is decided all the same (as the JAX funnel does), but
+    counts as no device verdict."""
     counted = set()
     for pos, i in enumerate(open_indices):
         lane = lane_of[pos]
-        first = lane not in counted
+        first = engaged and lane not in counted
         counted.add(lane)
         if verdicts[lane] is False:
             decided[i] = False
+            tiers[i] = "device"
             # device UNSAT is permanent: memoize it and learn the
             # assumption nogood so the CDCL inherits the refutation
             ctx.note_unsat(node_sets[i])
@@ -373,6 +934,8 @@ def _fold_verdicts(ctx, constraint_sets, node_sets, decided, open_indices,
         env = _env_from_assignment(ctx, assignments[lane])
         ok = _holds(constraint_sets[i], env)
         decided[i] = True if ok else None
+        if ok:
+            tiers[i] = "device" if engaged else "probe"
         if first:
             if ok:
                 ctx._remember_model(env, truth=assignments[lane])

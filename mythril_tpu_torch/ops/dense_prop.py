@@ -33,7 +33,9 @@ Device tiers: on ``cpu`` the port uses the JAX package's interpret-tier
 budgets and caps, so the CPU tests compare like with like against
 ``interpret=True``; on ``cuda`` it keeps the algorithmic budgets and
 re-derives the size caps for an 80 GB card (see :data:`CUDA_TIER`).
-Dropped from this slice: the resident-kernel delegation, the resilience
+With the resident solver on (the default), a frontier whose union cone
+fits the cone-tier caps is delegated to the gather tiers
+(``ops/batched_sat.py``).  Dropped from this slice: the resilience
 hooks (fault injection, watchdog supervision, cancellation and drain
 checkpoints) and the observability spans.
 """
@@ -115,7 +117,7 @@ def tier_for(device) -> Tier:
 
 def dense_enabled() -> bool:
     """``MYTHRIL_TPU_DENSE=0`` switches the dense tier off (the funnel
-    then hands every lane to the CDCL tail)."""
+    then goes straight to the gather tiers)."""
     return env_flag("MYTHRIL_TPU_DENSE", True)
 
 
@@ -751,8 +753,9 @@ class DenseSatBackend:
     def check_assumption_sets(
         self, ctx, assumption_sets: List[List[int]]
     ) -> Optional[Tuple[List[Optional[bool]], np.ndarray]]:
-        """None when no dense layout fits the tier's caps (the caller
-        hands the lanes to the CDCL tail).
+        """None when no dense layout fits the tier's caps, or when the
+        frontier is delegated to the resident solver (the caller tries
+        the gather tiers next).
 
         Two layouts compete per dispatch, picked by estimated streamed
         cells: **union** (one [C, V] pool over the union cone, all lanes
@@ -774,6 +777,23 @@ class DenseSatBackend:
         union_cv = np.unique(np.concatenate([cv for _, cv in lane_cones]))
         union_C = _bucket(max(1, len(union_ci)))
         union_V = _bucket(len(union_cv) + 2)
+        # with the resident solver on, a union cone within the cone-tier
+        # caps goes to the gather tiers instead (the JAX package's
+        # delegation, pallas_prop.py:1234-1247): its rows path drops
+        # clauses wider than the width cap, which weakens BCP but never
+        # a verdict; larger cones keep the dense ladder
+        from mythril_tpu_torch.ops.batched_sat import (
+            MAX_CONE_GATHER_CLAUSES, MAX_CONE_GATHER_VARS, dispatch_stats,
+        )
+        from mythril_tpu_torch.ops.resident import resident_kernel_enabled
+
+        if (
+            resident_kernel_enabled()
+            and 0 < len(union_ci) <= MAX_CONE_GATHER_CLAUSES
+            and len(union_cv) <= MAX_CONE_GATHER_VARS
+        ):
+            dispatch_stats.resident_delegations += 1
+            return None
         max_C = _bucket(max(1, max(len(ci) for ci, _ in lane_cones)))
         max_V = _bucket(2 + max(len(cv) for _, cv in lane_cones))
         B_bucket = max(8, _bucket(batch, floor=8))
@@ -792,6 +812,7 @@ class DenseSatBackend:
                 "no dense layout fits (union %dx%d, per-lane %dx%d)",
                 union_C, union_V, max_C, max_V,
             )
+            dispatch_stats.dense_declines += 1
             return None
 
         use_batched = batched_ok and (

@@ -68,41 +68,50 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found: the dense sweep kernel builds only where "
+            "nvcc not found: the port's CUDA kernels build only where "
             "the CUDA toolkit is installed"
         )
     return found
 
 
-def build_library() -> str:
-    """Compile ``csrc/dense_sweep.cu`` into ``_build/`` when the library
-    is missing or older than its source; returns the library path.  The
-    build goes to a temporary name and is renamed into place, so
-    concurrent first calls never load a half-written file."""
-    global build_info
-    if os.path.exists(LIBRARY) and (
-        os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)
+def build_cuda_library(source: str, library: str) -> Optional[tuple]:
+    """Compile ``source`` into the shared library ``library`` when it is
+    missing or older than its source.  The build goes to a temporary
+    name and is renamed into place, so concurrent first calls never load
+    a half-written file.  Returns (seconds, compiler output) when it
+    built, None when the library was current."""
+    if os.path.exists(library) and (
+        os.path.getmtime(library) >= os.path.getmtime(source)
     ):
-        return LIBRARY
+        return None
     nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.makedirs(os.path.dirname(library), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(library))
     os.close(fd)
     started = time.perf_counter()
     try:
         done = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+            [nvcc, *NVCC_FLAGS, "-o", tmp, source],
             capture_output=True, text=True,
         )
         if done.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({done.returncode}):\n{done.stderr}"
             )
-        os.replace(tmp, LIBRARY)
+        os.replace(tmp, library)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    build_info = (time.perf_counter() - started, done.stderr)
+    return time.perf_counter() - started, done.stderr
+
+
+def build_library() -> str:
+    """Compile ``csrc/dense_sweep.cu`` into ``_build/`` when the library
+    is missing or older than its source; returns the library path."""
+    global build_info
+    info = build_cuda_library(SOURCE, LIBRARY)
+    if info is not None:
+        build_info = info
     return LIBRARY
 
 

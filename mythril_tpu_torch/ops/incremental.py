@@ -1,14 +1,18 @@
 """Incremental dispatch policy + the cross-dispatch cone memo (own copy
-of the parts of ``mythril_tpu/ops/incremental.py`` the dense tier
-reads).
+of the parts of ``mythril_tpu/ops/incremental.py`` the solver tiers
+read).
 
+- **Resident clause pool** (``MYTHRIL_TPU_RESIDENT_POOL``, default on):
+  the gather tier's ``DevicePool`` keeps the clause rows on the device
+  and ships only appended rows between dispatches.
 - **Parent-model warm starts** (``MYTHRIL_TPU_WARM_START``, default
   on): lanes seed their DPLL *decision phases* from the most recent
   SAT model in the blast context's recent-models channel.  Phase
   preference only biases search order, so verdicts are untouched.
 - **Cone memo** (:class:`ConeMemo`): cone extraction + remap results
-  cached by ``(generation, pool_version)``.  The whole table is dropped
-  the moment either component moves, so a hit is always exact.
+  cached by ``(generation, pool_version, device_learned_generation)``.
+  The whole table is dropped the moment any component moves, so a hit
+  is always exact.
 """
 
 from typing import Callable, Dict, Optional, Tuple
@@ -20,6 +24,13 @@ from mythril_tpu_torch.support.env import env_flag
 CONE_MEMO_CAP = 128
 
 
+def resident_pool_enabled() -> bool:
+    """``MYTHRIL_TPU_RESIDENT_POOL=0`` forces a full clause-pool rebuild
+    and upload on every gather-tier dispatch (the default keeps the pool
+    on the device and appends the delta rows)."""
+    return env_flag("MYTHRIL_TPU_RESIDENT_POOL", True)
+
+
 def warm_start_enabled() -> bool:
     """``MYTHRIL_TPU_WARM_START=0`` disables parent-model phase
     seeding (lanes cold-start their decision phases from DLIS alone)."""
@@ -27,17 +38,19 @@ def warm_start_enabled() -> bool:
 
 
 class ConeMemo:
-    """Cross-dispatch memo for cone extraction / remap builds, scoped to
-    one ``(blast generation, pool_version)``: any pool growth or context
-    reset drops the whole table, so a surviving entry describes exactly
-    the pool the next dispatch will solve against."""
+    """Cross-dispatch memo for cone extraction / remap / device-row
+    builds, scoped to one ``(blast generation, pool_version,
+    device_learned_generation)``: any pool growth, learned-clause
+    harvest or context reset drops the whole table, so a surviving entry
+    describes exactly the pool the next dispatch will solve against."""
 
     def __init__(self):
-        self._scope: Tuple[int, int] = (-1, -1)
+        self._scope: Tuple[int, int, int] = (-1, -1, -1)
         self._table: Dict[tuple, object] = {}
 
     def _sync(self, ctx) -> None:
-        scope = (ctx.generation, ctx.pool_version)
+        scope = (ctx.generation, ctx.pool_version,
+                 getattr(ctx, "device_learned_generation", 0))
         if scope != self._scope:
             self._scope = scope
             self._table.clear()
@@ -69,7 +82,7 @@ class ConeMemo:
         )
 
     def reset(self) -> None:
-        self._scope = (-1, -1)
+        self._scope = (-1, -1, -1)
         self._table.clear()
 
 

@@ -7,7 +7,8 @@ Runs one EVM-shaped frontier through
 
 - the wall time and the device busy time of the profiled run, and the
   device's idle share (1 - busy / wall);
-- the host ranges of the funnel (``funnel.*``, ``dense.*``) by CPU time;
+- the host ranges of the funnel and the solver tiers (``funnel.*``,
+  ``dense.*``, ``resident.*``, ``frontier.*``) by CPU time;
 - the device kernels by total device time.
 
 Usage (from the repository root, on a machine with one NVIDIA GPU)::
@@ -24,7 +25,7 @@ import time
 
 
 #: the record_function ranges of ops/batched_sat.py and ops/dense_prop.py
-RANGES = ("funnel.", "dense.")
+RANGES = ("funnel.", "dense.", "resident.", "frontier.")
 
 
 def _frontier(name):
@@ -89,7 +90,8 @@ def main() -> int:
     print(f"{opts.frontier}: wall {wall * 1e3:.1f} ms, device busy "
           f"{device_us / 1e3:.1f} ms, idle share "
           f"{1 - device_us / 1e3 / (wall * 1e3):.3f}; {stats.rounds} rounds,"
-          f" {stats.device_sweeps} sweeps")
+          f" {stats.device_sweeps} full sweeps, {stats.frontier_steps} "
+          f"gather steps, {stats.resident_dispatches} resident solves")
     ranges = [e for e in events
               if e.key.startswith(RANGES) and e.device_type == DeviceType.CPU]
     for e in sorted(ranges, key=lambda e: -e.cpu_time_total):

@@ -178,6 +178,12 @@ class BlastContext:
         # a node-id cache for "contains a read/UF" nesting checks
         self._reads_matrix_cache = None
         self._theory_node_cache: Dict[int, bool] = {}
+        # device-learned first-UIP clauses (ops/frontier.py): total
+        # accepted this context, and a generation counter that the cone
+        # memo folds into its scope, so a layout built before a harvest
+        # is never served after it
+        self.device_learned = 0
+        self.device_learned_generation = 0
 
     # ------------------------------------------------------------------
     # pool facade (the store itself is native; see csrc/pool.cpp)
@@ -186,6 +192,18 @@ class BlastContext:
     @property
     def pool_version(self) -> int:
         return self.pool.version
+
+    @property
+    def absorbed_learnt_count(self) -> int:
+        return self.pool.absorbed_count
+
+    def absorb_learnts(self, max_width: int = 8) -> int:
+        """Pull the clauses the native CDCL learned since the last call
+        into the pool's store, so the next device-pool refresh ships
+        them to the frontier solvers.  Learned clauses are implied by
+        the pool, so device verdicts stay sound.  Returns how many were
+        added."""
+        return self.pool.absorb_learnts(max_width)
 
     def cone(self, root_lits: Sequence[int], need_clauses: bool = True):
         """(clause_indices, vars) of the defining cone of ``root_lits``,
@@ -238,6 +256,29 @@ class BlastContext:
         wide nogoods, and registers the clause for the cone
         subset-append."""
         self.pool.nogood(list(assumption_lits))
+
+    def harvest_device_clauses(
+        self, clauses: Sequence[Sequence[int]]
+    ) -> int:
+        """Feed device-learned first-UIP clauses (ops/frontier.py) into
+        the nogood channel.  Each is derived by resolution over pool
+        rows, so it is implied by the pool and valid for every lane.
+        The native side dedupes, drops tautologies and enforces the
+        width cap.  Returns the accepted count and bumps
+        ``device_learned_generation`` so the cone memo re-scopes."""
+        added = 0
+        for clause in clauses:
+            lits = [int(lit) for lit in clause if lit]
+            if not lits:
+                continue
+            # pool.nogood() takes a refuted assumption cube and adds the
+            # clause of its negations: hand it the negated clause
+            if self.pool.nogood([-lit for lit in lits]):
+                added += 1
+        if added:
+            self.device_learned += added
+            self.device_learned_generation += 1
+        return added
 
     def new_lit(self) -> int:
         return self.pool.new_var()

@@ -11,11 +11,15 @@ from mythril_tpu_torch.support.support_utils import Singleton
 #: The configuration of the JAX package that this port implements (the
 #: "slice pins").  The port has none of the features these switch off,
 #: so it runs this configuration whatever the environment says; the
-#: parity tests apply the same pins to the JAX package.
+#: parity tests apply the same pins to the JAX package.  The port honors
+#: ``MYTHRIL_TPU_RESIDENT_KERNEL`` both ways, as the JAX package does
+#: (0 = the multi-dispatch frontier ladder).
 #:
-#: Environment knobs of the JAX package:
+#: Environment knobs of the JAX package (``MYTHRIL_TPU_FRONTIER=0``
+#: would give its gather tiers the dense round lanes, which the port
+#: does not have):
 SLICE_PINS_ENV = {
-    "MYTHRIL_TPU_RESIDENT_KERNEL": "0",  # dense tier, no resident solver
+    "MYTHRIL_TPU_FRONTIER": "1",
     "MYTHRIL_TPU_WORD_TIER": "0",
     "MYTHRIL_TPU_AUTOPILOT": "0",
     "MYTHRIL_TPU_SYM_LOCKSTEP": "0",
@@ -26,17 +30,9 @@ SLICE_PINS_ENV = {
     "MYTHRIL_TPU_LEDGER": "0",
 }
 #: ... plus, on a CPU, the Pallas tier in interpret mode (what the port's
-#: CPU tier is held against):
+#: CPU tier is held against; it also keeps the JAX gather tiers on, which
+#: a CPU-only JAX host skips by default):
 SLICE_PINS_CPU_ENV = {"MYTHRIL_TPU_PALLAS": "force"}
-#: Module constants of the JAX package (relative to ``mythril_tpu``):
-#: its gather and cone-gather solvers decline every frontier, so that,
-#: as in the port, the dense tier and the CDCL answer all of them (a
-#: cone past the dense tier's caps goes to the CDCL, not to a gather
-#: ladder that learns clauses of its own).
-SLICE_PINS_JAX_CONSTANTS = {
-    "ops.batched_sat.MAX_GATHER_VARS": 0,
-    "ops.batched_sat.MAX_CONE_GATHER_CLAUSES": 0,
-}
 #: Analysis flags of the JAX package.  ``word_probing`` is off: the JAX
 #: funnel reads it for its host probe phase before the dispatch, which
 #: the port does not have, and the CDCL tail reads it for the same

@@ -9,7 +9,6 @@ count, the number of prune calls and every prune call's per-state
 verdicts must be exactly equal; neither side may time out.
 """
 
-import importlib
 import json
 import os
 import subprocess
@@ -29,7 +28,6 @@ from mythril_tpu_torch.support.support_args import (
     SLICE_PINS_ARGS,
     SLICE_PINS_CPU_ENV,
     SLICE_PINS_ENV,
-    SLICE_PINS_JAX_CONSTANTS,
 )
 from mythril_tpu_torch.support.support_args import args as port_args
 
@@ -39,10 +37,39 @@ ADDRESS = 0x901D12EBE1B195E5AA8748E62BD7734AE19B51F
 EXEC_TIMEOUT = 600
 
 
+def one_device(monkeypatch):
+    """``jax.devices()`` of the JAX package reduced to its first device."""
+    import jax
+
+    devices = jax.devices
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a, **k: devices(*a, **k)[:1])
+
+
 @pytest.fixture(autouse=True)
 def slice_pins(monkeypatch):
+    """The slice pins on both sides, and what reads the wall clock set
+    out of reach on both sides, so that the parity does not depend on
+    the machine: the slow-dispatch fuse, and the JAX package's dispatch
+    watchdog (a cold jit of a resident solve takes seconds here).  The
+    JAX side sees one device, as the port runs on one: the test
+    process's eight forced CPU devices would send its gather tiers to
+    the sharded mesh."""
+    from mythril_tpu.resilience import watchdog
+
+    one_device(monkeypatch)
+
     for name, value in {**SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV}.items():
         monkeypatch.setenv(name, value)
+    for name in ("MYTHRIL_TPU_RESIDENT_KERNEL", "MYTHRIL_TPU_RESIDENT_BUDGET",
+                 "MYTHRIL_TPU_RESIDENT_WATCHDOG", "MYTHRIL_TPU_RESIDENT_EXTRA",
+                 "MYTHRIL_TPU_FRONTIER_PERIOD", "MYTHRIL_TPU_FRONTIER_FAN",
+                 "MYTHRIL_TPU_FRONTIER_DEG"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(jax_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
+    monkeypatch.setattr(port_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
+    monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
     for name, value in SLICE_PINS_ARGS.items():
         monkeypatch.setattr(jax_args, name, value)
     # the analysis flags both packages read, at the port's values (a test
@@ -50,11 +77,6 @@ def slice_pins(monkeypatch):
     for name, value in vars(port_args).items():
         if name != "device" and hasattr(jax_args, name):
             monkeypatch.setattr(jax_args, name, value)
-    for path, value in SLICE_PINS_JAX_CONSTANTS.items():
-        module, attr = path.rsplit(".", 1)
-        monkeypatch.setattr(
-            importlib.import_module("mythril_tpu." + module), attr, value
-        )
     monkeypatch.setattr(port_args, "device", "cpu")
     yield
 
@@ -156,7 +178,18 @@ def _run(side, code, tx_count):
         "prunes": prunes,
         "dispatches": stats.dispatches,
         "sweeps": (stats.rounds, stats.device_sweeps),
+        "counters": {name: getattr(stats, name) for name in COUNTERS},
     }
+
+
+#: solver-tier counters both packages keep, compared exactly
+COUNTERS = (
+    "lanes", "unsat", "sat_verified", "undecided", "frontier_steps",
+    "learned_clauses", "size_bailouts", "cone_bailouts",
+    "resident_dispatches", "resident_exit_all_decided",
+    "resident_exit_budget", "resident_exit_watchdog",
+    "resident_delegations", "pool_uploads", "delta_uploads", "repacks",
+)
 
 
 def _parity(code, tx_count):
@@ -168,6 +201,7 @@ def _parity(code, tx_count):
     assert port["prunes"] == jax["prunes"]
     assert port["dispatches"] == jax["dispatches"]
     assert port["sweeps"] == jax["sweeps"]
+    assert port["counters"] == jax["counters"]
     return jax, port
 
 
@@ -206,14 +240,13 @@ def test_scale_contract_dispatches_on_both_sides(monkeypatch):
     """A dense dispatch on both sides on the path ``myth analyze``
     takes, with equal rounds and sweeps, and the SWC-106 suicide leaves
     found.  Both sides run the CPU tier with the cell cap and step
-    budget of :data:`SCALE_CPU_CELLS` / :data:`SCALE_CPU_STEPS`.  What
-    reads the wall clock is set out of reach on both sides, so that the
-    parity does not depend on the machine: the slow-dispatch fuse, and
-    the JAX package's dispatch watchdog."""
+    budget of :data:`SCALE_CPU_CELLS` / :data:`SCALE_CPU_STEPS`, with
+    the resident solver off so that the dense tier keeps the frontiers
+    it would otherwise delegate."""
     import mythril_tpu.ops.pallas_prop as jax_pp
-    from mythril_tpu.resilience import watchdog
     from mythril_tpu_torch.ops import dense_prop
 
+    monkeypatch.setenv("MYTHRIL_TPU_RESIDENT_KERNEL", "0")
     monkeypatch.setattr(jax_pp, "MAX_CELLS_DENSE", SCALE_CPU_CELLS)
     monkeypatch.setattr(jax_pp, "DPLL_STEPS_INTERPRET", SCALE_CPU_STEPS)
     monkeypatch.setattr(jax_pp, "ROUND_BUDGETS_INTERPRET",
@@ -222,13 +255,24 @@ def test_scale_contract_dispatches_on_both_sides(monkeypatch):
         max_cells=SCALE_CPU_CELLS, steps=SCALE_CPU_STEPS,
         round_budgets=(SCALE_CPU_STEPS,)))
     monkeypatch.setattr(dense_prop, "_backends", {})
-    monkeypatch.setattr(jax_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
-    monkeypatch.setattr(port_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
-    monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
-    monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
     code = bench.scale_contract(depth=3, guard_bits=16, guard="mul")
     jax, port = _parity(code, 1)
     assert jax["dispatches"] >= 1 and port["dispatches"] >= 1
+    assert {i["swc_id"] for i in port["issues"]} == {"106"}
+
+
+def test_scale_contract_resident_solver_at_default_caps():
+    """The scale contract at the default caps and the default
+    configuration: the dense tier delegates every frontier, and the
+    resident solver answers them on both sides, with equal full sweeps,
+    gather steps, learned clauses and exits."""
+    code = bench.scale_contract(depth=3, guard_bits=16, guard="mul")
+    jax, port = _parity(code, 1)
+    counters = port["counters"]
+    assert counters["resident_dispatches"] >= 1
+    assert counters["resident_delegations"] >= 1
+    assert counters["frontier_steps"] > 0
+    assert port["sweeps"][1] > 0
     assert {i["swc_id"] for i in port["issues"]} == {"106"}
 
 
@@ -276,13 +320,17 @@ def test_prune_propagates_a_dense_tier_failure(monkeypatch):
         prune_infeasible(_distinct_states(6))
 
 
-def test_dispatch_fuse_follows_the_jax_rule():
+def test_dispatch_fuse_follows_the_jax_rule(monkeypatch):
     """The funnel's fuse, as ``mythril_tpu/ops/batched_sat.py`` runs it:
     three zero-decision dispatches blow it for the context; then every
     8th eligible frontier retries, at most three times; a retry that
     decides a lane re-arms it; a slow zero-decision dispatch blows it at
-    once and stops the retries; a new context starts armed."""
+    once and stops the retries; a new context starts armed.  (The
+    fixture sets the slow threshold out of reach; here it is the JAX
+    package's 10 s.)"""
     from types import SimpleNamespace
+
+    monkeypatch.setattr(port_bs, "SLOW_DISPATCH_FUSE_S", 10.0)
 
     fuse = port_bs.DispatchFuse()
     ctx = SimpleNamespace(generation=101)
@@ -312,16 +360,17 @@ def test_dispatch_fuse_follows_the_jax_rule():
     assert not any(fuse.admit(ctx) for _ in range(64))
 
 
-#: ``python3 myth analyze`` with the slice pins that have no CLI flag
+#: ``python3 myth analyze`` with the slice pins that have no CLI flag, on
+#: one JAX device
 JAX_MYTH = """
-import importlib, json, runpy, sys
+import json, runpy, sys
+import jax
+devices = jax.devices
+jax.devices = lambda *a, **k: devices(*a, **k)[:1]  # one device, as the port
 pins = json.loads(sys.argv.pop(1))
 from mythril_tpu.support.support_args import args
 for name, value in pins["args"].items():
     setattr(args, name, value)
-for path, value in pins["constants"].items():
-    module, attr = path.rsplit(".", 1)
-    setattr(importlib.import_module("mythril_tpu." + module), attr, value)
 sys.argv[0] = "myth"
 runpy.run_path("myth", run_name="__main__")
 """
@@ -343,8 +392,7 @@ def test_cli_report_matches_jax_cli():
               "--no-onchain-data", "-o", "jsonv2"]
     env = dict(os.environ, JAX_PLATFORMS="cpu", **SLICE_PINS_ENV,
                **SLICE_PINS_CPU_ENV)
-    pins = json.dumps({"args": SLICE_PINS_ARGS,
-                       "constants": SLICE_PINS_JAX_CONSTANTS})
+    pins = json.dumps({"args": SLICE_PINS_ARGS})
     jax = subprocess.run(
         [sys.executable, "-c", JAX_MYTH, pins, "analyze", *common,
          "--device-force-dispatch", "--no-lockstep-dispatch",
