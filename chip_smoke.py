@@ -25,12 +25,18 @@ failure):
    compared launches held conflicts under decisions in several lanes and
    on a shared row, learned rows in several lanes, equal rows from twin
    lanes, a shared row learned again, a pool overflow and cascades (the
-   phase fails if one is missing); then two iterations at V1 = 16385,
-   where the scan's planes live in global memory; every output equal
-   bit for bit; times each kernel on the device, its plain version and
-   the bound (for the sweep also 4 + 4 float32 ``torch.matmul`` calls, a
-   yardstick the port never uses; the frontier kernels have no library
-   counterpart);
+   phase fails if one is missing); then two iterations at V1 = 16385
+   (the scan's planes split over a cluster of two blocks); then
+   ``scan_rows`` (a gather and a full view) and ``round_epilogue`` on
+   random data at B in {1, 7, 64, 256} by V1 in {2049, 8193, 16385}
+   (clusters of 1 to 8 blocks, B x cluster below and above the 132 SMs)
+   and the epilogue on its edge cases (an empty pool, a pool one row
+   from full that overflows, every lane learning one row, a row of the
+   live pool learned again, an ``okl`` lane with an all-zero row); every
+   output equal bit for bit; times each kernel on the device, its plain
+   version and the bound (for the sweep also 4 + 4 float32
+   ``torch.matmul`` calls, a yardstick the port never uses; the frontier
+   kernels have no library counterpart);
 4. main path: frontiers through ``ops.batched_sat.batch_check_states``
    on ``cuda``: the ``scale_mul`` frontier of ``bench.py`` (depth 6 /
    16-bit guards, past the cone caps: dense tier), and 64 sibling forks
@@ -64,6 +70,7 @@ Exits non-zero, printing no result, when no CUDA device is present.
 """
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -80,6 +87,11 @@ SWEEP_C, SWEEP_V, SWEEP_B, HOT_ROWS = 16384, 4096, 64, 2048
 #: it); and the union-cone tier's largest var bucket
 FRONTIER_C, FRONTIER_V1, FRONTIER_B, FRONTIER_E = 16384, 8193, 64, 64
 FRONTIER_PREFILL, FRONTIER_WIDE_V1 = 40, 16385
+#: the scan's and the epilogue's geometries on random data: lanes (B x
+#: cluster below and above the card's 132 SMs) by widths (V1 no multiple
+#: of the cluster), over five 512-row pool tiles, the last one partial
+GEOMETRY_B, GEOMETRY_V1 = (1, 7, 64, 256), (2049, 8193, 16385)
+GEOMETRY_C = 2300
 #: iterations the frontier kernel phase may take to see every case
 FRONTIER_ITERS = 64
 #: where the check runs its kernels (only ever "cuda" when run as a script)
@@ -123,14 +135,24 @@ def env(**values):
                 os.environ[k] = v
 
 
-def card_line():
+def _query_gpu(fields):
     done = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     check(done.returncode == 0, f"nvidia-smi failed: {done.stderr}")
     return done.stdout.strip().splitlines()[0]
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return _query_gpu("name,power.limit")
+
+
+def card_uuid():
+    """The card's UUID, which tells two readings on one card from
+    readings on two."""
+    return _query_gpu("uuid")
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -149,24 +171,31 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(stop) / iters
 
 
-def kernel_device_ms(fn, iters, kernel="dense_sweep_kernel"):
+def kernel_device_ms(fn, iters, kernel="dense_sweep_kernel", tries=10):
     """Device time of one launch of ``kernel``, from the profiler (the
-    wrapper's host work and any copies around it are not in it)."""
+    wrapper's host work and any copies around it are not in it): the
+    mean over ``iters`` launches.  A profiled run whose records of the
+    kernel are not exactly ``iters`` is logged and profiled again, up to
+    ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    check(len(hits) == 1 and hits[0].count == iters,
-          f"profiler did not see {kernel}")
-    return hits[0].self_device_time_total / iters / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        if len(hits) == 1 and hits[0].count == iters:
+            return hits[0].self_device_time_total / iters / 1e3
+        log(f"profiler: {kernel} records {[(e.key, e.count) for e in hits]} "
+            f"of {iters} launches; profiling again")
+    raise CheckFailed(f"profiler did not keep {iters} records of {kernel} "
+                      f"in {tries} runs")
 
 
 def build_all():
@@ -448,27 +477,48 @@ class FrontierAudit:
 def learning_loop(C, V1, B, E, prefill):
     """``frontiers.learning_problem`` on the card as a resident loop at
     the default knobs, its shared pool prefilled with ``prefill`` rows."""
-    import torch
-
     from mythril_tpu_torch import frontiers
-    from mythril_tpu_torch.ops import frontier as FR
-    from mythril_tpu_torch.ops import frontier_kernels as FK
     from mythril_tpu_torch.ops import resident as RK
 
     rows, assign, extra = frontiers.learning_problem(C, V1, B, E,
                                                      prefill=prefill)
-    dev = torch.device(DEVICE)
     state = RK.resident_state0(assign, B, 256, extra_cap=E)
-    lane = FK.to_device(state, FR.FRONTIER_STATE_FIELDS, dev)
+    return resident_loop(rows, state, extra, prefill)
+
+
+def resident_loop(rows, state, extra, ne):
+    """A resident loop at the default knobs on the card: pool ``rows``,
+    lane ``state`` (numpy), shared pool ``extra`` with ``ne`` live rows."""
+    import torch
+
+    from mythril_tpu_torch.ops import frontier as FR
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+    from mythril_tpu_torch.ops import resident as RK
+
+    dev = torch.device(DEVICE)
+    V1 = state["assign"].shape[1]
     cfg = FK.StepConfig(fan=FR.DEFAULT_FAN, period=FR.DEFAULT_PERIOD,
                         limit=RK.resident_budget(),
-                        watchdog=RK.resident_watchdog_limit(), extra_cap=E,
-                        learn_cap=FR.LEARN_CAP, uip_iters=FR.UIP_ITERS,
-                        resident=True)
+                        watchdog=RK.resident_watchdog_limit(),
+                        extra_cap=extra.shape[0] - 1, learn_cap=FR.LEARN_CAP,
+                        uip_iters=FR.UIP_ITERS, resident=True)
     adj = FR.build_adjacency(rows, V1, deg=FR.DEFAULT_DEG)
     return FK.make_loop(torch.from_numpy(rows).to(dev),
-                        torch.from_numpy(adj).to(dev), lane, cfg,
-                        torch.from_numpy(extra).to(dev), nextra0=prefill)
+                        torch.from_numpy(adj).to(dev),
+                        FK.to_device(state, FR.FRONTIER_STATE_FIELDS, dev),
+                        cfg, torch.from_numpy(extra).to(dev), nextra0=ne)
+
+
+def digest(loop) -> str:
+    """A digest of a loop's inputs: two launches from equal digests are
+    the same launch."""
+    h = hashlib.sha1()
+    for group in (loop.lane, loop.buf):
+        for k in sorted(group):
+            h.update(group[k].cpu().numpy().tobytes())
+    for t in (loop.extra, loop.ctl):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _restore(loop, snap):
@@ -480,16 +530,20 @@ def _restore(loop, snap):
 
 
 def _smem_check(loop):
-    """The library's shared-memory sizes for the loop's launches equal
-    ``frontier_kernels.smem_layout``'s (the Python side's limit check)."""
+    """The library's shared-memory sizes and scan cluster for the loop's
+    launches equal ``frontier_kernels.smem_layout``'s (the Python side's
+    limit check)."""
     import ctypes
 
     from mythril_tpu_torch.ops import frontier_kernels as FK
 
     B, V1 = loop.lane["assign"].shape
-    layout = FK.smem_layout(B, V1, loop.args.fan, loop.cfg.uip_iters)
-    got = {name: FK._lib.frontier_smem_bytes(ctypes.byref(loop.args), kid)
+    layout = FK.smem_layout(B, V1, loop.args.fan, loop.cfg.uip_iters,
+                            loop.args.E)
+    args = ctypes.byref(loop.args)
+    got = {name: FK._lib.frontier_smem_bytes(args, kid)
            for name, kid in FK.KERNEL_IDS.items()}
+    got["cluster"] = FK._lib.frontier_scan_cluster(args)
     check(all(got[k] == layout[k] for k in got),
           f"shared memory: library {got} != smem_layout {layout}")
     return layout
@@ -581,7 +635,7 @@ def frontier_kernel_phase():
     check(all(cases.values()) and not timing,
           f"the learning problem missed a case: {cases}, untimed {timing}")
     layout = _smem_check(loop)
-    check(layout["planes_in_smem"], "V1=8193 should keep the planes in smem")
+    check(layout["cluster"] == 2, f"V1=8193, B=64: cluster {layout}")
 
     wide = learning_loop(FRONTIER_C, FRONTIER_WIDE_V1, FRONTIER_B, E,
                          FRONTIER_PREFILL)
@@ -591,12 +645,173 @@ def frontier_kernel_phase():
         for name in FRONTIER_KERNELS:
             run_checked(name, wide, it & 1, getattr(FK, name))
     layout = _smem_check(wide)
-    check(not layout["planes_in_smem"] and views == ["full", "gather"],
+    check(layout["cluster"] == 2 and views == ["full", "gather"],
           f"V1={FRONTIER_WIDE_V1}: {layout}, views {views}")
     log(f"frontier kernels vs plain at V1={FRONTIER_WIDE_V1} (the scan's "
-        f"planes in global memory; shared memory {layout}): a full and a "
-        f"gather iteration, every launch equal bit for bit")
+        f"planes split over a cluster of {layout['cluster']}; shared memory "
+        f"{layout}): a full and a gather iteration, every launch equal bit "
+        f"for bit")
     return [entries[name] for name in FRONTIER_KERNELS]
+
+
+def synthetic_loop(B, V1, C, E, ne, seed):
+    """A resident loop on random data from a numpy seed: 3-clause rows
+    over vars 2 .. V1 - 1 (row 0 the TRUE anchor's unit, the last eighth
+    padding), even lanes with a third of the vars assigned and odd lanes
+    with two thirds (most rows open, and most rows closed),
+    about one var in a hundred queued, ``ne`` live rows in a shared pool
+    of ``E``.  Returns the loop and the generator, for more inputs."""
+    from mythril_tpu_torch.ops import resident as RK
+
+    rng = np.random.default_rng(seed)
+
+    def clauses(n):
+        return (rng.integers(2, V1, size=(n, 3))
+                * rng.choice([-1, 1], size=(n, 3))).astype(np.int32)
+
+    rows = np.zeros((C, 8), np.int32)
+    rows[0, 0] = 1
+    rows[1:C - C // 8, :3] = clauses(C - C // 8 - 1)
+    dense = (np.arange(B) % 2 + 1)[:, None] / 3
+    assign = np.where(rng.random((B, V1)) < dense,
+                      rng.choice(np.array([-1, 1], np.int8), size=(B, V1)),
+                      np.int8(0)).astype(np.int8)
+    assign[:, 0] = 0
+    assign[:, 1] = 1
+    state = RK.resident_state0(assign, B, 256, extra_cap=E)
+    state["recent"] = rng.random((B, V1)) < 0.01
+    state["extra"][:ne, :3] = clauses(ne)
+    return resident_loop(rows, state, state["extra"], ne), rng
+
+
+def set_epilogue_inputs(loop, rng, learners, rows, cascades):
+    """The lane step's outputs that the epilogue reads: lanes ``learners``
+    emit ``rows`` (okl set), lanes ``cascades`` have a pending cascade,
+    every lane random progress and queue bits, depth and stamp."""
+    import torch
+
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+
+    B = loop.lane["assign"].shape[0]
+    dev = loop.ctl.device
+    okl = torch.zeros(B, dtype=torch.int32)
+    litrow = torch.zeros((B, FK.WIDTH), dtype=torch.int32)
+    for j, row in zip(learners, rows):
+        okl[j] = 1
+        litrow[j] = torch.as_tensor(row, dtype=torch.int32)
+    flags = torch.from_numpy(rng.integers(
+        0, 4, size=B).astype(np.int32))
+    flags[list(cascades)] |= FK.FLAG_CASCADE
+    loop.buf["okl"].copy_(okl.to(dev))
+    loop.buf["litrow"].copy_(litrow.to(dev))
+    loop.buf["flags"].copy_(flags.to(dev))
+    loop.lane["depth"].copy_(torch.from_numpy(
+        rng.integers(0, 9, size=B).astype(np.int32)).to(dev))
+    loop.lane["stamp"].copy_(torch.from_numpy(
+        rng.integers(1, 99, size=B).astype(np.int32)).to(dev))
+
+
+def learned_rows(rng, n, V1):
+    """``n`` canonical learned rows: up to 8 distinct vars, descending,
+    random signs, zero-padded."""
+    out = []
+    for _ in range(n):
+        width = int(rng.integers(1, 9))
+        vs = np.sort(rng.choice(np.arange(2, V1), size=width,
+                                replace=False))[::-1]
+        row = np.zeros(8, np.int32)
+        row[:width] = vs * rng.choice([-1, 1], size=width)
+        out.append(row)
+    return out
+
+
+def epilogue_cases(snap, parity, E):
+    """The epilogue's edge cases an input holds (``snap`` before the
+    launch)."""
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+
+    ne = int(snap.ctl[parity, FK.NEXTRA])
+    okl = snap.buf["okl"].cpu() != 0
+    rows = snap.buf["litrow"].cpu()
+    learned = [tuple(r) for r in rows[okl].tolist()]
+    nonzero = {r for r in learned if any(r)}
+    pool = {tuple(r) for r in snap.extra[:ne].tolist()}
+    hit = set()
+    if ne == 0 and len(nonzero) >= 2:
+        hit.add("ne = 0")
+    if ne == E - 1 and len(nonzero - pool) >= 2:
+        hit.add("ne = E - 1 and an overflow")
+    if len(learned) == okl.numel() and len(set(learned)) == 1:
+        hit.add("every lane learning the same row")
+    if nonzero & pool:
+        hit.add("a learned row equal to a live pool row")
+    if any(not any(r) for r in learned):
+        hit.add("an okl lane with an all-zero row")
+    return hit
+
+
+def frontier_geometry_phase():
+    """``scan_rows`` (a gather view, then a full view) and
+    ``round_epilogue`` against their plain versions on random data at
+    every lane count of GEOMETRY_B by every width of GEOMETRY_V1, and the
+    epilogue on each of its edge cases; fails if a geometry or a case is
+    missing."""
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+
+    E = FRONTIER_E
+    clusters = {}
+    for B in GEOMETRY_B:
+        for V1 in GEOMETRY_V1:
+            loop, rng = synthetic_loop(B, V1, GEOMETRY_C, E,
+                                       FRONTIER_PREFILL, seed=B * V1)
+            for full in (0, 1):
+                loop.ctl[0, FK.FULL] = full
+                run_checked("scan_rows", loop, 0, FK.scan_rows)
+            learners = list(range(0, B, 3))
+            rows = learned_rows(rng, len(learners), V1)
+            if len(rows) > 2:  # twins, and a row of the live pool
+                rows[1] = rows[0]
+                rows[2] = loop.extra[0].cpu().numpy()
+            set_epilogue_inputs(loop, rng, learners, rows, range(0, B, 2))
+            run_checked("round_epilogue", loop, 0, FK.round_epilogue)
+            clusters[(B, V1)] = _smem_check(loop)["cluster"]
+    blocks = [B * S for (B, _), S in clusters.items()]
+    check(min(blocks) < 132 < max(blocks)
+          and any(V1 % S for (_, V1), S in clusters.items()),
+          f"the geometries miss a kind of cluster: {clusters}")
+
+    # the epilogue's edge cases at the guard chain's width
+    B, V1 = 64, 2049
+    cases = dict.fromkeys((
+        "ne = 0", "ne = E - 1 and an overflow",
+        "every lane learning the same row",
+        "a learned row equal to a live pool row",
+        "an okl lane with an all-zero row"), 0)
+    for seed, ne in enumerate((0, E - 1, 20, 20, 20)):
+        loop, rng = synthetic_loop(B, V1, GEOMETRY_C, E, ne, seed=seed)
+        loop.ctl[0, FK.FULL] = 1
+        run_checked("scan_rows", loop, 0, FK.scan_rows)
+        learners = list(range(0, B, 4))
+        rows = learned_rows(rng, len(learners), V1)
+        if seed == 2:
+            learners = list(range(B))
+            rows = [rows[0]] * B
+        elif seed == 3:
+            rows[3] = loop.extra[ne - 1].cpu().numpy()
+        elif seed == 4:
+            rows[5][:] = 0
+        set_epilogue_inputs(loop, rng, learners, rows, range(1, B, 3))
+        snap = loop.to(loop.ctl.device)
+        run_checked("round_epilogue", loop, 0, FK.round_epilogue)
+        for case in epilogue_cases(snap, 0, E):
+            cases[case] += 1
+    log(f"frontier scan_rows (gather and full view) and round_epilogue vs "
+        f"plain on random data (C={GEOMETRY_C}, E={E}), every launch equal "
+        f"bit for bit at B x V1 -> scan cluster: "
+        + ", ".join(f"{B}x{V1}->{S}" for (B, V1), S in clusters.items())
+        + "; epilogue edge cases at B=64 V1=2049: "
+        + ", ".join(f"{case}: {n}" for case, n in cases.items()))
+    check(all(cases.values()), f"an epilogue edge case is missing: {cases}")
 
 
 def time_frontier_kernel(name, what, loop, snap, parity, full):
@@ -620,9 +835,11 @@ def time_frontier_kernel(name, what, loop, snap, parity, full):
     _restore(loop, after)
     bytes_moved, ops, desc = frontier_work(name, full, snap, after, parity)
     bound_ms, bound_by = bound(bytes_moved, ops)
+    B, V1 = loop.lane["assign"].shape
     log(f"frontier {name} ({what}; {'full' if full else 'gather'} view, "
-        f"C={FRONTIER_C} V1={FRONTIER_V1} B={FRONTIER_B} E={FRONTIER_E} "
-        f"fan x deg=512; {desc}): kernel {ms:.4f} ms (device), plain "
+        f"C={loop.lits.shape[0]} V1={V1} B={B} E={loop.cfg.extra_cap} "
+        f"fan x deg=512; {desc}; inputs {digest(snap)}): kernel "
+        f"{ms:.4f} ms (device), plain "
         f"{plain_ms:.4f} ms (eager torch on the card), bound "
         f"{bound_ms:.4f} ms ({bound_by}), equal bit for bit")
     return {
@@ -666,10 +883,21 @@ def frontier_work(name, full, snap, after, parity):
             f"{acting} lanes acting, {learned} learning"
     pending = int(((flags & 4) != 0).sum())
     learned = int((snap.buf["okl"] != 0).sum())
-    bytes_moved = (B * (K * 4 + 3 * 4) + ne * K * 4
-                   + pending * V1 * (1 + 4 + 4) + 2 * 8 * 4)
-    return bytes_moved, B * (ne + B) * K + pending * V1 * 4, \
-        f"{learned} learned rows, {pending} cascades"
+    # reads: learned rows, okl, flags, status, the live pool, each pending
+    # lane's assign, spos and sneg, the control row; writes: the settled
+    # vars' assign, lvl, reason and tpos, the appended rows, the next row
+    settled = int(((snap.lane["assign"] == 0)
+                   & (after.lane["assign"] != 0)).sum())
+    appended = int(after.ctl[1 - parity, 4]) - ne
+    reads = (B * (K * 4 + 3 * 4) + ne * K * 4 + pending * V1 * (1 + 4 + 4)
+             + 2 * 8 * 4)
+    bytes_moved = reads + settled * (1 + 4 + 4 + 4) + appended * K * 4
+    ops = B * (ne + B) * K + pending * V1 * 4
+    uncounted, _ = bound(reads, ops)
+    return bytes_moved, ops, \
+        (f"{learned} learned rows, {appended} appended, {pending} cascades "
+         f"settling {settled} vars; without their writes, as counted "
+         f"before, the bound is {uncounted:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -958,16 +1186,30 @@ def main() -> int:
     from mythril_tpu_torch import frontiers
     from mythril_tpu_torch.ops import default_device
 
+    started = last = time.perf_counter()
+    seconds = {}
+
+    def phase_done(name):
+        nonlocal last
+        now = time.perf_counter()
+        seconds[name] = now - last
+        last = now
+
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"card: {card}; torch {torch.__version__}, CUDA "
+    log(f"card: {card}, {card_uuid()}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, device {kind}")
     default_device()
     for line in build_all():
         log(line)
+    phase_done("card and build")
 
     sweep_entry = kernel_phase()
+    phase_done("sweep kernel")
     frontier_entries = frontier_kernel_phase()
+    phase_done("frontier kernels")
+    frontier_geometry_phase()
+    phase_done("frontier geometries")
     # launches of the default configuration (the kernels line) and of
     # the runs under the MYTHRIL_TPU_RESIDENT_KERNEL=0 kill switch
     totals, kill_switch = {}, {}
@@ -983,7 +1225,9 @@ def main() -> int:
     ):
         _add(kill_switch if knobs else totals,
              main_path_phase(name, build, expect, knobs))
+    phase_done("main path")
     default, yardstick = analyze_phase(card)
+    phase_done("analyze")
     _add(totals, default)
     _add(kill_switch, yardstick)
     log(f"launches in the default configuration (the kernels line): "
@@ -993,6 +1237,8 @@ def main() -> int:
     for entry in entries:
         entry["launches"] = totals.get(entry["name"], 0)
         check(entry["launches"] > 0, f"{entry['name']} never launched")
+    log(f"chip check: {time.perf_counter() - started:.1f} s (" + ", ".join(
+        f"{name} {t:.1f} s" for name, t in seconds.items()) + ")")
 
     print(json.dumps({"kernels": entries}))
     print(card)

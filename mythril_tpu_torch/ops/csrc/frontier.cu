@@ -1,23 +1,26 @@
 // One iteration of the frontier solvers as three kernels, for sm_90a.
 //
 // Replaces the loop bodies of the JAX package's frontier round
-// (mythril_tpu/ops/frontier.py:453-596, with make_scan_rows at :257-329)
-// and resident solver (mythril_tpu/ops/resident.py:385-549).  XLA runs
-// those as lax.while_loops; here one loop iteration is three launches, with
-// no host sync between iterations:
+// (mythril_tpu/ops/frontier.py:453-596) and resident solver
+// (mythril_tpu/ops/resident.py:385-549), which XLA runs as
+// lax.while_loops.  Here one loop iteration is three launches, with no
+// host sync between iterations:
 //
-//   scan_rows_kernel       one block per lane: the BCP row scan over the
-//                          iteration's view (all C pool rows, or the
-//                          adjacency rows of the `fan` largest queued vars,
-//                          popped from the lane's queue), plus in resident
-//                          mode the shared learned rows (ids C + e).
+//   scan_rows_kernel       the BCP row scan (make_scan_rows,
+//                          frontier.py:257-329) over the iteration's view:
+//                          all C pool rows, or the adjacency rows of the
+//                          `fan` largest queued vars, popped from the
+//                          lane's queue; in resident mode also the shared
+//                          learned rows (ids C + e).
 //   lane_step_kernel       one block per lane: first-UIP learning and
 //                          chronological backtrack, forcing, DLIS decision,
 //                          SAT completion, bail, counters.
-//   round_epilogue_kernel  block 0: append of the iteration's learned rows
-//                          to the shared pool and the next iteration's
-//                          batch-wide flags; block b: lane b's don't-care
-//                          cascade (it must see the pool after the append).
+//   round_epilogue_kernel  the append of the iteration's learned rows to
+//                          the shared pool (resident.py:355-380), each
+//                          pending lane's don't-care cascade, which must
+//                          see the pool after the append
+//                          (resident.py:495-505), and the next iteration's
+//                          batch-wide flags.
 //
 // The control words ctl[2][kNctl] are double-buffered by iteration parity:
 // every kernel of iteration t reads row t % 2, only the epilogue's block 0
@@ -28,32 +31,50 @@
 // results are held against bit for bit, are in ops/frontier_kernels.py.
 //
 // Everything is integer: scatter-max and scatter-add go through shared
-// memory atomics on integers, whose result does not depend on the order.
-// Ties follow jnp.argmax (first index): the keys pack (value, -index).
+// memory atomics on integers (also across a cluster, through distributed
+// shared memory), whose result does not depend on the order.  Ties follow
+// jnp.argmax (first index): the keys pack (value, -index).
 //
-// Shared memory.  Every per-variable scratch array is dynamic shared
-// memory sized by the launch (frontier_smem_bytes; the Python side's
-// smem_layout mirrors it).  The scan keeps its four int32 accumulation
-// planes there when they fit (V1 up to about 14,000) and otherwise
-// accumulates in their output buffers with global atomics; the union-cone
-// tier reaches V1 = 16385.
+// scan_rows.  Bound by bytes: it writes six [B, V1] int32 planes and
+// reads the lanes' assignments (12.6 MB at B = 64, V1 = 8193: 3.8 us at
+// the HBM rate); a full view also streams the C x K pool once per lane
+// through L2.  One block per lane could not get near that: at B = 64 half
+// the SMs idled, each block waited on two L2 loads per pool row, every
+// open row cost a shared atomic per unknown literal, and past V1 of about
+// 14,000 the planes left shared memory for global atomics.  Now each lane
+// runs on a thread-block cluster of S blocks (a power of two up to 8: the
+// smallest whose block fits and whose B x S blocks fill the card).  Block
+// r owns the vars [r Ws, (r + 1) Ws) of the four accumulation planes in
+// its shared memory and takes the other blocks' votes for them through
+// distributed shared memory, so the cone tier's V1 = 16385 fits at S = 2;
+// it keeps a full copy of the lane's assignment, scans every S-th tile of
+// pool rows, streamed into shared memory by cp.async.bulk on mbarriers,
+// two tiles in flight, and writes its slice of the six planes with
+// 16-byte stores.  A full view counts the scores the other way round: an
+// unknown var's score is its occurrences in the pool (counted once a solve)
+// less those in satisfied and unit rows, so only those rows take atomics.
+// Summed over the main path's own full views, that measured faster than
+// counting the open rows, also on views where most vars are assigned
+// (PERF.md, the scan's score ways).
 //
-// Bound.  A full view reads the C x K int32 pool once per lane (512 KiB at
-// C = 16384; all lanes share it through L2) and writes six [B, V1] int32
-// planes; a gather view reads fan x deg rows.  The per-lane planes
-// dominate the bytes: the kernels are memory-bound, and a design that
-// kept the planes sparse or fused the three launches would move fewer
-// bytes.  One block per lane leaves most SMs idle at B <= 64: a later
-// change.
+// round_epilogue.  Bound by the pending lanes' cascades (assign, spos and
+// sneg read, the settled vars written); the append is a few KB.  Each
+// block that needs the append stages the learned rows and the live pool in
+// shared memory, compares every pair on all 512 threads, and hands out the
+// slots by a block-wide exclusive scan, in lane order as the JAX cumsum.
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 // Field order must match ops/frontier_kernels.py (_PTR_FIELDS, _INT_FIELDS).
 struct FrontierArgs {
   const int32_t* lits;
   const int32_t* adj;
+  const int32_t* occ;  // [2][V1]: each var's positive, negative occurrences
   int32_t* extra;
   int32_t* ctl;
   int8_t* assign;
@@ -86,7 +107,7 @@ struct FrontierArgs {
   int32_t* okl;
   int32_t* flags;
   int B, V1, C, deg, D, learn_cap, E, fan, period, limit, watchdog,
-      uip_iters, resident, smem_planes, parity;
+      uip_iters, resident, parity;
 };
 
 namespace {
@@ -94,23 +115,57 @@ namespace {
 constexpr int kK = 8;             // clause row width (MAX_CLAUSE_WIDTH)
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kClusterBlocks = 128;  // a block on about every one of 132 SMs
+constexpr int kTileRows = kThreads;  // pool rows of a streamed tile
+constexpr int kStages = 2;           // tiles in flight
+// dynamic shared memory a block may take on sm_90 (227 KB), less 1 KB for
+// the kernels' static shared variables (ops/frontier_kernels.py mirrors it)
+constexpr int kMaxDynamicSmem = 232448 - 1024;
 enum { kIt = 0, kHalt = 1, kFull = 2, kStall = 3, kNextra = 4, kNctl = 8 };
 enum { kProgress = 1, kQueued = 2, kCascade = 4 };
 
 __host__ __device__ inline int align16(int n) { return (n + 15) & ~15; }
 
+// Vars of one cluster block's slice of the scan's planes (a multiple of 4).
+__host__ __device__ inline int slice_width(int V1, int S) {
+  return ((V1 + S - 1) / S + 3) & ~3;
+}
+
 enum { kScan = 0, kLane = 1, kEpilogue = 2 };
 
-// Dynamic shared memory of each kernel: scan = [4 int32 planes if
-// smem_planes] assignment bytes, queue bytes, popped vars; lane step =
-// two marks, the UIP walk's list (each resolution adds at most kK vars);
-// epilogue = the pool's var marks, each lane's append slot.
+// Dynamic shared memory of one scan block at cluster size S: its slice of
+// the four int32 planes, the pool tiles, the lane's assignment and queue
+// (each with 16 bytes of room, to sit at its global address mod 16), the
+// popped vars.
+int scan_smem(const FrontierArgs& a, int S) {
+  return 16 * slice_width(a.V1, S) + kStages * kTileRows * kK * 4 +
+         2 * (align16(a.V1) + 16) + align16(4 * a.fan);
+}
+
+// The scan's cluster size: the smallest power of two whose block fits and
+// whose B x S blocks fill the card (8 when none does); 0 when none fits.
+int scan_cluster(const FrontierArgs& a) {
+  for (int S = 1; S <= kMaxCluster; S *= 2)
+    if (scan_smem(a, S) <= kMaxDynamicSmem &&
+        (a.B * S >= kClusterBlocks || S == kMaxCluster))
+      return S;
+  return 0;
+}
+
+// Dynamic shared memory of each kernel: scan as above; lane step = two
+// marks, the UIP walk's list (each resolution adds at most kK vars);
+// epilogue = the pool's var marks and, in resident mode, the staged pool
+// and learned rows (E + B rows), the learning lanes, their duplicate marks
+// and each lane's slot.
 int smem_bytes(const FrontierArgs& a, int kernel) {
-  if (kernel == kScan)
-    return (a.smem_planes ? 16 * a.V1 : 0) + 2 * align16(a.V1) + 4 * a.fan;
+  if (kernel == kScan) {
+    const int S = scan_cluster(a);
+    return scan_smem(a, S ? S : kMaxCluster);
+  }
   if (kernel == kLane)
     return 2 * align16(a.V1) + 4 * kK * (a.uip_iters + 1);
-  return align16(a.V1) + 4 * a.B;
+  return align16(a.V1) + (a.resident ? 4 * kK * (a.E + a.B) + 12 * a.B : 0);
 }
 
 __device__ __forceinline__ void load_row(const int32_t* p, int (&l)[kK]) {
@@ -147,6 +202,36 @@ __device__ __forceinline__ unsigned long long block_max_u64(
   return v;
 }
 
+__device__ __forceinline__ int warp_inclusive_sum(int x) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// Exclusive prefix sum of x over the block's threads in thread order (warp
+// scans, then a scan over the kWarps warp totals); *total gets the sum.
+// Every thread of the block calls it; red holds kWarps + 1 ints.
+__device__ __forceinline__ int block_exclusive_sum(int x, int* red,
+                                                   int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int incl = warp_inclusive_sum(x);
+  __syncthreads();  // red may still be read from the last call
+  if (lane == 31) red[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kWarps ? red[lane] : 0;
+    const int wi = warp_inclusive_sum(w);
+    if (lane < kWarps) red[lane] = wi - w;
+    if (lane == kWarps - 1) red[kWarps] = wi;
+  }
+  __syncthreads();
+  *total = red[kWarps];
+  return red[warp] + incl - x;
+}
+
 // (value, -index) packed so that the maximum is the first maximal index.
 __device__ __forceinline__ unsigned long long arg_key(int value_plus1, int v) {
   return ((unsigned long long)(unsigned)value_plus1 << 32) |
@@ -156,14 +241,97 @@ __device__ __forceinline__ int key_index(unsigned long long key) {
   return 0x7fffffff - (int)(key & 0xffffffffu);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies n bytes from global into shared memory that sits at the same
+// address mod 16: a scalar head and tail around 16-byte copies.
+__device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src,
+                                           int n) {
+  const int head = min(n, (int)((16 - ((uintptr_t)src & 15)) & 15));
+  const int body = (n - head) >> 4;
+  const int4* s4 = reinterpret_cast<const int4*>(src + head);
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  for (int i = threadIdx.x; i < body; i += kThreads) d4[i] = s4[i];
+  for (int i = threadIdx.x; i < n - 16 * body; i += kThreads) {
+    const int j = i < head ? i : i + 16 * body;
+    dst[j] = src[j];
+  }
+}
+
+// Zeroes n bytes of global memory with 16-byte stores between a scalar
+// head and tail.
+__device__ __forceinline__ void zero_bytes(uint8_t* dst, int n) {
+  const int head = min(n, (int)((16 - ((uintptr_t)dst & 15)) & 15));
+  const int body = (n - head) >> 4;
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  for (int i = threadIdx.x; i < body; i += kThreads)
+    d4[i] = make_int4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < n - 16 * body; i += kThreads)
+    dst[i < head ? i : i + 16 * body] = 0;
+}
+
+// One bulk copy (cp.async.bulk) of `bytes`, a multiple of 16, from global
+// into this block's shared memory, completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// This block's slice of the scan's planes rpos, rneg, spos, sneg
+// ([4][Ws] int32 in its shared memory) and its rank in the cluster.
+struct Planes {
+  int* s;
+  int Ws, rank;
+};
+
+// Var v's entry of plane p (0 rpos, 1 rneg: max; 2 spos, 3 sneg: add) in
+// the cluster block that owns v.
+__device__ __forceinline__ void vote(const Planes& pl, int p, int v,
+                                     int value) {
+  const int owner = v / pl.Ws;
+  int* slot = pl.s + p * pl.Ws + (v - owner * pl.Ws);
+  if (owner == pl.rank) {
+    if (p < 2) atomicMax(slot, value);
+    else atomicAdd(slot, value);
+  } else {
+    int* remote = cg::this_cluster().map_shared_rank(slot, owner);
+    if (p < 2) atomicMax(remote, value);
+    else atomicAdd(remote, value);
+  }
+}
+
 // One clause row against the lane's assignment (make_scan_rows): unit rows
-// vote their literal (max of row id + 1), an all-false row is a conflict,
-// open rows add their unknown literals to the scores.
+// vote their literal (max of row id + 1), an all-false row is a conflict
+// (max into `conf`, block 0's).  With `scores` the score planes count the
+// unknown literals of satisfied and unit rows, which the write-out takes
+// from the pool's occurrence counts to leave those of the open rows.
 __device__ __forceinline__ void eval_row(const int (&l)[kK], int id1,
                                          bool scores, int V1,
-                                         const int8_t* sA, int* s_rpos,
-                                         int* s_rneg, int* s_spos,
-                                         int* s_sneg, int* s_conf) {
+                                         const int8_t* sA, const Planes& pl,
+                                         int* conf) {
   int val[kK];
   int nunk = 0, unk = 0;
   bool real = false, sat = false, all_false = true;
@@ -184,128 +352,202 @@ __device__ __forceinline__ void eval_row(const int (&l)[kK], int id1,
     if (s >= 0) all_false = false;
   }
   if (!real) return;
-  if (all_false) atomicMax(s_conf, id1);
-  if (sat) return;
-  if (nunk == 1) {
-    const int v = min(abs(unk), V1 - 1);
-    atomicMax(unk > 0 ? s_rpos + v : s_rneg + v, id1);
-  } else if (scores && nunk > 1) {
+  if (all_false) atomicMax(conf, id1);
+  if (!sat && nunk == 1) vote(pl, unk > 0 ? 0 : 1, min(abs(unk), V1 - 1), id1);
+  if (scores && (sat || nunk == 1)) {
 #pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      if (l[k] != 0 && val[k] == 0) {
-        const int v = min(abs(l[k]), V1 - 1);
-        atomicAdd(l[k] > 0 ? s_spos + v : s_sneg + v, 1);
-      }
-    }
+    for (int k = 0; k < kK; ++k)
+      if (l[k] != 0 && val[k] == 0)
+        vote(pl, l[k] > 0 ? 2 : 3, min(abs(l[k]), V1 - 1), 1);
   }
 }
 
-// kSmemPlanes: the reason-row and score planes accumulate in shared memory
-// (else in the output buffers rpos/rneg/spos/sneg themselves).
-template <bool kSmemPlanes>
+// Pops the `fan` largest queued vars of the lane (lax.top_k over the queued
+// ids, frontier.py:270).  The queue's bytes sit in `room` at offset
+// `shift`; each thread counts the queued vars of its run of 16-byte
+// chunks, from the top chunk down, and an exclusive scan of the counts
+// ranks them from the largest id down.  Clears the popped vars in
+// `recent`; returns how many it popped.  Every thread of the block calls
+// it.
+__device__ int pop_queue(const uint8_t* room, int shift, uint8_t* recent,
+                         int V1, int fan, int* picked, int* red) {
+  const int nchunks = (shift + V1 + 15) >> 4;
+  const int per = (nchunks + kThreads - 1) / kThreads;
+  const int top = nchunks - 1 - (int)threadIdx.x * per;
+  const int bottom = max(top - per + 1, 0);
+  // bit j: byte 16 c + j holds a queued var (ids 1 .. V1 - 1)
+  auto queued = [&](int c) {
+    const int4 x = reinterpret_cast<const int4*>(room)[c];
+    const unsigned w[4] = {__vcmpne4(x.x, 0u), __vcmpne4(x.y, 0u),
+                           __vcmpne4(x.z, 0u), __vcmpne4(x.w, 0u)};
+    unsigned m = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      m |= (((w[q] >> 7) & 1u) | ((w[q] >> 14) & 2u) | ((w[q] >> 21) & 4u) |
+            ((w[q] >> 28) & 8u)) << (4 * q);
+    const int lo = max(0, shift + 1 - 16 * c), hi = min(16, shift + V1 - 16 * c);
+    return hi > lo ? m & (((1u << hi) - 1u) & ~((1u << lo) - 1u)) : 0u;
+  };
+  int n = 0;
+  for (int c = top; c >= bottom; --c) n += __popc(queued(c));
+  int total;
+  int rank = block_exclusive_sum(n, red, &total);
+  for (int c = top; c >= bottom && rank < fan; --c) {
+    for (unsigned m = queued(c); m && rank < fan;) {
+      const int j = 31 - __clz(m);  // the largest id first
+      m &= ~(1u << j);
+      const int v = 16 * c + j - shift;
+      picked[rank++] = v;
+      recent[v] = 0;
+    }
+  }
+  return min(total, fan);
+}
+
 __global__ void __launch_bounds__(kThreads) scan_rows_kernel(FrontierArgs a) {
   const int* ctl = a.ctl + a.parity * kNctl;
   if (ctl[kHalt]) return;
-  extern __shared__ int4 smem4[];
-  const int V1 = a.V1;
-  const int b = blockIdx.x, tid = threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int V1 = a.V1, tid = threadIdx.x;
+  const int b = blockIdx.x / S;
   const size_t off = (size_t)b * V1;
-  int *s_rpos, *s_rneg, *s_spos, *s_sneg;
-  int8_t* sA;
-  if (kSmemPlanes) {
-    s_rpos = reinterpret_cast<int*>(smem4);
-    s_rneg = s_rpos + V1;
-    s_spos = s_rneg + V1;
-    s_sneg = s_spos + V1;
-    sA = reinterpret_cast<int8_t*>(s_sneg + V1);
-  } else {
-    s_rpos = a.rpos + off;
-    s_rneg = a.rneg + off;
-    s_spos = a.spos + off;
-    s_sneg = a.sneg + off;
-    sA = reinterpret_cast<int8_t*>(smem4);
-  }
-  uint8_t* sR = reinterpret_cast<uint8_t*>(sA + align16(V1));
-  int* s_picked = reinterpret_cast<int*>(sR + align16(V1));
-  __shared__ int s_conf;
-  __shared__ int s_npicked;
-  const bool full = ctl[kFull] != 0;
-  uint8_t* recent = a.recent + off;
-  for (int v = tid; v < V1; v += kThreads) {
-    s_rpos[v] = 0;
-    s_rneg[v] = 0;
-    s_spos[v] = 0;
-    s_sneg[v] = 0;
-    sA[v] = a.assign[off + v];
-    sR[v] = full ? 0 : recent[v];
-  }
-  if (tid == 0) {
-    s_conf = 0;
-    s_npicked = 0;
-  }
-  __syncthreads();
+  const int Ws = slice_width(V1, S);
+  const int v0 = rank * Ws, nown = max(0, min(Ws, V1 - v0));
+  const bool full = ctl[kFull] != 0, lead = rank == 0;
 
+  extern __shared__ int4 smem4[];
+  int* s_planes = reinterpret_cast<int*>(smem4);
+  int4* s_tiles = smem4 + Ws;  // after the 4 Ws plane ints
+  uint8_t* a_room =
+      reinterpret_cast<uint8_t*>(s_tiles + kStages * kTileRows * 2);
+  uint8_t* r_room = a_room + align16(V1) + 16;
+  int* s_picked = reinterpret_cast<int*>(r_room + align16(V1) + 16);
+  const int8_t* gA = a.assign + off;
+  uint8_t* recent = a.recent + off;
+  int8_t* sA = reinterpret_cast<int8_t*>(a_room + ((uintptr_t)gA & 15));
+  uint8_t* sR = r_room + ((uintptr_t)recent & 15);
+  __shared__ int s_conf, s_npicked;
+  __shared__ int red[kWarps + 1];
+  __shared__ uint64_t s_bar[kStages];
+
+  // this block's tiles of the pool on a full view: rank, rank + S, ...
+  const int ntiles = (a.C + kTileRows - 1) / kTileRows;
+  const int mytiles = full && rank < ntiles ? (ntiles - rank + S - 1) / S : 0;
+  auto issue = [&](int k) {
+    const int t = rank + k * S;
+    const int rows = min(kTileRows, a.C - t * kTileRows);
+    bulk_load(s_tiles + (k % kStages) * kTileRows * 2,
+              a.lits + (size_t)t * kTileRows * kK, rows * kK * 4,
+              &s_bar[k % kStages]);
+  };
+  if (tid == 0 && mytiles) {
+    for (int k = 0; k < kStages; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(&s_bar[k]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < min(kStages, mytiles); ++k) issue(k);
+  }
+
+  if (tid == 0) s_conf = 0;
+  for (int i = tid; i < Ws; i += kThreads) smem4[i] = make_int4(0, 0, 0, 0);
+  copy_bytes(reinterpret_cast<uint8_t*>(sA),
+             reinterpret_cast<const uint8_t*>(gA), V1);
   if (full) {
-    for (int v = tid; v < V1; v += kThreads) recent[v] = 0;
-    for (int r = tid; r < a.C; r += kThreads) {
-      int l[kK];
-      load_row(a.lits + (size_t)r * kK, l);
-      eval_row(l, r + 1, true, V1, sA, s_rpos, s_rneg, s_spos, s_sneg,
-               &s_conf);
+    zero_bytes(recent + v0, nown);  // each block clears its slice
+  } else if (lead) {
+    copy_bytes(sR, recent, V1);
+    __syncthreads();
+    const int n = pop_queue(r_room, (int)((uintptr_t)recent & 15), recent,
+                            V1, a.fan, s_picked, red);
+    if (tid == 0) s_npicked = n;
+  }
+  cluster.sync();  // planes zeroed, barriers set up, queue popped
+
+  const Planes pl{s_planes, Ws, rank};
+  int* conf = cluster.map_shared_rank(&s_conf, 0);
+  if (full) {
+    for (int k = 0; k < mytiles; ++k) {
+      const int stage = k % kStages;
+      mbar_wait(&s_bar[stage], (k / kStages) & 1);
+      for (int i = tid; i < kTileRows; i += kThreads) {
+        const int r = (rank + k * S) * kTileRows + i;
+        if (r >= a.C) break;
+        int l[kK];
+        load_row(reinterpret_cast<const int32_t*>(
+                     s_tiles + (stage * kTileRows + i) * 2),
+                 l);
+        eval_row(l, r + 1, true, V1, sA, pl, conf);
+      }
+      __syncthreads();  // the stage is free for tile k + kStages
+      if (tid == 0 && k + kStages < mytiles) issue(k + kStages);
     }
   } else {
-    // warp 0 pops the `fan` largest queued vars (lax.top_k over the ids)
-    if (tid < 32) {
-      int count = 0;
-      for (int base = V1 - 1; base >= 1 && count < a.fan; base -= 32) {
-        const int v = base - tid;
-        const bool q = v >= 1 && sR[v];
-        const unsigned m = __ballot_sync(0xffffffffu, q);
-        if (q) {
-          const int rank = count + __popc(m & ((1u << tid) - 1u));
-          if (rank < a.fan) {
-            s_picked[rank] = v;
-            recent[v] = 0;
-          }
-        }
-        count += __popc(m);
-      }
-      if (tid == 0) s_npicked = min(count, a.fan);
-    }
-    __syncthreads();
-    const int n = s_npicked * a.deg;
-    for (int i = tid; i < n; i += kThreads) {
-      const int rid =
-          a.adj[(size_t)s_picked[i / a.deg] * a.deg + (i % a.deg)];
+    const int* picked = cluster.map_shared_rank(s_picked, 0);
+    const int n = *cluster.map_shared_rank(&s_npicked, 0) * a.deg;
+    for (int i = rank + S * tid; i < n; i += S * kThreads) {
+      const int rid = a.adj[(size_t)picked[i / a.deg] * a.deg + (i % a.deg)];
       if (rid < 0) continue;
       int l[kK];
       load_row(a.lits + (size_t)rid * kK, l);
-      eval_row(l, rid + 1, false, V1, sA, s_rpos, s_rneg, s_spos, s_sneg,
-               &s_conf);
+      eval_row(l, rid + 1, false, V1, sA, pl, conf);
     }
   }
   if (a.resident) {
     const int ne = ctl[kNextra];
-    for (int e = tid; e < ne; e += kThreads) {
+    for (int e = rank + S * tid; e < ne; e += S * kThreads) {
       int l[kK];
       load_row(a.extra + (size_t)e * kK, l);
-      eval_row(l, a.C + e + 1, false, V1, sA, s_rpos, s_rneg, s_spos, s_sneg,
-               &s_conf);
+      eval_row(l, a.C + e + 1, false, V1, sA, pl, conf);
     }
   }
-  __syncthreads();
-  for (int v = tid; v < V1; v += kThreads) {
-    const int rp = s_rpos[v], rn = s_rneg[v];
-    a.fpos[off + v] = rp > 0;
-    a.fneg[off + v] = rn > 0;
-    if (kSmemPlanes) {
-      a.rpos[off + v] = rp;
-      a.rneg[off + v] = rn;
-      a.spos[off + v] = s_spos[v];
-      a.sneg[off + v] = s_sneg[v];
+  cluster.sync();  // every vote has landed
+
+  // this block's slice of the six planes: 16-byte stores where the lane's
+  // row allows, scalars at the ends
+  const int* rp = s_planes;
+  const int* rn = rp + Ws;
+  int* sp = s_planes + 2 * Ws;
+  int* sn = sp + Ws;
+  if (full) {  // an unknown var's score: its occurrences less the closed
+    for (int i = tid; i < nown; i += kThreads) {
+      const bool unknown = sA[v0 + i] == 0;
+      sp[i] = unknown ? a.occ[v0 + i] - sp[i] : 0;
+      sn[i] = unknown ? a.occ[V1 + v0 + i] - sn[i] : 0;
     }
+    __syncthreads();
   }
-  if (tid == 0) {
+  const size_t g0 = off + v0;
+  const int head = min(nown, (int)((4 - (g0 & 3)) & 3));
+  const int quads = (nown - head) >> 2;
+  for (int q = tid; q < quads; q += kThreads) {
+    const int i = head + 4 * q;
+    const int4 p = make_int4(rp[i], rp[i + 1], rp[i + 2], rp[i + 3]);
+    const int4 n = make_int4(rn[i], rn[i + 1], rn[i + 2], rn[i + 3]);
+    const size_t g = g0 + i;
+    *reinterpret_cast<int4*>(a.fpos + g) =
+        make_int4(p.x > 0, p.y > 0, p.z > 0, p.w > 0);
+    *reinterpret_cast<int4*>(a.fneg + g) =
+        make_int4(n.x > 0, n.y > 0, n.z > 0, n.w > 0);
+    *reinterpret_cast<int4*>(a.rpos + g) = p;
+    *reinterpret_cast<int4*>(a.rneg + g) = n;
+    *reinterpret_cast<int4*>(a.spos + g) =
+        make_int4(sp[i], sp[i + 1], sp[i + 2], sp[i + 3]);
+    *reinterpret_cast<int4*>(a.sneg + g) =
+        make_int4(sn[i], sn[i + 1], sn[i + 2], sn[i + 3]);
+  }
+  for (int j = tid; j < nown - 4 * quads; j += kThreads) {
+    const int i = j < head ? j : j + 4 * quads;
+    const size_t g = g0 + i;
+    a.fpos[g] = rp[i] > 0;
+    a.fneg[g] = rn[i] > 0;
+    a.rpos[g] = rp[i];
+    a.rneg[g] = rn[i];
+    a.spos[g] = sp[i];
+    a.sneg[g] = sn[i];
+  }
+  if (lead && tid == 0) {
     a.conflict[b] = s_conf > 0;
     a.crow[b] = s_conf - 1;
   }
@@ -618,11 +860,17 @@ __global__ void __launch_bounds__(kThreads) lane_step_kernel(FrontierArgs a) {
   }
 }
 
+__device__ __forceinline__ bool rows_equal(const int4* x, const int4* y) {
+  const int4 a0 = x[0], a1 = x[1], b0 = y[0], b1 = y[1];
+  return a0.x == b0.x && a0.y == b0.y && a0.z == b0.z && a0.w == b0.w &&
+         a1.x == b1.x && a1.y == b1.y && a1.z == b1.z && a1.w == b1.w;
+}
+
 __global__ void __launch_bounds__(kThreads)
     round_epilogue_kernel(FrontierArgs a) {
   const int* cur = a.ctl + a.parity * kNctl;
   int* nxt = a.ctl + (1 - a.parity) * kNctl;
-  const int b = blockIdx.x, tid = threadIdx.x, B = a.B, V1 = a.V1;
+  const int b = blockIdx.x, tid = threadIdx.x, B = a.B, V1 = a.V1, E = a.E;
   if (cur[kHalt]) {
     if (b == 0 && tid < kNctl) nxt[tid] = cur[tid];
     return;
@@ -632,86 +880,128 @@ __global__ void __launch_bounds__(kThreads)
   if (!lead && !pending) return;
   extern __shared__ int4 smem4[];
   uint8_t* in_extra = reinterpret_cast<uint8_t*>(smem4);
-  int* s_slot = reinterpret_cast<int*>(in_extra + align16(V1));  // -1 none
-  __shared__ int s_ne1;
+  // resident: the live pool rows at 0.., the lanes' learned rows at E..
+  // (two int4 a row), the learning lanes in lane order, their duplicate
+  // marks, each lane's slot (-1: not appended)
+  int4* s_rows = reinterpret_cast<int4*>(in_extra + align16(V1));
+  int* s_list = reinterpret_cast<int*>(s_rows + 2 * (E + B));
+  int* s_dup = s_list + B;
+  int* s_slot = s_dup + B;
+  __shared__ int red[kWarps + 1];
   const int ne = cur[kNextra];
+  int ne1 = ne;
 
   // the append (resident): lane order, dedup against the live pool and
   // against earlier lanes, consecutive slots, overflow dropped.  Every
   // block that needs it computes it; only block 0 writes the pool, and
   // only rows >= ne, which no other block reads.
   if (a.resident) {
-    for (int j = tid; j < B; j += kThreads) {
-      const int32_t* row = a.litrow + (size_t)j * kK;
-      bool ok = a.okl[j] != 0;
-      bool nz = false;
-      for (int k = 0; k < kK; ++k) nz |= row[k] != 0;
-      ok = ok && nz;
-      for (int e = 0; ok && e < ne; ++e) {
-        bool same = true;
-        for (int k = 0; k < kK; ++k) same &= a.extra[(size_t)e * kK + k] == row[k];
-        ok = !same;
+    const int4* gx = reinterpret_cast<const int4*>(a.extra);
+    const int4* gl = reinterpret_cast<const int4*>(a.litrow);
+    for (int i = tid; i < 2 * ne; i += kThreads) s_rows[i] = gx[i];
+    for (int i = tid; i < 2 * B; i += kThreads) s_rows[2 * E + i] = gl[i];
+    __syncthreads();
+    int nl = 0;  // lanes that learned a nonzero row
+    for (int base = 0; base < B; base += kThreads) {
+      const int j = base + tid;
+      bool ok = false;
+      if (j < B) {
+        s_slot[j] = -1;
+        const int4 x = s_rows[2 * (E + j)], y = s_rows[2 * (E + j) + 1];
+        ok = a.okl[j] != 0 &&
+             (x.x | x.y | x.z | x.w | y.x | y.y | y.z | y.w) != 0;
       }
-      for (int i = 0; ok && i < j; ++i) {
-        if (!a.okl[i]) continue;
-        bool same = true;
-        for (int k = 0; k < kK; ++k) same &= a.litrow[(size_t)i * kK + k] == row[k];
-        ok = !same;
+      int total;
+      const int pos = block_exclusive_sum(ok, red, &total);
+      if (ok) {
+        s_list[nl + pos] = j;
+        s_dup[nl + pos] = 0;
       }
-      s_slot[j] = ok;
+      nl += total;
     }
     __syncthreads();
-    if (tid == 0) {
-      int c = ne;
-      for (int j = 0; j < B; ++j) {
-        if (s_slot[j]) {
-          s_slot[j] = c < a.E ? c : -1;
-          ++c;
-        } else {
-          s_slot[j] = -1;
-        }
-      }
-      s_ne1 = min(a.E, c);
+    // every pair (learning lane, live pool row or earlier learning lane);
+    // an okl lane whose row is zero matches no nonzero row
+    const int width = ne + nl;
+    for (int p = tid; p < nl * width; p += kThreads) {
+      const int i = p / width, m = p - i * width;
+      if (m >= ne && m - ne >= i) continue;
+      const int other = m < ne ? m : E + s_list[m - ne];
+      if (rows_equal(s_rows + 2 * (E + s_list[i]), s_rows + 2 * other))
+        s_dup[i] = 1;
     }
+    __syncthreads();
+    // consecutive slots from ne, by an exclusive scan in lane order
+    int kept = 0;
+    for (int base = 0; base < nl; base += kThreads) {
+      const int i = base + tid;
+      const bool keep = i < nl && !s_dup[i];
+      int total;
+      const int pos = block_exclusive_sum(keep, red, &total);
+      if (keep) {
+        const int slot = ne + kept + pos;
+        s_slot[s_list[i]] = slot < E ? slot : -1;
+      }
+      kept += total;
+    }
+    ne1 = min(E, ne + kept);
     __syncthreads();
     if (lead) {
-      for (int i = tid; i < B * kK; i += kThreads) {
-        const int slot = s_slot[i / kK];
-        if (slot >= 0) a.extra[(size_t)slot * kK + i % kK] = a.litrow[i];
+      int4* gxw = reinterpret_cast<int4*>(a.extra);
+      for (int i = tid; i < 2 * B; i += kThreads) {
+        const int slot = s_slot[i >> 1];
+        if (slot >= 0) gxw[2 * slot + (i & 1)] = s_rows[2 * E + i];
       }
     }
-  } else if (tid == 0) {
-    s_ne1 = ne;
   }
-  __syncthreads();
-  const int ne1 = s_ne1;
 
   if (pending) {
     // the don't-care cascade of lane b's decision on a full view: free
     // vars in no open clause, minus the vars of the pool after the append
-    for (int v = tid; v < V1; v += kThreads) in_extra[v] = 0;
+    for (int i = tid; i < align16(V1) / 16; i += kThreads)
+      smem4[i] = make_int4(0, 0, 0, 0);
     __syncthreads();
+    const int32_t* pool =
+        a.resident ? reinterpret_cast<const int32_t*>(s_rows) : a.extra;
     for (int i = tid; i < ne * kK; i += kThreads) {
-      const int l = a.extra[i];
+      const int l = pool[i];
       if (l) in_extra[min(abs(l), V1 - 1)] = 1;
     }
     if (a.resident) {
+      const int32_t* lr = reinterpret_cast<const int32_t*>(s_rows + 2 * E);
       for (int i = tid; i < B * kK; i += kThreads) {
-        const int l = a.litrow[i];
+        const int l = lr[i];
         if (l && s_slot[i / kK] >= 0) in_extra[min(abs(l), V1 - 1)] = 1;
       }
     }
     __syncthreads();
     const size_t off = (size_t)b * V1;
     const int depth = a.depth[b], stamp = a.stamp[b];
-    for (int v = 2 + tid; v < V1; v += kThreads) {
-      if (a.assign[off + v] == 0 && a.spos[off + v] + a.sneg[off + v] == 0 &&
-          !in_extra[v]) {
+    auto settle = [&](int v, int assigned, int score) {
+      if (v >= 2 && !assigned && !score && !in_extra[v]) {
         a.assign[off + v] = 1;
         a.lvl[off + v] = depth;
         a.reason[off + v] = -1;
         a.tpos[off + v] = stamp;
       }
+    };
+    // assign (4 bytes), spos and sneg (16 bytes) of four vars a load where
+    // the lane's row allows, scalars at the ends
+    const int head = min(V1, (int)((4 - (off & 3)) & 3));
+    const int quads = (V1 - head) >> 2;
+    for (int q = tid; q < quads; q += kThreads) {
+      const int v = head + 4 * q;
+      const unsigned A4 = *reinterpret_cast<const unsigned*>(a.assign + off + v);
+      const int4 p = *reinterpret_cast<const int4*>(a.spos + off + v);
+      const int4 n = *reinterpret_cast<const int4*>(a.sneg + off + v);
+      settle(v, A4 & 0xffu, p.x + n.x);
+      settle(v + 1, A4 & 0xff00u, p.y + n.y);
+      settle(v + 2, A4 & 0xff0000u, p.z + n.z);
+      settle(v + 3, A4 & 0xff000000u, p.w + n.w);
+    }
+    for (int j = tid; j < V1 - 4 * quads; j += kThreads) {
+      const int v = j < head ? j : j + 4 * quads;
+      settle(v, a.assign[off + v], a.spos[off + v] + a.sneg[off + v]);
     }
   }
 
@@ -747,25 +1037,33 @@ int checked(const FrontierArgs* a) {
       a->fan < 1 || a->fan > a->V1 || a->uip_iters < 0 || a->period < 1 ||
       a->learn_cap < 1 || (a->resident && a->E < 1))
     return 0;
+  // the 16-byte loads and bulk copies of pool, shared and learned rows
+  if (((uintptr_t)a->lits | (uintptr_t)a->extra | (uintptr_t)a->litrow) & 15)
+    return 0;
   return 1;
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int smem, int* configured, const FrontierArgs* a,
-           void* stream) {
-  if (!checked(a)) return (int)cudaErrorInvalidValue;
+int configure(const void* kernel, int smem, int* configured) {
   if (smem > *configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     *configured = smem;
   }
+  return 0;
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, int smem, int* configured, const FrontierArgs* a,
+           void* stream) {
+  if (!checked(a)) return (int)cudaErrorInvalidValue;
+  if (const int err = configure((const void*)kernel, smem, configured))
+    return err;
   kernel<<<a->B, kThreads, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
-int scan_smem_configured = 0, scan_global_configured = 0;
-int lane_configured = 0, epilogue_configured = 0;
+int scan_configured = 0, lane_configured = 0, epilogue_configured = 0;
 
 }  // namespace
 
@@ -774,12 +1072,27 @@ extern "C" {
 // Plain C entry points (bound with ctypes).  Each returns the cudaError_t
 // of its launch; 0 means the kernel was queued on `stream`.
 int frontier_scan_rows_launch(const FrontierArgs* a, void* stream) {
-  const int smem = smem_bytes(*a, kScan);
-  if (a->smem_planes)
-    return launch(scan_rows_kernel<true>, smem, &scan_smem_configured, a,
-                  stream);
-  return launch(scan_rows_kernel<false>, smem, &scan_global_configured, a,
-                stream);
+  const int S = scan_cluster(*a);
+  if (!checked(a) || !S) return (int)cudaErrorInvalidValue;
+  const int smem = scan_smem(*a, S);
+  if (const int err =
+          configure((const void*)scan_rows_kernel, smem, &scan_configured))
+    return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = S;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(a->B * S);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = (cudaStream_t)stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, scan_rows_kernel, *a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 int frontier_lane_step_launch(const FrontierArgs* a, void* stream) {
@@ -798,5 +1111,8 @@ int frontier_width() { return kK; }
 int frontier_smem_bytes(const FrontierArgs* a, int kernel) {
   return smem_bytes(*a, kernel);
 }
+
+// Cluster size of the scan (0: no block fits).
+int frontier_scan_cluster(const FrontierArgs* a) { return scan_cluster(*a); }
 
 }  // extern "C"

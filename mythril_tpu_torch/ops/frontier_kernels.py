@@ -69,6 +69,11 @@ WIDTH = 8
 #: dynamic shared memory a block may take on sm_90: 227 KB, less 1 KB
 #: for the kernels' static shared variables
 MAX_DYNAMIC_SMEM = 232448 - 1024
+#: the scan's cluster: at most 8 blocks a lane, enough lanes x blocks for
+#: about every one of the card's 132 SMs
+MAX_CLUSTER, CLUSTER_BLOCKS = 8, 128
+#: the scan's pool tiles in flight: two of 512 rows
+SCAN_TILES_BYTES = 2 * 512 * WIDTH * 4
 
 #: kernel launches since the last reset, by kernel (each wrapper adds
 #: one per launch and nowhere else)
@@ -106,13 +111,14 @@ class Loop:
     ``lits [C, K]``, their adjacency ``adj [V1, deg]``, the shared
     learned rows ``extra``, the control words ``ctl``, the lane state
     ``lane`` (FRONTIER_STATE_FIELDS) and the scratch ``buf``, all on one
-    device.  ``args`` is the kernels' argument struct on the card."""
+    device.  ``args`` is the kernels' argument struct on the card and
+    ``occ`` the pool's occurrence counts it points to."""
 
     def __init__(self, lits, adj, extra, ctl, lane: dict, buf: dict,
                  cfg: StepConfig):
         self.lits, self.adj, self.extra, self.ctl = lits, adj, extra, ctl
         self.lane, self.buf, self.cfg = lane, buf, cfg
-        self.args = None
+        self.args = self.occ = None
 
     def to(self, device) -> "Loop":
         """A copy of every tensor on ``device``."""
@@ -562,7 +568,7 @@ PLAIN = {"scan_rows": _scan_rows_plain, "lane_step": _lane_step_plain,
 
 #: field order of ``struct FrontierArgs`` in csrc/frontier.cu
 _PTR_FIELDS = (
-    "lits", "adj", "extra", "ctl",
+    "lits", "adj", "occ", "extra", "ctl",
     "assign", "lvl", "reason", "tpos", "dvar", "dphase", "dflip",
     "depth", "status", "stamp", "recent", "cspos", "csneg",
     "fullsw", "fsteps", "nlearn", "learned", "pref",
@@ -571,7 +577,7 @@ _PTR_FIELDS = (
 )
 _INT_FIELDS = (
     "B", "V1", "C", "deg", "D", "learn_cap", "E", "fan", "period", "limit",
-    "watchdog", "uip_iters", "resident", "smem_planes", "parity",
+    "watchdog", "uip_iters", "resident", "parity",
 )
 #: kernel ids of ``frontier_smem_bytes``
 KERNEL_IDS = {"scan_rows": 0, "lane_step": 1, "round_epilogue": 2}
@@ -595,30 +601,39 @@ _VECTORS = ("depth", "status", "stamp", "fullsw", "fsteps", "nlearn",
             "conflict", "crow", "okl", "flags")
 
 
-def smem_layout(B: int, V1: int, fan: int, uip_iters: int) -> dict:
-    """Dynamic shared memory of each kernel in bytes, as
-    ``csrc/frontier.cu`` lays it out, and whether the scan keeps its
-    four int32 planes (reason rows and scores) in shared memory; when
-    they do not fit (``V1`` past about 14,000) it accumulates them in
-    their output buffers instead.  Raises ValueError for shapes no
-    layout fits."""
+def smem_layout(B: int, V1: int, fan: int, uip_iters: int,
+                extra_cap: int = 0) -> dict:
+    """Dynamic shared memory of each kernel's block in bytes, as
+    ``csrc/frontier.cu`` lays it out, and the scan's cluster size: each
+    lane's scan runs on a cluster of ``cluster`` blocks (a power of two up
+    to 8, the smallest whose block fits and whose ``B x cluster`` blocks
+    fill the card), each holding a ``1 / cluster`` slice of the four int32
+    accumulation planes.  ``extra_cap`` is the resident pool's size (0
+    outside resident mode): the epilogue stages it with the lanes'
+    learned rows.  Raises ValueError for shapes no layout fits."""
     def a16(n):
         return (n + 15) & ~15
 
-    scan = 2 * a16(V1) + 4 * fan
-    planes = scan + 16 * V1 <= MAX_DYNAMIC_SMEM
+    def scan(S):  # the planes' slice, pool tiles, assignment, queue, picks
+        return (16 * ((-(-V1 // S) + 3) & ~3) + SCAN_TILES_BYTES
+                + 2 * (a16(V1) + 16) + a16(4 * fan))
+
+    cluster = next((S for S in (1, 2, 4, MAX_CLUSTER)
+                    if scan(S) <= MAX_DYNAMIC_SMEM
+                    and (B * S >= CLUSTER_BLOCKS or S == MAX_CLUSTER)), 0)
+    staged = 4 * WIDTH * (extra_cap + B) + 12 * B if extra_cap else 0
     layout = {
-        "scan_rows": scan + (16 * V1 if planes else 0),
+        "scan_rows": scan(cluster or MAX_CLUSTER),
         "lane_step": 2 * a16(V1) + 4 * WIDTH * (uip_iters + 1),
-        "round_epilogue": a16(V1) + 4 * B,
+        "round_epilogue": a16(V1) + staged,
     }
     for name, size in layout.items():
         if size > MAX_DYNAMIC_SMEM:
             raise ValueError(
                 f"frontier {name}: B={B} V1={V1} fan={fan} "
-                f"uip_iters={uip_iters} need {size} bytes of shared "
-                f"memory; a block has {MAX_DYNAMIC_SMEM}")
-    layout["planes_in_smem"] = planes
+                f"uip_iters={uip_iters} extra_cap={extra_cap} need {size} "
+                f"bytes of shared memory; a block has {MAX_DYNAMIC_SMEM}")
+    layout["cluster"] = cluster
     return layout
 
 
@@ -648,11 +663,24 @@ def load_library() -> ctypes.CDLL:
             lib.frontier_smem_bytes.argtypes = [ctypes.POINTER(FrontierArgs),
                                                 ctypes.c_int]
             lib.frontier_smem_bytes.restype = ctypes.c_int
+            lib.frontier_scan_cluster.argtypes = [ctypes.POINTER(FrontierArgs)]
+            lib.frontier_scan_cluster.restype = ctypes.c_int
             lib.frontier_width.restype = ctypes.c_int
             if lib.frontier_width() != WIDTH:
                 raise RuntimeError("frontier.cu: clause width mismatch")
             _lib = lib
     return _lib
+
+
+def pool_occurrences(lits: torch.Tensor, V1: int) -> torch.Tensor:
+    """[2, V1] int32: how often each var occurs positively (row 0) and
+    negatively (row 1) in the pool rows ``lits``, vars clamped as the scan
+    clamps them.  On a full view the scan kernel takes an unknown var's
+    score from it, less the var's occurrences in closed rows."""
+    flat = lits.reshape(-1)
+    var = flat.abs().clamp(max=V1 - 1).long() + (flat < 0).long() * V1
+    return torch.zeros(2 * V1, dtype=torch.int32, device=lits.device) \
+        .index_add_(0, var, (flat != 0).to(torch.int32)).reshape(2, V1)
 
 
 def _bind(loop: Loop) -> FrontierArgs:
@@ -664,6 +692,8 @@ def _bind(loop: Loop) -> FrontierArgs:
     tensors.update(loop.buf)
     tensors.update(lits=loop.lits, adj=loop.adj, extra=loop.extra,
                    ctl=loop.ctl)
+    loop.occ = tensors["occ"] = pool_occurrences(
+        loop.lits, loop.lane["assign"].shape[1])
     device = loop.ctl.device
     for key in _PTR_FIELDS:
         t = tensors[key]
@@ -678,6 +708,7 @@ def _bind(loop: Loop) -> FrontierArgs:
     D = loop.lane["dvar"].shape[1]
     C, deg = loop.lits.shape[0], loop.adj.shape[1]
     shapes = {"lits": (C, WIDTH), "adj": (V1, deg), "ctl": (2, NCTL),
+              "occ": (2, V1),
               "learned": (B, cfg.learn_cap, WIDTH), "litrow": (B, WIDTH)}
     shapes.update({k: (B, V1) for k in _PLANES})
     shapes.update({k: (B, D) for k in _DECISIONS})
@@ -693,7 +724,12 @@ def _bind(loop: Loop) -> FrontierArgs:
     ):
         raise ValueError(f"frontier kernels: bad sizes B={B} V1={V1} C={C}")
     fan = max(1, min(cfg.fan, V1))
-    layout = smem_layout(B, V1, fan, cfg.uip_iters)
+    E = cfg.extra_cap if cfg.resident else 0
+    smem_layout(B, V1, fan, cfg.uip_iters, E)
+    for key in ("lits", "extra", "litrow"):
+        if tensors[key].data_ptr() % 16:
+            raise ValueError(f"frontier kernels: {key} is not 16-byte "
+                             f"aligned")
     load_library()
     args = FrontierArgs()
     for key in _PTR_FIELDS:
@@ -701,10 +737,10 @@ def _bind(loop: Loop) -> FrontierArgs:
     ints = {
         "B": B, "V1": V1, "C": C, "deg": deg, "D": D,
         "learn_cap": cfg.learn_cap,
-        "E": cfg.extra_cap if cfg.resident else 0, "fan": fan,
+        "E": E, "fan": fan,
         "period": cfg.period, "limit": cfg.limit, "watchdog": cfg.watchdog,
         "uip_iters": cfg.uip_iters, "resident": int(cfg.resident),
-        "smem_planes": int(layout["planes_in_smem"]), "parity": 0,
+        "parity": 0,
     }
     for key, value in ints.items():
         setattr(args, key, int(value))

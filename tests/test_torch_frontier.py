@@ -236,23 +236,121 @@ def test_wrappers_never_fall_back_for_device_tensors(monkeypatch):
 
 def test_kernel_shared_memory_takes_every_tier_shape():
     """The kernels' shared-memory layout takes every shape the gather
-    tiers give them: the full-pool tier's V1 = 8193 with the scan's
-    planes in shared memory, the union-cone tier's largest bucket
-    (V1 = 16385) with them in their output buffers, and lanes, fan and
-    UIP walks of any length a block fits; a shape no block fits is
-    refused before any launch."""
-    pool = FK.smem_layout(64, port_bs.MAX_GATHER_VARS + 1, PF.DEFAULT_FAN,
-                          PF.UIP_ITERS)
-    assert pool["planes_in_smem"]
+    tiers give them: each lane's scan runs on a cluster of blocks that
+    splits its four accumulation planes (the smallest power of two up to
+    8 whose block fits and whose lanes x blocks fill the card's SMs), so
+    the full-pool tier's V1 = 8193 and the union-cone tier's largest
+    bucket (V1 = 16385) keep the planes in shared memory at 64 lanes and
+    at any lane count from 1 to 1024; the epilogue stages the resident
+    pool and the learned rows; a shape no block fits is refused before
+    any launch."""
+    def scan_bytes(V1, S, fan=PF.DEFAULT_FAN):
+        width = (-(-V1 // S) + 3) & ~3      # each block's slice of vars
+        a16 = (V1 + 15) & ~15
+        return 16 * width + 2 * 512 * 32 + 2 * (a16 + 16) + 4 * fan
+
+    pool_v1 = port_bs.MAX_GATHER_VARS + 1
+    assert pool_v1 == 8193
+    pool = FK.smem_layout(64, pool_v1, PF.DEFAULT_FAN, PF.UIP_ITERS, 64)
+    assert pool["cluster"] == 2
+    assert pool["scan_rows"] == scan_bytes(pool_v1, 2) == 114880
+    assert pool["round_epilogue"] == 8208 + 32 * (64 + 64) + 12 * 64
     cone_v1 = port_bs.DevicePool._bucket(port_bs.MAX_CONE_GATHER_VARS + 1) + 1
     assert cone_v1 == 16385
-    cone = FK.smem_layout(64, cone_v1, PF.DEFAULT_FAN, PF.UIP_ITERS)
-    assert not cone["planes_in_smem"]
+    cone = FK.smem_layout(64, cone_v1, PF.DEFAULT_FAN, PF.UIP_ITERS, 64)
+    assert cone["cluster"] == 2
+    assert cone["scan_rows"] == scan_bytes(cone_v1, 2) == 196800
+    # one block a lane is too small for the cone tier's planes
+    assert 16 * cone_v1 + 2 * 16384 > FK.MAX_DYNAMIC_SMEM
+    for B, at_pool, at_cone in ((1, 8, 8), (7, 8, 8), (16, 8, 8),
+                                (32, 4, 4), (64, 2, 2), (128, 1, 2),
+                                (1024, 1, 2)):
+        for V1, S in ((pool_v1, at_pool), (cone_v1, at_cone)):
+            layout = FK.smem_layout(B, V1, PF.DEFAULT_FAN, PF.UIP_ITERS, 64)
+            assert layout["cluster"] == S, (B, V1)
+            assert layout["scan_rows"] == scan_bytes(V1, S)
+            assert B * S >= FK.CLUSTER_BLOCKS or S == FK.MAX_CLUSTER
     for layout in (pool, cone, FK.smem_layout(4096, cone_v1, 1024, 512)):
         assert all(0 < layout[k] <= FK.MAX_DYNAMIC_SMEM
                    for k in FK.KERNEL_IDS)
     with pytest.raises(ValueError, match="shared memory"):
         FK.smem_layout(64, 1 << 17, PF.DEFAULT_FAN, PF.UIP_ITERS)
+    with pytest.raises(ValueError, match="round_epilogue"):
+        FK.smem_layout(1024, cone_v1, PF.DEFAULT_FAN, PF.UIP_ITERS, 8192)
+
+
+def test_epilogue_when_every_lane_learns_matches_jax(monkeypatch):
+    """Two resident iterations from a state in which every lane has
+    decided its gadget's ``x`` and forced ``a``, ``b`` and ``c`` (the
+    gadgets of ``frontiers.learning_problem``): in the first every lane
+    conflicts and learns ``(-x, -s)``, and the plain epilogue appends rows
+    equal across lanes, a row equal to a live pool row and more rows than
+    the pool has room for; in the second (a full view) the lanes decide
+    and cascade.  The JAX resident solve and the port's (the plain
+    kernels) leave every field equal: the pool, its count and the
+    cascade's vars among them."""
+    from mythril_tpu.ops import resident as JR
+    from mythril_tpu_torch.ops import resident as PR
+
+    C, V1, E = 1024, 513, 8
+    for name, value in (("MYTHRIL_TPU_RESIDENT_EXTRA", str(E)),
+                        ("MYTHRIL_TPU_RESIDENT_BUDGET", "2"),
+                        ("MYTHRIL_TPU_FRONTIER_PERIOD", "1")):
+        monkeypatch.setenv(name, value)
+    rows, _, extra = frontiers.learning_problem(C, V1, 12, E, prefill=6)
+    gadgets = [0, 0, 1, 1, 2, 3, 4, 5]
+    B = len(gadgets)
+    selectors = 3 + 5 * np.arange(6)
+    assign = np.zeros((B, V1), np.int8)
+    assign[:, 1] = 1  # the TRUE anchor
+    assign[:, 2] = 1  # the delay var: its rows are satisfied
+    assign[:, selectors] = -1
+    state = JR.resident_state0(assign, B, 256)
+    for lane, g in enumerate(gadgets):
+        s, x, a, b, c = selectors[g] + np.arange(5)
+        state["assign"][lane, [s, x, a, b, c]] = 1
+        state["lvl"][lane, [x, a, b, c]] = 1
+        state["reason"][lane, [a, b, c]] = 1 + 4 * g + np.arange(3)
+        state["tpos"][lane, [x, a, b, c]] = (1, 2, 2, 3)
+        state["dvar"][lane, 0] = x
+        state["dphase"][lane, 0] = 1
+    state["depth"][:] = 1
+    state["stamp"][:] = 3
+    extra[E - 2, :2] = (-(selectors[5] + 1), -selectors[5])  # lane 7's row
+    state["extra"] = extra
+    state["nextra"] = np.array([E - 1], np.int32)
+    before = state["assign"].copy()
+    adj = JF.build_adjacency(rows, V1)
+    jout = JR.make_resident_step(V1 - 1, 256)(
+        jnp.asarray(rows), jnp.asarray(adj),
+        *[jnp.asarray(state[k]) for k in JR.RESIDENT_STATE_FIELDS])
+    want = {k: np.asarray(v) for k, v in zip(JR.RESIDENT_STATE_FIELDS, jout)}
+
+    events = []
+    real = FK._round_epilogue_plain
+
+    def recording(loop, parity):
+        ne = int(loop.ctl[parity, FK.NEXTRA])
+        okl = loop.buf["okl"] != 0
+        learned = [tuple(r) for r in loop.buf["litrow"][okl].tolist()]
+        pool = {tuple(r) for r in loop.extra[:ne].tolist()}
+        cascades = int(((loop.buf["flags"] & FK.FLAG_CASCADE) != 0).sum())
+        real(loop, parity)
+        events.append((learned, pool, ne,
+                       int(loop.ctl[1 - parity, FK.NEXTRA]), cascades))
+
+    monkeypatch.setattr(FK, "_round_epilogue_plain", recording)
+    got = PR.resident_solve(torch.from_numpy(rows), torch.from_numpy(adj),
+                            state)
+    for name in JR.RESIDENT_STATE_FIELDS:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    (learned, pool, ne, after, _), (_, _, _, _, cascades) = events
+    assert len(learned) == B and len(set(learned)) < B
+    assert set(learned) & pool
+    assert after == E and ne + len(set(learned) - pool) > E
+    assert cascades
+    settled = (want["assign"] != 0) & (before == 0)
+    assert settled[:, -(V1 // 8):].any()  # unused vars: the cascade's
 
 
 def test_kernel_build_raises_without_toolkit(monkeypatch, tmp_path):
