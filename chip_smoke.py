@@ -27,6 +27,13 @@ failure):
    lanes, a shared row learned again, a pool overflow and cascades (the
    phase fails if one is missing); then two iterations at V1 = 16385
    (the scan's planes split over a cluster of two blocks); then
+   ``lane_step`` at V1 in {2049, 8193, 16385} with B = 64 and at B = 8
+   with V1 = 4097 (clusters of 2 and 8 blocks a lane), on the learning
+   problem up to a launch in which 2+ lanes learn and on a case launch
+   (``lane_case_loop``) on a full and a gather view, until it held a
+   walk cut at ``uip_iters``, a walk whose pivot is a decision, a
+   backtrack, a force, a decision, a bail and SAT completion at every
+   shape (the phase fails if one is missing); then
    ``scan_rows`` (a gather and a full view) and ``round_epilogue`` on
    random data at B in {1, 7, 64, 256} by V1 in {2049, 8193, 16385}
    (clusters of 1 to 8 blocks, B x cluster below and above the 132 SMs)
@@ -396,6 +403,14 @@ def run_checked(name, loop, parity, wrapper):
     _compare(name, (tuple(loop.lane["assign"].shape), parity), loop, cpu)
 
 
+def in_conflict(loop):
+    """[B] bool: the lanes that are active and in conflict under a
+    decision (the lane step backtracks them and may learn), from the
+    scan's outputs."""
+    return ((loop.buf["conflict"] != 0) & (loop.lane["depth"] > 0)
+            & (loop.lane["status"] == 0))
+
+
 def audited_case(name, loop, parity):
     """Whether this call of ``name`` is one the audit always holds (see
     AUDITED_CASES); reads a few flags back from the card."""
@@ -403,12 +418,11 @@ def audited_case(name, loop, parity):
 
     if name not in AUDITED_CASES or int(loop.ctl[parity, FK.HALT]):
         return False
-    lane, buf = loop.lane, loop.buf
     if name == "lane_step":
-        case = ((buf["conflict"] != 0) & (lane["depth"] > 0)
-                & (lane["status"] == 0))
+        case = in_conflict(loop)
     else:
-        case = (buf["okl"] != 0) | ((buf["flags"] & FK.FLAG_CASCADE) != 0)
+        case = ((loop.buf["okl"] != 0)
+                | ((loop.buf["flags"] & FK.FLAG_CASCADE) != 0))
     return bool(case.any())
 
 
@@ -530,9 +544,9 @@ def _restore(loop, snap):
 
 
 def _smem_check(loop):
-    """The library's shared-memory sizes and scan cluster for the loop's
-    launches equal ``frontier_kernels.smem_layout``'s (the Python side's
-    limit check)."""
+    """The library's shared-memory sizes and the scan's and lane step's
+    cluster sizes for the loop's launches equal
+    ``frontier_kernels.smem_layout``'s (the Python side's limit check)."""
     import ctypes
 
     from mythril_tpu_torch.ops import frontier_kernels as FK
@@ -544,6 +558,7 @@ def _smem_check(loop):
     got = {name: FK._lib.frontier_smem_bytes(args, kid)
            for name, kid in FK.KERNEL_IDS.items()}
     got["cluster"] = FK._lib.frontier_scan_cluster(args)
+    got["lane_cluster"] = FK._lib.frontier_lane_cluster(args)
     check(all(got[k] == layout[k] for k in got),
           f"shared memory: library {got} != smem_layout {layout}")
     return layout
@@ -589,8 +604,7 @@ def frontier_kernel_phase():
             lane, buf = loop.lane, loop.buf
             hit = set()
             if name == "scan_rows":
-                conf = ((buf["conflict"] != 0) & (lane["depth"] > 0)
-                        & (lane["status"] == 0))
+                conf = in_conflict(loop)
                 if int(conf.sum()) >= 2:
                     hit.add("conflicts under decisions in 2+ lanes")
                 if bool((conf & (buf["crow"] >= C)).any()):
@@ -652,6 +666,216 @@ def frontier_kernel_phase():
         f"{layout}): a full and a gather iteration, every launch equal bit "
         f"for bit")
     return [entries[name] for name in FRONTIER_KERNELS]
+
+
+#: the lane step's shapes on the learning problem: (V1, B) of the chip
+#: check, the guard chain, the widest cone bucket, and the commonest of
+#: scale_mul d6 -t 1
+LANE_SHAPES = ((8193, 64), (2049, 64), (16385, 64), (4097, 8))
+#: links of the chain whose first-UIP walk takes 2 N - 1 resolutions
+CHAIN_LINKS = 30
+#: the lane step's cases: on the learning problem, and on the case launch
+LANE_CASES = ("learning in 2+ lanes", "a walk that reaches uip_iters",
+              "a walk whose pivot is a decision", "a backtrack", "a force",
+              "a decision", "a bail", "SAT completion")
+
+
+def lane_case_loop(V1, B):
+    """A lane-step launch on the learning problem after iteration 0's
+    scan (a full view), its lanes 0-6 set up for the lane step's cases,
+    with clause rows in the pool's zero padding at its end: lane 0 in
+    conflict at depth 2 on a chain x_k, z_k of CHAIN_LINKS links at the
+    depth (reason of x_k and z_k: (., -x_{k-1}, -z_{k-1}); the walk needs
+    2 CHAIN_LINKS - 1 resolutions), lane 1 in conflict with its decision
+    as the latest var at the depth (the pivot), lane 2 with one forced
+    var, lane 3 quiet and open (a decision), lane 4 quiet at depth D (a
+    bail), lane 5 with every var assigned (SAT on a full view), lane 6 in
+    conflict at depth 0 (UNSAT).  Returns the loop."""
+    import torch
+
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+
+    loop = learning_loop(FRONTIER_C, V1, B, FRONTIER_E, FRONTIER_PREFILL)
+    FK.scan_rows(loop, 0)
+    lane = {k: v.cpu() for k, v in loop.lane.items()}
+    buf = {k: v.cpu() for k, v in loop.buf.items()}
+    lits = loop.lits.cpu()
+    C = lits.shape[0]
+    D = lane["dvar"].shape[1]
+    next_row = [C - 1]
+
+    def row(*literals):
+        r = next_row[0]
+        next_row[0] -= 1
+        lits[r] = 0
+        lits[r, :len(literals)] = torch.tensor(literals, dtype=torch.int32)
+        return r
+
+    def assign(b, v, value, level, reason, tpos):
+        lane["assign"][b, v] = value
+        lane["lvl"][b, v] = level
+        lane["reason"][b, v] = reason
+        lane["tpos"][b, v] = tpos
+
+    def decide(b, slots):
+        lane["depth"][b] = len(slots)
+        lane["dvar"][b] = 0
+        lane["dphase"][b] = 0
+        lane["dflip"][b] = False
+        for d, v in enumerate(slots):
+            lane["dvar"][b, d] = v
+            lane["dphase"][b, d] = 1
+            assign(b, v, 1, d + 1, -1, d + 1)
+
+    def quiet(b):
+        for k in ("fpos", "fneg", "rpos", "rneg"):
+            buf[k][b] = 0
+        buf["conflict"][b] = 0
+        buf["crow"][b] = -1
+
+    top = V1 - 1
+    # lane 0: the chain at depth 2 over y at depth 1
+    y, n = top, CHAIN_LINKS
+    x = [None] + [top - 2 * k for k in range(1, n + 1)]
+    z = [None] + [top - 2 * k - 1 for k in range(1, n + 1)]
+    decide(0, [top - 70, top - 71])
+    assign(0, y, 1, 1, -1, 1)
+    for k in range(1, n + 1):
+        below = (-y,) if k == 1 else (-x[k - 1], -z[k - 1])
+        assign(0, x[k], 1, 2, row(x[k], *below), 10 + 2 * k)
+        assign(0, z[k], 1, 2, row(z[k], *below), 11 + 2 * k)
+    buf["conflict"][0] = 1
+    buf["crow"][0] = row(-x[n], -z[n])
+    # lane 1: the decision p is the latest var at depth 1
+    p, q = top - 80, top - 81
+    decide(1, [p])
+    lane["tpos"][1, p] = 20
+    assign(1, q, 1, 1, 0, 5)
+    buf["conflict"][1] = 1
+    buf["crow"][1] = row(-p, -q)
+    # lane 2: one forced var; lanes 3-5 quiet
+    for b in (2, 3, 4, 5):
+        quiet(b)
+    f = top - 90
+    lane["assign"][2, f] = 0
+    buf["fpos"][2, f] = 1
+    buf["rpos"][2, f] = 8
+    lane["depth"][4] = D
+    lane["assign"][5, 2:] = 1
+    # lane 6: a conflict under no decision
+    lane["depth"][6] = 0
+    buf["conflict"][6] = 1
+    buf["crow"][6] = 1
+    lane["status"][:7] = 0
+    dev = loop.ctl.device
+    loop.lits.copy_(lits.to(dev))
+    for k, v in lane.items():
+        loop.lane[k].copy_(v.to(dev))
+    for k, v in buf.items():
+        loop.buf[k].copy_(v.to(dev))
+    loop.args = None  # the pool's occurrence counts changed
+    return loop
+
+
+def lane_cases_seen(loop, snap, parity):
+    """The cases of LANE_CASES that one lane-step launch held (``snap``
+    before it, ``loop`` after), from its outputs: a walk cut at
+    uip_iters is one that learns when the plain version may walk four
+    times as far; a pivot that is a decision, from the conflict row's
+    latest var at the depth."""
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+
+    before = {k: v.cpu() for k, v in snap.lane.items()}
+    after = {k: v.cpu() for k, v in loop.lane.items()}
+    okl = loop.buf["okl"].cpu() != 0
+    conflict = (snap.buf["conflict"].cpu() != 0) & (before["status"] == 0)
+    learners = conflict & (before["depth"] > 0)
+    seen = set()
+    if int(okl.sum()) >= 2:
+        seen.add("learning in 2+ lanes")
+    if bool((after["dflip"] & ~before["dflip"]).any()):
+        seen.add("a backtrack")  # a decision flipped
+    if bool(((after["depth"] == before["depth"] + 1)
+             & (before["status"] == 0)).any()):
+        seen.add("a decision")
+    forced = ((before["assign"] == 0) & (after["assign"] != 0)
+              & (after["reason"] >= 0))
+    if bool(forced.any()):
+        seen.add("a force")
+    started = before["status"] == 0
+    if bool((started & (after["status"] == 3)).any()):
+        seen.add("a bail")
+    if bool((started & (after["status"] == 1)).any()):
+        seen.add("SAT completion")
+    cut = learners & ~okl
+    if bool(cut.any()):
+        longer = snap.to("cpu")
+        longer.cfg = longer.cfg._replace(uip_iters=4 * longer.cfg.uip_iters)
+        FK.PLAIN["lane_step"](longer, parity)
+        if bool((cut & (longer.buf["okl"] != 0)).any()):
+            seen.add("a walk that reaches uip_iters")
+    lits, crow = snap.lits.cpu(), snap.buf["crow"].cpu()
+    for b in cut.nonzero().flatten().tolist():
+        vs = [abs(int(l)) for l in lits[int(crow[b])] if int(l)]
+        depth = int(before["depth"][b])
+        at = [v for v in vs if int(before["lvl"][b, v]) == depth
+              and int(before["assign"][b, v]) != 0]
+        if len(at) > 1:
+            pivot = max(at, key=lambda v: (int(before["tpos"][b, v]), -v))
+            if int(before["reason"][b, pivot]) < 0:
+                seen.add("a walk whose pivot is a decision")
+    return seen
+
+
+def lane_step_phase():
+    """``lane_step`` against its plain version, bit for bit, at every
+    shape of LANE_SHAPES: the learning problem's launches with 2+ lanes
+    in conflict under decisions, up to the first in which 2+ lanes learn
+    (the others are held by the frontier kernel phase), then the case
+    launch of
+    :func:`lane_case_loop` on a full and on a gather view (the lanes that
+    decide or bail there with an empty queue); fails if a case of
+    LANE_CASES is missing at a shape, or a cluster size differs from
+    ``smem_layout``'s."""
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+
+    lines = []
+    for V1, B in LANE_SHAPES:
+        seen = set()
+        loop = learning_loop(FRONTIER_C, V1, B, FRONTIER_E, FRONTIER_PREFILL)
+        launches = 0
+        for it in range(FRONTIER_ITERS):
+            parity = it & 1
+            if int(loop.ctl[parity, FK.HALT]) or (
+                    "learning in 2+ lanes" in seen):
+                break
+            FK.scan_rows(loop, parity)
+            if int(in_conflict(loop).sum()) >= 2:  # lanes that may learn
+                snap = loop.to(loop.ctl.device)
+                run_checked("lane_step", loop, parity, FK.lane_step)
+                launches += 1
+                seen |= lane_cases_seen(loop, snap, parity)
+            else:
+                FK.lane_step(loop, parity)
+            FK.round_epilogue(loop, parity)
+        for full in (1, 0):
+            case = lane_case_loop(V1, B)
+            case.ctl[0, FK.FULL] = full
+            if not full:
+                case.lane["recent"][3:5] = False
+            snap = case.to(case.ctl.device)
+            run_checked("lane_step", case, 0, FK.lane_step)
+            launches += 1
+            seen |= lane_cases_seen(case, snap, 0)
+        layout = _smem_check(case)
+        missing = [c for c in LANE_CASES if c not in seen]
+        check(not missing, f"lane_step at V1={V1} B={B}: cases missing "
+              f"{missing}")
+        lines.append(f"V1={V1} B={B} (cluster of {layout['lane_cluster']}): "
+                     f"{launches} launches")
+    log("frontier lane_step vs plain on the learning problem and the case "
+        "launch (C=16384), every launch equal bit for bit, every case held ("
+        + ", ".join(LANE_CASES) + "): " + "; ".join(lines))
 
 
 def synthetic_loop(B, V1, C, E, ne, seed):
@@ -877,10 +1101,33 @@ def frontier_work(name, full, snap, after, parity):
     if name == "lane_step":
         acting = int(((flags & 1) != 0).sum())
         learned = int((after.buf["okl"] != 0).sum())
-        bytes_moved = (plane * (1 + 1 + 4 + 4 + 8) + (plane * 8 if full else 0)
-                       + acting * V1 * (1 + 4 + 4 + 4 + 1 + 8) + B * 6 * 4)
-        return bytes_moved, plane * 8, \
-            f"{acting} lanes acting, {learned} learning"
+        # reads: assign and recent of every var, the votes, scores and
+        # pref of the open vars of quiet lanes (on a full view the scores
+        # of every var, which it writes to cspos and csneg), the reason
+        # rows of the forced vars, the decision stacks of the lanes in
+        # conflict, the lane's scalars; writes: every entry it changes
+        A = snap.lane["assign"]
+        quiet = (snap.lane["status"] == 0) & (snap.buf["conflict"] == 0)
+        free = (A == 0) & quiet[:, None]
+        free[:, :2] = False
+        forced = free & ((snap.buf["fpos"] > 0) | (snap.buf["fneg"] > 0))
+        stacks = int((snap.buf["conflict"] != 0).sum()) * snap.lane[
+            "dvar"].shape[1] * 6
+        changed = sum(
+            int((snap.lane[k] != after.lane[k]).sum())
+            * snap.lane[k].element_size()
+            for k in ("assign", "lvl", "reason", "tpos", "recent", "dvar",
+                      "dphase", "dflip", "learned"))
+        bytes_moved = (plane * 2 + int(free.sum()) * (4 + 4 + 1)
+                       + (plane * 16 if full else int(free.sum()) * 8)
+                       + int(forced.sum()) * 8 + stacks + B * 10 * 4
+                       + changed + B * K * 4)
+        before = (plane * (1 + 1 + 4 + 4 + 8) + (plane * 8 if full else 0)
+                  + acting * V1 * (1 + 4 + 4 + 4 + 1 + 8) + B * 6 * 4)
+        return bytes_moved, plane * 8, (
+            f"{acting} lanes acting, {learned} learning; with every acting "
+            f"lane's planes written, as counted before, the bound is "
+            f"{bound(before, plane * 8)[0]:.4f} ms")
     pending = int(((flags & 4) != 0).sum())
     learned = int((snap.buf["okl"] != 0).sum())
     # reads: learned rows, okl, flags, status, the live pool, each pending
@@ -1208,6 +1455,8 @@ def main() -> int:
     phase_done("sweep kernel")
     frontier_entries = frontier_kernel_phase()
     phase_done("frontier kernels")
+    lane_step_phase()
+    phase_done("lane step")
     frontier_geometry_phase()
     phase_done("frontier geometries")
     # launches of the default configuration (the kernels line) and of

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Device times of the frontier kernels ``scan_rows`` (a full and a
-gather view) and ``round_epilogue`` (an iteration that appends learned
-rows and cascades) on ``frontiers.learning_problem``, for comparing the
-kernels of two trees of this repository on one card.
+gather view), ``lane_step`` (a learning launch: two or more lanes in
+conflict under decisions; a quiet one: no lane in conflict) and
+``round_epilogue`` (an iteration that appends learned rows and cascades)
+on ``frontiers.learning_problem``, for comparing the kernels of two
+trees of this repository on one card.
 
 Run on the card, by path, with the root of the tree whose kernels are to
 be timed (default: this file's tree); the timing code, inputs and bounds
@@ -14,10 +16,11 @@ are this file's tree's (``chip_smoke.py``)::
 Each shape runs the resident loop on the learning problem (shared pool
 of 64 rows, 40 prefilled) with the tree's kernels until every case was
 timed; each timed launch is first held against its plain version.
-Prints the card line and the card's UUID, then one JSON line per timed launch: device ms
-(profiler), plain ms (eager torch on the card), bound ms and a digest of
-the launch's inputs; two trees timed the same launch when their digests
-agree.  Exits non-zero without a card or when a case is missing.
+Prints the card line and the card's UUID, then one JSON line per timed
+launch: device ms (profiler), plain ms (eager torch on the card), bound
+ms and a digest of the launch's inputs; two trees timed the same launch
+when their digests agree.  Exits non-zero without a card or when a case
+is missing.
 """
 
 import argparse
@@ -28,8 +31,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the learning problem's shapes of the chip check (full pool and widest
-#: cone bucket) and the guard chain's delegated frontier
-SHAPES = ("16384,8193,64", "16384,16385,64", "16384,2049,64")
+#: cone bucket), the guard chain's delegated frontier and the commonest
+#: shape of scale_mul d6 -t 1
+SHAPES = ("16384,8193,64", "16384,16385,64", "16384,2049,64",
+          "16384,4097,8")
 E, PREFILL, MAX_ITERS = 64, 40, 64
 
 
@@ -43,6 +48,7 @@ def time_shape(smoke, C, V1, B):
     loop = smoke.learning_loop(C, V1, B, E, PREFILL)
     dev = loop.ctl.device
     todo = {("scan_rows", "full"), ("scan_rows", "gather"),
+            ("lane_step", "quiet"), ("lane_step", "learning"),
             ("round_epilogue", "learned rows and a cascade")}
     out = []
     fallback = None
@@ -67,6 +73,11 @@ def time_shape(smoke, C, V1, B):
             wrapper = getattr(FK, name)
             if name == "scan_rows":
                 case = "full" if full else "gather"
+            elif name == "lane_step":
+                conflicts = int(((loop.buf["conflict"] != 0)
+                                 & (loop.lane["status"] == 0)).sum())
+                case = ("learning" if int(smoke.in_conflict(loop).sum()) >= 2
+                        else "quiet" if conflicts == 0 else None)
             else:
                 learned = bool((loop.buf["okl"] != 0).any())
                 cascade = bool(((loop.buf["flags"] & FK.FLAG_CASCADE)

@@ -13,7 +13,9 @@ with ``word_probing`` off) and puts the dense tier on the card.
 ``--device cpu`` is the only way to run it on the CPU; without a card
 the command exits 2 with a clear message.  Options that would need a
 part of the JAX package the port does not have (workers, checkpoints,
-traces, RPC, solc, ...) are refused, not ignored.
+traces, RPC, solc, ...) are refused, not ignored, and so is
+``MYTHRIL_TPU_FRONTIER=0``; a malformed ``MYTHRIL_TPU_*`` knob exits 2
+at startup (``support/env.py:validate_env``).
 """
 
 import argparse
@@ -341,6 +343,22 @@ def main(argv=None) -> None:
         else:
             print(f"Mythril-TPU (PyTorch port) version {version}")
         sys.exit(0)
+
+    # knobs are checked before any command runs, with the JAX CLI's
+    # exit-2 contract: a typo'd value must not run a default, and a
+    # value this build cannot honor must not run another solver
+    from mythril_tpu_torch.ops.batched_sat import FRONTIER_OFF_REFUSED
+    from mythril_tpu_torch.ops.frontier import frontier_enabled
+    from mythril_tpu_torch.support.env import EnvSpecError, validate_env
+
+    try:
+        validate_env()
+    except EnvSpecError as e:
+        print(f"bad environment knob: {e}", file=sys.stderr)
+        sys.exit(2)
+    if not frontier_enabled():
+        print(FRONTIER_OFF_REFUSED, file=sys.stderr)
+        sys.exit(2)
 
     if args.command == "list-detectors":
         modules = [

@@ -33,9 +33,9 @@ Left out of this slice: the host word-level model probing before the
 dispatch (``word_probing``; the slice pins it off), the word tier, the
 autopilot router, the lane ledger, the coalescer and async prefetch,
 the adaptive profit gate, the sharded mesh, the dense round lanes of
-``MYTHRIL_TPU_FRONTIER=0``, and the ladder's resilience seams (watchdog,
-retry, bisection, quarantine, drain).  A failure in a tier reaches the
-caller.
+``MYTHRIL_TPU_FRONTIER=0`` (the funnel refuses that flag), and the
+ladder's resilience seams (watchdog, retry, bisection, quarantine,
+drain).  A failure in a tier reaches the caller.
 """
 
 import time
@@ -45,6 +45,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+#: why the funnel and the CLI refuse ``MYTHRIL_TPU_FRONTIER=0``
+FRONTIER_OFF_REFUSED = (
+    "MYTHRIL_TPU_FRONTIER=0 is not supported by this build: the gather "
+    "tiers' dense round lanes are not ported (see ROADMAP.md)")
 #: clause rows of the gather tiers are at most this wide (wider clauses
 #: stay with the CDCL: BCP is weaker, verdicts stay sound)
 MAX_CLAUSE_WIDTH = 8
@@ -772,11 +776,19 @@ def batch_check_states(constraint_sets, device=None,
     ``device="cpu"`` is passed.  With ``tail=True`` the native CDCL
     answers every lane the funnel leaves open (None then means the CDCL
     answered UNKNOWN); ``tail=False`` returns them as None, for a caller
-    that runs its own tail (``laser/batch.py``)."""
+    that runs its own tail (``laser/batch.py``).
+
+    Raises RuntimeError under ``MYTHRIL_TPU_FRONTIER=0``: the JAX
+    package's gather tiers then run the dense round lanes, which the
+    port does not have, and the port runs no other solver in their
+    place."""
+    from mythril_tpu_torch.ops.frontier import frontier_enabled
     from mythril_tpu_torch.smt import terms as T
     from mythril_tpu_torch.smt.solver import get_blast_context
     from mythril_tpu_torch.support.model import peek_model_verdict
 
+    if not frontier_enabled():
+        raise RuntimeError(FRONTIER_OFF_REFUSED)
     backend = get_backend(device)
     ctx = get_blast_context()
     node_sets: List[Optional[List]] = []

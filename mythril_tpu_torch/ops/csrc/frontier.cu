@@ -12,9 +12,9 @@
 //                          `fan` largest queued vars, popped from the
 //                          lane's queue; in resident mode also the shared
 //                          learned rows (ids C + e).
-//   lane_step_kernel       one block per lane: first-UIP learning and
-//                          chronological backtrack, forcing, DLIS decision,
-//                          SAT completion, bail, counters.
+//   lane_step_kernel       per lane: first-UIP learning and chronological
+//                          backtrack, forcing, DLIS decision, SAT
+//                          completion, bail, counters.
 //   round_epilogue_kernel  the append of the iteration's learned rows to
 //                          the shared pool (resident.py:355-380), each
 //                          pending lane's don't-care cascade, which must
@@ -57,6 +57,20 @@
 // counting the open rows, also on views where most vars are assigned
 // (PERF.md, the scan's score ways).
 //
+// lane_step.  Bound by bytes: it reads each lane's assignment and queue,
+// the votes and scores of its open vars (on a full view it copies the
+// scores of every var), and writes what changes.  One 512-thread block a
+// lane walked V1 with scalar loads three times, and its first-UIP walk
+// ran on one warp that re-read the trail from global memory at every
+// resolution step (PERF.md, the lane step's breakdown).  Now each lane
+// runs on a cluster of S blocks (the smallest power of two whose B x S
+// blocks fill the card, up to 8); block r makes one pass over a 1/S slice
+// of the lane with 16-byte loads of the int32 planes, forces in place and
+// leaves its flags and DLIS key in block 0's shared memory, which decides
+// after one cluster barrier.  The walk runs on block 0's first warp while
+// its other warps make the pass: each listed var's trail entry is read
+// once into shared memory, so a resolution step is a warp max there.
+//
 // round_epilogue.  Bound by the pending lanes' cascades (assign, spos and
 // sneg read, the settled vars written); the append is a few KB.  Each
 // block that needs the append stages the learned rows and the live pool in
@@ -67,6 +81,7 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -116,6 +131,7 @@ constexpr int kK = 8;             // clause row width (MAX_CLAUSE_WIDTH)
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kMaxLaneCluster = kMaxCluster;
 constexpr int kClusterBlocks = 128;  // a block on about every one of 132 SMs
 constexpr int kTileRows = kThreads;  // pool rows of a streamed tile
 constexpr int kStages = 2;           // tiles in flight
@@ -153,18 +169,30 @@ int scan_cluster(const FrontierArgs& a) {
   return 0;
 }
 
-// Dynamic shared memory of each kernel: scan as above; lane step = two
-// marks, the UIP walk's list (each resolution adds at most kK vars);
-// epilogue = the pool's var marks and, in resident mode, the staged pool
-// and learned rows (E + B rows), the learning lanes, their duplicate marks
-// and each lane's slot.
+// The lane step's cluster size: the smallest power of two whose B x S
+// blocks fill the card, up to the portable 8.
+int lane_cluster(const FrontierArgs& a) {
+  int S = 1;
+  while (S < kMaxLaneCluster && a.B * S < kClusterBlocks) S *= 2;
+  return S;
+}
+
+// Dynamic shared memory of each kernel: scan as above; lane step = the
+// first-UIP walk's list (a key, var, reason, sign and at-depth flag for
+// each of up to kK (uip_iters + 1) vars: each resolution adds at most kK)
+// and two bitmaps over V1; epilogue = the pool's var marks and, in
+// resident mode, the staged pool and learned rows (E + B rows), the
+// learning lanes, their duplicate marks and each lane's slot.
 int smem_bytes(const FrontierArgs& a, int kernel) {
   if (kernel == kScan) {
     const int S = scan_cluster(a);
     return scan_smem(a, S ? S : kMaxCluster);
   }
-  if (kernel == kLane)
-    return 2 * align16(a.V1) + 4 * kK * (a.uip_iters + 1);
+  if (kernel == kLane) {
+    const int cap = kK * (a.uip_iters + 1);
+    return 16 * cap + align16(2 * cap) +
+           2 * align16(4 * ((a.V1 + 31) / 32));
+  }
   return align16(a.V1) + (a.resident ? 4 * kK * (a.E + a.B) + 12 * a.B : 0);
 }
 
@@ -185,16 +213,8 @@ __device__ __forceinline__ int block_max(int v, int* red) {
   return v;
 }
 
-__device__ __forceinline__ unsigned long long block_max_u64(
-    unsigned long long v, unsigned long long* red) {
-  for (int o = 16; o; o >>= 1) {
-    const unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w > v ? w : v;
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = (threadIdx.x & 31) < kWarps ? red[threadIdx.x & 31] : 0ull;
+__device__ __forceinline__ unsigned long long warp_max_u64(
+    unsigned long long v) {
   for (int o = 16; o; o >>= 1) {
     const unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
     v = w > v ? w : v;
@@ -562,302 +582,554 @@ __device__ __forceinline__ const int32_t* fetch_row(const FrontierArgs& a,
   return a.lits + (size_t)min(max(r, 0), a.C - 1) * kK;
 }
 
-// Lane 0 of the walking warp: mark the vars of one row.
-__device__ __forceinline__ void mark_row(const int32_t* row, int V1,
-                                         uint8_t* marked, uint8_t* inlist,
-                                         int* list, int* s_n) {
-  int l[kK];
-  load_row(row, l);
-  int n = *s_n;
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    if (l[k] == 0) continue;
-    const int v = min(abs(l[k]), V1 - 1);
-    marked[v] = 1;
-    if (!inlist[v]) {
-      inlist[v] = 1;
-      list[n++] = v;
-    }
-  }
-  *s_n = n;
-}
-
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// First-UIP walk of lane b, run by warp 0 (the frontier kernel's
-// maybe_learn).  The marked set is kept as a list of the vars ever marked
-// plus a bitmap, so each resolution step scans the list, not all of V1.
-// Returns the emit flag; the canonical clause row goes to s_row.
-__device__ int uip_walk(const FrontierArgs& a, int b, int depth, int crow,
-                        int nlearn, uint8_t* marked, uint8_t* inlist,
-                        int* list, int* s_n, int* s_row) {
-  const int lane = threadIdx.x, V1 = a.V1;
-  const size_t off = (size_t)b * V1;
-  const int8_t* A = a.assign + off;
-  const int32_t* lvl = a.lvl + off;
-  const int32_t* reason = a.reason + off;
-  const int32_t* tpos = a.tpos + off;
-  if (lane == 0) mark_row(fetch_row(a, crow), V1, marked, inlist, list, s_n);
+// The two halves of a cluster barrier.  Every thread of every block of
+// the cluster arrives once and waits once per phase, from code that is
+// uniform across the cluster; the arrive releases what the thread wrote
+// (and read) before it, the wait acquires what the others did.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The first-UIP walk's list in shared memory: for each var that entered
+// it, its id, the reason row, its sign and whether it sits at the lane's
+// depth, and its pivot key: (tpos + 1, v) packed as arg_key for a var
+// assigned at the depth, 0 for any other (never a pivot).  Two bitmaps
+// over the lane's vars say which are listed and which are marked.  A
+// var's trail entries do not change during the walk, so a resolution
+// step reads only shared memory.
+struct Walk {
+  unsigned long long* key;
+  int* var;
+  int* reason;
+  int8_t* sign;
+  uint8_t* at_depth;
+  unsigned* listed;
+  unsigned* marked;
+  int words16;  // int4 words of the two bitmaps together
+};
+
+__device__ __forceinline__ Walk walk_layout(const FrontierArgs& a,
+                                            int4* smem) {
+  const int cap = kK * (a.uip_iters + 1);
+  const int bitmap = align16(4 * ((a.V1 + 31) / 32));
+  uint8_t* p = reinterpret_cast<uint8_t*>(smem);
+  Walk w;
+  w.key = reinterpret_cast<unsigned long long*>(p);
+  w.var = reinterpret_cast<int*>(p + 8 * cap);
+  w.reason = w.var + cap;
+  w.sign = reinterpret_cast<int8_t*>(p + 16 * cap);
+  w.at_depth = p + 17 * cap;
+  w.listed = reinterpret_cast<unsigned*>(p + 16 * cap + align16(2 * cap));
+  w.marked = w.listed + bitmap / 4;
+  w.words16 = 2 * bitmap / 16;
+  return w;
+}
+
+// Marks the vars of clause row `row`, one literal a lane, and lists the
+// vars not listed yet (the shared-memory atomics on `listed` pick one lane
+// for a var that occurs twice), with their trail entries.  Returns the
+// new list length.  Called by the whole warp.
+__device__ __forceinline__ int walk_mark(const FrontierArgs& a,
+                                         const Walk& w, const int32_t* row,
+                                         int n, size_t off, int depth) {
+  const int lane = threadIdx.x & 31;
+  int v = 0;
+  bool fresh = false;
+  if (lane < kK) {
+    const int l = row[lane];
+    if (l != 0) {
+      v = min(abs(l), a.V1 - 1);
+      const unsigned bit = 1u << (v & 31);
+      atomicOr(&w.marked[v >> 5], bit);
+      fresh = !(atomicOr(&w.listed[v >> 5], bit) & bit);
+    }
+  }
+  const unsigned m = __ballot_sync(0xffffffffu, fresh);
+  if (fresh) {
+    const int i = n + __popc(m & ((1u << lane) - 1u));
+    const int s = a.assign[off + v];
+    const int lv = a.lvl[off + v];
+    const int tp = a.tpos[off + v];
+    w.reason[i] = a.reason[off + v];
+    w.var[i] = v;
+    w.sign[i] = (int8_t)s;
+    w.at_depth[i] = lv == depth;
+    w.key[i] = lv == depth && s != 0 ? arg_key(tp + 1, v) : 0ull;
+  }
   __syncwarp();
+  return n + __popc(m);
+}
+
+__device__ __forceinline__ bool is_marked(const Walk& w, int v) {
+  return (w.marked[v >> 5] >> (v & 31)) & 1u;
+}
+
+// First-UIP walk of the lane at row offset `off` (the frontier kernel's
+// maybe_learn), run by one warp.  Each resolution step takes the marked
+// var at the depth with the latest trail position (a warp max over the
+// list) and marks its reason row.  The clause, at most kK vars by
+// descending id, is picked by a ballot over the list and ranked by its
+// kK lanes.  Returns the emit flag (to every lane); the canonical clause
+// row goes to `row` (zeros when not emitted).
+__device__ int uip_walk(const FrontierArgs& a, const Walk& w, size_t off,
+                        int depth, int crow, int nlearn, int* row, int* sel,
+                        int8_t* sel_sign) {
+  const int lane = threadIdx.x & 31;
+  const unsigned all = 0xffffffffu;
+  int4* z = reinterpret_cast<int4*>(w.listed);
+  for (int i = lane; i < w.words16; i += 32) z[i] = make_int4(0, 0, 0, 0);
+  __syncwarp();
+  int n = walk_mark(a, w, fetch_row(a, crow), 0, off, depth);
   bool ok = true;
   for (int it = 0; it < a.uip_iters; ++it) {
-    const int n = *(volatile int*)s_n;
-    int cnt = 0;
+    int cnt = 0, at = -1;
     unsigned long long best = 0;
     for (int i = lane; i < n; i += 32) {
-      const int v = list[i];
-      if (marked[v] && lvl[v] == depth && A[v] != 0) {
+      const unsigned long long key = w.key[i];
+      if (key && is_marked(w, w.var[i])) {
         ++cnt;
-        const unsigned long long key = arg_key(tpos[v] + 1, v);
-        best = key > best ? key : best;
+        if (key > best) {
+          best = key;
+          at = i;
+        }
       }
     }
     cnt = warp_sum(cnt);
-    for (int o = 16; o; o >>= 1) {
-      const unsigned long long w = __shfl_xor_sync(0xffffffffu, best, o);
-      best = w > best ? w : best;
-    }
+    const unsigned long long top = warp_max_u64(best);
     if (cnt <= 1) break;  // no resolution left: later steps change nothing
-    const int piv = key_index(best);
-    const int r = reason[piv];
+    const int src = __ffs(__ballot_sync(all, best == top)) - 1;
+    const int pi = __shfl_sync(all, at, src);
+    const int piv = w.var[pi], r = w.reason[pi];
     if (r < 0) {  // a decision or assumption as pivot: drop the clause
       ok = false;
       break;
     }
-    if (lane == 0) {
-      mark_row(fetch_row(a, r), V1, marked, inlist, list, s_n);
-      marked[piv] = 0;
-    }
+    n = walk_mark(a, w, fetch_row(a, r), n, off, depth);
+    if (lane == 0) atomicAnd(&w.marked[piv >> 5], ~(1u << (piv & 31)));
     __syncwarp();
   }
-  __syncwarp();
-  const int n = *(volatile int*)s_n;
   int total = 0, at_depth = 0;
   for (int i = lane; i < n; i += 32) {
-    const int v = list[i];
-    if (marked[v]) {
+    if (is_marked(w, w.var[i])) {
       ++total;
-      at_depth += lvl[v] == depth;
+      at_depth += w.at_depth[i];
     }
   }
   total = warp_sum(total);
   at_depth = warp_sum(at_depth);
   ok = ok && at_depth <= 1 && total >= 1 && total <= kK &&
        nlearn < a.learn_cap;
-  if (lane == 0) {
-    int sel[kK];
-    int m = 0;
-    if (ok) {
-      for (int i = 0; i < n; ++i) {
-        const int v = list[i];
-        if (!marked[v]) continue;
-        int j = m++;  // insertion, descending ids (lax.top_k order)
-        while (j > 0 && sel[j - 1] < v) {
-          sel[j] = sel[j - 1];
-          --j;
-        }
-        sel[j] = v;
+  if (ok) {
+    for (int base = 0, i0 = 0; i0 < n; i0 += 32) {
+      const int i = i0 + lane;
+      const bool m = i < n && is_marked(w, w.var[i]);
+      const unsigned bits = __ballot_sync(all, m);
+      if (m) {
+        const int j = base + __popc(bits & ((1u << lane) - 1u));
+        sel[j] = w.var[i];
+        sel_sign[j] = w.sign[i];
       }
+      base += __popc(bits);
     }
-    for (int k = 0; k < kK; ++k)
-      s_row[k] = k < m ? -(int)A[sel[k]] * sel[k] : 0;
+    __syncwarp();
+    if (lane < total) {  // descending ids (lax.top_k order)
+      const int v = sel[lane];
+      int rank = 0;
+      for (int j = 0; j < total; ++j) rank += sel[j] > v;
+      row[rank] = -(int)sel_sign[lane] * v;
+    }
   }
+  if (lane < kK && lane >= (ok ? total : 0)) row[lane] = 0;
   __syncwarp();
   return ok;
 }
 
+// One lane's planes, and the lane step's constants of this launch.
+struct Lane {
+  int8_t* A;
+  int32_t* lvl;
+  int32_t* reason;
+  int32_t* tpos;
+  uint8_t* recent;
+  int32_t* cspos;
+  int32_t* csneg;
+  const int32_t* fpos;
+  const int32_t* fneg;
+  const int32_t* rpos;
+  const int32_t* rneg;
+  const int32_t* spos;
+  const int32_t* sneg;
+  const int8_t* pref;
+  int depth, nstamp;
+  bool full, quiet;  // quiet: active and no conflict
+};
+
+// Bits of a block's partial flags, and the DLIS key: (score + 1, v)
+// ordered as arg_key, with the var's phase in the lowest bit.
+enum { kForcedVar = 1, kFreeVar = 2, kQueuedVar = 4 };
+
+__device__ __forceinline__ unsigned long long dlis_key(int value, int v,
+                                                       int phase) {
+  return ((unsigned long long)(unsigned)value << 32) |
+         ((unsigned)(0x7fffffff - v) << 1) | (unsigned)(phase > 0);
+}
+__device__ __forceinline__ int dlis_var(unsigned long long key) {
+  return 0x7fffffff - (int)((key & 0xffffffffu) >> 1);
+}
+
+// N = 4 consecutive vars on the 16-byte grid of the int32 planes (one
+// int4 a plane, four bytes of A, recent and pref), or N = 1.
+template <int N>
+__device__ __forceinline__ void load_ints(const int32_t* p, int (&x)[N]) {
+  if constexpr (N == 4) {
+    const int4 q = *reinterpret_cast<const int4*>(p);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
+    x[0] = *p;
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_ints(int32_t* p, const int (&x)[N]) {
+  if constexpr (N == 4)
+    *reinterpret_cast<int4*>(p) = make_int4(x[0], x[1], x[2], x[3]);
+  else
+    *p = x[0];
+}
+template <int N, typename T>
+__device__ __forceinline__ void load_bytes(const T* p, int (&x)[N]) {
+  if constexpr (N == 4) {
+    const unsigned w = *reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = (T)(w >> (8 * k));
+  } else {
+    x[0] = *p;
+  }
+}
+template <int N, typename T>
+__device__ __forceinline__ void store_bytes(T* p, const int (&x)[N]) {
+  if constexpr (N == 4) {
+    unsigned w = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w |= (unsigned)(x[k] & 0xff) << (8 * k);
+    *reinterpret_cast<unsigned*>(p) = w;
+  } else {
+    *p = (T)x[0];
+  }
+}
+
+// The pass over vars v .. v + N - 1: the queue flag; on a full view the
+// cached scores (cspos = spos); in a quiet lane the forcing and open
+// flags, the DLIS key of each open var that is not forced, and every
+// forced literal assigned with its reason row (the positive phase wins
+// a contradictory pair): when a var is forced, the lane forces.
+template <int N>
+__device__ __forceinline__ void lane_pass(const Lane& L, int v, int& flags,
+                                          unsigned long long& key) {
+  int a[N], r[N], sp[N], sn[N];
+  load_bytes<N>(L.A + v, a);
+  load_bytes<N>(L.recent + v, r);
+  bool any_free = false;
+  bool fr[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (r[k]) flags |= kQueuedVar;
+    fr[k] = L.quiet && a[k] == 0 && v + k > 1;  // col 1 = the TRUE anchor
+    any_free |= fr[k];
+  }
+  if (L.full) {
+    load_ints<N>(L.spos + v, sp);
+    load_ints<N>(L.sneg + v, sn);
+    store_ints<N>(L.cspos + v, sp);
+    store_ints<N>(L.csneg + v, sn);
+  }
+  if (!any_free) return;
+  int fp[N], fn[N], pf[N];
+  load_ints<N>(L.fpos + v, fp);
+  load_ints<N>(L.fneg + v, fn);
+  load_bytes<N>(L.pref + v, pf);
+  if (!L.full) {
+    load_ints<N>(L.cspos + v, sp);
+    load_ints<N>(L.csneg + v, sn);
+  }
+  bool any_forced = false;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (!fr[k]) continue;
+    flags |= kFreeVar;
+    if (fp[k] > 0 || fn[k] > 0) {
+      flags |= kForcedVar;
+      any_forced = true;
+      continue;
+    }
+    const int phase = pf[k] != 0 ? pf[k] : (sp[k] >= sn[k] ? 1 : -1);
+    const unsigned long long k2 = dlis_key(sp[k] + sn[k] + 2, v + k, phase);
+    key = k2 > key ? k2 : key;
+  }
+  if (!any_forced) return;
+  int rp[N], rn[N];
+  load_ints<N>(L.rpos + v, rp);
+  load_ints<N>(L.rneg + v, rn);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (!fr[k] || (fp[k] <= 0 && fn[k] <= 0)) continue;
+    const bool pos = fp[k] > 0;
+    a[k] = pos ? 1 : -1;
+    r[k] = 1;
+    L.lvl[v + k] = L.depth;
+    L.reason[v + k] = (pos ? rp[k] : rn[k]) - 1;
+    L.tpos[v + k] = L.nstamp;
+  }
+  store_bytes<N>(L.A + v, a);
+  store_bytes<N>(L.recent + v, r);
+}
+
+// Chronological backtrack of vars v .. v + N - 1 to level Lm: the flipped
+// decision var takes its new phase, every other var assigned at Lm or
+// deeper is unassigned and leaves the queue.
+template <int N>
+__device__ __forceinline__ void lane_backtrack(const Lane& L, int v, int Lm,
+                                               int bvar, int bphase) {
+  int a[N], r[N], lv[N];
+  load_bytes<N>(L.A + v, a);
+  load_bytes<N>(L.recent + v, r);
+  bool touch = bvar >= v && bvar < v + N;
+#pragma unroll
+  for (int k = 0; k < N; ++k) touch |= a[k] != 0;
+  if (!touch) return;
+  load_ints<N>(L.lvl + v, lv);
+  bool changed = false;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (v + k == bvar) {
+      a[k] = bphase;
+      r[k] = 1;
+      L.lvl[v + k] = Lm;
+      L.reason[v + k] = -1;
+      L.tpos[v + k] = L.nstamp;
+      changed = true;
+    } else if (a[k] != 0 && lv[k] >= Lm) {
+      a[k] = 0;
+      r[k] = 0;
+      changed = true;
+    }
+  }
+  if (changed) {
+    store_bytes<N>(L.A + v, a);
+    store_bytes<N>(L.recent + v, r);
+  }
+}
+
+// This block's vars of the lane: the quads [q0, q1) of the lane row's
+// 16-byte grid (the row starts at b * V1, so up to three vars sit before
+// the grid: block 0 takes them, and the last block the ragged end).
+// Calls f.template operator()<N>(v) from thread `t` of `threads`.
+struct Slice {
+  int head, nq, q0, q1;
+  bool first, last;
+};
+
+template <typename F>
+__device__ __forceinline__ void for_slice(const Slice& s, int V1, int t,
+                                          int threads, F&& f) {
+  for (int q = s.q0 + t; q < s.q1; q += threads)
+    f(std::integral_constant<int, 4>(), s.head + 4 * q);
+  if (s.first)
+    for (int j = t; j < s.head; j += threads)
+      f(std::integral_constant<int, 1>(), j);
+  if (s.last)
+    for (int j = s.head + 4 * s.nq + t; j < V1; j += threads)
+      f(std::integral_constant<int, 1>(), j);
+}
+
+// One solver iteration's per-lane step (the loop bodies of
+// frontier.py:453 and resident.py:385), on a cluster of S blocks per lane.
+// Block r owns a 1/S slice of the lane's vars; its one pass over them
+// reads A, recent and, for open vars, the votes and scores with 16-byte
+// loads, forces in place, and leaves its flags and DLIS key in block 0
+// (distributed shared memory) for the decision.  The backtrack target is
+// computed by every block; the first-UIP walk runs on block 0's warp 0
+// while its other warps make the pass, and the cluster barrier after it
+// keeps the other blocks' backtrack from rewriting the trail it reads.
 __global__ void __launch_bounds__(kThreads) lane_step_kernel(FrontierArgs a) {
   const int* ctl = a.ctl + a.parity * kNctl;
   if (ctl[kHalt]) return;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / S, tid = threadIdx.x, V1 = a.V1, D = a.D;
+  const bool lead = rank == 0;
   extern __shared__ int4 smem4[];
-  const int V1 = a.V1, D = a.D;
-  uint8_t* marked = reinterpret_cast<uint8_t*>(smem4);
-  uint8_t* inlist = marked + align16(V1);
-  int* list = reinterpret_cast<int*>(inlist + align16(V1));
-  __shared__ int red[kWarps];
+  __shared__ int red[kWarps], redf[kWarps];
   __shared__ unsigned long long redk[kWarps];
-  __shared__ int s_n, s_ok, s_row[kK], s_bvar, s_bphase;
+  __shared__ int s_pflags[kMaxLaneCluster];  // block 0: each block's partial
+  __shared__ unsigned long long s_pkey[kMaxLaneCluster];
+  __shared__ int s_row[kK], s_sel[kK];
+  __shared__ int8_t s_sel_sign[kK];
 
-  const int b = blockIdx.x, tid = threadIdx.x;
   const size_t off = (size_t)b * V1;
-  int8_t* A = a.assign + off;
-  int32_t* lvl = a.lvl + off;
-  int32_t* reason = a.reason + off;
-  int32_t* tpos = a.tpos + off;
-  uint8_t* recent = a.recent + off;
-  int32_t* cspos = a.cspos + off;
-  int32_t* csneg = a.csneg + off;
-  const int32_t* fpos = a.fpos + off;
-  const int32_t* fneg = a.fneg + off;
-  const int32_t* spos = a.spos + off;
-  const int32_t* sneg = a.sneg + off;
+  const bool full = ctl[kFull] != 0;
+  const int status = a.status[b], depth = a.depth[b], stamp = a.stamp[b];
+  const bool active = status == 0, conflict = a.conflict[b] != 0;
+  const int crow = a.crow[b], nlearn = a.nlearn[b];
   int32_t* dvar = a.dvar + (size_t)b * D;
   int8_t* dphase = a.dphase + (size_t)b * D;
   uint8_t* dflip = a.dflip + (size_t)b * D;
-  const bool full = ctl[kFull] != 0;
-  const int status = a.status[b], depth = a.depth[b], stamp = a.stamp[b];
-  const bool active = status == 0;
-  const bool conflict = a.conflict[b] != 0;
-  const int crow = a.crow[b];
-  const int nlearn = a.nlearn[b];
+  const Lane L{a.assign + off, a.lvl + off, a.reason + off, a.tpos + off,
+               a.recent + off, a.cspos + off, a.csneg + off, a.fpos + off,
+               a.fneg + off, a.rpos + off, a.rneg + off, a.spos + off,
+               a.sneg + off, a.pref + off, depth, stamp + (active ? 1 : 0),
+               full, active && !conflict};
 
-  // pass 1: forcing / open / queue flags, the DLIS argmax, the cached
-  // scores (a full view refreshes them for every lane)
-  int hf = 0, oa = 0, rq = 0;
-  unsigned long long best = 0;
-  for (int v = tid; v < V1; v += kThreads) {
-    const bool free = A[v] == 0 && v > 1;  // col 1 = the TRUE anchor
-    const bool forced = free && (fpos[v] > 0 || fneg[v] > 0);
-    hf |= forced;
-    oa |= free;
-    rq |= recent[v];
-    int sp, sn;
-    if (full) {
-      sp = spos[v];
-      sn = sneg[v];
-      cspos[v] = sp;
-      csneg[v] = sn;
-    } else {
-      sp = cspos[v];
-      sn = csneg[v];
+  // the backtrack target: the deepest unflipped decision
+  int Lm = 0, bvar = -1, bphase = 0;
+  if (active && conflict) {
+    int lm = 0;
+    for (int d = tid; d < min(D, depth); d += kThreads)
+      if (!dflip[d]) lm = d + 1;
+    Lm = block_max(lm, red);
+    if (Lm > 0) {
+      bvar = dvar[Lm - 1];
+      bphase = -(int)dphase[Lm - 1];
     }
-    const int score = (free && !forced) ? sp + sn + 1 : -1;
-    const unsigned long long key = arg_key(score + 1, v);
-    best = key > best ? key : best;
   }
-  int lm = 0;
-  for (int d = tid; d < D; d += kThreads)
-    if (d < depth && !dflip[d]) lm = d + 1;
-  const bool has_force = __syncthreads_or(hf);
-  const bool open_any = __syncthreads_or(oa);
-  const bool queued = __syncthreads_or(rq);
-  best = block_max_u64(best, redk);
-  const int Lm = block_max(lm, red);
-  const int var = key_index(best);
-
-  const int nstamp = stamp + (active ? 1 : 0);
-  const bool unsat_now = active && conflict && Lm == 0;
   const bool do_bt = active && conflict && Lm > 0;
-  const bool do_learn = do_bt && crow >= 0 && depth > 0;
-  const bool do_force = active && !conflict && has_force;
-  const bool want = active && !conflict && !has_force && open_any &&
-                    (full || !queued);
-  const bool do_dec = want && depth < D;
-  const bool bail = want && depth >= D;
-  const bool done_sat = active && !conflict && !has_force && !open_any && full;
+  const bool walking = lead && do_bt && crow >= 0 && depth > 0;
 
-  // --- conflict: learn, then chronological backtrack
-  if (do_learn) {
-    for (int v = tid; v < V1; v += kThreads) {
-      marked[v] = 0;
-      inlist[v] = 0;
+  Slice s;
+  s.head = min(V1, (int)((4 - (off & 3)) & 3));
+  s.nq = (V1 - s.head) >> 2;
+  const int per = (s.nq + S - 1) / S;
+  s.q0 = min(s.nq, rank * per);
+  s.q1 = min(s.nq, s.q0 + per);
+  s.first = lead;
+  s.last = rank == S - 1;
+
+  // the walk (block 0's warp 0) and the pass (every other warp); a lane
+  // that backtracks needs the pass only for the full view's scores
+  if (!walking) cluster_arrive();
+  int ok = 0;
+  if (walking && tid < 32)
+    ok = uip_walk(a, walk_layout(a, smem4), off, depth, crow, nlearn, s_row,
+                  s_sel, s_sel_sign);
+  int flags = 0;
+  unsigned long long key = 0;
+  const int t0 = walking ? 32 : 0;
+  if (tid >= t0 && (!do_bt || full))
+    for_slice(s, V1, tid - t0, kThreads - t0, [&](auto n, int v) {
+      lane_pass<decltype(n)::value>(L, v, flags, key);
+    });
+  if (walking) cluster_arrive();
+
+  if (do_bt) {
+    cluster_wait();  // the walk is done: rewrite the trail
+    for_slice(s, V1, tid, kThreads, [&](auto n, int v) {
+      lane_backtrack<decltype(n)::value>(L, v, Lm, bvar, bphase);
+    });
+    if (lead) {
+      const int bslot = Lm - 1;
+      for (int d = tid; d < D; d += kThreads) {
+        if (d >= Lm) {
+          dvar[d] = 0;
+          dphase[d] = 0;
+          dflip[d] = 0;
+        } else if (d == bslot) {
+          dphase[d] = (int8_t)bphase;
+          dflip[d] = 1;
+        }
+      }
     }
-    if (tid == 0) s_n = 0;
+  } else {
+    // the block's flags and key, to block 0's slot `rank`
+    flags = (int)__reduce_or_sync(0xffffffffu, (unsigned)flags);
+    key = warp_max_u64(key);
+    if ((tid & 31) == 0) {
+      redf[tid >> 5] = flags;
+      redk[tid >> 5] = key;
+    }
     __syncthreads();
     if (tid < 32) {
-      const int ok = uip_walk(a, b, depth, crow, nlearn, marked, inlist,
-                              list, &s_n, s_row);
-      if (tid == 0) s_ok = ok;
+      flags = (int)__reduce_or_sync(
+          0xffffffffu, tid < kWarps ? (unsigned)redf[tid] : 0u);
+      key = warp_max_u64(tid < kWarps ? redk[tid] : 0ull);
     }
-  } else if (tid == 0) {
-    s_ok = 0;
-    for (int k = 0; k < kK; ++k) s_row[k] = 0;
+    cluster_wait();  // every block has started: block 0's slots are live
+    if (tid == 0) {
+      *cluster.map_shared_rank(&s_pflags[rank], 0) = flags;
+      *cluster.map_shared_rank(&s_pkey[rank], 0) = key;
+    }
+    cluster_arrive();
+    cluster_wait();
   }
-  if (do_bt && tid == 0) {
-    const int bslot = max(Lm - 1, 0);
-    s_bvar = dvar[bslot];
-    s_bphase = -(int)dphase[bslot];
-  }
-  __syncthreads();
+  if (!lead) return;
+
+  // block 0: the learned row, the decision, the lane's counters
   if (tid < kK) {
-    a.litrow[(size_t)b * kK + tid] = s_ok ? s_row[tid] : 0;
-    if (s_ok) {
+    a.litrow[(size_t)b * kK + tid] = ok ? s_row[tid] : 0;
+    if (ok) {
       const int slot = min(max(nlearn, 0), a.learn_cap - 1);
       a.learned[((size_t)b * a.learn_cap + slot) * kK + tid] = s_row[tid];
     }
   }
+  if (tid != 0) return;
+  flags = 0;
+  key = 0;
+  if (!do_bt)
+    for (int r = 0; r < S; ++r) {
+      flags |= s_pflags[r];
+      key = s_pkey[r] > key ? s_pkey[r] : key;
+    }
+  const bool has_force = flags & kForcedVar, open_any = flags & kFreeVar;
+  const bool queued = flags & kQueuedVar;
+  const bool unsat_now = active && conflict && Lm == 0;
+  const bool do_force = L.quiet && has_force;
+  const bool want = L.quiet && !has_force && open_any && (full || !queued);
+  const bool do_dec = want && depth < D;
+  const bool bail = want && depth >= D;
+  const bool done_sat = L.quiet && !has_force && !open_any && full;
   int new_depth = depth;
-  if (do_bt) {
-    const int bvar = s_bvar, bphase = s_bphase, bslot = max(Lm - 1, 0);
-    for (int v = tid; v < V1; v += kThreads) {
-      if (v == bvar) {
-        A[v] = (int8_t)bphase;
-        lvl[v] = Lm;
-        reason[v] = -1;
-        tpos[v] = nstamp;
-        recent[v] = 1;
-      } else if (A[v] != 0 && lvl[v] >= Lm) {
-        A[v] = 0;
-        recent[v] = 0;
-      }
-    }
-    for (int d = tid; d < D; d += kThreads) {
-      if (d >= Lm) {
-        dvar[d] = 0;
-        dphase[d] = 0;
-        dflip[d] = 0;
-      } else if (d == bslot) {
-        dphase[d] = (int8_t)bphase;
-        dflip[d] = 1;
-      }
-    }
-    new_depth = Lm;
-  } else if (do_force) {
-    // quiet + forced: every forced literal, with its reason row (the
-    // positive phase wins a contradictory pair)
-    for (int v = tid; v < V1; v += kThreads) {
-      if (A[v] != 0 || v <= 1) continue;
-      const bool fp = fpos[v] > 0;
-      if (!fp && fneg[v] <= 0) continue;
-      A[v] = fp ? 1 : -1;
-      lvl[v] = depth;
-      reason[v] = (fp ? a.rpos[off + v] : a.rneg[off + v]) - 1;
-      tpos[v] = nstamp;
-      recent[v] = 1;
-    }
-  } else if (do_dec) {
-    // quiet + open: one DLIS decision (the cascade is the epilogue's)
-    if (tid == 0) {
-      const int sp = full ? spos[var] : cspos[var];
-      const int sn = full ? sneg[var] : csneg[var];
-      const int pv = a.pref[off + var];
-      const int phase = pv != 0 ? pv : (sp >= sn ? 1 : -1);
-      A[var] = (int8_t)phase;
-      lvl[var] = depth + 1;
-      reason[var] = -1;
-      tpos[var] = nstamp;
-      recent[var] = 1;
-      dvar[depth] = var;
-      dphase[depth] = (int8_t)phase;
-      dflip[depth] = 0;
-    }
+  if (do_bt) new_depth = Lm;
+  if (do_dec) {  // quiet + open: one DLIS decision (the epilogue cascades)
+    const int var = dlis_var(key), phase = (key & 1) ? 1 : -1;
+    L.A[var] = (int8_t)phase;
+    L.lvl[var] = depth + 1;
+    L.reason[var] = -1;
+    L.tpos[var] = L.nstamp;
+    L.recent[var] = 1;
+    dvar[depth] = var;
+    dphase[depth] = (int8_t)phase;
+    dflip[depth] = 0;
     new_depth = depth + 1;
   }
-  if (tid == 0) {
-    int st = status;
-    if (unsat_now) st = 2;
-    if (done_sat) st = 1;
-    if (bail) st = 3;
-    a.status[b] = st;
-    a.depth[b] = new_depth;
-    a.stamp[b] = nstamp;
-    a.nlearn[b] = nlearn + (s_ok ? 1 : 0);
-    a.okl[b] = s_ok;
-    if (active) {
-      if (full)
-        a.fullsw[b] += 1;
-      else
-        a.fsteps[b] += 1;
-    }
-    const bool progress =
-        do_force || do_bt || do_dec || unsat_now || done_sat || bail;
-    const bool still_queued = do_bt || do_force || do_dec || queued;
-    a.flags[b] = (progress ? kProgress : 0) | (still_queued ? kQueued : 0) |
-                 (do_dec && full ? kCascade : 0);
+  int st = status;
+  if (unsat_now) st = 2;
+  if (done_sat) st = 1;
+  if (bail) st = 3;
+  a.status[b] = st;
+  a.depth[b] = new_depth;
+  a.stamp[b] = L.nstamp;
+  a.nlearn[b] = nlearn + ok;
+  a.okl[b] = ok;
+  if (active) {
+    if (full)
+      a.fullsw[b] += 1;
+    else
+      a.fsteps[b] += 1;
   }
+  const bool progress =
+      do_force || do_bt || do_dec || unsat_now || done_sat || bail;
+  const bool still_queued = do_bt || do_force || do_dec || queued;
+  a.flags[b] = (progress ? kProgress : 0) | (still_queued ? kQueued : 0) |
+               (do_dec && full ? kCascade : 0);
 }
 
 __device__ __forceinline__ bool rows_equal(const int4* x, const int4* y) {
@@ -1053,30 +1325,11 @@ int configure(const void* kernel, int smem, int* configured) {
   return 0;
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int smem, int* configured, const FrontierArgs* a,
-           void* stream) {
-  if (!checked(a)) return (int)cudaErrorInvalidValue;
-  if (const int err = configure((const void*)kernel, smem, configured))
-    return err;
-  kernel<<<a->B, kThreads, smem, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
-}
-
-int scan_configured = 0, lane_configured = 0, epilogue_configured = 0;
-
-}  // namespace
-
-extern "C" {
-
-// Plain C entry points (bound with ctypes).  Each returns the cudaError_t
-// of its launch; 0 means the kernel was queued on `stream`.
-int frontier_scan_rows_launch(const FrontierArgs* a, void* stream) {
-  const int S = scan_cluster(*a);
+// `kernel` on B clusters of S blocks (one cluster a lane).
+int cluster_launch(void (*kernel)(FrontierArgs), int S, int smem,
+                   int* configured, const FrontierArgs* a, void* stream) {
   if (!checked(a) || !S) return (int)cudaErrorInvalidValue;
-  const int smem = scan_smem(*a, S);
-  if (const int err =
-          configure((const void*)scan_rows_kernel, smem, &scan_configured))
+  if (const int err = configure((const void*)kernel, smem, configured))
     return err;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
@@ -1090,19 +1343,38 @@ int frontier_scan_rows_launch(const FrontierArgs* a, void* stream) {
   config.stream = (cudaStream_t)stream;
   config.attrs = &cluster;
   config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&config, scan_rows_kernel, *a);
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, *a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+int scan_configured = 0, lane_configured = 0, epilogue_configured = 0;
+
+}  // namespace
+
+extern "C" {
+
+// Plain C entry points (bound with ctypes).  Each returns the cudaError_t
+// of its launch; 0 means the kernel was queued on `stream`.
+int frontier_scan_rows_launch(const FrontierArgs* a, void* stream) {
+  const int S = scan_cluster(*a);
+  return cluster_launch(scan_rows_kernel, S, S ? scan_smem(*a, S) : 0,
+                        &scan_configured, a, stream);
+}
+
 int frontier_lane_step_launch(const FrontierArgs* a, void* stream) {
-  return launch(lane_step_kernel, smem_bytes(*a, kLane), &lane_configured, a,
-                stream);
+  return cluster_launch(lane_step_kernel, lane_cluster(*a),
+                        smem_bytes(*a, kLane), &lane_configured, a, stream);
 }
 
 int frontier_round_epilogue_launch(const FrontierArgs* a, void* stream) {
-  return launch(round_epilogue_kernel, smem_bytes(*a, kEpilogue),
-                &epilogue_configured, a, stream);
+  if (!checked(a)) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(*a, kEpilogue);
+  if (const int err = configure((const void*)round_epilogue_kernel, smem,
+                                &epilogue_configured))
+    return err;
+  round_epilogue_kernel<<<a->B, kThreads, smem, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 int frontier_width() { return kK; }
@@ -1114,5 +1386,8 @@ int frontier_smem_bytes(const FrontierArgs* a, int kernel) {
 
 // Cluster size of the scan (0: no block fits).
 int frontier_scan_cluster(const FrontierArgs* a) { return scan_cluster(*a); }
+
+// Cluster size of the lane step.
+int frontier_lane_cluster(const FrontierArgs* a) { return lane_cluster(*a); }
 
 }  // extern "C"

@@ -41,6 +41,7 @@ checkpoints) and the observability spans.
 """
 
 import logging
+import os
 import zlib
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -116,8 +117,14 @@ def tier_for(device) -> Tier:
 
 
 def dense_enabled() -> bool:
-    """``MYTHRIL_TPU_DENSE=0`` switches the dense tier off (the funnel
-    then goes straight to the gather tiers)."""
+    """``MYTHRIL_TPU_PALLAS=0`` (or ``false``, ``off``: the JAX package's
+    switch of its dense tier) switches the dense tier off, and so does
+    its alias ``MYTHRIL_TPU_DENSE=0``; the funnel then goes straight to
+    the gather tiers.  Any other value leaves the tier on: the port has
+    no "on the TPU only" default."""
+    if os.environ.get("MYTHRIL_TPU_PALLAS", "").lower() in ("0", "false",
+                                                            "off"):
+        return False
     return env_flag("MYTHRIL_TPU_DENSE", True)
 
 

@@ -69,8 +69,8 @@ WIDTH = 8
 #: dynamic shared memory a block may take on sm_90: 227 KB, less 1 KB
 #: for the kernels' static shared variables
 MAX_DYNAMIC_SMEM = 232448 - 1024
-#: the scan's cluster: at most 8 blocks a lane, enough lanes x blocks for
-#: about every one of the card's 132 SMs
+#: the scan's and the lane step's clusters: at most 8 blocks a lane,
+#: enough lanes x blocks for about every one of the card's 132 SMs
 MAX_CLUSTER, CLUSTER_BLOCKS = 8, 128
 #: the scan's pool tiles in flight: two of 512 rows
 SCAN_TILES_BYTES = 2 * 512 * WIDTH * 4
@@ -604,13 +604,18 @@ _VECTORS = ("depth", "status", "stamp", "fullsw", "fsteps", "nlearn",
 def smem_layout(B: int, V1: int, fan: int, uip_iters: int,
                 extra_cap: int = 0) -> dict:
     """Dynamic shared memory of each kernel's block in bytes, as
-    ``csrc/frontier.cu`` lays it out, and the scan's cluster size: each
+    ``csrc/frontier.cu`` lays it out, and the two cluster sizes.  Each
     lane's scan runs on a cluster of ``cluster`` blocks (a power of two up
     to 8, the smallest whose block fits and whose ``B x cluster`` blocks
     fill the card), each holding a ``1 / cluster`` slice of the four int32
-    accumulation planes.  ``extra_cap`` is the resident pool's size (0
-    outside resident mode): the epilogue stages it with the lanes'
-    learned rows.  Raises ValueError for shapes no layout fits."""
+    accumulation planes.  Each lane's lane step runs on a cluster of
+    ``lane_cluster`` blocks (the smallest power of two whose ``B x
+    lane_cluster`` blocks fill the card, up to 8), each passing over a
+    ``1 / lane_cluster`` slice of the lane's vars; its block holds the
+    first-UIP walk's list and two bitmaps over V1.  ``extra_cap`` is the
+    resident pool's size (0 outside resident mode): the epilogue stages it
+    with the lanes' learned rows.  Raises ValueError for shapes no layout
+    fits."""
     def a16(n):
         return (n + 15) & ~15
 
@@ -622,9 +627,13 @@ def smem_layout(B: int, V1: int, fan: int, uip_iters: int,
                     if scan(S) <= MAX_DYNAMIC_SMEM
                     and (B * S >= CLUSTER_BLOCKS or S == MAX_CLUSTER)), 0)
     staged = 4 * WIDTH * (extra_cap + B) + 12 * B if extra_cap else 0
+    walk = WIDTH * (uip_iters + 1)  # listed vars: key, var, reason, flags
+    lane_cluster = 1
+    while lane_cluster < MAX_CLUSTER and B * lane_cluster < CLUSTER_BLOCKS:
+        lane_cluster *= 2
     layout = {
         "scan_rows": scan(cluster or MAX_CLUSTER),
-        "lane_step": 2 * a16(V1) + 4 * WIDTH * (uip_iters + 1),
+        "lane_step": 16 * walk + a16(2 * walk) + 2 * a16(4 * (-(-V1 // 32))),
         "round_epilogue": a16(V1) + staged,
     }
     for name, size in layout.items():
@@ -634,6 +643,7 @@ def smem_layout(B: int, V1: int, fan: int, uip_iters: int,
                 f"uip_iters={uip_iters} extra_cap={extra_cap} need {size} "
                 f"bytes of shared memory; a block has {MAX_DYNAMIC_SMEM}")
     layout["cluster"] = cluster
+    layout["lane_cluster"] = lane_cluster
     return layout
 
 
@@ -663,8 +673,9 @@ def load_library() -> ctypes.CDLL:
             lib.frontier_smem_bytes.argtypes = [ctypes.POINTER(FrontierArgs),
                                                 ctypes.c_int]
             lib.frontier_smem_bytes.restype = ctypes.c_int
-            lib.frontier_scan_cluster.argtypes = [ctypes.POINTER(FrontierArgs)]
-            lib.frontier_scan_cluster.restype = ctypes.c_int
+            for name in ("frontier_scan_cluster", "frontier_lane_cluster"):
+                getattr(lib, name).argtypes = [ctypes.POINTER(FrontierArgs)]
+                getattr(lib, name).restype = ctypes.c_int
             lib.frontier_width.restype = ctypes.c_int
             if lib.frontier_width() != WIDTH:
                 raise RuntimeError("frontier.cu: clause width mismatch")
@@ -726,7 +737,8 @@ def _bind(loop: Loop) -> FrontierArgs:
     fan = max(1, min(cfg.fan, V1))
     E = cfg.extra_cap if cfg.resident else 0
     smem_layout(B, V1, fan, cfg.uip_iters, E)
-    for key in ("lits", "extra", "litrow"):
+    # the 16-byte loads and stores of rows and of [B, V1] planes
+    for key in ("lits", "extra", "litrow") + _PLANES:
         if tensors[key].data_ptr() % 16:
             raise ValueError(f"frontier kernels: {key} is not 16-byte "
                              f"aligned")

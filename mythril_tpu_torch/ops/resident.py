@@ -31,7 +31,7 @@ import torch
 
 from mythril_tpu_torch.ops.frontier import (
     FRONTIER_BUDGET_MULT, FRONTIER_STATE_FIELDS, LEARN_CAP, UIP_ITERS,
-    frontier_fan, frontier_period, frontier_state0,
+    frontier_enabled, frontier_fan, frontier_period, frontier_state0,
 )
 from mythril_tpu_torch.support.env import env_flag, env_int
 
@@ -47,8 +47,11 @@ DEFAULT_EXTRA = 64
 
 def resident_kernel_enabled() -> bool:
     """``MYTHRIL_TPU_RESIDENT_KERNEL=0`` restores the multi-dispatch
-    frontier ladder."""
-    return env_flag("MYTHRIL_TPU_RESIDENT_KERNEL", True)
+    frontier ladder.  The resident solver runs on the frontier state,
+    so ``MYTHRIL_TPU_FRONTIER=0`` switches it off too, as in the JAX
+    package (the funnel refuses that flag: see ``batch_check_states``)."""
+    return (env_flag("MYTHRIL_TPU_RESIDENT_KERNEL", True)
+            and frontier_enabled())
 
 
 def resident_budget() -> int:

@@ -279,6 +279,28 @@ def test_kernel_shared_memory_takes_every_tier_shape():
         FK.smem_layout(1024, cone_v1, PF.DEFAULT_FAN, PF.UIP_ITERS, 8192)
 
 
+@pytest.mark.parametrize("B,V1,S", [
+    (64, 2049, 2), (64, 8193, 2), (64, 16385, 2), (8, 4097, 8),
+    (4, 4097, 8), (8, 2049, 8), (4, 2049, 8), (1, 2049, 8),
+    (16, 8193, 8), (32, 8193, 4), (128, 2049, 1), (256, 16385, 1)])
+def test_lane_step_cluster_follows_the_rule(B, V1, S):
+    """The lane step runs each lane on a cluster of the smallest power
+    of two S of blocks with B x S >= 128 (about one block an SM), at
+    most the portable 8, at the main path's shapes (the guard chain's
+    64 x 2049, the scale runs' 4 and 8 lanes by 2049 and 4097) and the
+    tiers' widest; every block takes the first-UIP walk's list (16
+    bytes and two flag bytes for each of up to 8 (uip_iters + 1) vars)
+    and two bitmaps over V1."""
+    layout = FK.smem_layout(B, V1, PF.DEFAULT_FAN, PF.UIP_ITERS, 64)
+    assert layout["lane_cluster"] == S
+    assert B * S >= FK.CLUSTER_BLOCKS or S == FK.MAX_CLUSTER
+    assert S == 1 or B * S // 2 < FK.CLUSTER_BLOCKS
+    cap = K * (PF.UIP_ITERS + 1)
+    bitmap = (4 * -(-V1 // 32) + 15) & ~15
+    assert layout["lane_step"] == 16 * cap + ((2 * cap + 15) & ~15) \
+        + 2 * bitmap
+
+
 def test_epilogue_when_every_lane_learns_matches_jax(monkeypatch):
     """Two resident iterations from a state in which every lane has
     decided its gadget's ``x`` and forced ``a``, ``b`` and ``c`` (the
