@@ -10,10 +10,10 @@ Phases (any failed check exits non-zero; no phase catches its own
 failure):
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build: the native CDCL library (g++), the dense sweep kernel and the
-   frontier kernels (nvcc, sm_90a), all three started together, with
-   their build seconds and the ``-Xptxas -v`` register / shared-memory
-   lines;
+2. build: the native CDCL library (g++), the dense sweep kernel, the
+   frontier kernels and the round lane (nvcc, sm_90a), all four started
+   together, with their build seconds and the ``-Xptxas -v`` register /
+   shared-memory lines;
 3. kernels vs plain: the hand-written sweep against ``sweep_plain`` at
    the slice's shape (C = 16384 clauses, V = 4096 variables, B = 64
    lanes, random sparse 0/1 planes from a numpy seed), scores on and off
@@ -43,35 +43,51 @@ failure):
    output equal bit for bit; times each kernel on the device, its plain
    version and the bound (for the sweep also 4 + 4 float32
    ``torch.matmul`` calls, a yardstick the port never uses; the frontier
-   kernels have no library counterpart);
+   kernels and the round lane have no library counterpart); the round
+   lane (``round_lane``) against ``round_lane_plain`` on the learning
+   problem at the full-pool shape (C = 16384, V1 = 8193, K = 8, B = 64)
+   and a union-cone shape (V1 = 2049), budgets 64, 256, 512 and 768,
+   every field equal bit for bit, until lanes backtracked, bailed and
+   went UNSAT;
 4. main path: frontiers through ``ops.batched_sat.batch_check_states``
-   on ``cuda``: the ``scale_mul`` frontier of ``bench.py`` (depth 6 /
-   16-bit guards, past the cone caps: dense tier), and 64 sibling forks
-   sharing a 32-bit MUL guard chain, three times: as the default runs it
-   (the dense tier delegates it to the resident solver), with
-   ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` (dense tier), and with the dense
-   tier off as well (the multi-dispatch frontier ladder).  Each run
-   holds every kernel it launches against its plain version on the
-   run's own inputs (every frontier call that may learn, append or
-   cascade, and a sample of the rest), checks the launch counts, every verdict against the
+   on ``cuda``, force-dispatched: the ``scale_mul`` frontier of
+   ``bench.py`` (depth 6 / 16-bit guards, past the cone caps: dense
+   tier), and 64 sibling forks sharing a 32-bit MUL guard chain, four
+   times: as the default runs it (the dense tier delegates it to the
+   resident solver), with ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` (dense
+   tier), with the dense tier off as well (the multi-dispatch frontier
+   ladder), and with ``MYTHRIL_TPU_FRONTIER=0`` and the dense tier off
+   (the round-lane ladder, every launch audited).  Each run holds every
+   kernel it launches against its plain version on the run's own inputs
+   (every frontier call that may learn, append or cascade, and a sample
+   of the rest), checks the launch counts, every verdict against the
    known ones, and every device UNSAT against the port's own CDCL;
-5. analyze: ``myth analyze`` on the card through the port's analyzer
+5. prefetch: the guard chain with the profit gate always declining
+   (``device_min_save_s`` 1e9): launched on the worker's stream, joined,
+   harvested by the next call; checks a harvest, no drop, the memo's
+   verdicts and the audited round-lane launches;
+6. analyze: ``myth analyze`` on the card through the port's analyzer
    (``mythril.MythrilAnalyzer``, as ``python3 -m mythril_tpu_torch
    analyze`` runs it) over the runs of ``contracts.CHIP_RUNS`` (the
    ``bench.py`` scale contract at -t 1 and -t 2, two vendored fixtures,
-   killbilly); per run, checks the SWC set against the JAX package's,
-   that no deadline cut the run, that the scale runs reached a device
-   tier, and that every audited kernel call equals its plain version;
-   prints the wall, states, prune calls, dispatches, resident solves and
-   their exits, delegations, lanes decided on the device and on the
-   tail, kernel launches and learned clauses; checks that some run went
-   through the resident solver with all three frontier kernels; repeats
-   each scale contract with the batched path off (per-state CDCL only)
-   and d6 -t 1 with ``MYTHRIL_TPU_RESIDENT_KERNEL=0``, the yardsticks;
-6. the launches of the default configuration and, apart, of the
+   killbilly), first in the JAX default configuration of the dispatch
+   rungs (profit gate, async prefetch, coalescer: what the CLI runs),
+   then force-dispatched; per run, checks the SWC set against the JAX
+   package's, that no deadline cut the run, that no prefetch was
+   dropped, abandoned or failed, that the force-dispatched scale runs
+   reached a device tier, and that every audited kernel call equals its
+   plain version; prints the wall, states, prune calls, dispatches,
+   resident solves and their exits, delegations, lanes decided on the
+   device and on the tail, kernel launches, learned clauses and the
+   rungs' counters (profit skips, async launches, harvests, UNSAT lanes,
+   models, drops, coalesced dispatches and lanes); checks that some run
+   went through the resident solver with all three frontier kernels;
+   repeats each scale contract with the batched path off (per-state
+   CDCL only) and prints the three walls side by side; then the
+   ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` yardstick at d4 -t 1;
+7. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; one JSON line per kernel
-   (launches of the default configuration), the card line, then the
-   result line.
+   (launches of the main path), the card line, then the result line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -206,13 +222,14 @@ def kernel_device_ms(fn, iters, kernel="dense_sweep_kernel", tries=10):
 
 
 def build_all():
-    """The three builds, started together; returns their log lines."""
+    """The four builds, started together; returns their log lines."""
     from mythril_tpu_torch.native import load as load_native
     from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import frontier_kernels as FK
+    from mythril_tpu_torch.ops import round_lane as RL
 
     jobs = {"native CDCL": load_native, "dense_sweep.cu": ds.load_library,
-            "frontier.cu": FK.load_library}
+            "frontier.cu": FK.load_library, "round_lane.cu": RL.load_library}
     seconds, errors = {}, {}
 
     def run(name, fn):
@@ -233,7 +250,8 @@ def build_all():
         raise CheckFailed(f"build of {name} failed: {exc}")
     lines = [f"build: {name} {seconds[name]:.1f} s" for name in jobs]
     for name, info in (("dense_sweep.cu", ds.build_info),
-                       ("frontier.cu", FK.build_info)):
+                       ("frontier.cu", FK.build_info),
+                       ("round_lane.cu", RL.build_info)):
         if info is not None:
             lines.append(f"nvcc -Xptxas -v {name}: " + " | ".join(
                 line.strip() for line in info[1].splitlines()
@@ -1148,6 +1166,106 @@ def frontier_work(name, full, snap, after, parity):
 
 
 # ---------------------------------------------------------------------------
+# the round lane
+# ---------------------------------------------------------------------------
+
+#: the round lane's shapes (label, C, V1, B): the full-pool gather tier at
+#: its caps (the prefetch's one-shot solve) and a union-cone tier shape
+ROUND_SHAPES = (("full pool", 16384, 8193, 64), ("cone tier", 16384, 2049, 64))
+#: the ladder's round budgets and the one-shot solve's
+ROUND_BUDGETS = (64, 256, 512, 768)
+
+
+def round_lane_inputs(C, V1, B):
+    """``frontiers.learning_problem`` as a round-lane state on the card:
+    its lanes decide, conflict and backtrack, and at V1 = 8193 bail when
+    the 256-slot stack fills; the last lane's anchor is false (UNSAT at
+    zero decisions), the one before it a pad lane (status 3)."""
+    import torch
+
+    from mythril_tpu_torch import frontiers
+    from mythril_tpu_torch.ops import round_lane as RL
+    from mythril_tpu_torch.ops.batched_sat import GATHER_DECISIONS
+
+    rows, assign, _ = frontiers.learning_problem(C, V1, B, 64)
+    assign[B - 1, 1] = -1
+    assign[B - 2] = 1
+    state = RL.initial_state(torch.from_numpy(assign).to(DEVICE),
+                             GATHER_DECISIONS)
+    state["status"][B - 2] = 3
+    return torch.from_numpy(rows).to(DEVICE), state
+
+
+def round_lane_work(C, V1, B, D, before, after):
+    """(bytes, operations, description) of one round on these inputs:
+    the pool read once and the state read and written once; one
+    operation for each literal cell and each var of every sweep the
+    lanes took (the loop rescans the pool every sweep)."""
+    steps = int((after["step"] - before["step"]).sum())
+    bytes_moved = C * 8 * 4 + B * V1 * (1 + 4) * 2 + B * V1 \
+        + B * D * (4 + 1 + 1) * 2 + 3 * B * 4 * 2
+    return bytes_moved, steps * (C * 8 + V1), f"{steps} lane sweeps"
+
+
+def round_lane_phase():
+    """The round-lane kernel against ``round_lane_plain`` at every shape
+    of ROUND_SHAPES and budget of ROUND_BUDGETS, every field equal bit
+    for bit; fails unless some lane backtracked, bailed, and went UNSAT.
+    Returns the kernel's JSON entry (the full pool at the one-shot
+    budget, the prefetch's solve)."""
+    import torch
+
+    from mythril_tpu_torch.ops import round_lane as RL
+
+    entry = None
+    seen = {"backtrack": 0, "bail": 0, "unsat": 0, "budget spent": 0}
+    for label, C, V1, B in ROUND_SHAPES:
+        lits, state = round_lane_inputs(C, V1, B)
+        D = state["dvar"].shape[1]
+        for budget in ROUND_BUDGETS:
+            got = RL.round_lane(lits, state, budget)
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            want = RL.round_lane_plain(lits, state, budget)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - started) * 1e3
+            for k in RL.ROUND_STATE_FIELDS:
+                check(torch.equal(got[k], want[k]),
+                      f"round_lane {label} budget {budget}: {k} differs "
+                      f"from the plain version")
+            status = got["status"]
+            seen["backtrack"] += int(got["dflip"].any(dim=1).sum())
+            seen["bail"] += int((status == 3).sum()) - 1
+            seen["unsat"] += int((status == 2).sum())
+            seen["budget spent"] += int((got["step"] == budget).sum())
+
+            def launch():
+                return RL.round_lane(lits, state, budget)
+
+            ms = kernel_device_ms(launch, 5, "round_lane_kernel")
+            bytes_moved, ops, desc = round_lane_work(C, V1, B, D, state, got)
+            bound_ms, bound_by = bound(bytes_moved, ops)
+            log(f"round_lane {label} C={C} V1={V1} B={B} budget {budget} "
+                f"({desc}; status counts "
+                f"{torch.bincount(status, minlength=4).tolist()}): kernel "
+                f"{ms:.4f} ms (device), plain {plain_ms:.4f} ms (eager torch "
+                f"on the card, host clock), bound {bound_ms:.4f} ms "
+                f"({bound_by}), equal bit for bit")
+            if label == "full pool" and budget == 768:
+                entry = {
+                    "name": "round_lane", "route": "cuda",
+                    "source": "mythril_tpu_torch/ops/csrc/round_lane.cu",
+                    "replaces": "mythril_tpu/ops/batched_sat.py:468",
+                    "launches": 0, "max_abs_err": 0.0, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None,
+                }
+    log(f"round_lane cases held: {seen}")
+    check(all(seen.values()), f"round_lane: a case never held: {seen}")
+    return entry
+
+
+# ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
 
@@ -1212,43 +1330,118 @@ class SweepAudit:
             for k in sorted(self.calls))
 
 
+class RoundLaneAudit:
+    """Stands in for ``round_lane.round_lane`` (which the round-lane
+    ladder and the prefetch's one-shot solve call) and holds the kernel
+    against ``round_lane_plain`` on the path's own inputs: on every call
+    (``mode`` "every"), on the 1st, 2nd, 4th, 8th ... call of each (C,
+    V1, B, budget) ("sample"), or on none ("count": the prefetch's
+    worker would run the plain version beside the host's own work, on
+    the analyses whose walls the check reports).  Thread-safe: the
+    prefetch's worker calls it too.  It launches no kernel of its own."""
+
+    def __init__(self, real, mode):
+        self.real = real
+        self.mode = mode
+        self.calls = {}
+        self.checked = {}
+        self.seconds = 0.0
+        self.lock = threading.Lock()
+
+    def __call__(self, lits, state, budget):
+        import torch
+
+        from mythril_tpu_torch.ops import round_lane as RL
+
+        got = self.real(lits, state, budget)
+        B, V1 = state["assign"].shape
+        key = (lits.shape[0], V1, B, int(budget))
+        with self.lock:
+            n = self.calls[key] = self.calls.get(key, 0) + 1
+        if self.mode == "every" or (self.mode == "sample"
+                                    and not n & (n - 1)):
+            started = time.perf_counter()
+            torch.cuda.current_stream().synchronize()
+            want = RL.round_lane_plain(lits, state, budget)
+            for k in RL.ROUND_STATE_FIELDS:
+                check(torch.equal(got[k], want[k]),
+                      f"main-path round lane {key}, call {n}: {k} differs "
+                      f"from the plain version")
+            with self.lock:
+                self.checked[key] = self.checked.get(key, 0) + 1
+                self.seconds += time.perf_counter() - started
+        return got
+
+    def summary(self):
+        return "; ".join(
+            f"round_lane C={k[0]} V1={k[1]} B={k[2]} budget {k[3]}: "
+            f"{self.checked.get(k, 0)} of {self.calls[k]} calls equal bit "
+            f"for bit" for k in sorted(self.calls))
+
+
 @contextlib.contextmanager
-def audited_kernels():
-    """Every kernel call of the block audited; the launch counts zeroed
-    just before and read into the yielded dict just after."""
+def audited_kernels(round_lane="sample"):
+    """Every kernel call of the block audited (the round lane's as
+    ``round_lane`` says: "every", "sample" or "count"); the launch counts
+    zeroed just before and read into the yielded dict just after."""
     from mythril_tpu_torch.ops import dense_prop
     from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import frontier_kernels as FK
+    from mythril_tpu_torch.ops import round_lane as RL
 
     sweep = SweepAudit(dense_prop.dense_sweep)
     dense_prop.dense_sweep = sweep
-    out = {"sweep": sweep}
+    lanes = RoundLaneAudit(RL.round_lane, round_lane)
+    RL.round_lane = lanes
+    out = {"sweep": sweep, "round_lane": lanes}
     try:
         with FrontierAudit() as frontier:
             out["frontier"] = frontier
             ds.reset_launch_count()
             FK.reset_launch_counts()
+            RL.reset_launch_count()
             yield out
             out["launches"] = {"dense_sweep": ds.launch_count,
-                               **FK.launch_counts}
+                               **FK.launch_counts,
+                               "round_lane": RL.launch_count}
     finally:
         dense_prop.dense_sweep = sweep.sweep
-    out["seconds"] = sweep.seconds + frontier.seconds
+        RL.round_lane = lanes.real
+    out["seconds"] = sweep.seconds + frontier.seconds + lanes.seconds
+
+
+@contextlib.contextmanager
+def rung_args(**values):
+    """The funnel's rung arguments (``support_args.args``) set for the
+    block."""
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = {k: getattr(args, k) for k in values}
+    try:
+        for k, v in values.items():
+            setattr(args, k, v)
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(args, k, v)
 
 
 def main_path_phase(name, build, expect, knobs):
-    """One frontier through ``batch_check_states`` with ``knobs`` set;
-    ``expect`` names the tier that must answer it ("dense", "resident"
-    or "ladder").  Returns the run's kernel launches."""
+    """One frontier through ``batch_check_states``, force-dispatched,
+    with ``knobs`` set; ``expect`` names the tier that must answer it
+    ("dense", "resident", "ladder" or "round lanes", the last with every
+    round-lane launch audited).  Returns the run's kernel launches."""
     import torch
 
     from mythril_tpu_torch.ops import batched_sat as bs
     from mythril_tpu_torch.ops.dense_prop import get_dense_backend
     from mythril_tpu_torch.smt.solver import reset_blast_context
+    from mythril_tpu_torch.support.support_args import FORCE_DISPATCH_ARGS
 
     reset_blast_context()
     lanes, expected = build()
-    with env(**knobs), audited_kernels() as audit:
+    with env(**knobs), rung_args(**FORCE_DISPATCH_ARGS), audited_kernels(
+            "every" if expect == "round lanes" else "sample") as audit:
         bs.dispatch_stats.reset()
         started = time.perf_counter()
         verdicts = bs.batch_check_states(lanes, device=DEVICE)
@@ -1278,12 +1471,23 @@ def main_path_phase(name, build, expect, knobs):
         f"{stats.tail_s:.3f} s)")
     log(f"main path {name} [{expect}] kernels vs plain: "
         f"{audit['sweep'].summary() or 'no sweep'}; "
-        f"{audit['frontier'].summary() or 'no frontier kernel'}")
+        f"{audit['frontier'].summary() or 'no frontier kernel'}; "
+        f"{audit['round_lane'].summary() or 'no round lane'}")
     check(stats.dispatches == 1, f"{name}: no device tier engaged")
     check(stats.rounds > 0, f"{name}: no round ran")
     if expect == "dense":
         check(audit["sweep"].checked and launches["dense_sweep"] > 0,
               f"{name}: no main-path sweep reached the kernel")
+    elif expect == "round lanes":
+        audit_lanes = audit["round_lane"]
+        check(launches["round_lane"] > 0
+              and sum(audit_lanes.calls.values()) == launches["round_lane"]
+              and audit_lanes.checked == audit_lanes.calls,
+              f"{name}: round-lane launches {launches['round_lane']}, "
+              f"audited {audit_lanes.checked} of {audit_lanes.calls}")
+        check(stats.resident_dispatches == 0 and stats.frontier_steps == 0
+              and sum(launches[k] for k in FRONTIER_KERNELS) == 0,
+              f"{name}: a frontier solver ran under MYTHRIL_TPU_FRONTIER=0")
     else:
         check(all(launches[k] > 0 for k in FRONTIER_KERNELS),
               f"{name}: a frontier kernel never launched: {launches}")
@@ -1301,12 +1505,68 @@ def main_path_phase(name, build, expect, knobs):
     return launches
 
 
+def prefetch_phase(card):
+    """The async prefetch on the card: the guard chain through
+    ``batch_check_states`` with the profit gate always declining
+    (``device_min_save_s`` 1e9), so the frontier is launched on the
+    prefetch worker's stream; the worker is joined, and a second call
+    harvests it (its UNSAT memos decide the dead lanes).  Every
+    round-lane launch is audited.  Returns the run's kernel launches."""
+    import torch
+
+    from mythril_tpu_torch import frontiers
+    from mythril_tpu_torch.ops import async_dispatch as AD
+    from mythril_tpu_torch.ops import batched_sat as bs
+    from mythril_tpu_torch.smt.solver import reset_blast_context
+
+    reset_blast_context()
+    AD.reset_async_dispatch()
+    bs.dispatch_stats.reset()
+    lanes, expected = frontiers.guard_chain_frontier(64, 32)
+    with rung_args(device_force_dispatch=False, async_dispatch=True,
+                   device_coalesce=True, device_min_save_s=1e9), \
+            audited_kernels("every") as audit:
+        started = time.perf_counter()
+        first = bs.batch_check_states(lanes, device=DEVICE, tail=False)
+        launched = time.perf_counter() - started
+        AD.get_async_dispatcher().join()
+        solved = time.perf_counter() - started
+        second = bs.batch_check_states(lanes, device=DEVICE, tail=False)
+        # the second call prefetches the lanes still open: joined here,
+        # so its launch is audited and counted with the phase's
+        AD.get_async_dispatcher().join()
+        torch.cuda.synchronize()
+    stats = AD.async_stats
+    launches = audit["launches"]
+    log(f"prefetch guard chain 64x32 [{card}]: first call {launched:.3f} s, "
+        f"its worker done at {solved:.3f} s; over both calls "
+        f"{bs.dispatch_stats.profit_skips} profit skips, {stats.launches} "
+        f"launches, harvest: {stats.harvested} batches, {stats.unsat} UNSAT "
+        f"lanes, "
+        f"{stats.models} models, {stats.dropped} dropped, {stats.abandoned} "
+        f"abandoned; decided from the memo on the second call "
+        f"{sum(v is not None for v in second)}; launches {launches}; "
+        f"{audit['round_lane'].summary()}")
+    check(first == [None] * len(lanes), "prefetch: the gate did not decline")
+    check(stats.harvested >= 1 and stats.dropped == 0
+          and stats.abandoned == 0,
+          f"prefetch: harvested {stats.harvested}, dropped {stats.dropped}")
+    check(launches["round_lane"] >= 1
+          and audit["round_lane"].checked == audit["round_lane"].calls,
+          f"prefetch: round-lane launches {launches['round_lane']}")
+    check(all(v is None or v == e for v, e in zip(second, expected))
+          and any(v is False for v in second),
+          f"prefetch: harvested verdicts {second} against {expected}")
+    return launches
+
+
 #: wall-clock limit of one chip-check analysis (no run comes close)
 ANALYZE_TIMEOUT_S = 600
 
 
-def analyze_once(run, batched_solving=True):
-    """One chip run through the port's analyzer on ``cuda``: (report,
+def analyze_once(run, batched_solving=True, force=True):
+    """One chip run through the port's analyzer on ``cuda``, its rungs
+    force-dispatched (``force``) or at the JAX defaults: (report,
     analyzer, wall seconds)."""
     import torch
 
@@ -1321,25 +1581,30 @@ def analyze_once(run, batched_solving=True):
     analyzer = MythrilAnalyzer(
         disassembler, address=address, strategy="bfs", max_depth=128,
         execution_timeout=ANALYZE_TIMEOUT_S, create_timeout=10,
-        loop_bound=3, batched_solving=batched_solving, device=DEVICE,
+        loop_bound=3, batched_solving=batched_solving,
+        device_force_dispatch=force, async_dispatch=not force, device=DEVICE,
     )
     started = time.perf_counter()
-    report = analyzer.fire_lasers(transaction_count=run.transaction_count)
+    with rung_args(device_coalesce=not force):
+        report = analyzer.fire_lasers(
+            transaction_count=run.transaction_count)
     torch.cuda.synchronize()
     return report, analyzer, time.perf_counter() - started
 
 
-def analyze_audited(run, card, label=""):
-    """One audited batched analysis; logs its line and returns
+def analyze_audited(run, card, label="", force=True):
+    """One audited batched analysis, force-dispatched or (``force``
+    False) at the JAX defaults of the rungs; logs its line and returns
     (launches, stats snapshot)."""
     from mythril_tpu_torch.laser.batch import prune_stats
     from mythril_tpu_torch.laser.ethereum.time_handler import time_handler
+    from mythril_tpu_torch.ops import async_dispatch as AD
     from mythril_tpu_torch.ops import batched_sat as bs
     from mythril_tpu_torch.smt import SolverStatistics
     from mythril_tpu_torch.smt.solver import get_blast_context
 
-    with audited_kernels() as audit:
-        report, analyzer, wall = analyze_once(run)
+    with audited_kernels("sample" if force else "count") as audit:
+        report, analyzer, wall = analyze_once(run, force=force)
     fused = bs.dispatch_fuse.fused_generation == get_blast_context().generation
     wall -= audit["seconds"]
     launches = audit["launches"]
@@ -1366,30 +1631,51 @@ def analyze_audited(run, card, label=""):
         f"at the end, launches {launches}, device tiers "
         f"{stats.device_s:.3f} s (with the audits), native CDCL "
         f"{SolverStatistics().native_s:.3f} s, SWC {sorted(found)}")
+    a = AD.async_stats
+    log(f"analyze {run.name}{label} rungs: {stats.profit_skips} profit "
+        f"skips, async {a.launches} launches, {a.harvested} harvested, "
+        f"{a.unsat} UNSAT lanes, {a.models} models, {a.dropped} dropped, "
+        f"{a.abandoned} abandoned; coalescer {stats.coalesced_dispatches} "
+        f"dispatches with {stats.coalesced_lanes} queued lanes, "
+        f"{stats.coalesce_deferred} lanes deferred")
     log(f"analyze {run.name}{label} kernels vs plain: "
         f"{audit['sweep'].summary() or 'no sweep'}; hot-prefix sweeps "
         f"{audit['sweep'].hot_prefix_calls()}; "
-        f"{audit['frontier'].summary() or 'no frontier kernel'}")
+        f"{audit['frontier'].summary() or 'no frontier kernel'}; "
+        f"{audit['round_lane'].summary() or 'no round lane'}")
     check(found == run.swc_ids,
           f"{run.name}: SWC {sorted(found)} != {sorted(run.swc_ids)}")
     check(not laser.timed_out and time_handler.time_remaining() > 0,
           f"{run.name}: the execution deadline cut the run")
+    check(a.dropped == 0 and a.abandoned == 0,
+          f"{run.name}: {a.dropped} prefetches dropped, {a.abandoned} "
+          f"abandoned")
     return launches, {"dispatches": stats.dispatches,
-                      "resident": stats.resident_dispatches}
+                      "resident": stats.resident_dispatches, "wall": wall}
 
 
 def analyze_phase(card):
-    """The chip runs through the port's analyzer on ``cuda``; returns
-    the launches of every kernel over the batched runs in the default
-    configuration, and those of the ``MYTHRIL_TPU_RESIDENT_KERNEL=0``
-    yardstick."""
-    from mythril_tpu_torch.contracts import CHIP_RUNS
+    """The chip runs through the port's analyzer on ``cuda``: each in the
+    JAX default configuration of the rungs (what ``myth analyze`` runs),
+    then force-dispatched (every kernel launched on its main path); the
+    scale runs also CDCL-only.  Returns the launches of every kernel
+    over the batched runs in both configurations, and those of the
+    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` yardstick."""
+    from mythril_tpu_torch.contracts import CHIP_RUNS, YARDSTICK_RUN
     from mythril_tpu_torch.smt import SolverStatistics
 
     total = {}
+    walls = {}
+    for run in CHIP_RUNS:
+        launches, stats = analyze_audited(run, card, " default rungs",
+                                          force=False)
+        walls[run.name] = [stats["wall"]]
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
     through_resident = False
     for run in CHIP_RUNS:
-        launches, stats = analyze_audited(run, card)
+        launches, stats = analyze_audited(run, card, " force-dispatched")
+        walls[run.name].append(stats["wall"])
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         if stats["resident"] and all(launches[k] for k in FRONTIER_KERNELS):
@@ -1400,6 +1686,7 @@ def analyze_phase(card):
             check(sum(launches.values()) > 0,
                   f"{run.name}: no kernel launched")
             report, analyzer, wall = analyze_once(run, batched_solving=False)
+            walls[run.name].append(wall)
             found = {issue.swc_id for issue in report.issues.values()}
             log(f"analyze {run.name} CDCL only [{card}]: wall {wall:.3f} s, "
                 f"{analyzer.last_sym.laser.total_states} states, native "
@@ -1409,11 +1696,15 @@ def analyze_phase(card):
                   f"{run.name} CDCL only: SWC {sorted(found)}")
     check(through_resident, "no analysis went through the resident solver "
           "with all three frontier kernels")
-    # the yardstick of the resident solver: d6 -t 1 on the dense tier
-    run = CHIP_RUNS[0]
+    for name, w in walls.items():
+        log(f"analyze walls {name} [{card}]: default rungs {w[0]:.3f} s, "
+            f"force-dispatched {w[1]:.3f} s"
+            + (f", CDCL only {w[2]:.3f} s" if len(w) > 2 else ""))
+    # the yardstick of the resident solver, force-dispatched on the dense
+    # tier (cut to depth 4 to keep the check within its time)
     with env(MYTHRIL_TPU_RESIDENT_KERNEL="0"):
         launches, stats = analyze_audited(
-            run, card, " MYTHRIL_TPU_RESIDENT_KERNEL=0")
+            YARDSTICK_RUN, card, " MYTHRIL_TPU_RESIDENT_KERNEL=0")
     check(stats["resident"] == 0 and launches["dense_sweep"] > 0,
           "the RESIDENT_KERNEL=0 yardstick did not run the dense tier")
     return total, launches
@@ -1459,6 +1750,8 @@ def main() -> int:
     phase_done("lane step")
     frontier_geometry_phase()
     phase_done("frontier geometries")
+    round_entry = round_lane_phase()
+    phase_done("round lane")
     # launches of the default configuration (the kernels line) and of
     # the runs under the MYTHRIL_TPU_RESIDENT_KERNEL=0 kill switch
     totals, kill_switch = {}, {}
@@ -1471,10 +1764,17 @@ def main() -> int:
          {"MYTHRIL_TPU_RESIDENT_KERNEL": "0"}),
         ("guard chain 64x32", guard, "ladder",
          {"MYTHRIL_TPU_RESIDENT_KERNEL": "0", "MYTHRIL_TPU_DENSE": "0"}),
+        ("guard chain 64x32", guard, "round lanes",
+         {"MYTHRIL_TPU_FRONTIER": "0", "MYTHRIL_TPU_DENSE": "0"}),
     ):
-        _add(kill_switch if knobs else totals,
-             main_path_phase(name, build, expect, knobs))
+        launches = main_path_phase(name, build, expect, knobs)
+        # the round lanes are the path of MYTHRIL_TPU_FRONTIER=0 (and of
+        # the prefetch): their launches count with the main path's
+        _add(totals if not knobs or expect == "round lanes" else kill_switch,
+             launches)
     phase_done("main path")
+    _add(totals, prefetch_phase(card))
+    phase_done("prefetch")
     default, yardstick = analyze_phase(card)
     phase_done("analyze")
     _add(totals, default)
@@ -1482,7 +1782,7 @@ def main() -> int:
     log(f"launches in the default configuration (the kernels line): "
         f"{totals}; in the MYTHRIL_TPU_RESIDENT_KERNEL=0 runs (not in it): "
         f"{kill_switch}")
-    entries = [sweep_entry] + frontier_entries
+    entries = [sweep_entry] + frontier_entries + [round_entry]
     for entry in entries:
         entry["launches"] = totals.get(entry["name"], 0)
         check(entry["launches"] > 0, f"{entry['name']} never launched")

@@ -218,13 +218,15 @@ def main_path_variants(smoke, libs, per_shape, keep=512):
     from mythril_tpu_torch.contracts import CHIP_RUNS
     from mythril_tpu_torch.ops import batched_sat as bs
     from mythril_tpu_torch.smt.solver import reset_blast_context
+    from mythril_tpu_torch.support.support_args import FORCE_DISPATCH_ARGS
 
     use(libs["as built"])
     runs = []
     with FullViews(keep) as views:
         reset_blast_context()
         lanes, _ = frontiers.guard_chain_frontier(64, 32)
-        bs.batch_check_states(lanes, device="cuda")
+        with smoke.rung_args(**FORCE_DISPATCH_ARGS):
+            bs.batch_check_states(lanes, device="cuda")
         torch.cuda.synchronize()
         runs.append("guard chain 64x32")
         for run in CHIP_RUNS[:2]:

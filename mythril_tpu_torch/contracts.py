@@ -206,3 +206,10 @@ CHIP_RUNS: Tuple[ChipRun, ...] = (
             {"101", "104", "105", "107"}, False),
     ChipRun("killbilly -t 1", killbilly, 1, {"106"}, False),
 )
+#: The chip check's yardstick of the resident solver: the scale run under
+#: ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` (the dense tier keeps the frontiers),
+#: cut from depth 6 to depth 4 so that the chip check keeps to its time
+#: (at depth 6 it took 129-188 s of it).
+YARDSTICK_RUN = ChipRun("scale_mul d4 g16 -t 1",
+                        lambda: scale_contract(4, 16, "mul"), 1, {"106"},
+                        True)

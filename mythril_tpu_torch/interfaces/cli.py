@@ -9,13 +9,15 @@ Commands: ``analyze`` (``a``), ``disassemble`` (``d``),
 
 ``analyze`` runs the JAX package's analysis under the slice pins
 (``support/support_args.py``: ``SLICE_PINS_ENV``/``SLICE_PINS_ARGS``,
-with ``word_probing`` off) and puts the dense tier on the card.
-``--device cpu`` is the only way to run it on the CPU; without a card
-the command exits 2 with a clear message.  Options that would need a
-part of the JAX package the port does not have (workers, checkpoints,
-traces, RPC, solc, ...) are refused, not ignored, and so is
-``MYTHRIL_TPU_FRONTIER=0``; a malformed ``MYTHRIL_TPU_*`` knob exits 2
-at startup (``support/env.py:validate_env``).
+with ``word_probing`` off) and puts the solver tiers on the card, behind
+the JAX funnel's default dispatch rungs (profit gate, async prefetch,
+coalescer; ``--device-force-dispatch`` and ``--no-async-dispatch`` as in
+the JAX CLI).  ``--device cpu`` is the only way to run it on the CPU;
+without a card the command exits 2 with a clear message.  Options that
+would need a part of the JAX package the port does not have (workers,
+checkpoints, traces, RPC, solc, ...) are refused, not ignored; a
+malformed ``MYTHRIL_TPU_*`` knob exits 2 at startup
+(``support/env.py:validate_env``).
 """
 
 import argparse
@@ -45,9 +47,8 @@ REFUSED_OPTIONS = (
     "--metrics-out", "--lane-ledger-out", "--proof-log", "--persist-dir",
     "--rpc", "--rpctls", "-a", "--address", "--solv", "--solc-json",
     "-g", "--graph", "-j", "--statespace-json", "--enable-coverage-strategy",
-    "--lockstep-dispatch", "--no-lockstep-dispatch", "--no-async-dispatch",
-    "--device-force-dispatch", "--parallel-solving", "-q",
-    "--query-signature",
+    "--lockstep-dispatch", "--no-lockstep-dispatch", "--parallel-solving",
+    "-q", "--query-signature",
 )
 
 
@@ -150,6 +151,17 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         "--no-batched-solving", action="store_true",
         help="Disable the batched frontier feasibility path (per-state "
         "solving only)",
+    )
+    options.add_argument(
+        "--device-force-dispatch", action="store_true",
+        help="Dispatch frontiers to the device whenever the size gates "
+        "allow, bypassing the adaptive profit gate",
+    )
+    options.add_argument(
+        "--no-async-dispatch", action="store_true",
+        help="Disable the asynchronous device prefetch (profit-gate-"
+        "declined frontiers solved on the device without blocking; see "
+        "ops/async_dispatch.py)",
     )
     options.add_argument(
         "--no-onchain-data", action="store_true",
@@ -293,6 +305,8 @@ def _analyze(disassembler, address, args) -> int:
         unconstrained_storage=args.unconstrained_storage,
         call_depth_limit=args.call_depth_limit,
         batched_solving=not args.no_batched_solving,
+        device_force_dispatch=args.device_force_dispatch,
+        async_dispatch=not args.no_async_dispatch,
         device=args.device,
     )
     if not disassembler.contracts:
@@ -345,19 +359,13 @@ def main(argv=None) -> None:
         sys.exit(0)
 
     # knobs are checked before any command runs, with the JAX CLI's
-    # exit-2 contract: a typo'd value must not run a default, and a
-    # value this build cannot honor must not run another solver
-    from mythril_tpu_torch.ops.batched_sat import FRONTIER_OFF_REFUSED
-    from mythril_tpu_torch.ops.frontier import frontier_enabled
+    # exit-2 contract: a typo'd value must not run a default
     from mythril_tpu_torch.support.env import EnvSpecError, validate_env
 
     try:
         validate_env()
     except EnvSpecError as e:
         print(f"bad environment knob: {e}", file=sys.stderr)
-        sys.exit(2)
-    if not frontier_enabled():
-        print(FRONTIER_OFF_REFUSED, file=sys.stderr)
         sys.exit(2)
 
     if args.command == "list-detectors":

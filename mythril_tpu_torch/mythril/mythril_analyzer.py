@@ -6,9 +6,10 @@ Builds a symbolic executor per contract, harvests detection issues
 final :class:`Report`.  The port runs the JAX package's analyzer under
 the slice pins (``support/support_args.py``): no concrete replay of
 exploit sequences, no corpus sharding over devices, no governor, no
-checkpoints, no fleet, no statespace or graph dumps.  Its one new knob
-is ``device``: the dense tier runs on the card unless ``device="cpu"``
-is passed.
+checkpoints, no fleet, no statespace or graph dumps.  The funnel's
+dispatch rungs take the JAX package's arguments (``device_force_dispatch``,
+``async_dispatch``); the port's one new knob is ``device``: the solver
+tiers run on the card unless ``device="cpu"`` is passed.
 
 Reference counterpart: mythril/mythril/mythril_analyzer.py (the
 per-contract loop + statistics toggles).
@@ -26,6 +27,7 @@ from mythril_tpu_torch.analysis.security import (
 )
 from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
 from mythril_tpu_torch.exceptions import DetectorNotFoundError
+from mythril_tpu_torch.ops.async_dispatch import get_async_dispatcher
 from mythril_tpu_torch.smt import SolverStatistics
 from mythril_tpu_torch.solidity.evmcontract import EVMContract
 from mythril_tpu_torch.support.loader import DynLoader
@@ -41,7 +43,8 @@ def reset_analysis_state() -> None:
     behind (a fresh CLI process starts this way): the blast context with
     its term interner and model cache, the detection modules' issues
     and caches, the transaction-id counter, the keccak function
-    manager, and the funnel's and prune's counters."""
+    manager, the funnel's and prune's counters, and the async prefetch
+    (its worker joined, its batch and statistics dropped)."""
     from mythril_tpu_torch.laser.batch import prune_stats
     from mythril_tpu_torch.laser.ethereum.keccak_function_manager import (
         keccak_function_manager,
@@ -50,9 +53,11 @@ def reset_analysis_state() -> None:
         reset_transaction_ids,
     )
     from mythril_tpu_torch.analysis.module.loader import ModuleLoader
+    from mythril_tpu_torch.ops.async_dispatch import reset_async_dispatch
     from mythril_tpu_torch.ops.batched_sat import dispatch_stats
     from mythril_tpu_torch.smt.solver import reset_blast_context
 
+    reset_async_dispatch()
     reset_blast_context()
     for module in ModuleLoader().get_detection_modules():
         module.reset_module()
@@ -97,6 +102,8 @@ class MythrilAnalyzer:
         unconstrained_storage: bool = False,
         call_depth_limit: int = 3,
         batched_solving: bool = True,
+        device_force_dispatch: bool = False,
+        async_dispatch: bool = True,
         device: Optional[str] = None,
     ):
         self.contracts: List[EVMContract] = disassembler.contracts or []
@@ -117,6 +124,8 @@ class MythrilAnalyzer:
         args.call_depth_limit = call_depth_limit
         args.iprof = enable_iprof
         args.batched_solving = batched_solving
+        args.device_force_dispatch = device_force_dispatch
+        args.async_dispatch = async_dispatch
         args.device = device
         #: the last contract's executor (its LaserEVM carries the run's
         #: state count and whether a deadline cut it)
@@ -163,6 +172,9 @@ class MythrilAnalyzer:
             self.last_sym = sym
             issues = fire_lasers(sym, modules)
             execution_info = sym.execution_info
+            # a prefetch still in flight: waited for, and its failure
+            # raised here (no later funnel call would harvest it)
+            get_async_dispatcher().finish()
         except DetectorNotFoundError:
             raise
         except KeyboardInterrupt:

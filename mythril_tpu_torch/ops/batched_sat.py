@@ -5,14 +5,20 @@ slice).
 :func:`batch_check_states` takes a frontier of term-level path
 constraint sets and returns one verdict per set.  It is the JAX funnel
 under the slice's configuration (``MYTHRIL_TPU_WORD_TIER=0``,
-``MYTHRIL_TPU_AUTOPILOT=0``, ``MYTHRIL_TPU_FRONTIER=1``):
+``MYTHRIL_TPU_AUTOPILOT=0``):
 
+0. harvest: a finished async prefetch (``ops/async_dispatch.py``)
+   lands its UNSAT memos, nogoods and models first;
 1. structural fold: constraints that folded to literal False;
 2. memo hits: the context's permanent UNSAT memo and the verdicts the
    per-query funnel (``support/model.py``) has cached;
 3. the solver tiers (:class:`BatchedSatBackend`) over the deduped open
    lanes, on the card unless the caller passes ``device="cpu"``, behind
-   the JAX funnel's adaptive fuse:
+   the JAX funnel's dispatch rungs: the profit gate (a frontier the
+   CDCL is projected to clear for less than ``device_min_save_s`` is
+   left to it, and launched as an async prefetch instead), the adaptive
+   fuse and the coalescer (``ops/coalesce.py``: an underfilled batch
+   waits in its queue, and queued lanes ride along with a later one):
 
    - the dense tier (``ops/dense_prop.py``), which delegates every
      frontier whose union cone fits the cone caps while the resident
@@ -22,7 +28,8 @@ under the slice's configuration (``MYTHRIL_TPU_WORD_TIER=0``,
      (:meth:`BatchedSatBackend.check_cone_gather`), both solving on the
      frontier solvers: the resident solver (``ops/resident.py``) or,
      with ``MYTHRIL_TPU_RESIDENT_KERNEL=0``, the multi-dispatch frontier
-     ladder (``ops/frontier.py``);
+     ladder (``ops/frontier.py``); with ``MYTHRIL_TPU_FRONTIER=0``, the
+     round-lane ladder (``ops/round_lane.py``);
 
    then host verification of every SAT candidate against the terms
    (device UNSAT verdicts become assumption nogoods in the pool);
@@ -31,11 +38,9 @@ under the slice's configuration (``MYTHRIL_TPU_WORD_TIER=0``,
 
 Left out of this slice: the host word-level model probing before the
 dispatch (``word_probing``; the slice pins it off), the word tier, the
-autopilot router, the lane ledger, the coalescer and async prefetch,
-the adaptive profit gate, the sharded mesh, the dense round lanes of
-``MYTHRIL_TPU_FRONTIER=0`` (the funnel refuses that flag), and the
-ladder's resilience seams (watchdog, retry, bisection, quarantine,
-drain).  A failure in a tier reaches the caller.
+autopilot router, the lane ledger, the sharded mesh, and the ladder's
+resilience seams (watchdog, retry, bisection, quarantine, drain).  A
+failure in a tier, or in the prefetch's worker, reaches the caller.
 """
 
 import time
@@ -45,10 +50,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-#: why the funnel and the CLI refuse ``MYTHRIL_TPU_FRONTIER=0``
-FRONTIER_OFF_REFUSED = (
-    "MYTHRIL_TPU_FRONTIER=0 is not supported by this build: the gather "
-    "tiers' dense round lanes are not ported (see ROADMAP.md)")
+from mythril_tpu_torch.ops import round_lane as RL
+
 #: clause rows of the gather tiers are at most this wide (wider clauses
 #: stay with the CDCL: BCP is weaker, verdicts stay sound)
 MAX_CLAUSE_WIDTH = 8
@@ -89,9 +92,17 @@ class DispatchStats:
     """Device-dispatch telemetry of the funnel and the solver tiers."""
 
     def __init__(self):
-        self.reset()
+        self._reset_own()
 
     def reset(self):
+        """Zero the counters, and the coalescer's admission window with
+        them (it is generation-scoped, as the JAX package resets it)."""
+        from mythril_tpu_torch.ops.coalesce import reset_coalescer
+
+        self._reset_own()
+        reset_coalescer()
+
+    def _reset_own(self):
         self.dispatches = 0        # dispatches that engaged a device tier
         self.lanes = 0             # lanes sent to the device
         self.unsat = 0             # lanes decided UNSAT on the device
@@ -130,6 +141,13 @@ class DispatchStats:
         self.resident_exit_budget = 0
         self.resident_exit_watchdog = 0
         self.resident_delegations = 0
+        # dispatch rungs: frontiers the profit gate left to the CDCL,
+        # dispatches that carried queued lanes and those lanes, and lanes
+        # the coalescer deferred into its queue
+        self.profit_skips = 0
+        self.coalesced_dispatches = 0
+        self.coalesced_lanes = 0
+        self.coalesce_deferred = 0
         # per-lane tier that decided each lane of the last
         # batch_check_states call: "structural", "memo", "device",
         # "probe" (a zero assignment that verified after no tier took
@@ -183,8 +201,11 @@ class DispatchFuse:
         if self.retrying:
             self.retries -= 1
 
-    def settle(self, ctx, decided: int, elapsed_s: float):
-        """Account one engaged dispatch that decided ``decided`` lanes."""
+    def settle(self, ctx, decided: int, elapsed_s: float,
+               prefetch_inflight: bool = False):
+        """Account one engaged dispatch that decided ``decided`` lanes.
+        A prefetch in flight shares the device, so its queue time does
+        not make a dispatch slow."""
         if decided:
             self.futile = 0
             if self.fused_generation == ctx.generation:
@@ -193,7 +214,7 @@ class DispatchFuse:
                 self.retries = 0
             return
         self.futile += 1
-        if elapsed_s > SLOW_DISPATCH_FUSE_S:
+        if elapsed_s > SLOW_DISPATCH_FUSE_S and not prefetch_inflight:
             self.futile = FUTILE_DISPATCH_FUSE
             self.was_slow = True
         if self.futile >= FUTILE_DISPATCH_FUSE:
@@ -389,13 +410,17 @@ class BatchedSatBackend:
             )
             return [None] * len(assumption_sets)
 
+        from mythril_tpu_torch.ops.frontier import frontier_enabled
+
         assign = self._sync_pool_and_assign(ctx, assumption_sets, num_vars)
         batch = len(assumption_sets)
         self.device_engaged = True
         # column space is the pool's own variable space: learned clauses
-        # harvest with no remap
-        frontier = {"adj": self.pool.adjacency_dev(), "ctx": ctx,
-                    "col_to_var": None}
+        # harvest with no remap; MYTHRIL_TPU_FRONTIER=0 runs round lanes
+        frontier = None
+        if frontier_enabled():
+            frontier = {"adj": self.pool.adjacency_dev(), "ctx": ctx,
+                        "col_to_var": None}
         status, final_assign = self._solve_gather_ladder(
             self.pool.lits, assign,
             pref=warm_pref_row(ctx, assign.shape[1], lanes=batch),
@@ -438,13 +463,15 @@ class BatchedSatBackend:
 
     def _account_sweeps(self, state, n_live: int, B: int) -> None:
         """Full sweeps count once per round (the slowest lane's), gather
-        steps per lane."""
-        full_live = state["fullsw"][:n_live]
+        steps per lane; a round-lane state counts every step a sweep."""
+        full_live = state["fullsw" if "fullsw" in state else "step"][:n_live]
         steps_used = int(full_live.max()) if n_live else 0
         dispatch_stats.device_sweeps += steps_used
         dispatch_stats.lane_sweeps_total += steps_used * B
         dispatch_stats.lane_sweeps_active += int(full_live.sum())
-        dispatch_stats.frontier_steps += int(state["fsteps"][:n_live].sum())
+        if "fsteps" in state:
+            dispatch_stats.frontier_steps += int(
+                state["fsteps"][:n_live].sum())
 
     def _solve_resident(self, lits, assign, pref=None, frontier=None):
         """One resident dispatch (ops/resident.py) over the
@@ -486,16 +513,17 @@ class BatchedSatBackend:
         return (np.where(statuses_out == 3, 0, statuses_out), assign_out)
 
     def _solve_gather_ladder(self, lits, assign, pref=None, frontier=None):
-        """The frontier solve of a gather tier: the resident solver, or
-        with ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` the multi-dispatch ladder
-        (budgeted rounds, decided lanes retired between rounds,
-        survivors re-packed into the smallest lane bucket, queues and
-        trails riding the re-pack).  Returns (status[batch] with bails
-        mapped to undecided, final assign[batch, V1] int8)."""
+        """The solve of a gather tier: the resident solver, or with
+        ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` the multi-dispatch frontier
+        ladder, or with no ``frontier`` (``MYTHRIL_TPU_FRONTIER=0``) the
+        round-lane ladder (budgeted rounds, decided lanes retired
+        between rounds, survivors re-packed into the smallest lane
+        bucket, their state riding the re-pack).  Returns (status[batch]
+        with bails mapped to undecided, final assign[batch, V1] int8)."""
         from mythril_tpu_torch.ops import frontier as FR
         from mythril_tpu_torch.ops.resident import resident_kernel_enabled
 
-        if resident_kernel_enabled():
+        if frontier is not None and resident_kernel_enabled():
             return self._solve_resident(lits, assign, pref=pref,
                                         frontier=frontier)
         assign = np.asarray(assign, dtype=np.int8)
@@ -503,13 +531,27 @@ class BatchedSatBackend:
         B = lane_bucket(batch)
         dispatch_stats.lane_slots_filled += batch
         dispatch_stats.lane_slots_total += B
-        seed = np.ones((B, V1), np.int8)
-        seed[:batch] = assign
-        state = FR.frontier_state0(
-            seed, batch, GATHER_DECISIONS, width=MAX_CLAUSE_WIDTH,
-            pref_row=self._pref_row(pref, V1),
-        )
-        order = FR.FRONTIER_STATE_FIELDS
+        pref_row = self._pref_row(pref, V1)
+        if frontier is not None:
+            seed = np.ones((B, V1), np.int8)
+            seed[:batch] = assign
+            state = FR.frontier_state0(
+                seed, batch, GATHER_DECISIONS, width=MAX_CLAUSE_WIDTH,
+                pref_row=pref_row,
+            )
+            order = FR.FRONTIER_STATE_FIELDS
+            round_keys = ("fullsw", "fsteps", "nlearn")
+        else:
+            # pads preassigned and retired at step 0, as the JAX ladder's
+            seed = np.ones((B, V1), np.int8)
+            seed[:batch] = assign
+            state = {k: v.numpy() for k, v in RL.initial_state(
+                torch.from_numpy(seed), GATHER_DECISIONS,
+                None if pref_row is None else torch.from_numpy(pref_row),
+            ).items()}
+            state["status"][batch:] = 3
+            order = RL.ROUND_STATE_FIELDS
+            round_keys = ("step",)
         statuses_out = np.zeros(batch, np.int32)
         assign_out = np.array(assign, copy=True)
         live = np.arange(batch)
@@ -525,17 +567,23 @@ class BatchedSatBackend:
         for budget in budgets:
             if live.size == 0:
                 break
-            for k in ("fullsw", "fsteps", "nlearn"):  # per-round counters
+            for k in round_keys:  # per-round counters
                 state[k][:] = 0
-            with record_function("frontier.round"):
-                state = self._dispatch_round(
-                    lambda st: FR.frontier_round(lits, frontier["adj"], st,
-                                                 budget),
-                    state,
-                )
+            if frontier is not None:
+                with record_function("frontier.round"):
+                    state = self._dispatch_round(
+                        lambda st: FR.frontier_round(lits, frontier["adj"],
+                                                     st, budget),
+                        state,
+                    )
+            else:
+                with record_function("dispatch.round"):
+                    state = self._dispatch_round(
+                        lambda st: _round_lane_np(lits, st, budget), state)
             dispatch_stats.rounds += 1
             self._account_sweeps(state, live.size, B)
-            self._harvest_round_learnts(state, live, frontier)
+            if frontier is not None:
+                self._harvest_round_learnts(state, live, frontier)
             st = state["status"][: live.size]
             done = st != 0
             if not done.any():
@@ -642,7 +690,9 @@ class BatchedSatBackend:
         """Solve the batch against its union cone only (compact var
         ids).  Per-lane verdicts like check_assumption_sets, or None when
         the cone does not fit the tier."""
-        from mythril_tpu_torch.ops.frontier import build_adjacency
+        from mythril_tpu_torch.ops.frontier import (
+            build_adjacency, frontier_enabled,
+        )
         from mythril_tpu_torch.ops.incremental import get_cone_memo
 
         built = self._build_cone_batch(ctx, assumption_sets)
@@ -671,10 +721,14 @@ class BatchedSatBackend:
             return torch.from_numpy(adj).to(self.device)
 
         rows_dev = memo.get_or_build(ctx, ("cone_dev", roots), _upload_rows)
-        adj_dev = memo.get_or_build(ctx, ("cone_adj", roots), _upload_adj)
-        col_to_var = np.zeros(n + 1, np.int64)
-        col_to_var[1:] = cone_vars
-        frontier = {"adj": adj_dev, "ctx": ctx, "col_to_var": col_to_var}
+        frontier = None
+        if frontier_enabled():
+            adj_dev = memo.get_or_build(ctx, ("cone_adj", roots),
+                                        _upload_adj)
+            col_to_var = np.zeros(n + 1, np.int64)
+            col_to_var[1:] = cone_vars
+            frontier = {"adj": adj_dev, "ctx": ctx,
+                        "col_to_var": col_to_var}
         status, final_assign = self._solve_gather_ladder(
             rows_dev, assign,
             pref=warm_pref_row(ctx, assign.shape[1], cone_vars=cone_vars,
@@ -734,6 +788,75 @@ class BatchedSatBackend:
         dispatch_stats.h2d_bytes += int(assign.nbytes)
         return assign
 
+    def prepare_gather(self, ctx, assumption_sets):
+        """The async prefetch's preparation (``ops/async_dispatch.py``):
+        the gather tiers' eligibility gates and inputs, built ON THE
+        CALLING THREAD (everything that touches the blast context), then
+        a zero-argument runner that solves them with the one-shot round
+        lane (``make_solve_step`` of the JAX package) on the worker
+        thread.  Past the gather caps it prepares a union-cone runner
+        instead; None when neither tier takes the frontier.  The runner's
+        dispatch and upload are counted here, on the calling thread (the
+        JAX runner counts them on the worker; the totals are the same,
+        and no counter is written from two threads)."""
+        from mythril_tpu_torch.ops import async_dispatch
+
+        if not assumption_sets:
+            return None
+        verdict, num_vars = self._gather_eligibility(ctx)
+        device = self.device
+        if verdict is not None:
+            # the prefetch channel must not go dark where the pool is
+            # past the caps (deep analyses live there): the cone tier
+            built = self._build_cone_batch(ctx, assumption_sets)
+            if built is None:
+                return None
+            rows, assign, cone_vars, _roots = built
+            bucket = DevicePool._bucket(int(cone_vars.size))
+            if bucket + 1 > assign.shape[1]:
+                assign = np.concatenate(
+                    [assign, np.ones((assign.shape[0],
+                                      bucket + 1 - assign.shape[1]),
+                                     np.int8)],
+                    axis=1,
+                )
+            full_width = ctx.solver.num_vars + 1
+            dispatch_stats.h2d_bytes += int(rows.nbytes)
+            dispatch_stats.device_dispatch_calls += 1
+
+            def run_cone():
+                # uploaded here, on the worker's stream (never through
+                # the shared cone memo, which the host may be changing)
+                final, status = RL.solve_lane(
+                    torch.from_numpy(rows).to(device),
+                    torch.from_numpy(assign).to(device))
+                return {"status": status, "assign": final,
+                        "cone_vars": cone_vars, "full_width": full_width}
+
+            return run_cone
+        assign = self._sync_pool_and_assign(ctx, assumption_sets, num_vars)
+        # a snapshot: DevicePool.append writes the pool rows in place
+        lits = self.pool.lits.clone()
+        async_dispatch.hand_to_worker(lits)
+        dispatch_stats.device_dispatch_calls += 1
+
+        def run():
+            final, status = RL.solve_lane(
+                lits, torch.from_numpy(assign).to(device))
+            return {"status": status, "assign": final}
+
+        return run
+
+
+def _round_lane_np(lits, state: dict, budget: int) -> dict:
+    """One round-lane round over the ladder's host-side state (the
+    ladder re-packs it between rounds, as the JAX ladder does)."""
+    out = RL.round_lane(lits, {
+        k: torch.from_numpy(np.ascontiguousarray(state[k])).to(lits.device)
+        for k in RL.ROUND_STATE_FIELDS
+    }, budget)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
 
 _backends: Dict[torch.device, BatchedSatBackend] = {}
 
@@ -776,21 +899,17 @@ def batch_check_states(constraint_sets, device=None,
     ``device="cpu"`` is passed.  With ``tail=True`` the native CDCL
     answers every lane the funnel leaves open (None then means the CDCL
     answered UNKNOWN); ``tail=False`` returns them as None, for a caller
-    that runs its own tail (``laser/batch.py``).
-
-    Raises RuntimeError under ``MYTHRIL_TPU_FRONTIER=0``: the JAX
-    package's gather tiers then run the dense round lanes, which the
-    port does not have, and the port runs no other solver in their
-    place."""
-    from mythril_tpu_torch.ops.frontier import frontier_enabled
+    that runs its own tail (``laser/batch.py``)."""
+    from mythril_tpu_torch.ops.async_dispatch import get_async_dispatcher
     from mythril_tpu_torch.smt import terms as T
     from mythril_tpu_torch.smt.solver import get_blast_context
     from mythril_tpu_torch.support.model import peek_model_verdict
 
-    if not frontier_enabled():
-        raise RuntimeError(FRONTIER_OFF_REFUSED)
     backend = get_backend(device)
     ctx = get_blast_context()
+    # 0. a finished async prefetch first: its UNSAT memos and models
+    # decide lanes of THIS frontier below for free
+    get_async_dispatcher().harvest(ctx)
     node_sets: List[Optional[List]] = []
     decided: List[Optional[bool]] = [None] * len(constraint_sets)
     tiers: List[Optional[str]] = [None] * len(constraint_sets)
@@ -867,8 +986,13 @@ def _tail(ctx, node_sets, decided, tiers):
 
 def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
                   open_indices):
-    """3.: blast the open lanes, dispatch the deduped assumption sets to
-    the solver tiers, fold their verdicts into ``decided``."""
+    """3.: blast the open lanes, then the dispatch rungs over the deduped
+    assumption sets (profit gate with async prefetch, fuse, coalescer),
+    dispatch to the solver tiers, fold their verdicts into ``decided``."""
+    from mythril_tpu_torch.ops.async_dispatch import get_async_dispatcher
+    from mythril_tpu_torch.ops.coalesce import get_coalescer
+    from mythril_tpu_torch.support.support_args import args
+
     assumption_sets: List[Optional[List[int]]] = [None] * len(node_sets)
     with record_function("funnel.blast"):
         for i in list(open_indices):
@@ -894,17 +1018,55 @@ def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
             rep_indices.append(i)
         lane_of.append(lane)
     rep_sets = [assumption_sets[i] for i in rep_indices]
+    rep_nodes = [node_sets[i] for i in rep_indices]
+    rep_constraints = [constraint_sets[i] for i in rep_indices]
+
+    if not args.device_force_dispatch and _profit_gate_declines(
+            len(rep_indices)):
+        # not worth blocking for, but the device is idle: prefetch the
+        # batch (a fused context does not feed the device this way);
+        # queued lanes ride along to fill its bucket
+        dispatch_stats.profit_skips += 1
+        if args.async_dispatch and (
+            dispatch_fuse.fused_generation != ctx.generation
+        ):
+            extras = get_coalescer().drain(ctx)
+            launched = get_async_dispatcher().launch(
+                backend, ctx, rep_sets + [q.lits for q in extras],
+                rep_nodes + [q.nodes for q in extras],
+                rep_constraints + [q.constraints for q in extras],
+            )
+            if extras:
+                if launched:
+                    dispatch_stats.coalesced_dispatches += 1
+                    dispatch_stats.coalesced_lanes += len(extras)
+                else:
+                    get_coalescer().requeue(ctx, extras)
+        return
 
     if not dispatch_fuse.admit(ctx):
         return  # fused off for this context: every lane to the tail
+    extras = get_coalescer().admit(ctx, rep_sets, rep_nodes,
+                                   rep_constraints,
+                                   force_now=dispatch_fuse.retrying)
+    if extras is None:
+        # the coalescing window: this batch waits in the queue and its
+        # lanes go to the tail this round; a later merged dispatch pays
+        # them back through the memo and nogood channels
+        return
+    prefetch_inflight = get_async_dispatcher().pending is not None
     started = time.perf_counter()
-    verdicts = backend.check_assumption_sets(ctx, rep_sets)
+    verdicts = backend.check_assumption_sets(
+        ctx, rep_sets + [q.lits for q in extras])
     elapsed = time.perf_counter() - started
     dispatch_stats.device_s += elapsed
     engaged = backend.device_engaged
     if engaged:
         dispatch_stats.dispatches += 1
-        dispatch_stats.lanes += len(rep_indices)
+        dispatch_stats.lanes += len(rep_indices) + len(extras)
+        if extras:
+            dispatch_stats.coalesced_dispatches += 1
+            dispatch_stats.coalesced_lanes += len(extras)
     else:
         dispatch_fuse.refund()
 
@@ -913,11 +1075,44 @@ def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
         _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,
                        open_indices, assumption_sets, rep_indices, lane_of,
                        verdicts, backend.last_assignments, engaged)
+        _fold_extras(ctx, extras, verdicts[len(rep_indices):],
+                     backend.last_assignments[len(rep_indices):], engaged)
     if engaged:
         dispatch_fuse.settle(
             ctx, dispatch_stats.unsat + dispatch_stats.sat_verified - before,
-            elapsed,
+            elapsed, prefetch_inflight,
         )
+
+
+def _profit_gate_declines(n_lanes: int) -> bool:
+    """The JAX funnel's profit gate: True when the residue's projected
+    CDCL cost (``n_lanes`` times the analysis's own mean native solve,
+    ``SolverStatistics().native_s / native_calls``) is below
+    ``args.device_min_save_s``."""
+    from mythril_tpu_torch.smt import SolverStatistics
+    from mythril_tpu_torch.support.support_args import args
+
+    stats = SolverStatistics()
+    avg_native = (stats.native_s / stats.native_calls
+                  if stats.native_calls else 0.0)
+    return n_lanes * avg_native < args.device_min_save_s
+
+
+def _fold_extras(ctx, extras, verdicts, assignments, engaged):
+    """The coalesced lanes' verdicts: the CDCL tail already answered
+    them in their own (deferred) round, so they land only in the memo,
+    nogood and remembered-model channels."""
+    for pos, q in enumerate(extras):
+        if verdicts[pos] is False:
+            ctx.note_unsat(q.nodes)
+            if engaged:
+                ctx.learn_nogood(q.lits)
+                dispatch_stats.unsat += 1
+        elif engaged:
+            env = _env_from_assignment(ctx, assignments[pos])
+            if _holds(q.constraints, env):
+                ctx._remember_model(env, truth=assignments[pos])
+                dispatch_stats.sat_verified += 1
 
 
 def _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,

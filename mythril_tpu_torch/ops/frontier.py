@@ -22,10 +22,10 @@ round and the host harvest of device-learned clauses.
 One iteration is three hand-written kernels on the card (scan, lane
 step, epilogue: ``ops/frontier_kernels.py``); :func:`scan_rows_plain`
 is the JAX package's ``make_scan_rows`` in PyTorch, which the scan
-kernel's plain version is built on.  ``MYTHRIL_TPU_FRONTIER=0`` (the
-JAX package's dense round lanes) is not part of the port: the solver
-tiers always run the frontier rounds, and the switch only changes how
-the dense tier grows its hot rows.  Knobs (environment only):
+kernel's plain version is built on.  ``MYTHRIL_TPU_FRONTIER=0`` runs
+the gather tiers on the round lanes instead (``ops/round_lane.py``, as
+the JAX package does) and makes the dense tier grow its hot rows
+without the adjacency index.  Knobs (environment only):
 ``MYTHRIL_TPU_FRONTIER_PERIOD`` (default 8), ``MYTHRIL_TPU_FRONTIER_FAN``
 (16), ``MYTHRIL_TPU_FRONTIER_DEG`` (32).
 """

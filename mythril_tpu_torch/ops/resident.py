@@ -49,7 +49,7 @@ def resident_kernel_enabled() -> bool:
     """``MYTHRIL_TPU_RESIDENT_KERNEL=0`` restores the multi-dispatch
     frontier ladder.  The resident solver runs on the frontier state,
     so ``MYTHRIL_TPU_FRONTIER=0`` switches it off too, as in the JAX
-    package (the funnel refuses that flag: see ``batch_check_states``)."""
+    package (the gather tiers then run the round lanes)."""
     return (env_flag("MYTHRIL_TPU_RESIDENT_KERNEL", True)
             and frontier_enabled())
 

@@ -2,8 +2,10 @@
 """Where the port's main path spends its time on the card.
 
 Runs one EVM-shaped frontier through
-``mythril_tpu_torch.ops.batched_sat.batch_check_states`` on ``cuda``
-(once to build and warm, then once under ``torch.profiler``) and prints:
+``mythril_tpu_torch.ops.batched_sat.batch_check_states`` on ``cuda``,
+force-dispatched (``support_args.FORCE_DISPATCH_ARGS``: the profit gate
+would leave it to the CDCL), once to build and warm, then once under
+``torch.profiler``, and prints:
 
 - the wall time and the device busy time of the profiled run, and the
   device's idle share (1 - busy / wall);
@@ -41,7 +43,12 @@ def _run(name):
 
     from mythril_tpu_torch.ops import batched_sat as bs
     from mythril_tpu_torch.smt.solver import reset_blast_context
+    from mythril_tpu_torch.support.support_args import (
+        FORCE_DISPATCH_ARGS, args,
+    )
 
+    for key, value in FORCE_DISPATCH_ARGS.items():
+        setattr(args, key, value)
     reset_blast_context()
     lanes, expected = _frontier(name)
     bs.dispatch_stats.reset()

@@ -1,7 +1,7 @@
 """``MYTHRIL_TPU_*`` knobs of the port (own copy of the part of
 ``mythril_tpu/support/env.py`` for the knobs the port reads): the
-lenient readers ``env_int`` / ``env_flag``, which the solver calls on
-hot paths (malformed -> default), and the startup gate
+lenient readers ``env_int`` / ``env_float`` / ``env_flag``, which the
+solver calls on hot paths (malformed -> default), and the startup gate
 :func:`validate_env`, which the CLI calls before a command so that a
 typo'd value exits 2 instead of running a default."""
 
@@ -14,8 +14,9 @@ class EnvSpecError(RuntimeError):
     at CLI startup (exit code 2)."""
 
 
-#: name -> (kind, floor, ceil), kind "int" or "flag": the JAX package's
-#: entries (``KNOWN_SPECS``) for the knobs this port reads.  The port
+#: name -> (kind, floor, ceil), kind "int", "float" or "flag": the JAX
+#: package's entries (``KNOWN_SPECS``) for the knobs this port reads.  The
+#: port
 #: also reads MYTHRIL_TPU_FRONTIER, MYTHRIL_TPU_PALLAS,
 #: MYTHRIL_TPU_ROUND_LADDER and its own alias MYTHRIL_TPU_DENSE, which
 #: that table does not hold: like the JAX package, the gate takes any
@@ -25,6 +26,8 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_FRONTIER_FAN": ("int", 1, None),
     "MYTHRIL_TPU_FRONTIER_DEG": ("int", 2, None),
     "MYTHRIL_TPU_TIER_PERIOD": ("int", 1, None),
+    "MYTHRIL_TPU_COALESCE_WINDOW": ("int", 0, None),
+    "MYTHRIL_TPU_COALESCE_FILL": ("float", 0.0, None),
     "MYTHRIL_TPU_PROBE_MEMO_CAP": ("int", 1, None),
     "MYTHRIL_TPU_RESIDENT_KERNEL": ("flag", None, None),
     "MYTHRIL_TPU_RESIDENT_BUDGET": ("int", 1, None),
@@ -60,6 +63,18 @@ def env_int(name: str, default: int, floor: Optional[int] = None,
         return default
 
 
+def env_float(name: str, default: float, floor: Optional[float] = None,
+              ceil: Optional[float] = None) -> float:
+    """Float twin of :func:`env_int`."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        return _clamp(float(raw), floor, ceil)
+    except ValueError:
+        return default
+
+
 def env_flag(name: str, default: bool = True) -> bool:
     """Kill-switch style boolean: ``0``/``off``/``false`` disable,
     ``1``/``on``/``true``/``force`` enable, anything else (including
@@ -89,9 +104,11 @@ def validate_env(environ=None) -> None:
                     f"(expected one of {'/'.join(FLAG_VALUES)})")
             continue
         try:
-            value = int(raw)
+            value = int(raw) if kind == "int" else float(raw)
         except ValueError:
-            raise EnvSpecError(f"{name}={raw!r}: not an integer") from None
+            raise EnvSpecError(
+                f"{name}={raw!r}: not "
+                f"{'an integer' if kind == 'int' else 'a number'}") from None
         if floor is not None and value < floor:
             raise EnvSpecError(f"{name}={value}: must be >= {floor}")
         if ceil is not None and value > ceil:

@@ -13,13 +13,11 @@ from mythril_tpu_torch.support.support_utils import Singleton
 #: so it runs this configuration whatever the environment says; the
 #: parity tests apply the same pins to the JAX package.  The port honors
 #: ``MYTHRIL_TPU_RESIDENT_KERNEL`` both ways, as the JAX package does
-#: (0 = the multi-dispatch frontier ladder).
+#: (0 = the multi-dispatch frontier ladder) and ``MYTHRIL_TPU_FRONTIER``
+#: both ways (0 = the round-lane ladder).
 #:
-#: Environment knobs of the JAX package (``MYTHRIL_TPU_FRONTIER=0``
-#: would give its gather tiers the dense round lanes, which the port
-#: does not have):
+#: Environment knobs of the JAX package:
 SLICE_PINS_ENV = {
-    "MYTHRIL_TPU_FRONTIER": "1",
     "MYTHRIL_TPU_WORD_TIER": "0",
     "MYTHRIL_TPU_AUTOPILOT": "0",
     "MYTHRIL_TPU_SYM_LOCKSTEP": "0",
@@ -39,14 +37,22 @@ SLICE_PINS_CPU_ENV = {"MYTHRIL_TPU_PALLAS": "force"}
 #: probe; off, every open lane reaches the dense tier and the tail's
 #: models come from the CDCL alone, on both sides.
 SLICE_PINS_ARGS = {
-    "device_force_dispatch": True,
-    "device_coalesce": False,
-    "async_dispatch": False,
     "lockstep_dispatch": False,
     "concrete_replay": False,
     "proof_log": False,
     "fleet_workers": 0,
     "word_probing": False,
+}
+
+#: The force-dispatched configuration of the funnel's rungs (JAX's
+#: ``--device-force-dispatch --no-async-dispatch`` with
+#: ``device_coalesce`` off): every frontier the size gates allow reaches
+#: a device tier at once.  The parity tests of the tiers and the chip
+#: check's kernel audits run it; the defaults below are JAX's.
+FORCE_DISPATCH_ARGS = {
+    "device_force_dispatch": True,
+    "device_coalesce": False,
+    "async_dispatch": False,
 }
 
 
@@ -66,6 +72,16 @@ class Args(object, metaclass=Singleton):
         # the funnel's structural floor is derived from it
         # (ops/batched_sat.effective_min_lanes)
         self.device_min_lanes = 8
+        # the funnel's dispatch rungs, at the JAX package's defaults: the
+        # profit gate skips a dispatch whose residue the CDCL is
+        # projected to clear in less than device_min_save_s (unless
+        # device_force_dispatch), and prefetches it asynchronously
+        # instead (async_dispatch); the coalescer merges underfilled
+        # batches across rounds (device_coalesce)
+        self.device_force_dispatch = False
+        self.device_min_save_s = 0.5
+        self.async_dispatch = True
+        self.device_coalesce = True
         # where the dense tier runs: None = the card (an error without
         # one), "cpu" only when asked for
         self.device = None

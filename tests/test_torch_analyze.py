@@ -9,6 +9,7 @@ count, the number of prune calls and every prune call's per-state
 verdicts must be exactly equal; neither side may time out.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -25,6 +26,7 @@ from mythril_tpu_torch import contracts
 from mythril_tpu_torch.laser.ethereum import svm as port_svm
 from mythril_tpu_torch.ops import batched_sat as port_bs
 from mythril_tpu_torch.support.support_args import (
+    FORCE_DISPATCH_ARGS,
     SLICE_PINS_ARGS,
     SLICE_PINS_CPU_ENV,
     SLICE_PINS_ENV,
@@ -48,13 +50,14 @@ def one_device(monkeypatch):
 
 @pytest.fixture(autouse=True)
 def slice_pins(monkeypatch):
-    """The slice pins on both sides, and what reads the wall clock set
-    out of reach on both sides, so that the parity does not depend on
-    the machine: the slow-dispatch fuse, and the JAX package's dispatch
-    watchdog (a cold jit of a resident solve takes seconds here).  The
-    JAX side sees one device, as the port runs on one: the test
-    process's eight forced CPU devices would send its gather tiers to
-    the sharded mesh."""
+    """The slice pins on both sides, the force-dispatched rungs
+    (:data:`FORCE_DISPATCH_ARGS`) on both sides, and what reads the wall
+    clock set out of reach on both sides, so that the parity does not
+    depend on the machine: the slow-dispatch fuse, and the JAX package's
+    dispatch watchdog (a cold jit of a resident solve takes seconds
+    here).  The JAX side sees one device, as the port runs on one: the
+    test process's eight forced CPU devices would send its gather tiers
+    to the sharded mesh."""
     from mythril_tpu.resilience import watchdog
 
     one_device(monkeypatch)
@@ -72,13 +75,31 @@ def slice_pins(monkeypatch):
     monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
     for name, value in SLICE_PINS_ARGS.items():
         monkeypatch.setattr(jax_args, name, value)
+    for name, value in FORCE_DISPATCH_ARGS.items():
+        monkeypatch.setattr(port_args, name, value)
     # the analysis flags both packages read, at the port's values (a test
     # that ran earlier in this process may have left others behind)
     for name, value in vars(port_args).items():
         if name != "device" and hasattr(jax_args, name):
             monkeypatch.setattr(jax_args, name, value)
     monkeypatch.setattr(port_args, "device", "cpu")
-    yield
+    with fresh_jax_ledger():
+        yield
+
+
+@contextlib.contextmanager
+def fresh_jax_ledger():
+    """The JAX package's lane ledger is a process-wide singleton that
+    reads ``MYTHRIL_TPU_LEDGER`` once, when first used: one made under
+    the pins (off) must not outlive them, nor one made before them
+    serve them."""
+    from mythril_tpu.observability import ledger
+
+    ledger.reset_for_tests()
+    try:
+        yield
+    finally:
+        ledger.reset_for_tests()
 
 
 def _reset_jax():
@@ -96,6 +117,13 @@ def _reset_jax():
     reset_transaction_ids()
     keccak_function_manager.reset()
     jax_bs.dispatch_stats.reset()
+    from mythril_tpu.ops import async_dispatch
+
+    dispatcher = async_dispatch.get_async_dispatcher()
+    if dispatcher._live_thread is not None:
+        dispatcher._live_thread.join()
+    dispatcher.pending = None
+    async_dispatch.async_stats.reset()
 
 
 def _issue_fields(issue):
@@ -261,6 +289,66 @@ def test_scale_contract_dispatches_on_both_sides(monkeypatch):
     assert {i["swc_id"] for i in port["issues"]} == {"106"}
 
 
+#: the rungs' counters both packages keep (dispatch and async statistics)
+RUNG_COUNTERS = ("profit_skips", "coalesced_dispatches", "coalesced_lanes",
+                 "coalesce_deferred")
+ASYNC_COUNTERS = ("launches", "harvested", "unsat", "models", "dropped")
+
+
+@pytest.mark.parametrize("min_save_s", [0.0, 1e9])
+def test_default_rungs_analysis_matches_jax(monkeypatch, min_save_s):
+    """``myth analyze`` in the JAX package's default configuration of the
+    dispatch rungs (profit gate on, async prefetch on, coalescer on) on
+    both sides, with the timing seams pinned: ``device_min_save_s`` at 0
+    (the gate never declines, the coalescer defers and merges) or 1e9
+    (it always declines and every frontier is prefetched), each
+    prefetch joined right after its launch, the coalescer's queue age
+    out of reach.  Issues, states, prune verdicts, dispatch and async
+    counters equal."""
+    from mythril_tpu.ops import async_dispatch as jax_ad
+    from mythril_tpu.ops import coalesce as jax_co
+    from mythril_tpu_torch.ops import async_dispatch as port_ad
+    from mythril_tpu_torch.ops import coalesce as port_co
+
+    for args in (jax_args, port_args):
+        monkeypatch.setattr(args, "device_force_dispatch", False)
+        monkeypatch.setattr(args, "device_coalesce", True)
+        monkeypatch.setattr(args, "async_dispatch", True)
+        monkeypatch.setattr(args, "device_min_save_s", min_save_s)
+    for co in (jax_co, port_co):
+        monkeypatch.setattr(co, "COALESCE_MAX_AGE_S", 1e9)
+    for ad in (jax_ad, port_ad):
+        launch = ad.AsyncDispatcher.launch
+
+        def joined(self, *a, _launch=launch, **k):
+            launched = _launch(self, *a, **k)
+            if self._live_thread is not None:
+                self._live_thread.join()
+            return launched
+
+        monkeypatch.setattr(ad.AsyncDispatcher, "launch", joined)
+    code, tx_count = bench.scale_contract(depth=3, guard_bits=16,
+                                          guard="mul"), 1
+    jax = _run("jax", code, tx_count)
+    jax_rungs = [getattr(jax_bs.dispatch_stats, k) for k in RUNG_COUNTERS]
+    jax_async = [getattr(jax_ad.async_stats, k) for k in ASYNC_COUNTERS]
+    port = _run("port", code, tx_count)
+    assert port["issues"] == jax["issues"]
+    assert port["total_states"] == jax["total_states"]
+    assert port["prunes"] == jax["prunes"]
+    assert port["dispatches"] == jax["dispatches"]
+    assert port["counters"] == jax["counters"]
+    assert [getattr(port_bs.dispatch_stats, k)
+            for k in RUNG_COUNTERS] == jax_rungs
+    assert [getattr(port_ad.async_stats, k)
+            for k in ASYNC_COUNTERS] == jax_async
+    if min_save_s:
+        assert jax_rungs[0] > 0 and jax_async[0] > 0
+        assert port["dispatches"] == 0
+    else:
+        assert jax_rungs[0] == 0 and port["dispatches"] > 0
+
+
 def test_scale_contract_resident_solver_at_default_caps():
     """The scale contract at the default caps and the default
     configuration: the dense tier delegates every frontier, and the
@@ -386,17 +474,19 @@ def _jsonv2_issues(stdout):
 def test_cli_report_matches_jax_cli():
     """``python -m mythril_tpu_torch analyze --device cpu`` and the JAX
     package's ``myth analyze``, each in its own process under the slice
-    pins, report the same issues."""
+    pins and force-dispatched (``--device-force-dispatch
+    --no-async-dispatch``, ``MYTHRIL_TPU_COALESCE=0``), report the same
+    issues."""
     hexfile = os.path.join(FIXTURES, "suicide_anyone.hex")
     common = ["-f", hexfile, "--bin-runtime", "-t", "1",
-              "--no-onchain-data", "-o", "jsonv2"]
-    env = dict(os.environ, JAX_PLATFORMS="cpu", **SLICE_PINS_ENV,
-               **SLICE_PINS_CPU_ENV)
-    pins = json.dumps({"args": SLICE_PINS_ARGS})
+              "--no-onchain-data", "-o", "jsonv2",
+              "--device-force-dispatch", "--no-async-dispatch"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", MYTHRIL_TPU_COALESCE="0",
+               **SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV)
+    pins = json.dumps({"args": {**SLICE_PINS_ARGS, **FORCE_DISPATCH_ARGS}})
     jax = subprocess.run(
         [sys.executable, "-c", JAX_MYTH, pins, "analyze", *common,
-         "--device-force-dispatch", "--no-lockstep-dispatch",
-         "--no-async-dispatch", "--workers", "0"],
+         "--no-lockstep-dispatch", "--workers", "0"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert jax.returncode == 0, jax.stderr[-2000:]

@@ -1,8 +1,14 @@
 """The port's ``MYTHRIL_TPU_*`` knobs against the JAX package's, on the
-CPU: ``MYTHRIL_TPU_FRONTIER=0`` (the resident solver off on both sides;
-the port's CLI and funnel refuse it), ``MYTHRIL_TPU_PALLAS=0`` (the
-dense tier off on both sides) and the startup validator (the same
-verdict on every tabled value; the port's CLI exits 2)."""
+CPU: ``MYTHRIL_TPU_FRONTIER=0`` (the resident solver off on both sides,
+the gather tiers on round lanes: the funnel and the CLI match the JAX
+package's), ``MYTHRIL_TPU_PALLAS=0`` (the dense tier off on both sides)
+and the startup validator (the same verdict on every tabled value; the
+port's CLI exits 2)."""
+
+import json
+import os
+import subprocess
+import sys
 
 import pytest
 
@@ -21,9 +27,18 @@ from mythril_tpu_torch.ops import resident as port_resident
 from mythril_tpu_torch.smt.solver import get_blast_context as port_context
 from mythril_tpu_torch.smt.solver import reset_blast_context as port_reset
 from mythril_tpu_torch.support import env as port_env
+from mythril_tpu_torch.support.support_args import (
+    FORCE_DISPATCH_ARGS,
+    SLICE_PINS_ARGS,
+    SLICE_PINS_ENV,
+)
+from mythril_tpu_torch.support.support_args import args as port_args
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: the knobs the port reads
 KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
+    "COALESCE_FILL", "COALESCE_WINDOW",
     "DENSE", "FRONTIER", "FRONTIER_DEG", "FRONTIER_FAN", "FRONTIER_PERIOD",
     "PROBE_MEMO_CAP", "RESIDENT_BUDGET", "RESIDENT_EXTRA", "RESIDENT_KERNEL",
     "RESIDENT_POOL", "RESIDENT_WATCHDOG", "ROUND_LADDER", "TIER_PERIOD",
@@ -60,21 +75,135 @@ def test_frontier_off_disables_the_resident_solver_on_both_sides(
     assert port_resident.resident_kernel_enabled() is True
 
 
-def test_frontier_off_exits_2_from_the_cli(monkeypatch, capsys):
-    monkeypatch.setenv("MYTHRIL_TPU_FRONTIER", "0")
-    code, err = _analyze(capsys)
-    assert code == 2
-    assert "MYTHRIL_TPU_FRONTIER=0" in err and len(err.splitlines()) == 1
+def _one_jax_device(monkeypatch):
+    """The JAX package on one device, as the port (no sharded mesh), with
+    its dispatch watchdog out of reach of a cold jit."""
+    import jax
+
+    from mythril_tpu.resilience import watchdog
+
+    devices = jax.devices
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: devices(*a, **k)[:1])
+    monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
 
 
-def test_frontier_off_is_refused_by_the_funnel(monkeypatch):
-    lanes, _ = frontiers.guard_chain_frontier(4, 8)
+#: dispatch counters both funnels keep, compared exactly
+FUNNEL_COUNTERS = ("dispatches", "lanes", "unsat", "sat_verified",
+                   "undecided", "rounds", "repacks", "device_sweeps",
+                   "lane_sweeps_active", "lane_sweeps_total",
+                   "frontier_steps", "resident_dispatches", "size_bailouts",
+                   "cone_bailouts", "pool_uploads")
+
+
+@pytest.fixture
+def fresh_ledger():
+    from test_torch_analyze import fresh_jax_ledger
+
+    with fresh_jax_ledger():
+        yield
+
+
+@pytest.mark.parametrize("build", ["guard_chain", "scale_mul"])
+def test_frontier_off_funnel_matches_jax(monkeypatch, fresh_ledger, build):
+    """``MYTHRIL_TPU_FRONTIER=0`` with ``MYTHRIL_TPU_PALLAS=0``: one
+    frontier through both funnels, force-dispatched, goes to the gather
+    tiers' round-lane ladder on both sides (no resident solve, no
+    frontier step) with the same verdicts and the same rounds, sweeps
+    and re-packs."""
+    from mythril_tpu.support.support_args import args as jax_args
+
+    _one_jax_device(monkeypatch)
     monkeypatch.setenv("MYTHRIL_TPU_FRONTIER", "0")
+    monkeypatch.setenv("MYTHRIL_TPU_PALLAS", "0")
+    for name, value in {**SLICE_PINS_ENV}.items():
+        monkeypatch.setenv(name, value)
+    for name, value in {**SLICE_PINS_ARGS, **FORCE_DISPATCH_ARGS}.items():
+        monkeypatch.setattr(jax_args, name, value)
+    for name, value in FORCE_DISPATCH_ARGS.items():
+        monkeypatch.setattr(port_args, name, value)
+    recipe = {
+        "guard_chain": lambda S: frontiers.guard_chain_frontier(
+            12, 8, 2, smt=S),
+        "scale_mul": lambda S: frontiers.scale_mul_frontier(
+            3, 8, smt=S, calldata="words"),
+    }[build]
+    out = {}
     try:
-        with pytest.raises(RuntimeError, match="MYTHRIL_TPU_FRONTIER=0"):
-            port_bs.batch_check_states(lanes, device="cpu")
+        for side, S, reset, bs, kwargs in (
+            ("jax", JS, jax_reset, jax_bs, {}),
+            ("port", None, port_reset, port_bs, {"device": "cpu"}),
+        ):
+            reset()
+            bs.dispatch_stats.reset()
+            lanes, expected = recipe(S)
+            verdicts = bs.batch_check_states(lanes, **kwargs)
+            if side == "jax":  # the CDCL tail the JAX caller runs
+                ctx = jax_context()
+                verdicts = [
+                    v if v is not None else {1: True, -1: False}.get(
+                        ctx.check([c.raw for c in lane])[0])
+                    for v, lane in zip(verdicts, lanes)]
+            stats = bs.dispatch_stats
+            out[side] = (verdicts, {k: getattr(stats, k)
+                                    for k in FUNNEL_COUNTERS})
     finally:
+        jax_reset()
         port_reset()
+    assert out["port"] == out["jax"]
+    verdicts, counters = out["port"]
+    assert verdicts == expected
+    assert counters["dispatches"] == 1 and counters["rounds"] >= 1
+    assert counters["device_sweeps"] > 0
+    assert counters["resident_dispatches"] == counters["frontier_steps"] == 0
+
+
+#: ``python3 myth analyze`` with the slice pins that have no CLI flag, on
+#: one JAX device
+JAX_MYTH = """
+import json, runpy, sys
+import jax
+devices = jax.devices
+jax.devices = lambda *a, **k: devices(*a, **k)[:1]  # one device, as the port
+pins = json.loads(sys.argv.pop(1))
+from mythril_tpu.support.support_args import args
+for name, value in pins["args"].items():
+    setattr(args, name, value)
+sys.argv[0] = "myth"
+runpy.run_path("myth", run_name="__main__")
+"""
+
+
+def test_frontier_off_cli_matches_jax_cli():
+    """``python -m mythril_tpu_torch analyze`` under
+    ``MYTHRIL_TPU_FRONTIER=0`` (force-dispatched, so that the round
+    lanes answer every frontier the caps allow) exits 0 and reports the
+    JAX package's ``myth analyze`` issues under the same knobs."""
+    hexfile = os.path.join(ROOT, "tests", "fixtures", "mainnet",
+                           "origin_check.hex")
+    common = ["-f", hexfile, "--bin-runtime", "-t", "1",
+              "--no-onchain-data", "-o", "jsonv2",
+              "--device-force-dispatch", "--no-async-dispatch"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", MYTHRIL_TPU_COALESCE="0",
+               MYTHRIL_TPU_FRONTIER="0", MYTHRIL_TPU_PALLAS="0",
+               **{k: v for k, v in SLICE_PINS_ENV.items()})
+    pins = json.dumps({"args": {**SLICE_PINS_ARGS, **FORCE_DISPATCH_ARGS}})
+    runs = {}
+    for side, argv in (
+        ("jax", [sys.executable, "-c", JAX_MYTH, pins, "analyze", *common,
+                 "--no-lockstep-dispatch", "--workers", "0"]),
+        ("port", [sys.executable, "-m", "mythril_tpu_torch", "analyze",
+                  *common, "--device", "cpu"]),
+    ):
+        run = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=300)
+        assert run.returncode == 0, (side, run.stderr[-2000:])
+        issues = json.loads(run.stdout)[0]["issues"]
+        for issue in issues:
+            issue["extra"].pop("discoveryTime")
+        runs[side] = issues
+    assert runs["port"] == runs["jax"]
+    assert [i["swcID"] for i in runs["jax"]] == ["SWC-115"]
 
 
 # -------------------------------------------------- MYTHRIL_TPU_PALLAS=0
@@ -167,6 +296,14 @@ TABLE = [
     ("MYTHRIL_TPU_RESIDENT_KERNEL", "yes", True),
     ("MYTHRIL_TPU_RESIDENT_POOL", "2", True),
     ("MYTHRIL_TPU_WARM_START", "true", False),
+    ("MYTHRIL_TPU_COALESCE_WINDOW", "4", False),
+    ("MYTHRIL_TPU_COALESCE_WINDOW", "0", False),
+    ("MYTHRIL_TPU_COALESCE_WINDOW", "-1", True),
+    ("MYTHRIL_TPU_COALESCE_WINDOW", "2.5", True),
+    ("MYTHRIL_TPU_COALESCE_FILL", "0.5", False),
+    ("MYTHRIL_TPU_COALESCE_FILL", "1", False),
+    ("MYTHRIL_TPU_COALESCE_FILL", "-0.25", True),
+    ("MYTHRIL_TPU_COALESCE_FILL", "full", True),
     # no entry in the JAX table: any value passes on both sides
     ("MYTHRIL_TPU_FRONTIER", "bogus", False),
     ("MYTHRIL_TPU_PALLAS", "auto", False),

@@ -185,16 +185,20 @@ def test_state_layout_and_knobs_match_jax():
 def test_prune_propagates_a_resident_solve_failure(monkeypatch):
     """A failure of the resident solve (or of its kernels) reaches the
     caller of ``prune_infeasible``: no fallback hands the frontier to
-    the CDCL in its place."""
+    the CDCL in its place.  Force-dispatched, so that the frontier
+    reaches the resident solver whatever the profit gate would say."""
     from mythril_tpu_torch.laser.batch import prune_infeasible
     from mythril_tpu_torch.mythril.mythril_analyzer import (
         reset_analysis_state,
     )
     from mythril_tpu_torch.ops import batched_sat as port_bs
+    from mythril_tpu_torch.support.support_args import FORCE_DISPATCH_ARGS
     from mythril_tpu_torch.support.support_args import args as port_args
     from test_torch_analyze import _distinct_states
 
     monkeypatch.setattr(port_args, "device", "cpu")
+    for name, value in FORCE_DISPATCH_ARGS.items():
+        monkeypatch.setattr(port_args, name, value)
     reset_analysis_state()
     assert len(prune_infeasible(_distinct_states(6))) == 6
     assert port_bs.dispatch_stats.resident_dispatches == 1  # delegated

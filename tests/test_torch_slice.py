@@ -20,6 +20,7 @@ from mythril_tpu_torch.ops import batched_sat as port_bs
 from mythril_tpu_torch.ops import dense_sweep
 from mythril_tpu_torch.ops.incremental import reset_cone_memo
 from mythril_tpu_torch.smt.solver import reset_blast_context as port_reset
+from mythril_tpu_torch.support.support_args import args as port_args
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,11 +31,14 @@ def slice_config(monkeypatch):
     monkeypatch.setenv("MYTHRIL_TPU_RESIDENT_KERNEL", "0")
     monkeypatch.setenv("MYTHRIL_TPU_WORD_TIER", "0")
     monkeypatch.setenv("MYTHRIL_TPU_AUTOPILOT", "0")
-    # the JAX funnel under the port's phases: no probe before the
-    # dispatch, no profit gate, no coalescing window
+    # the JAX funnel under the port's phases (no probe before the
+    # dispatch), both force-dispatched: no profit gate, no coalescing
+    # window, no prefetch
     monkeypatch.setattr(jax_args, "word_probing", False)
-    monkeypatch.setattr(jax_args, "device_force_dispatch", True)
-    monkeypatch.setattr(jax_args, "device_coalesce", False)
+    for args in (jax_args, port_args):
+        monkeypatch.setattr(args, "device_force_dispatch", True)
+        monkeypatch.setattr(args, "device_coalesce", False)
+        monkeypatch.setattr(args, "async_dispatch", False)
     jax_reset()
     port_reset()
     reset_cone_memo()
