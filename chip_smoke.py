@@ -45,10 +45,13 @@ failure):
    ``torch.matmul`` calls, a yardstick the port never uses; the frontier
    kernels and the round lane have no library counterpart); the round
    lane (``round_lane``) against ``round_lane_plain`` on the learning
-   problem at the full-pool shape (C = 16384, V1 = 8193, K = 8, B = 64)
-   and a union-cone shape (V1 = 2049), budgets 64, 256, 512 and 768,
-   every field equal bit for bit, until lanes backtracked, bailed and
-   went UNSAT;
+   problem at the full-pool shape (C = 16384, V1 = 8193, K = 8, B = 64),
+   a union-cone shape (V1 = 2049) and the full pool at 8, 32 and 256
+   lanes (clusters of 2, 8, 4 and 1 blocks a lane), budgets 64, 256, 512
+   and 768, every field equal bit for bit, until lanes backtracked,
+   bailed and went UNSAT and every cluster size held; and the plain model
+   of the kernel's skip record on the full pool, until a backtrack
+   cleared a record with every scan equal to the full one;
 4. main path: frontiers through ``ops.batched_sat.batch_check_states``
    on ``cuda``, force-dispatched: the ``scale_mul`` frontier of
    ``bench.py`` (depth 6 / 16-bit guards, past the cone caps: dense
@@ -1170,10 +1173,17 @@ def frontier_work(name, full, snap, after, parity):
 # ---------------------------------------------------------------------------
 
 #: the round lane's shapes (label, C, V1, B): the full-pool gather tier at
-#: its caps (the prefetch's one-shot solve) and a union-cone tier shape
-ROUND_SHAPES = (("full pool", 16384, 8193, 64), ("cone tier", 16384, 2049, 64))
+#: its caps (the prefetch's one-shot solve), a union-cone tier shape, and
+#: the full pool at 8, 32 and 256 lanes (clusters of 8, 4 and 1 blocks a
+#: lane beside the 2 of 64 lanes)
+ROUND_SHAPES = (("full pool", 16384, 8193, 64), ("cone tier", 16384, 2049, 64),
+                ("8 lanes", 16384, 8193, 8), ("32 lanes", 16384, 8193, 32),
+                ("256 lanes", 16384, 8193, 256))
 #: the ladder's round budgets and the one-shot solve's
 ROUND_BUDGETS = (64, 256, 512, 768)
+#: the budget at which the plain model of the skip record runs on the
+#: full pool (it must see a backtrack clear a record)
+SKIP_MODEL_BUDGET = 64
 
 
 def round_lane_inputs(C, V1, B):
@@ -1210,18 +1220,25 @@ def round_lane_work(C, V1, B, D, before, after):
 def round_lane_phase():
     """The round-lane kernel against ``round_lane_plain`` at every shape
     of ROUND_SHAPES and budget of ROUND_BUDGETS, every field equal bit
-    for bit; fails unless some lane backtracked, bailed, and went UNSAT.
-    Returns the kernel's JSON entry (the full pool at the one-shot
-    budget, the prefetch's solve)."""
+    for bit; fails unless some lane backtracked, bailed, and went UNSAT,
+    every cluster size of the shapes (1, 2, 4, 8 blocks a lane) ran
+    bit-equal, and the plain model of the kernel's skip record
+    (``round_lane.skip_record_model``) on the full pool saw a backtrack
+    clear a record with every scan equal to the full one and every
+    deciding sweep's scores equal to the occurrence count.  Returns the
+    kernel's JSON entry (the full pool at the one-shot budget, the
+    prefetch's solve)."""
     import torch
 
     from mythril_tpu_torch.ops import round_lane as RL
 
     entry = None
-    seen = {"backtrack": 0, "bail": 0, "unsat": 0, "budget spent": 0}
+    seen = {"backtrack": 0, "bail": 0, "unsat": 0, "budget spent": 0,
+            "cluster 1": 0, "cluster 2": 0, "cluster 4": 0, "cluster 8": 0}
     for label, C, V1, B in ROUND_SHAPES:
         lits, state = round_lane_inputs(C, V1, B)
         D = state["dvar"].shape[1]
+        S = RL.cluster_size(B, C, V1, D)
         for budget in ROUND_BUDGETS:
             got = RL.round_lane(lits, state, budget)
             torch.cuda.synchronize()
@@ -1238,6 +1255,7 @@ def round_lane_phase():
             seen["bail"] += int((status == 3).sum()) - 1
             seen["unsat"] += int((status == 2).sum())
             seen["budget spent"] += int((got["step"] == budget).sum())
+            seen[f"cluster {S}"] += 1
 
             def launch():
                 return RL.round_lane(lits, state, budget)
@@ -1245,12 +1263,15 @@ def round_lane_phase():
             ms = kernel_device_ms(launch, 5, "round_lane_kernel")
             bytes_moved, ops, desc = round_lane_work(C, V1, B, D, state, got)
             bound_ms, bound_by = bound(bytes_moved, ops)
+            slowest = int(got["step"].max())
             log(f"round_lane {label} C={C} V1={V1} B={B} budget {budget} "
-                f"({desc}; status counts "
+                f"(cluster {S}; {desc}; status counts "
                 f"{torch.bincount(status, minlength=4).tolist()}): kernel "
-                f"{ms:.4f} ms (device), plain {plain_ms:.4f} ms (eager torch "
-                f"on the card, host clock), bound {bound_ms:.4f} ms "
-                f"({bound_by}), equal bit for bit")
+                f"{ms:.4f} ms (device; {ms * 1e3 / max(slowest, 1):.2f} us "
+                f"a sweep of the slowest lane's {slowest}; "
+                f"{bound_ms / ms:.2%} of the bound), plain {plain_ms:.4f} ms "
+                f"(eager torch on the card, host clock), bound "
+                f"{bound_ms:.4f} ms ({bound_by}), equal bit for bit")
             if label == "full pool" and budget == 768:
                 entry = {
                     "name": "round_lane", "route": "cuda",
@@ -1260,6 +1281,16 @@ def round_lane_phase():
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None,
                 }
+    lits, state = round_lane_inputs(*ROUND_SHAPES[0][1:])
+    started = time.perf_counter()
+    _, counts = RL.skip_record_model(lits, state, SKIP_MODEL_BUDGET)
+    log(f"round_lane skip record (plain model, full pool, budget "
+        f"{SKIP_MODEL_BUDGET}, {time.perf_counter() - started:.1f} s): "
+        f"{counts}")
+    seen["skip record cleared by a backtrack"] = counts["invalidated"]
+    check(counts["differs"] == 0 and counts["score_differs"] == 0,
+          f"round_lane: a scan without the recorded rows differs from the "
+          f"full scan, or the scores from the occurrence count: {counts}")
     log(f"round_lane cases held: {seen}")
     check(all(seen.values()), f"round_lane: a case never held: {seen}")
     return entry

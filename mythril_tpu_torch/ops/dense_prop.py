@@ -203,10 +203,10 @@ def _pad_coords(values, size: int) -> np.ndarray:
 
 class DenseClausePool:
     """Dense incidence planes over an explicit clause list, on one
-    device."""
+    device (``cuda`` unless the caller asks for another)."""
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device=None):
+        self.device = default_device(device)
         self.P = None       # [C, V] bf16
         self.N = None
         self.width = None   # [1, C] f32

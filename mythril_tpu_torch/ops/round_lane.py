@@ -19,9 +19,12 @@ the vmapped loop); ``step`` holds the lane's own sweeps.
 
 :func:`round_lane` takes the plain version only for tensors that lie on
 the CPU; for CUDA tensors it launches the kernel or raises.  The kernel
-runs the whole loop of every lane in one launch; the library builds
+runs the whole loop of every lane in one launch, each lane on a
+thread-block cluster of :func:`cluster_size` blocks; the library builds
 with ``nvcc`` at first use into ``mythril_tpu_torch/_build/``, under a
 lock (the async prefetch's worker thread may be the first caller).
+:func:`skip_record_model` is the plain model of the kernel's record of
+rows known satisfied, which the tests hold against the full scan.
 """
 
 import ctypes
@@ -44,9 +47,18 @@ _DTYPES = {"assign": torch.int8, "lvl": torch.int32, "dvar": torch.int32,
            "status": torch.int32, "step": torch.int32, "pref": torch.int8}
 #: the kernel reads clause rows of this width (narrower rows are padded)
 WIDTH = 8
-#: dynamic shared memory a block may take on sm_90: 227 KB, less 1 KB
+#: dynamic shared memory a block may take on sm_90: 227 KB, less 4 KB
 #: for the kernel's static shared variables
-MAX_DYNAMIC_SMEM = 232448 - 1024
+MAX_DYNAMIC_SMEM = 232448 - 4096
+#: the kernel's cluster rule (mirrors ``csrc/round_lane.cu``): the
+#: portable cluster size, and the blocks that fill the card (about one on
+#: each of the 132 SMs)
+MAX_CLUSTER = 8
+CLUSTER_BLOCKS = 128
+#: a row's record is a uint16: the level by which it was satisfied, plus
+#: one (0 = none); a deeper level saturates here, and any backtrack voids
+#: a saturated record
+SATURATED = 0xFFFF
 
 #: kernel launches since the last reset (the wrapper adds one per launch
 #: and nowhere else; the prefetch worker launches too, hence the lock)
@@ -251,14 +263,159 @@ def solve_lane(lits: torch.Tensor, assign: torch.Tensor,
     return out["assign"], status
 
 
-def smem_bytes(V1: int, D: int) -> int:
-    """The kernel's dynamic shared memory for a lane (mirrors the
-    layout in ``csrc/round_lane.cu``)."""
-    def pad16(n):
-        return (n + 15) & ~15
+def _pad16(n: int) -> int:
+    return (n + 15) & ~15
 
-    return 4 * 3 * pad16(V1) + 4 * 2 * pad16((V1 + 31) // 32) \
-        + 4 * pad16(D) + 2 * pad16(V1) + 2 * pad16(D)
+
+def layout(C: int, V1: int, D: int, S: int) -> dict:
+    """One cluster block's shared memory at cluster size ``S`` (mirrors
+    ``layout`` in ``csrc/round_lane.cu``): whether the block's pool rows
+    stay ``resident`` in shared memory as int16 literals (else they are
+    read from global memory every sweep), and the dynamic ``bytes``: the
+    scores, levels and vote bitmaps of the ``Ws`` vars it owns, the
+    stack, the replicas of the assignment and the phase preference, the
+    words of bitmaps every block sends (16 bytes for 32 vars), a record
+    for each of its ``n`` rows, and the resident rows."""
+    Ws = (-(-V1 // S) + 31) & ~31
+    n = -(-C // S)
+    dp = _pad16(D)
+    head = 12 * Ws + 2 * _pad16(Ws // 8) + 4 * dp + 2 * S * Ws + 2 * dp \
+        + S * Ws // 2 + _pad16(2 * n)
+    resident = V1 <= 32768 and head + 16 * n <= MAX_DYNAMIC_SMEM
+    return {"resident": resident,
+            "bytes": head + (16 * n if resident else 0)}
+
+
+def cluster_size(B: int, C: int, V1: int, D: int) -> int:
+    """Blocks a lane: the smallest power of two ``S`` whose ``B x S``
+    blocks fill the card (up to the portable 8) and whose block fits; 0
+    when no block fits."""
+    S = 1
+    while S <= MAX_CLUSTER:
+        if (B * S >= CLUSTER_BLOCKS or S == MAX_CLUSTER) \
+                and layout(C, V1, D, S)["bytes"] <= MAX_DYNAMIC_SMEM:
+            return S
+        S *= 2
+    return 0
+
+
+def smem_bytes(C: int, V1: int, D: int, S: int) -> int:
+    """The kernel's dynamic shared memory for a block at cluster size
+    ``S``."""
+    return layout(C, V1, D, S)["bytes"]
+
+
+def _scan(lits, A, rows):
+    """The loop body's clause scan for every lane over the pool rows
+    where ``rows [B, C]`` holds (all rows when None): (conflict [B],
+    unit votes fpos / fneg [B, V1] as 0/1, DLIS scores spos / sneg [B,
+    V1])."""
+    B, V1 = A.shape
+    dev = A.device
+    lits = lits.to(torch.int64)
+    is_real = lits != 0
+    vals = lits.sign() * A.to(torch.int64)[:, lits.abs()]      # [B, C, K]
+    use = is_real.any(dim=1)[None, :].expand(B, -1)
+    if rows is not None:
+        use = use & rows
+    sat = ((vals > 0) & is_real).any(dim=2)
+    unknown = (vals == 0) & is_real
+    n_unknown = unknown.sum(dim=2)
+    conflict = (((vals < 0) | ~is_real).all(dim=2) & use).any(dim=1)
+    unit = use & ~sat & (n_unknown == 1)
+    open_c = use & ~sat & (n_unknown > 1)
+    forced = torch.where(unit[:, :, None] & unknown, lits, 0).sum(dim=2)
+    out = [conflict]
+    for sign in (1, -1):
+        votes = torch.zeros((B, V1), dtype=torch.int64, device=dev)
+        votes.scatter_add_(1, (sign * forced).clamp(min=0),
+                           (sign * forced > 0).to(torch.int64))
+        out.append(votes > 0)
+    flat = lits.abs().reshape(1, -1).expand(B, -1)
+    for sign in (1, -1):
+        cells = (unknown & open_c[:, :, None]
+                 & (sign * lits > 0)[None]).reshape(B, -1)
+        scores = torch.zeros((B, V1), dtype=torch.int64, device=dev)
+        scores.scatter_add_(1, flat, cells.to(torch.int64))
+        out.append(scores)
+    return out
+
+
+def skip_record_model(lits: torch.Tensor, state: Dict[str, torch.Tensor],
+                      budget: int):
+    """The kernel's record of rows known satisfied, on the plain version,
+    one sweep at a time.  Before each sweep a lane's recorded rows are
+    dropped from its scan, and the scan is held against the full one; a
+    row found satisfied at depth ``d`` is recorded at ``max(d, lmax) +
+    1`` (``lmax``: the deepest level of the initial assignment),
+    saturating at :data:`SATURATED`; a backtrack to ``Lm`` voids the
+    records above ``Lm``.  Where the lane decides (no conflict, no free
+    var voted), each free var's scores are held against its occurrences
+    in the pool less those in the recorded rows, which is how the kernel
+    counts them.  Returns (final state, counts): ``records`` made, row
+    scans ``skipped``, records ``invalidated``, ``differs`` (sweeps whose
+    scan without the recorded rows differs from the full scan) and
+    ``score_differs`` (deciding sweeps whose scores differ from the
+    occurrence count); both 0 where the kernel's way is exact."""
+    st = {k: state[k].clone() for k in ROUND_STATE_FIELDS}
+    B, V1 = st["assign"].shape
+    dev = st["assign"].device
+    lanes = torch.arange(B, device=dev)
+    idx = torch.arange(V1, device=dev)
+    wide = lits.to(torch.int64)
+    flat = wide.abs().reshape(-1)
+    occ = [torch.zeros(V1, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat, (sign * wide > 0).reshape(-1).to(torch.int64))
+        for sign in (1, -1)]
+    lmax = torch.where(st["assign"] != 0, st["lvl"], 0).amax(dim=1) \
+        .clamp(min=0)
+    rec = torch.zeros((B, lits.shape[0]), dtype=torch.int64, device=dev)
+    counts = {"records": 0, "skipped": 0, "invalidated": 0, "differs": 0,
+              "score_differs": 0}
+    while True:
+        run = (st["status"] == 0) & (st["step"] < budget)
+        if not bool(run.any()):
+            break
+        full = _scan(lits, st["assign"], None)
+        kept = _scan(lits, st["assign"], rec == 0)
+        for a, b in zip(full, kept):
+            diff = (a != b).reshape(B, -1).any(dim=1)
+            counts["differs"] += int((diff & run).sum())
+        counts["skipped"] += int(((rec != 0) & run[:, None]).sum())
+        vals = wide.sign() * st["assign"].to(torch.int64)[:, wide.abs()]
+        sat = (vals > 0).any(dim=2)
+        level = (torch.maximum(st["depth"].to(torch.int64), lmax) + 1) \
+            .clamp(max=SATURATED)
+        new = sat & (rec == 0) & run[:, None]
+        rec = torch.where(new, level[:, None], rec)
+        counts["records"] += int(new.sum())
+        conflict, fpos, fneg, spos, sneg = full
+        free = (st["assign"] == 0) & (idx > 1)
+        deciding = run & ~conflict & ~(free & (fpos | fneg)).any(dim=1) \
+            & free.any(dim=1)
+        held = (rec != 0)[:, :, None].expand(-1, -1, wide.shape[1]) \
+            .reshape(B, -1)
+        for score, sign, total in ((spos, 1, occ[0]), (sneg, -1, occ[1])):
+            cells = held & (sign * wide > 0).reshape(1, -1)
+            left = total[None, :] - torch.zeros(
+                (B, V1), dtype=torch.int64, device=dev).scatter_add_(
+                1, flat[None, :].expand(B, -1), cells.to(torch.int64))
+            bad = (free & (score != left)).any(dim=1) & deciding
+            counts["score_differs"] += int(bad.sum())
+        # one sweep of the running lanes; the others frozen
+        frozen = dict(st, step=torch.zeros_like(st["step"]),
+                      status=torch.where(run, st["status"], 9))
+        out = round_lane_plain(lits, frozen, 1)
+        out["step"] = torch.where(run, st["step"] + 1, st["step"])
+        out["status"] = torch.where(run, out["status"], st["status"])
+        slot = (out["depth"] - 1).clamp(min=0).to(torch.int64)
+        backtracked = run & (out["depth"] >= 1) \
+            & ~st["dflip"][lanes, slot] & out["dflip"][lanes, slot]
+        undone = backtracked[:, None] & (rec > out["depth"][:, None])
+        counts["invalidated"] += int(undone.sum())
+        rec = torch.where(undone, 0, rec)
+        st = out
+    return st, counts
 
 
 def build_library() -> str:
@@ -273,28 +430,58 @@ def build_library() -> str:
     return LIBRARY
 
 
+#: (B, C, V1, D) at which ``load_library`` holds the library's cluster
+#: rule and layout against this module's: the tiers' largest pools at
+#: every cluster size, rows resident and not, and small cone shapes
+MIRROR_SHAPES = ((64, 16384, 8193, 256), (8, 16384, 8193, 256),
+                 (256, 16384, 8193, 256), (32, 16384, 2049, 256),
+                 (16, 32768, 8193, 256), (4, 256, 257, 256),
+                 (128, 512, 42, 3))
+
+
+def bind(path: str, check: bool = True) -> ctypes.CDLL:
+    """The library at ``path`` with its launch typed; with ``check``, its
+    clause width, cluster rule and layout held against this module's (a
+    mismatch raises).  Without, any library of the same launch interface
+    binds (a design variant, an earlier tree's kernel)."""
+    lib = ctypes.CDLL(path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.round_lane_launch.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, ptr,
+    ]
+    lib.round_lane_launch.restype = i32
+    if not check:
+        return lib
+    for name in ("round_lane_smem_bytes", "round_lane_cluster",
+                 "round_lane_resident"):
+        getattr(lib, name).argtypes = [i32, i32, i32, i32]
+        getattr(lib, name).restype = i32
+    lib.round_lane_width.restype = i32
+    if lib.round_lane_width() != WIDTH:
+        raise RuntimeError("round_lane.cu: clause width mismatch")
+    for B, C, V1, D in MIRROR_SHAPES:
+        S = cluster_size(B, C, V1, D)
+        if lib.round_lane_cluster(B, C, V1, D) != S:
+            raise RuntimeError(f"round_lane.cu: cluster rule mismatch at "
+                               f"B={B} C={C} V1={V1} D={D}")
+        for s in (1, 2, 4, 8):
+            want = layout(C, V1, D, s)
+            if (lib.round_lane_smem_bytes(C, V1, D, s) != want["bytes"]
+                    or bool(lib.round_lane_resident(C, V1, D, s))
+                    != want["resident"]):
+                raise RuntimeError(f"round_lane.cu: shared-memory layout "
+                                   f"mismatch at C={C} V1={V1} D={D} S={s}")
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_library())
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.round_lane_launch.argtypes = [
-                ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                i32, i32, i32, i32, ptr,
-            ]
-            lib.round_lane_launch.restype = i32
-            lib.round_lane_smem_bytes.argtypes = [i32, i32]
-            lib.round_lane_smem_bytes.restype = i32
-            lib.round_lane_width.restype = i32
-            if lib.round_lane_width() != WIDTH:
-                raise RuntimeError("round_lane.cu: clause width mismatch")
-            if lib.round_lane_smem_bytes(8193, 256) != smem_bytes(8193, 256):
-                raise RuntimeError("round_lane.cu: shared-memory layout "
-                                   "mismatch")
-            _lib = lib
+            _lib = bind(build_library())
     return _lib
 
 
@@ -327,10 +514,11 @@ def _launch(lits, state, budget):
                              f"expected {shape}")
     if B < 1 or V1 < 2 or D < 1:
         raise ValueError(f"round_lane: bad sizes B={B} V1={V1} D={D}")
-    if smem_bytes(V1, D) > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"round_lane: V1={V1} D={D} need "
-                         f"{smem_bytes(V1, D)} bytes of shared memory; a "
-                         f"block has {MAX_DYNAMIC_SMEM}")
+    if not cluster_size(B, C, V1, D):
+        raise ValueError(f"round_lane: C={C} V1={V1} D={D} need "
+                         f"{smem_bytes(C, V1, D, MAX_CLUSTER)} bytes of "
+                         f"shared memory a block at the largest cluster; "
+                         f"a block has {MAX_DYNAMIC_SMEM}")
     if lits.data_ptr() % 16:
         raise ValueError("round_lane: lits must be 16-byte aligned")
     if int(lits.abs().max()) >= V1:

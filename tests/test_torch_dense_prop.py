@@ -257,3 +257,16 @@ def test_differential_random_cnf_vs_cdcl():
                            for l in clause)
         assert status in (1, 2), f"trial {trial}: undecided tiny CNF"
     assert any(truths) and not all(truths) and unsats > 0
+
+
+def test_clause_pool_defaults_to_the_card(monkeypatch):
+    """``DenseClausePool()`` takes the entry points' default device: with
+    no card it raises the "needs a CUDA device" error (it built its planes
+    on the CPU before); asked for the CPU, it builds them there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        port_dp.DenseClausePool()
+    pool = port_dp.DenseClausePool("cpu")
+    pool.refresh([(2, 3), (-2, 3)], 4)
+    assert pool.device == torch.device("cpu")
+    assert pool.P.device.type == "cpu" and pool.C >= 2

@@ -222,7 +222,85 @@ def test_wrapper_never_falls_back_for_device_tensors(monkeypatch):
     assert RL.launch_count == before
 
 
-def test_shared_memory_layout_fits_the_largest_pool():
-    """The tiers' largest lane (V1 = 8193, D = 256) fits a block."""
-    assert RL.smem_bytes(8193, 256) <= RL.MAX_DYNAMIC_SMEM
-    assert RL.smem_bytes(8193, 256) == 118624
+@pytest.mark.parametrize("C", [16384, 32768])
+def test_shared_memory_layout_fits_the_largest_pool(C):
+    """The tiers' largest lane (V1 = 8193, D = 256, the cone tier's
+    16,384 rows and their next bucket) fits a block at every cluster
+    size: its owned slice of the scores, levels and vote bitmaps, the
+    replicas of the assignment and phase preference, the stack, the
+    words of bitmaps it receives (16 bytes for 32 vars), a uint16 record
+    a pool row, and the block's rows as int16 literals where they fit (at
+    two blocks a lane and more for 16,384 rows)."""
+    V1, D = 8193, 256
+    for S in (1, 2, 4, 8):
+        Ws = (-(-V1 // S) + 31) & ~31
+        rows = -(-C // S)
+        head = 12 * Ws + 2 * ((Ws // 8 + 15) & ~15) + 6 * D + 2 * S * Ws \
+            + S * Ws // 2 + ((2 * rows + 15) & ~15)
+        resident = head + 16 * rows <= RL.MAX_DYNAMIC_SMEM
+        assert RL.layout(C, V1, D, S)["resident"] == resident
+        assert RL.smem_bytes(C, V1, D, S) == head + (16 * rows if resident
+                                                     else 0)
+        assert RL.smem_bytes(C, V1, D, S) <= RL.MAX_DYNAMIC_SMEM
+        assert resident == (S >= (2 if C == 16384 else 4))
+    assert RL.smem_bytes(16384, V1, D, 2) == 220224
+
+
+@pytest.mark.parametrize("B, C, V1, S", [
+    (4, 256, 257, 8), (8, 16384, 8193, 8), (16, 16384, 2049, 8),
+    (32, 16384, 8193, 4), (64, 16384, 8193, 2), (64, 16384, 2049, 2),
+    (127, 8192, 4097, 2), (128, 16384, 8193, 1), (256, 16384, 8193, 1),
+    (1, 32768, 8193, 8),
+])
+def test_round_lane_cluster_follows_the_rule(B, C, V1, S):
+    """Each lane runs on a cluster of the smallest power of two S of
+    blocks with B x S >= 128 (about one block an SM), at most the
+    portable 8, at the main path's shapes (the full-pool and cone tiers'
+    64 lanes, the scale runs' 4 to 32) and the widest."""
+    assert RL.cluster_size(B, C, V1, 256) == S
+    assert B * S >= RL.CLUSTER_BLOCKS or S == RL.MAX_CLUSTER
+    assert S == 1 or B * S // 2 < RL.CLUSTER_BLOCKS
+
+
+def test_cluster_rule_refuses_a_block_past_shared_memory():
+    """A lane whose block fits at no cluster size gets none (the wrapper
+    refuses it), here a stack of 60,000 slots."""
+    assert RL.cluster_size(64, 16384, 8193, 60000) == 0
+
+
+@pytest.mark.parametrize("budget", BUDGETS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_skip_record_is_exact(kind, budget):
+    """The plain model of the kernel's record of satisfied rows: on every
+    sweep, the scan without the recorded rows equals the full scan of
+    ``round_lane_plain``, and wherever a lane decides, every free var's
+    scores equal its pool occurrences less those in recorded rows (the
+    kernel's count); the round ends in the plain version's state."""
+    lits, state, _ = problem(kind)
+    st = {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+    got, counts = RL.skip_record_model(torch.from_numpy(lits), st, budget)
+    want = RL.round_lane_plain(torch.from_numpy(lits), st, budget)
+    for k in FIELDS:
+        assert torch.equal(got[k], want[k]), k
+    assert counts["differs"] == 0 and counts["score_differs"] == 0, counts
+    if budget > 1:
+        assert counts["skipped"] > 0, counts
+    if kind == "unsat_backtrack" and budget >= 7:
+        assert counts["invalidated"] > 0, counts
+
+
+def test_skip_record_takes_the_deepest_initial_level():
+    """A state whose assumptions sit at level 3 while the depth is 0: a
+    row they satisfy is recorded at level 3 or deeper, so a backtrack to
+    Lm <= 3, which unassigns them, voids the record; the model stays
+    exact and ends in the plain version's state."""
+    lits, state, _ = problem("unsat_backtrack", seed=3)
+    st = {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+    assumed = (st["assign"] != 0) & (torch.arange(st["lvl"].shape[1]) > 1)
+    st["lvl"] = torch.where(assumed, 3, st["lvl"]).to(torch.int32)
+    got, counts = RL.skip_record_model(torch.from_numpy(lits), st, 64)
+    want = RL.round_lane_plain(torch.from_numpy(lits), st, 64)
+    for k in FIELDS:
+        assert torch.equal(got[k], want[k]), k
+    assert counts["differs"] == 0 and counts["score_differs"] == 0, counts
+    assert counts["invalidated"] > 0, counts
