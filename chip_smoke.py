@@ -11,9 +11,9 @@ failure):
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: the native CDCL library (g++), the dense sweep kernel, the
-   frontier kernels and the round lane (nvcc, sm_90a), all four started
-   together, with their build seconds and the ``-Xptxas -v`` register /
-   shared-memory lines;
+   frontier kernels, the round lane and the word fixpoint (nvcc,
+   sm_90a), all five started together, with their build seconds and the
+   ``-Xptxas -v`` register / shared-memory lines;
 3. kernels vs plain: the hand-written sweep against ``sweep_plain`` at
    the slice's shape (C = 16384 clauses, V = 4096 variables, B = 64
    lanes, random sparse 0/1 planes from a numpy seed), scores on and off
@@ -63,13 +63,21 @@ failure):
    (the round-lane ladder, every launch audited).  Each run holds every
    kernel it launches against its plain version on the run's own inputs
    (every frontier call that may learn, append or cascade, and a sample
-   of the rest), checks the launch counts, every verdict against the
-   known ones, and every device UNSAT against the port's own CDCL;
-5. prefetch: the guard chain with the profit gate always declining
+   of the rest), checks the launch counts (the word tier's kernel once a
+   run: both frontiers have 64 lanes, and the funnel's word rung takes
+   the device executor from 16), every verdict against the known ones,
+   and every device or word-tier UNSAT against the port's own CDCL; the
+   word tier's launch of each default run is captured;
+5. word fixpoint: the ``word_prop`` kernel against
+   ``word_fixpoint_plain`` on the card, bit for bit, on seeded random
+   term DAGs at 16, 64 and 256 lanes and on the two captured main-path
+   programs; device ms (CUDA events around bare launches: the profiler
+   loses records of these launches), plain ms (one run), bound;
+6. prefetch: the guard chain with the profit gate always declining
    (``device_min_save_s`` 1e9): launched on the worker's stream, joined,
    harvested by the next call; checks a harvest, no drop, the memo's
    verdicts and the audited round-lane launches;
-6. analyze: ``myth analyze`` on the card through the port's analyzer
+7. analyze: ``myth analyze`` on the card through the port's analyzer
    (``mythril.MythrilAnalyzer``, as ``python3 -m mythril_tpu_torch
    analyze`` runs it) over the runs of ``contracts.CHIP_RUNS`` (the
    ``bench.py`` scale contract at -t 1 and -t 2, two vendored fixtures,
@@ -83,12 +91,16 @@ failure):
    resident solves and their exits, delegations, lanes decided on the
    device and on the tail, kernel launches, learned clauses and the
    rungs' counters (profit skips, async launches, harvests, UNSAT lanes,
-   models, drops, coalesced dispatches and lanes); checks that some run
+   models, drops, coalesced dispatches and lanes), and the probe phase's
+   and the word tier's (lanes the host probe and the word tier decided,
+   bits pinned, ``word_prop_s``, decide calls on the kernel, the first
+   held against its plain version when force-dispatched); the word tier
+   and the host probe are on, as the CLI runs them; checks that some run
    went through the resident solver with all three frontier kernels;
    repeats each scale contract with the batched path off (per-state
    CDCL only) and prints the three walls side by side; then the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` yardstick at d4 -t 1;
-7. the launches of the main path's configurations and, apart, of the
+8. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; one JSON line per kernel
    (launches of the main path), the card line, then the result line.
 
@@ -225,14 +237,16 @@ def kernel_device_ms(fn, iters, kernel="dense_sweep_kernel", tries=10):
 
 
 def build_all():
-    """The four builds, started together; returns their log lines."""
+    """The five builds, started together; returns their log lines."""
     from mythril_tpu_torch.native import load as load_native
     from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import frontier_kernels as FK
     from mythril_tpu_torch.ops import round_lane as RL
+    from mythril_tpu_torch.ops import word_fixpoint as WF
 
     jobs = {"native CDCL": load_native, "dense_sweep.cu": ds.load_library,
-            "frontier.cu": FK.load_library, "round_lane.cu": RL.load_library}
+            "frontier.cu": FK.load_library, "round_lane.cu": RL.load_library,
+            "word_prop.cu": WF.load_library}
     seconds, errors = {}, {}
 
     def run(name, fn):
@@ -254,7 +268,8 @@ def build_all():
     lines = [f"build: {name} {seconds[name]:.1f} s" for name in jobs]
     for name, info in (("dense_sweep.cu", ds.build_info),
                        ("frontier.cu", FK.build_info),
-                       ("round_lane.cu", RL.build_info)):
+                       ("round_lane.cu", RL.build_info),
+                       ("word_prop.cu", WF.build_info)):
         if info is not None:
             lines.append(f"nvcc -Xptxas -v {name}: " + " | ".join(
                 line.strip() for line in info[1].splitlines()
@@ -1410,35 +1425,91 @@ class RoundLaneAudit:
             f"for bit" for k in sorted(self.calls))
 
 
+class WordAudit:
+    """Stands in for ``word_fixpoint.word_fixpoint`` (which the word
+    tier's device executor calls) and holds the kernel against
+    ``word_fixpoint_plain`` on the path's own inputs (on the host): on
+    the first call (``mode`` "first": the plain walk of a main-path
+    program takes seconds on the host) or on none ("count").  Keeps the
+    first call's inputs (on the host) in ``captured``.  It launches no
+    kernel of its own."""
+
+    def __init__(self, real, mode):
+        self.real = real
+        self.mode = mode
+        self.calls = {}
+        self.checked = {}
+        self.seconds = 0.0
+        self.captured = None
+
+    def __call__(self, table, want0, rounds):
+        import torch
+
+        from mythril_tpu_torch.ops import word_fixpoint as WF
+
+        got = self.real(table, want0, rounds)
+        key = (table.n_bv + table.n_bool, want0.shape[1])
+        n = self.calls[key] = self.calls.get(key, 0) + 1
+        if self.captured is None:
+            self.captured = (table.to("cpu"), want0.cpu(), rounds)
+        if self.mode == "first" and not self.checked:
+            started = time.perf_counter()
+            torch.cuda.synchronize()
+            want = WF.word_fixpoint_plain(table.to("cpu"), want0.cpu(),
+                                          rounds)
+            for name, g, w in zip(("planes", "tri", "conflict"), got, want):
+                check(torch.equal(g.cpu(), w),
+                      f"word_prop {key}, call {n}: {name} differs from the "
+                      f"plain version")
+            self.checked[key] = self.checked.get(key, 0) + 1
+            self.seconds += time.perf_counter() - started
+        return got
+
+    def summary(self):
+        return "; ".join(
+            f"word_prop nodes={k[0]} B={k[1]}: {self.checked.get(k, 0)} of "
+            f"{self.calls[k]} calls equal bit for bit"
+            for k in sorted(self.calls))
+
+
 @contextlib.contextmanager
-def audited_kernels(round_lane="sample"):
+def audited_kernels(round_lane="sample", word="first"):
     """Every kernel call of the block audited (the round lane's as
-    ``round_lane`` says: "every", "sample" or "count"); the launch counts
-    zeroed just before and read into the yielded dict just after."""
+    ``round_lane`` says: "every", "sample" or "count"; the word
+    fixpoint's as ``word`` says: "first" or "count"); the launch
+    counts zeroed just before and read into the yielded dict just
+    after."""
     from mythril_tpu_torch.ops import dense_prop
     from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import frontier_kernels as FK
     from mythril_tpu_torch.ops import round_lane as RL
+    from mythril_tpu_torch.ops import word_fixpoint as WF
 
     sweep = SweepAudit(dense_prop.dense_sweep)
     dense_prop.dense_sweep = sweep
     lanes = RoundLaneAudit(RL.round_lane, round_lane)
     RL.round_lane = lanes
-    out = {"sweep": sweep, "round_lane": lanes}
+    word = WordAudit(WF.word_fixpoint, word)
+    WF.word_fixpoint = word
+    out = {"sweep": sweep, "round_lane": lanes, "word": word}
     try:
         with FrontierAudit() as frontier:
             out["frontier"] = frontier
             ds.reset_launch_count()
             FK.reset_launch_counts()
             RL.reset_launch_count()
+            WF.reset_launch_count()
             yield out
             out["launches"] = {"dense_sweep": ds.launch_count,
                                **FK.launch_counts,
-                               "round_lane": RL.launch_count}
+                               "round_lane": RL.launch_count,
+                               "word_prop": WF.launch_count}
     finally:
         dense_prop.dense_sweep = sweep.sweep
         RL.round_lane = lanes.real
-    out["seconds"] = sweep.seconds + frontier.seconds + lanes.seconds
+        WF.word_fixpoint = word.real
+    out["seconds"] = (sweep.seconds + frontier.seconds + lanes.seconds
+                      + word.seconds)
 
 
 @contextlib.contextmanager
@@ -1471,8 +1542,11 @@ def main_path_phase(name, build, expect, knobs):
 
     reset_blast_context()
     lanes, expected = build()
+    # the word fixpoint's launch is captured here and held against its
+    # plain version in the word phase
     with env(**knobs), rung_args(**FORCE_DISPATCH_ARGS), audited_kernels(
-            "every" if expect == "round lanes" else "sample") as audit:
+            "every" if expect == "round lanes" else "sample",
+            "count") as audit:
         bs.dispatch_stats.reset()
         started = time.perf_counter()
         verdicts = bs.batch_check_states(lanes, device=DEVICE)
@@ -1500,10 +1574,23 @@ def main_path_phase(name, build, expect, knobs):
         f"wall {wall:.3f} s without the audits' {audit['seconds']:.3f} s "
         f"(device tiers {stats.device_s:.3f} s with them, tail "
         f"{stats.tail_s:.3f} s)")
+    log(f"main path {name} [{expect}] word tier: "
+        f"{tiers.count('probe')} lanes decided by the host probe, "
+        f"{tiers.count('word')} by the word tier "
+        f"({stats.word_decided_unsat} unsat, {stats.word_decided_sat} sat), "
+        f"{stats.word_tightened_bits} bits pinned, word_prop "
+        f"{launches['word_prop']} launches, {stats.word_prop_s:.3f} s "
+        f"(with the audit)")
     log(f"main path {name} [{expect}] kernels vs plain: "
         f"{audit['sweep'].summary() or 'no sweep'}; "
         f"{audit['frontier'].summary() or 'no frontier kernel'}; "
-        f"{audit['round_lane'].summary() or 'no round lane'}")
+        f"{audit['round_lane'].summary() or 'no round lane'}; "
+        f"{audit['word'].summary() or 'no word fixpoint'}")
+    check(launches["word_prop"] == 1,
+          f"{name}: the word tier ran its kernel {launches['word_prop']} "
+          f"times, not once")
+    if not knobs:
+        WORD_CAPTURES[name] = audit["word"].captured
     check(stats.dispatches == 1, f"{name}: no device tier engaged")
     check(stats.rounds > 0, f"{name}: no round ran")
     if expect == "dense":
@@ -1531,6 +1618,10 @@ def main_path_phase(name, build, expect, knobs):
     device_unsat = [i for i in on_device if verdicts[i] is False]
     check(all(cdcl_unsat(build, device_unsat)),
           f"{name}: a device UNSAT disagrees with the CDCL")
+    word_unsat = [i for i, t in enumerate(tiers)
+                  if t == "word" and verdicts[i] is False]
+    check(all(cdcl_unsat(build, word_unsat)),
+          f"{name}: a word-tier UNSAT disagrees with the CDCL")
     check(all(expected[i] for i in on_device if verdicts[i] is True),
           f"{name}: a device SAT lane is known dead")
     return launches
@@ -1556,7 +1647,7 @@ def prefetch_phase(card):
     lanes, expected = frontiers.guard_chain_frontier(64, 32)
     with rung_args(device_force_dispatch=False, async_dispatch=True,
                    device_coalesce=True, device_min_save_s=1e9), \
-            audited_kernels("every") as audit:
+            audited_kernels("every", "count") as audit:
         started = time.perf_counter()
         first = bs.batch_check_states(lanes, device=DEVICE, tail=False)
         launched = time.perf_counter() - started
@@ -1589,6 +1680,144 @@ def prefetch_phase(card):
           and any(v is False for v in second),
           f"prefetch: harvested verdicts {second} against {expected}")
     return launches
+
+
+#: the word fixpoint's random DAGs (``frontiers.word_dag_lanes``): seed,
+#: lanes, widths; each decides lanes both ways and leaves others open
+WORD_DAGS = ((9, 16, (256, 64, 8)), (9, 64, (256, 64, 8)),
+             (10, 256, (32, 8)))
+#: the main-path frontier whose captured program the kernels line times
+WORD_ENTRY_CASE = "scale_mul d6 g16"
+#: (table, want0, rounds) on the host of the word tier's launch in each
+#: main-path run of the default configuration, captured during the run
+WORD_CAPTURES = {}
+
+
+def word_inputs(lanes, rounds):
+    """(table, want0, rounds) on the host of one device decide over
+    ``lanes``, as the word tier builds them."""
+    import torch
+
+    from mythril_tpu_torch.ops import word_fixpoint as WF
+    from mythril_tpu_torch.smt import word_tier as PWT
+
+    roots = list({n.id: n for lane in lanes for n in lane}.values())
+    prog = PWT._compile(roots, PWT.WORD_MAX_NODES)
+    table = WF.lower_program(prog)
+    want0 = np.zeros((table.n_bool, len(lanes)), dtype=np.int8)
+    for k, lane in enumerate(lanes):
+        for node in lane:
+            want0[prog.bool_slot[node.id], k] = 1
+    return table, torch.from_numpy(want0), rounds
+
+
+def word_bound(table, B, rounds):
+    """Least time of one fixpoint launch: the table and the wants read
+    once and the planes, tri-states and conflicts written once, against
+    a lower count of the operations (every bv node of every pass takes
+    at least one refine-sized step, about 20 word operations of 8 limbs,
+    every bool node about 10) at the float32 rate (the card has no
+    published int32 rate)."""
+    bytes_moved = (table.entries.numel() * 4 + table.args.numel() * 4
+                   + table.consts.numel() * 4 + table.n_bool * B
+                   + table.n_bv * 128 * B + table.n_bool * B + B)
+    passes = 1 + 2 * rounds
+    ops = B * passes * (160 * table.n_bv + 10 * table.n_bool)
+    return bound(bytes_moved, ops)
+
+
+def word_kernel_ms(table, want0, rounds, iters=10):
+    """Device time of one ``word_prop`` launch: CUDA events around
+    ``iters`` launches of the bare kernel on the wrapper's arguments
+    (the profiler loses records of its multi-millisecond launches; the
+    wrapper's checks, allocations and its widening of the planes stay
+    outside the events)."""
+    import torch
+
+    from mythril_tpu_torch.ops import word_fixpoint as WF
+
+    lib = WF.load_library()
+    B = want0.shape[1]
+    dev = want0.device
+    consts = table.consts.to(torch.int32).contiguous()
+    bv = torch.empty((max(table.n_bv, 1) * 32, B), dtype=torch.int32,
+                     device=dev)
+    tri = torch.empty((table.n_bool, B), dtype=torch.int8, device=dev)
+    want = torch.empty_like(tri)
+    conflict = torch.empty((B,), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = lib.word_prop_launch(
+            table.entries.data_ptr(), table.n_bv + table.n_bool,
+            table.args.data_ptr(), consts.data_ptr(), want0.data_ptr(), B,
+            table.n_bool, rounds, bv.data_ptr(), tri.data_ptr(),
+            want.data_ptr(), conflict.data_ptr(), stream)
+        check(err == 0, f"word_prop launch failed: cudaError {err}")
+
+    return cuda_ms(launch, iters)
+
+
+def word_prop_phase(card):
+    """The word fixpoint kernel against ``word_fixpoint_plain`` on the
+    card (the plain version timed once, its result compared bit for
+    bit): seeded random DAGs at 16, 64 and 256 lanes, and the programs
+    the main path's two frontiers handed the word tier, captured during
+    their run.  Returns the kernels line's entry (the captured
+    ``WORD_ENTRY_CASE`` program)."""
+    import torch
+
+    from mythril_tpu_torch import frontiers
+    from mythril_tpu_torch.ops import word_fixpoint as WF
+    from mythril_tpu_torch.smt.word_tier import WORD_ROUNDS
+
+    cases = [(f"random DAG seed {seed}, widths {widths}",
+              word_inputs(frontiers.word_dag_lanes(seed, lanes, widths),
+                          WORD_ROUNDS))
+             for seed, lanes, widths in WORD_DAGS]
+    for name in ("scale_mul d6 g16", "guard chain 64x32"):
+        check(WORD_CAPTURES.get(name) is not None,
+              f"word_prop: no program captured on the main path {name}")
+        cases.append((f"main path {name}", WORD_CAPTURES[name]))
+    entry = None
+    for label, (table_host, want0_host, rounds) in cases:
+        table = table_host.to(DEVICE)
+        want0 = want0_host.to(DEVICE)
+        B = want0.shape[1]
+        got = WF.word_fixpoint(table, want0, rounds)
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        want = WF.word_fixpoint_plain(table, want0, rounds)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - started) * 1e3
+        err = 0
+        for name, g, w in zip(("planes", "tri", "conflict"), got, want):
+            check(g.shape == w.shape and torch.equal(g, w),
+                  f"word_prop {label}: {name} differs from the plain version")
+            err = max(err, int((g.long() - w.long()).abs().max())
+                      if g.numel() else 0)
+        ms = word_kernel_ms(table, want0, rounds)
+        bound_ms, bound_by = word_bound(table, B, rounds)
+        conflicts = int(got[2].sum())
+        roots_true = int((got[1] == 1).sum())
+        log(f"word_prop {label} [{card}]: {table.n_bv + table.n_bool} nodes "
+            f"({table.n_bv} bv, {table.n_bool} bool), {B} lanes, "
+            f"{conflicts} lanes in conflict, {roots_true} must-true "
+            f"tri-states; bit-equal to the plain version; device "
+            f"{ms:.4f} ms, plain (eager torch on the card) {plain_ms:.1f} "
+            f"ms, bound {bound_ms:.5f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.2f}% of it)")
+        if label == f"main path {WORD_ENTRY_CASE}":
+            entry = {
+                "name": "word_prop", "route": "cuda",
+                "source": "mythril_tpu_torch/ops/csrc/word_prop.cu",
+                "replaces": "mythril_tpu/smt/word_tier.py:402",
+                "max_abs_err": err, "ms": round(ms, 4),
+                "plain_ms": round(plain_ms, 4),
+                "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+                "library_ms": None,
+            }
+    return entry
 
 
 #: wall-clock limit of one chip-check analysis (no run comes close)
@@ -1634,7 +1863,8 @@ def analyze_audited(run, card, label="", force=True):
     from mythril_tpu_torch.smt import SolverStatistics
     from mythril_tpu_torch.smt.solver import get_blast_context
 
-    with audited_kernels("sample" if force else "count") as audit:
+    with audited_kernels("sample" if force else "count",
+                         "first" if force else "count") as audit:
         report, analyzer, wall = analyze_once(run, force=force)
     fused = bs.dispatch_fuse.fused_generation == get_blast_context().generation
     wall -= audit["seconds"]
@@ -1669,11 +1899,22 @@ def analyze_audited(run, card, label="", force=True):
         f"{a.abandoned} abandoned; coalescer {stats.coalesced_dispatches} "
         f"dispatches with {stats.coalesced_lanes} queued lanes, "
         f"{stats.coalesce_deferred} lanes deferred")
+    solver = SolverStatistics()
+    log(f"analyze {run.name}{label} word tier: {stats.host_probe_sat} "
+        f"lanes decided by the funnel's host probe, "
+        f"{stats.word_decided_unsat} unsat and {stats.word_decided_sat} "
+        f"sat by the word tier, {stats.word_tightened_bits} bits pinned, "
+        f"word_prop {stats.word_prop_s:.3f} s (with the audit), "
+        f"{launches['word_prop']} decide calls on the kernel; host probe "
+        f"{solver.probe_s:.3f} s, blast {solver.blast_s:.3f} s, cone "
+        f"{solver.cone_s:.3f} s, native CDCL {solver.native_s:.3f} s over "
+        f"{solver.native_calls} calls")
     log(f"analyze {run.name}{label} kernels vs plain: "
         f"{audit['sweep'].summary() or 'no sweep'}; hot-prefix sweeps "
         f"{audit['sweep'].hot_prefix_calls()}; "
         f"{audit['frontier'].summary() or 'no frontier kernel'}; "
-        f"{audit['round_lane'].summary() or 'no round lane'}")
+        f"{audit['round_lane'].summary() or 'no round lane'}; "
+        f"{audit['word'].summary() or 'no word fixpoint'}")
     check(found == run.swc_ids,
           f"{run.name}: SWC {sorted(found)} != {sorted(run.swc_ids)}")
     check(not laser.timed_out and time_handler.time_remaining() > 0,
@@ -1804,6 +2045,8 @@ def main() -> int:
         _add(totals if not knobs or expect == "round lanes" else kill_switch,
              launches)
     phase_done("main path")
+    word_entry = word_prop_phase(card)
+    phase_done("word fixpoint")
     _add(totals, prefetch_phase(card))
     phase_done("prefetch")
     default, yardstick = analyze_phase(card)
@@ -1813,7 +2056,7 @@ def main() -> int:
     log(f"launches in the default configuration (the kernels line): "
         f"{totals}; in the MYTHRIL_TPU_RESIDENT_KERNEL=0 runs (not in it): "
         f"{kill_switch}")
-    entries = [sweep_entry] + frontier_entries + [round_entry]
+    entries = [sweep_entry] + frontier_entries + [round_entry, word_entry]
     for entry in entries:
         entry["launches"] = totals.get(entry["name"], 0)
         check(entry["launches"] > 0, f"{entry['name']} never launched")

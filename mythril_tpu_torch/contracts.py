@@ -186,7 +186,11 @@ class ChipRun(NamedTuple):
     #: the SWC ids the JAX package finds on the CPU under the slice pins
     #: (re-derived by tests/test_torch_analyze.py)
     swc_ids: Set[str]
-    #: whether the run must reach the dense tier and its kernel
+    #: whether the run, force-dispatched, must engage a device tier and
+    #: launch its kernels (the JAX package does on the CPU exactly on
+    #: these runs, with the word tier and the host probe on; re-derived by
+    #: tests/test_torch_analyze.py).  The word tier decides enough scale
+    #: lanes that the dense tier now delegates every such frontier
     dense: bool
 
 

@@ -224,3 +224,102 @@ def learning_problem(C: int, V1: int, B: int, E: int, seed: int = 1,
                              rng.choice(filler, size=2, replace=False)])
         extra[e, :4] = vs * rng.choice([1, -1], size=4)
     return rows, assign, extra
+
+
+def _word_dag(T, seed, widths, n_vars=2, n_nodes=30, n_cons=12):
+    """Seeded random term DAG over every op of the word tier's fragment;
+    returns its constraint nodes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pool = {}
+
+    def rand_int(width):
+        return int.from_bytes(rng.bytes(32), "little") & ((1 << width) - 1)
+
+    def pick(width):
+        cands = pool.get(width) or []
+        if cands and rng.random() < 0.85:
+            return cands[int(rng.integers(len(cands)))]
+        if rng.random() < 0.5:
+            return T.var(f"v{width}_{int(rng.integers(n_vars))}", width)
+        r = rng.random()
+        if r < 0.3:
+            return T.const(int(rng.integers(0, 4)), width)
+        if r < 0.6:
+            return T.const(1 << int(rng.integers(0, width)), width)
+        return T.const(rand_int(width), width)
+
+    for w in widths:
+        for i in range(n_vars):
+            pool.setdefault(w, []).append(T.var(f"v{w}_{i}", w))
+    bin_ops = ("add", "sub", "mul", "udiv", "urem", "bv_and", "bv_or",
+               "bv_xor", "shl", "lshr", "ashr")
+    for _ in range(n_nodes):
+        w = widths[int(rng.integers(len(widths)))]
+        r = rng.random()
+        a = pick(w)
+        if r < 0.55:
+            op = bin_ops[int(rng.integers(len(bin_ops)))]
+            b = pick(w)
+            if op in ("shl", "lshr", "ashr") and rng.random() < 0.7:
+                b = T.const(int(rng.integers(0, w + 3)), w)
+            if op in ("bv_and", "bv_or", "bv_xor", "add", "sub") \
+                    and rng.random() < 0.4:
+                b = T.const(rand_int(w), w)
+            n = getattr(T, op)(a, b)
+        elif r < 0.62:
+            n = T.bv_not(a)
+        elif r < 0.72 and w > 8:
+            lo = int(rng.integers(0, w - 1))
+            n = T.extract(int(rng.integers(lo, w)), lo, a)
+        elif r < 0.8:
+            wider = [x for x in widths if x > w]
+            if not wider:
+                continue
+            nw = wider[int(rng.integers(len(wider)))]
+            n = (T.zext if rng.random() < 0.5 else T.sext)(nw - w, a)
+        elif r < 0.88:
+            n = T.concat([pick(8) for _ in range(int(rng.integers(2, 5)))])
+        else:
+            n = T.ite(T.ult(pick(w), pick(w)), a, pick(w))
+        if n.sort == "bv" and n.width <= 256:
+            pool.setdefault(n.width, []).append(n)
+    cons = []
+    cmps = ("eq", "ult", "ule", "slt", "sle")
+    for _ in range(n_cons):
+        w = widths[int(rng.integers(len(widths)))]
+        c = getattr(T, cmps[int(rng.integers(len(cmps)))])(pick(w), pick(w))
+        r = rng.random()
+        if r < 0.15:
+            c = T.bnot(c)
+        elif r < 0.25 and cons:
+            c = T.band(c, cons[int(rng.integers(len(cons)))])
+        elif r < 0.35 and cons:
+            c = T.bor(c, cons[int(rng.integers(len(cons)))])
+        elif r < 0.4 and cons:
+            c = T.bxor(c, cons[int(rng.integers(len(cons)))])
+        if c.sort == "bool" and not c.is_const:
+            cons.append(c)
+    return cons
+
+
+def word_dag_lanes(seed: int, n_lanes: int, widths=(256, 64, 8), terms=None):
+    """``n_lanes`` constraint sets over one seeded random term DAG (every
+    op of the word tier's fragment at ``widths``), each 1-5 of its
+    constraints: the word tier's inputs for the chip check and the
+    tests.  ``terms`` is the terms module to build with (the port's by
+    default), so a test can build the same DAG in the JAX package."""
+    if terms is None:
+        from mythril_tpu_torch.smt import terms
+    T = terms
+    cons = _word_dag(T, seed, widths)
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    lanes = []
+    for _ in range(n_lanes):
+        k = int(rng.integers(1, min(5, len(cons)) + 1))
+        pick = sorted(rng.choice(len(cons), size=k, replace=False).tolist())
+        lanes.append([cons[i] for i in pick])
+    return lanes

@@ -8,8 +8,10 @@ Commands: ``analyze`` (``a``), ``disassemble`` (``d``),
         --no-onchain-data
 
 ``analyze`` runs the JAX package's analysis under the slice pins
-(``support/support_args.py``: ``SLICE_PINS_ENV``/``SLICE_PINS_ARGS``,
-with ``word_probing`` off) and puts the solver tiers on the card, behind
+(``support/support_args.py``: ``SLICE_PINS_ENV``/``SLICE_PINS_ARGS``),
+with the word tier and the host word probing on, as the JAX default
+(``MYTHRIL_TPU_WORD_TIER=0`` turns the tier off), and puts the solver
+tiers on the card, behind
 the JAX funnel's default dispatch rungs (profit gate, async prefetch,
 coalescer; ``--device-force-dispatch`` and ``--no-async-dispatch`` as in
 the JAX CLI).  ``--device cpu`` is the only way to run it on the CPU;

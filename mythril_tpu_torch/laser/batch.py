@@ -9,16 +9,19 @@ round and returns the feasible subset:
 1. structural triage: constraints that folded to literal False are
    dropped without any solver work;
 2. the frontier funnel (``ops/batched_sat.batch_check_states``): memo
-   hits, then the dense tier and its sweep kernel on the card, over the
-   deduped lanes;
-3. CDCL tail: lanes the funnel left open go through
-   ``Constraints.is_possible`` (the memoized ``support.model`` funnel).
+   hits and host probes, the word tier, then the solver tiers and their
+   kernels on the card, over the deduped lanes;
+3. the word tier (``smt/word_tier.py``) over whatever the funnel left
+   open, or over the whole frontier when the funnel did not run (narrow
+   frontiers): one batched interval / known-bits pass decides the
+   interval-UNSAT and constant-fold states before any CDCL query;
+4. CDCL tail: lanes still open go through ``Constraints.is_possible``
+   (the memoized ``support.model`` funnel).
 
-Unlike the JAX package, a failure of the funnel (the dense tier or the
-sweep kernel) propagates to the caller: there is no fallback that
-hands the frontier to the CDCL and hides a broken kernel.  The word
-tier, the lane ledger and the drain/budget hooks are not part of the
-port.
+Unlike the JAX package, a failure of the funnel (a solver tier, the
+word tier or a kernel) propagates to the caller: there is no fallback
+that hands the frontier to the CDCL and hides a broken kernel.  The
+lane ledger and the drain/budget hooks are not part of the port.
 """
 
 from typing import List
@@ -90,6 +93,13 @@ def prune_infeasible(states: List) -> List:
     else:
         verdicts = [None] * len(undecided)
 
+    # the word tier over what the funnel left open (memoized on the
+    # blast context, so lanes the funnel already consulted cost a dict
+    # hit here)
+    open_positions = [k for k, v in enumerate(verdicts) if v is None]
+    if open_positions:
+        verdicts = _consult_word_tier(undecided, verdicts, open_positions)
+
     for state, verdict in zip(undecided, verdicts):
         if verdict is True:
             feasible.append(state)
@@ -100,3 +110,49 @@ def prune_infeasible(states: List) -> List:
                 feasible.append(state)
     prune_stats.calls += 1
     return feasible
+
+
+def _consult_word_tier(undecided, verdicts, open_positions):
+    """Run the word tier over the open states' constraint sets and fold
+    its sound verdicts into ``verdicts`` (True = feasible, False =
+    prune, None = leave to the CDCL tail)."""
+    from mythril_tpu_torch.smt import terms as T
+    from mythril_tpu_torch.smt.solver import get_blast_context
+    from mythril_tpu_torch.smt.word_tier import (
+        get_word_tier, word_tier_enabled,
+    )
+
+    if not word_tier_enabled():
+        return verdicts
+    ctx = get_blast_context()
+    node_sets = []
+    for k in open_positions:
+        nodes = []
+        falsy = False
+        for c in undecided[k].world_state.constraints:
+            if isinstance(c, bool):
+                if not c:
+                    falsy = True
+                    break
+                continue
+            node = c.raw if hasattr(c, "raw") else c
+            if node is T.FALSE:
+                falsy = True
+                break
+            if node is T.TRUE:
+                continue
+            nodes.append(node)
+        if falsy:
+            verdicts[k] = False
+            node_sets.append(None)
+        else:
+            node_sets.append(nodes)
+    word_verdicts, _hints, word_envs = get_word_tier().decide(
+        ctx, node_sets, device=args.device
+    )
+    for pos, k in enumerate(open_positions):
+        if verdicts[k] is None and word_verdicts[pos] is not None:
+            verdicts[k] = word_verdicts[pos]
+            if word_verdicts[pos] and word_envs[pos] is not None:
+                ctx._remember_model(word_envs[pos])
+    return verdicts

@@ -4,15 +4,21 @@ slice).
 
 :func:`batch_check_states` takes a frontier of term-level path
 constraint sets and returns one verdict per set.  It is the JAX funnel
-under the slice's configuration (``MYTHRIL_TPU_WORD_TIER=0``,
-``MYTHRIL_TPU_AUTOPILOT=0``):
+under the slice's configuration (``MYTHRIL_TPU_AUTOPILOT=0``):
 
 0. harvest: a finished async prefetch (``ops/async_dispatch.py``)
    lands its UNSAT memos, nogoods and models first;
 1. structural fold: constraints that folded to literal False;
-2. memo hits: the context's permanent UNSAT memo and the verdicts the
-   per-query funnel (``support/model.py``) has cached;
-3. the solver tiers (:class:`BatchedSatBackend`) over the deduped open
+2. the probe phase, lane by lane: the context's permanent UNSAT memo,
+   the verdicts the per-query funnel (``support/model.py``) has cached,
+   and (``word_probing``) the host word-level probe against recent
+   models (``BlastContext.probe_with_memo``), whose hits are verified
+   SAT verdicts;
+3. the word tier (``smt/word_tier.py``) over the lanes still open:
+   interval-UNSAT and constant-fold lanes retire before any CNF exists,
+   and the others keep their per-variable known bits, which join their
+   assumption sets as unit literals;
+4. the solver tiers (:class:`BatchedSatBackend`) over the deduped open
    lanes, on the card unless the caller passes ``device="cpu"``, behind
    the JAX funnel's dispatch rungs: the profit gate (a frontier the
    CDCL is projected to clear for less than ``device_min_save_s`` is
@@ -33,14 +39,13 @@ under the slice's configuration (``MYTHRIL_TPU_WORD_TIER=0``,
 
    then host verification of every SAT candidate against the terms
    (device UNSAT verdicts become assumption nogoods in the pool);
-4. the native CDCL tail for everything still undecided (or None for
+5. the native CDCL tail for everything still undecided (or None for
    the caller's own tail, ``tail=False``).
 
-Left out of this slice: the host word-level model probing before the
-dispatch (``word_probing``; the slice pins it off), the word tier, the
-autopilot router, the lane ledger, the sharded mesh, and the ladder's
-resilience seams (watchdog, retry, bisection, quarantine, drain).  A
-failure in a tier, or in the prefetch's worker, reaches the caller.
+Left out of this slice: the autopilot router, the lane ledger, the
+sharded mesh, and the ladder's resilience seams (watchdog, retry,
+bisection, quarantine, drain).  A failure in a tier, in the word tier's
+kernel, or in the prefetch's worker, reaches the caller.
 """
 
 import time
@@ -148,11 +153,20 @@ class DispatchStats:
         self.coalesced_dispatches = 0
         self.coalesced_lanes = 0
         self.coalesce_deferred = 0
+        # the probe phase and the word tier (smt/word_tier.py): lanes the
+        # host word-level probe decided SAT, lanes the word tier decided
+        # UNSAT / SAT without CNF, variable bits it pinned (each a unit
+        # assumption literal), and wall-clock inside its propagation
+        self.host_probe_sat = 0
+        self.word_decided_unsat = 0
+        self.word_decided_sat = 0
+        self.word_tightened_bits = 0
+        self.word_prop_s = 0.0
         # per-lane tier that decided each lane of the last
-        # batch_check_states call: "structural", "memo", "device",
-        # "probe" (a zero assignment that verified after no tier took
-        # the frontier), "tail" or None (left open, or the tail
-        # answered UNKNOWN)
+        # batch_check_states call: "structural", "memo", "word", "device",
+        # "probe" (a host probe hit, or a zero assignment that verified
+        # after no tier took the frontier), "tail" or None (left open,
+        # or the tail answered UNKNOWN)
         self.last_tiers: List[Optional[str]] = []
 
 
@@ -861,6 +875,22 @@ def _round_lane_np(lits, state: dict, budget: int) -> dict:
 _backends: Dict[torch.device, BatchedSatBackend] = {}
 
 
+def reset_resident_pools() -> None:
+    """Invalidate every process-global structure keyed on interned node
+    ids or literal numbers: each backend's resident clause pool, the
+    cross-dispatch cone memo and the word tier's programs and verdict
+    memos (a process that re-interns nodes and re-blasts literals must
+    never be served what an earlier pool or program described)."""
+    from mythril_tpu_torch.ops.incremental import reset_cone_memo
+    from mythril_tpu_torch.smt.word_tier import reset_word_tier
+
+    for backend in _backends.values():
+        backend.pool = DevicePool(backend.device)
+        backend.pool_generation = -1
+    reset_cone_memo()
+    reset_word_tier()
+
+
 def get_backend(device=None) -> BatchedSatBackend:
     """Process-wide solver tiers per device (``cuda`` unless asked)."""
     from mythril_tpu_torch.ops import default_device
@@ -901,9 +931,11 @@ def batch_check_states(constraint_sets, device=None,
     answered UNKNOWN); ``tail=False`` returns them as None, for a caller
     that runs its own tail (``laser/batch.py``)."""
     from mythril_tpu_torch.ops.async_dispatch import get_async_dispatcher
+    from mythril_tpu_torch.smt import SolverStatistics
     from mythril_tpu_torch.smt import terms as T
     from mythril_tpu_torch.smt.solver import get_blast_context
     from mythril_tpu_torch.support.model import peek_model_verdict
+    from mythril_tpu_torch.support.support_args import args
 
     backend = get_backend(device)
     ctx = get_blast_context()
@@ -939,8 +971,13 @@ def batch_check_states(constraint_sets, device=None,
         else:
             node_sets.append(nodes)
 
-    # 2. memo hits: a permanent UNSAT verdict of the context, or a
-    # verdict the per-query funnel (support/model.py) already paid for
+    # 2. the probe phase, lane by lane: a permanent UNSAT verdict of the
+    # context, a verdict the per-query funnel (support/model.py) already
+    # paid for, or a hit of the host word-level probe against the recent
+    # models (evaluation is a full verification: a sound SAT verdict;
+    # memoized on the context and shared with the CDCL tail, so a model
+    # found for one lane serves its siblings at once)
+    started = time.perf_counter()
     for i, nodes in enumerate(node_sets):
         if nodes is None:
             continue
@@ -952,19 +989,56 @@ def batch_check_states(constraint_sets, device=None,
         if cached is not None:
             decided[i] = cached
             tiers[i] = "memo"
+            continue
+        if not args.word_probing:
+            continue
+        if ctx.probe_with_memo(nodes) is not None:
+            decided[i] = True
+            tiers[i] = "probe"
+            dispatch_stats.host_probe_sat += 1
+    SolverStatistics().probe_s += time.perf_counter() - started
+
+    # 3. the word tier over the open lanes: interval-UNSAT and
+    # constant-fold lanes retire here; the others keep their known bits
+    word_hints = _word_rung(ctx, node_sets, decided, tiers, device)
 
     open_indices = [i for i, d in enumerate(decided) if d is None]
     if len(open_indices) >= effective_min_lanes():
         _device_phase(ctx, backend, constraint_sets, node_sets, decided,
-                      tiers, open_indices)
+                      tiers, open_indices, word_hints)
 
     if tail:
-        # 4. CDCL tail
+        # 5. CDCL tail
         started = time.perf_counter()
         with record_function("funnel.tail"):
             _tail(ctx, node_sets, decided, tiers)
         dispatch_stats.tail_s += time.perf_counter() - started
     return decided
+
+
+def _word_rung(ctx, node_sets, decided, tiers, device):
+    """3.: one word-tier pass over the open lanes; folds its verdicts into
+    ``decided`` (a verified word model joins the recent models, as a CDCL
+    model would) and returns the open lanes' known-bits hints."""
+    from mythril_tpu_torch.smt.word_tier import (
+        get_word_tier, word_tier_enabled,
+    )
+
+    if not word_tier_enabled():
+        return [None] * len(node_sets)
+    open_sets = [nodes if decided[i] is None else None
+                 for i, nodes in enumerate(node_sets)]
+    with record_function("funnel.word"):
+        verdicts, hints, envs = get_word_tier().decide(ctx, open_sets,
+                                                       device=device)
+    for i, verdict in enumerate(verdicts):
+        if verdict is None or decided[i] is not None:
+            continue
+        decided[i] = verdict
+        tiers[i] = "word"
+        if verdict and envs[i] is not None:
+            ctx._remember_model(envs[i])
+    return hints
 
 
 def _tail(ctx, node_sets, decided, tiers):
@@ -985,12 +1059,14 @@ def _tail(ctx, node_sets, decided, tiers):
 
 
 def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
-                  open_indices):
-    """3.: blast the open lanes, then the dispatch rungs over the deduped
-    assumption sets (profit gate with async prefetch, fuse, coalescer),
-    dispatch to the solver tiers, fold their verdicts into ``decided``."""
+                  open_indices, word_hints):
+    """4.: blast the open lanes (each with its word-tier known bits as
+    unit literals), then the dispatch rungs over the deduped assumption
+    sets (profit gate with async prefetch, fuse, coalescer), dispatch to
+    the solver tiers, fold their verdicts into ``decided``."""
     from mythril_tpu_torch.ops.async_dispatch import get_async_dispatcher
     from mythril_tpu_torch.ops.coalesce import get_coalescer
+    from mythril_tpu_torch.smt.word_tier import hint_literals
     from mythril_tpu_torch.support.support_args import args
 
     assumption_sets: List[Optional[List[int]]] = [None] * len(node_sets)
@@ -998,6 +1074,10 @@ def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
         for i in list(open_indices):
             try:
                 lits = [ctx.blast_lit(n) for n in node_sets[i]]
+                if word_hints[i]:
+                    # implied by the lane's own constraints: the
+                    # solvers start with the pinned bits assigned
+                    lits.extend(hint_literals(ctx, word_hints[i]))
                 assumption_sets[i] = list(dict.fromkeys(lits))
             except NotImplementedError:
                 # a term outside the blaster's fragment: CDCL tail only

@@ -12,7 +12,7 @@ Each port module can then be tested on exactly the inputs its JAX twin
 saw.
 """
 
-from typing import Iterable, List, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,7 +69,10 @@ class CarriedFrontier:
     def pool_version(self) -> int:
         return self.pool.version
 
-    def cone(self, root_lits: Sequence[int], need_clauses: bool = True):
+    def cone(self, root_lits: Sequence[int], need_clauses: bool = True,
+             known_bits: Optional[Sequence[int]] = None):
+        if known_bits:
+            root_lits = list(dict.fromkeys(list(root_lits) + list(known_bits)))
         return self.pool.cone(root_lits, need_clauses)
 
     def warm_phase_vector(self, num_vars: int):
@@ -93,10 +96,14 @@ def frontier_from_numpy(
     return CarriedFrontier(CarriedPool(csr_lits, csr_indptr, cones), num_vars)
 
 
-def state_from_numpy(state_list: Sequence[np.ndarray], device="cpu"):
+def state_from_numpy(state_list: Sequence[np.ndarray], device=None):
     """A ``DPLL_STATE_FIELDS`` state (numpy arrays, as the JAX
-    ``_dpll_state0`` builds it) as torch tensors on ``device``."""
+    ``_dpll_state0`` builds it) as torch tensors on ``device``: the card
+    unless the caller passes ``device="cpu"`` (``ops.default_device``)."""
+    from mythril_tpu_torch.ops import default_device
+
+    dev = default_device(device)
     return [
-        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         for a in state_list
     ]

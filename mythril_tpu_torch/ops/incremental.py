@@ -73,17 +73,26 @@ class ConeMemo:
         self._table[key] = value
         return value
 
-    def cone(self, ctx, root_lits) -> tuple:
-        """Memoized ``ctx.cone(root_lits)`` — the per-lane entry point
-        (sibling lanes across batches repeat root sets)."""
-        key = ("cone", tuple(sorted(root_lits)), ())
+    def cone(self, ctx, root_lits, known_bits=None) -> tuple:
+        """Memoized ``ctx.cone(root_lits, known_bits=...)`` — the
+        per-lane entry point (sibling lanes across batches repeat root
+        sets).  ``known_bits`` (the word tier's tightening as unit
+        literals) is part of the key as well as of the build, so a
+        memoized untightened cone row never serves a tightened query, nor
+        the other way round."""
+        digest = tuple(sorted(known_bits)) if known_bits else ()
+        key = ("cone", tuple(sorted(root_lits)), digest)
         return self.get_or_build(
-            ctx, key, lambda: ctx.cone(list(root_lits))
+            ctx, key,
+            lambda: ctx.cone(list(root_lits), known_bits=known_bits),
         )
 
     def reset(self) -> None:
         self._scope = (-1, -1, -1)
         self._table.clear()
+
+    def __len__(self) -> int:
+        return len(self._table)
 
 
 _cone_memo: Optional[ConeMemo] = None

@@ -18,11 +18,11 @@ Bit order convention: bits[0] is the LSB.  Literal 1 is constant TRUE
 (anchored by a unit clause inside the native solver).
 
 Own copy of ``mythril_tpu/smt/bitblast.py`` for the PyTorch port, with
-the word tier, autopilot routing, proof logging, observability spans and
+autopilot routing, proof logging, observability spans and
 fault-injection hooks removed.  What stays behaves as the JAX package's
-context does under ``MYTHRIL_TPU_WORD_TIER=0`` and
-``MYTHRIL_TPU_AUTOPILOT=0``: the same native calls in the same order, so
-the same constraints give the same clause pool.
+context does under ``MYTHRIL_TPU_AUTOPILOT=0``: the same native calls in
+the same order (the word tier's rung in :meth:`BlastContext.check`
+included), so the same constraints give the same clause pool.
 """
 
 import logging
@@ -205,9 +205,16 @@ class BlastContext:
         added."""
         return self.pool.absorb_learnts(max_width)
 
-    def cone(self, root_lits: Sequence[int], need_clauses: bool = True):
+    def cone(self, root_lits: Sequence[int], need_clauses: bool = True,
+             known_bits: Optional[Sequence[int]] = None):
         """(clause_indices, vars) of the defining cone of ``root_lits``,
         both sorted numpy int64 arrays.
+
+        ``known_bits`` is the word tier's per-variable tightening lowered
+        to unit literals (``smt/word_tier.hint_literals``): they join the
+        root set, so the walked cone covers the pinned variables.  A
+        caller that memoizes cones must key on them as well as on the
+        roots (``ops/incremental.ConeMemo`` does).
 
         Walks defining clauses backward from the roots (natively, with a
         per-root memo): every variable's semantics (the gates computing
@@ -217,6 +224,10 @@ class BlastContext:
         (every pool clause holds globally) and complete enough for model
         probing (free inputs are in the cone).  Device-learned nogoods
         covered by the cone's var set are appended per call."""
+        if known_bits:
+            root_lits = list(dict.fromkeys(
+                list(root_lits) + list(known_bits)
+            ))
         return self.pool.cone(root_lits, need_clauses)
 
     def note_unsat(self, nodes: Sequence[T.Node]) -> None:
@@ -629,8 +640,33 @@ class BlastContext:
             stats.probe_s += time.perf_counter() - started
             if env is not None:
                 return SatSolver.SAT, env
+        # word-level tier: interval + known-bits propagation decides
+        # interval-UNSAT / constant-fold queries without building CNF,
+        # and hands the blaster per-variable known bits for the rest
+        from mythril_tpu_torch.smt.word_tier import (
+            get_word_tier, hint_literals, word_tier_enabled,
+        )
+
+        word_hints = None
+        if word_tier_enabled():
+            word_verdicts, hint_rows, word_envs = get_word_tier().decide(
+                self, [nodes], device=_args.device
+            )
+            if word_verdicts[0] is False:
+                return SatSolver.UNSAT, None  # the tier memoized it
+            if word_verdicts[0] is True:
+                env = word_envs[0] if word_envs[0] is not None else T.EvalEnv()
+                self._remember_model(env)
+                return SatSolver.SAT, env
+            word_hints = hint_rows[0]
         started = time.perf_counter()
         assumptions = [self.blast_lit(c) for c in nodes]
+        if word_hints:
+            # implied unit literals: pinned bits propagate for free in
+            # the CDCL instead of being rediscovered by search
+            assumptions = list(dict.fromkeys(
+                assumptions + hint_literals(self, word_hints)
+            ))
         stats.blast_s += time.perf_counter() - started
         # restrict CDCL decisions to the query's cone: against a large
         # shared pool, VSIDS otherwise wanders into foreign gates and

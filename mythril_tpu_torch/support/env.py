@@ -18,9 +18,9 @@ class EnvSpecError(RuntimeError):
 #: package's entries (``KNOWN_SPECS``) for the knobs this port reads.  The
 #: port
 #: also reads MYTHRIL_TPU_FRONTIER, MYTHRIL_TPU_PALLAS,
-#: MYTHRIL_TPU_ROUND_LADDER and its own alias MYTHRIL_TPU_DENSE, which
-#: that table does not hold: like the JAX package, the gate takes any
-#: value of theirs.
+#: MYTHRIL_TPU_ROUND_LADDER, MYTHRIL_TPU_WORD_TIER, MYTHRIL_TPU_WORD_XP and
+#: its own alias MYTHRIL_TPU_DENSE, which that table does not hold: like
+#: the JAX package, the gate takes any value of theirs.
 KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_FRONTIER_PERIOD": ("int", 1, None),
     "MYTHRIL_TPU_FRONTIER_FAN": ("int", 1, None),
@@ -29,6 +29,8 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_COALESCE_WINDOW": ("int", 0, None),
     "MYTHRIL_TPU_COALESCE_FILL": ("float", 0.0, None),
     "MYTHRIL_TPU_PROBE_MEMO_CAP": ("int", 1, None),
+    "MYTHRIL_TPU_WORD_ROUNDS": ("int", 1, None),
+    "MYTHRIL_TPU_WORD_MAX_NODES": ("int", 1, None),
     "MYTHRIL_TPU_RESIDENT_KERNEL": ("flag", None, None),
     "MYTHRIL_TPU_RESIDENT_BUDGET": ("int", 1, None),
     "MYTHRIL_TPU_RESIDENT_WATCHDOG": ("int", 1, None),

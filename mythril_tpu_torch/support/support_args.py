@@ -13,12 +13,12 @@ from mythril_tpu_torch.support.support_utils import Singleton
 #: so it runs this configuration whatever the environment says; the
 #: parity tests apply the same pins to the JAX package.  The port honors
 #: ``MYTHRIL_TPU_RESIDENT_KERNEL`` both ways, as the JAX package does
-#: (0 = the multi-dispatch frontier ladder) and ``MYTHRIL_TPU_FRONTIER``
-#: both ways (0 = the round-lane ladder).
+#: (0 = the multi-dispatch frontier ladder), ``MYTHRIL_TPU_FRONTIER``
+#: both ways (0 = the round-lane ladder) and ``MYTHRIL_TPU_WORD_TIER``
+#: both ways (0 = no word tier).
 #:
 #: Environment knobs of the JAX package:
 SLICE_PINS_ENV = {
-    "MYTHRIL_TPU_WORD_TIER": "0",
     "MYTHRIL_TPU_AUTOPILOT": "0",
     "MYTHRIL_TPU_SYM_LOCKSTEP": "0",
     "MYTHRIL_TPU_VERITEST": "0",
@@ -31,17 +31,12 @@ SLICE_PINS_ENV = {
 #: CPU tier is held against; it also keeps the JAX gather tiers on, which
 #: a CPU-only JAX host skips by default):
 SLICE_PINS_CPU_ENV = {"MYTHRIL_TPU_PALLAS": "force"}
-#: Analysis flags of the JAX package.  ``word_probing`` is off: the JAX
-#: funnel reads it for its host probe phase before the dispatch, which
-#: the port does not have, and the CDCL tail reads it for the same
-#: probe; off, every open lane reaches the dense tier and the tail's
-#: models come from the CDCL alone, on both sides.
+#: Analysis flags of the JAX package:
 SLICE_PINS_ARGS = {
     "lockstep_dispatch": False,
     "concrete_replay": False,
     "proof_log": False,
     "fleet_workers": 0,
-    "word_probing": False,
 }
 
 #: The force-dispatched configuration of the funnel's rungs (JAX's
@@ -65,7 +60,7 @@ class Args(object, metaclass=Singleton):
         self.call_depth_limit = 3
         self.iprof = False
         self.batched_solving = True          # batch frontier feasibility checks
-        self.word_probing = SLICE_PINS_ARGS["word_probing"]
+        self.word_probing = True             # host word-level model probing
         self.cone_decisions = True           # CDCL decisions restricted to query cone
         self.batch_width = 16                # VM states stepped per scheduler round
         # below this many undecided lanes the native CDCL wins outright;

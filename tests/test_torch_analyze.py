@@ -2,11 +2,13 @@
 
 Each case runs the JAX package's ``SymExecWrapper`` + ``fire_lasers``
 and the port's, one after the other in this process, under the slice
-pins (``mythril_tpu_torch/support/support_args.py``), with the port's
-dense tier on ``device="cpu"``.  The issue lists (field by field, with
-the exploit transactions' calldata, value and caller), the total state
-count, the number of prune calls and every prune call's per-state
-verdicts must be exactly equal; neither side may time out.
+pins (``mythril_tpu_torch/support/support_args.py``; the word tier and
+the host probe on, on both sides), with the port's dense tier on
+``device="cpu"``.  The issue lists (field by field, with the exploit
+transactions' calldata, value and caller), the total state count, the
+number of prune calls, every prune call's per-state verdicts and the
+solver, probe and word-tier counters must be exactly equal; neither
+side may time out.
 """
 
 import contextlib
@@ -217,6 +219,9 @@ COUNTERS = (
     "resident_dispatches", "resident_exit_all_decided",
     "resident_exit_budget", "resident_exit_watchdog",
     "resident_delegations", "pool_uploads", "delta_uploads", "repacks",
+    # the probe phase and the word tier, on by default on both sides
+    "host_probe_sat", "word_decided_unsat", "word_decided_sat",
+    "word_tightened_bits",
 )
 
 
@@ -251,7 +256,12 @@ def test_corpus_findings_match_jax(name):
     ("unchecked_add", 2), ("vault_withdraw", 2), ("erc20_transfer", 2),
 ])
 def test_fixture_findings_match_jax(name, tx_count):
-    _parity(contracts.fixture(name), tx_count)
+    _jax, port = _parity(contracts.fixture(name), tx_count)
+    if name == "vault_withdraw":
+        # the probe phase and the word tier decide lanes on this one
+        counters = port["counters"]
+        assert counters["host_probe_sat"] > 0
+        assert counters["word_decided_unsat"] > 0
 
 
 #: the CPU tier's cell cap (2^22, the JAX package's interpret tier) is
@@ -377,13 +387,18 @@ class _State:
 
 
 def _distinct_states(count):
+    """Feasible states with distinct multiplier guards, which neither the
+    host probe nor the word tier decides (so they reach a device tier)."""
     from mythril_tpu_torch.laser.ethereum.state.constraints import (
         Constraints,
     )
     from mythril_tpu_torch.smt import symbol_factory
 
+    bv = symbol_factory.BitVecVal
     x = symbol_factory.BitVecSym("prune_x", 256)
-    return [_State(Constraints([x == i])) for i in range(count)]
+    guard = (x * bv(0x6D2B, 256)) & bv(0xFFFF, 256)
+    return [_State(Constraints([guard == bv(0x1234 + 7 * i, 256)]))
+            for i in range(count)]
 
 
 def test_prune_propagates_a_dense_tier_failure(monkeypatch):
@@ -547,7 +562,10 @@ def test_native_keccak_matches_python_and_jax():
 def test_recorded_swc_sets_match_jax():
     """The SWC sets the chip check holds the card's runs to
     (``contracts.CHIP_RUNS``) are the JAX package's, on the CPU, under
-    the slice pins; the port builds the same contracts."""
+    the slice pins (the word tier and the host probe on), and so is each
+    run's ``dense`` flag: force-dispatched, the JAX funnel engages a
+    device tier on exactly the runs so flagged; the port builds the same
+    contracts."""
     for run in contracts.CHIP_RUNS:
         code = run.code()
         if run.name.startswith("scale_mul"):
@@ -555,3 +573,4 @@ def test_recorded_swc_sets_match_jax():
             assert code == bench.scale_contract(depth, 16, "mul")
         jax = _run("jax", code, run.transaction_count)
         assert {i["swc_id"] for i in jax["issues"]} == run.swc_ids, run.name
+        assert (jax["dispatches"] >= 1) == run.dense, run.name

@@ -150,7 +150,8 @@ def test_round_loop_state_matches(tiered):
                *[jnp.asarray(a) for a in state])
     pfn = port_dp.make_dense_rounds(C, V, B, budget, port_dp.CPU_TIER,
                                     port_dp.MAX_DECISIONS, hot_c, period)
-    pout = pfn(ppool.P, ppool.N, ppool.width, *state_from_numpy(state))
+    pout = pfn(ppool.P, ppool.N, ppool.width,
+               *state_from_numpy(state, device="cpu"))
     assert int(jout[-1]) == pout[-1] > 0
     for name, j, p in zip(jax_pp.DPLL_STATE_FIELDS, jout[:-1], pout[:-1]):
         assert np.array_equal(np.asarray(j), p.numpy()), name
@@ -270,3 +271,19 @@ def test_clause_pool_defaults_to_the_card(monkeypatch):
     pool.refresh([(2, 3), (-2, 3)], 4)
     assert pool.device == torch.device("cpu")
     assert pool.P.device.type == "cpu" and pool.C >= 2
+
+
+def test_state_from_numpy_defaults_to_the_card():
+    """``carry.state_from_numpy`` resolves its device as every entry
+    point of the port does: the card unless the caller passes
+    ``device="cpu"``, and no silent CPU fall back without one."""
+    state = [np.arange(6, dtype=np.int32).reshape(2, 3),
+             np.ones((2,), dtype=np.int8)]
+    on_cpu = state_from_numpy(state, device="cpu")
+    assert [t.device.type for t in on_cpu] == ["cpu", "cpu"]
+    assert np.array_equal(on_cpu[0].numpy(), state[0])
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in state_from_numpy(state))
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            state_from_numpy(state)

@@ -140,6 +140,11 @@ def _snapshot(side, verdicts):
     }
 
 
+#: the tier that decided each lane, per call of the port's last
+#: ``_run_calls`` (the JAX funnel keeps no such record)
+PORT_TIERS = []
+
+
 def _run_calls(side, builds):
     """Each of ``builds`` through ``side``'s funnel in one blast context
     (the JAX funnel leaves its open lanes to its caller, so the port's
@@ -147,10 +152,14 @@ def _run_calls(side, builds):
     s = SIDES[side]
     s["reset"]()
     out = []
+    if side == "port":
+        PORT_TIERS.clear()
     for build in builds:
         lanes, _ = build(s["S"])
         verdicts = s["bs"].batch_check_states(lanes, **s["kwargs"])
         out.append(_snapshot(side, verdicts))
+        if side == "port":
+            PORT_TIERS.append(list(s["bs"].dispatch_stats.last_tiers))
     return out
 
 
@@ -197,22 +206,29 @@ FRONTIERS = {
 def test_gate_declines_and_the_prefetch_harvest_matches_jax(
         monkeypatch, name):
     """With the gate always declining, the first call leaves every lane
-    open and prefetches the batch; the second call harvests it first
-    (UNSAT memo, nogoods, models) and decides those lanes from the memo,
-    then prefetches what is left."""
+    that the host probe and the word tier do not decide open, and
+    prefetches the batch; the second call harvests it first (UNSAT memo,
+    nogoods, models) and decides lanes from them (the UNSAT memo, and
+    the host probe against the harvested models), then prefetches what
+    is left."""
     _set_min_save(monkeypatch, 1e9)
     build = FRONTIERS[name]
     first, second = _parity([build, build])
-    assert first["verdicts"] == [None] * len(first["verdicts"])
+    assert None in first["verdicts"]
+    assert all(tier in ("probe", "word")
+               for v, tier in zip(first["verdicts"], PORT_TIERS[0])
+               if v is not None)
     assert first["rungs"]["profit_skips"] == 1
     assert first["rungs"]["dispatches"] == 0
     assert first["async"]["launches"] == 1
     assert second["async"]["harvested"] == 1
     assert second["async"]["unsat"] + second["async"]["models"] > 0
     assert second["async"]["dropped"] == 0
-    tiers = port_bs.dispatch_stats.last_tiers
+    tiers = PORT_TIERS[1]
     decided = [i for i, v in enumerate(second["verdicts"]) if v is not None]
-    assert decided and all(tiers[i] == "memo" for i in decided)
+    opened = [i for i, v in enumerate(first["verdicts"]) if v is None]
+    assert any(second["verdicts"][i] is not None for i in opened)
+    assert all(tiers[i] in ("memo", "probe", "word") for i in decided)
 
 
 @pytest.mark.parametrize("name", sorted(FRONTIERS))

@@ -1,9 +1,11 @@
 """The port's ``MYTHRIL_TPU_*`` knobs against the JAX package's, on the
 CPU: ``MYTHRIL_TPU_FRONTIER=0`` (the resident solver off on both sides,
 the gather tiers on round lanes: the funnel and the CLI match the JAX
-package's), ``MYTHRIL_TPU_PALLAS=0`` (the dense tier off on both sides)
-and the startup validator (the same verdict on every tabled value; the
-port's CLI exits 2)."""
+package's), ``MYTHRIL_TPU_PALLAS=0`` (the dense tier off on both sides),
+the word tier's kill switch (``MYTHRIL_TPU_WORD_TIER``, both ways on
+both sides) and the startup validator (the same verdict on every tabled
+value, the word tier's ``MYTHRIL_TPU_WORD_ROUNDS`` and
+``MYTHRIL_TPU_WORD_MAX_NODES`` included; the port's CLI exits 2)."""
 
 import json
 import os
@@ -42,7 +44,8 @@ KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "DENSE", "FRONTIER", "FRONTIER_DEG", "FRONTIER_FAN", "FRONTIER_PERIOD",
     "PROBE_MEMO_CAP", "RESIDENT_BUDGET", "RESIDENT_EXTRA", "RESIDENT_KERNEL",
     "RESIDENT_POOL", "RESIDENT_WATCHDOG", "ROUND_LADDER", "TIER_PERIOD",
-    "WARM_START", "PALLAS"))
+    "WARM_START", "PALLAS", "WORD_MAX_NODES", "WORD_ROUNDS", "WORD_TIER",
+    "WORD_XP"))
 
 
 @pytest.fixture(autouse=True)
@@ -304,7 +307,15 @@ TABLE = [
     ("MYTHRIL_TPU_COALESCE_FILL", "1", False),
     ("MYTHRIL_TPU_COALESCE_FILL", "-0.25", True),
     ("MYTHRIL_TPU_COALESCE_FILL", "full", True),
+    ("MYTHRIL_TPU_WORD_ROUNDS", "3", False),
+    ("MYTHRIL_TPU_WORD_ROUNDS", "0", True),
+    ("MYTHRIL_TPU_WORD_ROUNDS", "two", True),
+    ("MYTHRIL_TPU_WORD_MAX_NODES", "64", False),
+    ("MYTHRIL_TPU_WORD_MAX_NODES", "-5", True),
+    ("MYTHRIL_TPU_WORD_MAX_NODES", "1e3", True),
     # no entry in the JAX table: any value passes on both sides
+    ("MYTHRIL_TPU_WORD_TIER", "bogus", False),
+    ("MYTHRIL_TPU_WORD_XP", "gpu", False),
     ("MYTHRIL_TPU_FRONTIER", "bogus", False),
     ("MYTHRIL_TPU_PALLAS", "auto", False),
     ("MYTHRIL_TPU_ROUND_LADDER", "maybe", False),
@@ -340,3 +351,29 @@ def test_malformed_knob_exits_2_from_the_cli(monkeypatch, capsys):
     code, err = _analyze(capsys)
     assert code == 2
     assert err.startswith("bad environment knob: MYTHRIL_TPU_RESIDENT_BUDGET")
+
+
+@pytest.mark.parametrize("knob", ["MYTHRIL_TPU_WORD_ROUNDS",
+                                  "MYTHRIL_TPU_WORD_MAX_NODES"])
+def test_malformed_word_knob_exits_2_from_the_cli(monkeypatch, capsys, knob):
+    """The word tier's two numeric knobs go through the CLI's knob gate:
+    a malformed value exits 2 before any analysis, a good one runs."""
+    monkeypatch.setenv(knob, "zero")
+    code, err = _analyze(capsys)
+    assert code == 2
+    assert err.startswith(f"bad environment knob: {knob}")
+    monkeypatch.setenv(knob, "7")
+    code, err = _analyze(capsys)
+    assert code == 0, err
+
+
+@pytest.mark.parametrize("value,enabled", [
+    ("0", False), ("off", False), ("false", False), ("1", True),
+    ("", True), ("on", True)])
+def test_word_tier_kill_switch_matches_jax(monkeypatch, value, enabled):
+    from mythril_tpu.smt import word_tier as jax_word
+    from mythril_tpu_torch.smt import word_tier as port_word
+
+    monkeypatch.setenv("MYTHRIL_TPU_WORD_TIER", value)
+    assert jax_word.word_tier_enabled() is enabled
+    assert port_word.word_tier_enabled() is enabled

@@ -31,14 +31,23 @@ def slice_config(monkeypatch):
     monkeypatch.setenv("MYTHRIL_TPU_RESIDENT_KERNEL", "0")
     monkeypatch.setenv("MYTHRIL_TPU_WORD_TIER", "0")
     monkeypatch.setenv("MYTHRIL_TPU_AUTOPILOT", "0")
-    # the JAX funnel under the port's phases (no probe before the
-    # dispatch), both force-dispatched: no profit gate, no coalescing
-    # window, no prefetch
-    monkeypatch.setattr(jax_args, "word_probing", False)
+    # both funnels with no probe and no word tier before the dispatch
+    # (every open lane reaches the dense tier), both force-dispatched: no
+    # profit gate, no coalescing window, no prefetch
     for args in (jax_args, port_args):
+        monkeypatch.setattr(args, "word_probing", False)
         monkeypatch.setattr(args, "device_force_dispatch", True)
         monkeypatch.setattr(args, "device_coalesce", False)
         monkeypatch.setattr(args, "async_dispatch", False)
+    # what reads the wall clock, out of reach on both sides (as the other
+    # parity tests set it): the JAX dispatch watchdog would re-run a
+    # round that a loaded test host makes slow, the fuse would blow
+    from mythril_tpu.resilience import watchdog
+
+    monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
+    monkeypatch.setattr(jax_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
+    monkeypatch.setattr(port_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
     jax_reset()
     port_reset()
     reset_cone_memo()
