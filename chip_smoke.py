@@ -70,9 +70,15 @@ failure):
    word tier's launch of each default run is captured;
 5. word fixpoint: the ``word_prop`` kernel against
    ``word_fixpoint_plain`` on the card, bit for bit, on seeded random
-   term DAGs at 16, 64 and 256 lanes and on the two captured main-path
+   term DAGs at 16, 64 and 256 lanes, on a DAG that holds every opcode
+   of the kernel's table at widths 1, 8, 31, 33, 160 and 256, on a
+   comparison whose push-down reaches depth 8 through concat and
+   extract, on a program at the node cap (1024 nodes, 256 lanes: the
+   largest block of shared memory), and on the two captured main-path
    programs; device ms (CUDA events around bare launches: the profiler
-   loses records of these launches), plain ms (one run), bound;
+   loses records of these launches), plain ms (one run), bound; the plain
+   walks of the three edge cases run on the CPU in one worker process
+   that the check starts first, beside the builds and earlier phases;
 6. prefetch: the guard chain with the profit gate always declining
    (``device_min_save_s`` 1e9): launched on the worker's stream, joined,
    harvested by the next call; checks a harvest, no drop, the memo's
@@ -1686,8 +1692,66 @@ def prefetch_phase(card):
 #: lanes, widths; each decides lanes both ways and leaves others open
 WORD_DAGS = ((9, 16, (256, 64, 8)), (9, 64, (256, 64, 8)),
              (10, 256, (32, 8)))
+#: the word kernel's edge cases: label, a function that makes its lanes
+#: (``frontiers``): every opcode of the table at widths 1, 8, 31, 33, 160
+#: and 256; a comparison whose push-down reaches depth 8 through concat and
+#: extract; a program at the node cap (1024 nodes) over 256 lanes, the
+#: largest shared-memory block
+WORD_EDGE_CASES = (
+    ("every opcode, widths 1/8/31/33/160/256, 64 lanes",
+     lambda: _frontiers().word_opcode_lanes(3, 64)),
+    ("push-down to depth 8, 64 lanes",
+     lambda: _frontiers().word_deep_lanes(64)),
+    ("node cap, 1024 nodes, 256 lanes",
+     lambda: _frontiers().word_cap_lanes(5, 256)),
+)
 #: the main-path frontier whose captured program the kernels line times
 WORD_ENTRY_CASE = "scale_mul d6 g16"
+
+
+def _frontiers():
+    from mythril_tpu_torch import frontiers
+
+    return frontiers
+
+
+def word_digest(table, want0) -> str:
+    """A digest of one decide's inputs (table and wants)."""
+    h = hashlib.sha256()
+    for t in (table.entries, table.args, table.consts, want0):
+        h.update(t.cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def edge_plain(index):
+    """``word_fixpoint_plain`` of ``WORD_EDGE_CASES[index]`` on the CPU,
+    in the worker process the check starts first (the edge cases' plain
+    walks take seconds each, and run beside the builds and the earlier
+    phases): the digest of its inputs, planes, tri-states and conflicts
+    as numpy arrays, and its seconds."""
+    import torch
+
+    from mythril_tpu_torch.ops import word_fixpoint as WF
+    from mythril_tpu_torch.smt.word_tier import WORD_ROUNDS
+
+    torch.set_num_threads(1)
+    table, want0, rounds = word_inputs(WORD_EDGE_CASES[index][1](),
+                                       WORD_ROUNDS)
+    started = time.perf_counter()
+    planes, tri, conflict = WF.word_fixpoint_plain(table, want0, rounds)
+    return (word_digest(table, want0), planes.numpy(), tri.numpy(),
+            conflict.numpy(), time.perf_counter() - started)
+
+
+def start_edge_plain():
+    """One spawned worker process and its futures, one an edge case."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, [pool.submit(edge_plain, k)
+                  for k in range(len(WORD_EDGE_CASES))]
 #: (table, want0, rounds) on the host of the word tier's launch in each
 #: main-path run of the default configuration, captured during the run
 WORD_CAPTURES = {}
@@ -1758,13 +1822,16 @@ def word_kernel_ms(table, want0, rounds, iters=10):
     return cuda_ms(launch, iters)
 
 
-def word_prop_phase(card):
+def word_prop_phase(card, edge_pool, edge_futures):
     """The word fixpoint kernel against ``word_fixpoint_plain`` on the
     card (the plain version timed once, its result compared bit for
-    bit): seeded random DAGs at 16, 64 and 256 lanes, and the programs
-    the main path's two frontiers handed the word tier, captured during
-    their run.  Returns the kernels line's entry (the captured
-    ``WORD_ENTRY_CASE`` program)."""
+    bit): seeded random DAGs at 16, 64 and 256 lanes, the edge cases of
+    ``WORD_EDGE_CASES`` (every opcode; a push-down to depth 8; the node
+    cap at 256 lanes; their plain walks come from ``edge_futures``, the
+    CPU worker's, whose ``edge_pool`` is shut down once they are in),
+    and the programs the main path's two frontiers handed
+    the word tier, captured during their run.  Returns the kernels
+    line's entry (the captured ``WORD_ENTRY_CASE`` program)."""
     import torch
 
     from mythril_tpu_torch import frontiers
@@ -1775,6 +1842,23 @@ def word_prop_phase(card):
               word_inputs(frontiers.word_dag_lanes(seed, lanes, widths),
                           WORD_ROUNDS))
              for seed, lanes, widths in WORD_DAGS]
+    from mythril_tpu_torch.smt.word_tier import WORD_MAX_NODES
+
+    plain_of = {}  # label -> the worker's plain result
+    for (label, build), future in zip(WORD_EDGE_CASES, edge_futures):
+        table, want0, rounds = word_inputs(build(), WORD_ROUNDS)
+        plain_of[label] = future.result()
+        check(plain_of[label][0] == word_digest(table, want0),
+              f"word_prop {label}: the worker held other inputs")
+        if label.startswith("every opcode"):
+            codes = set(table.entries[:, 0].tolist())
+            check(codes == set(range(len(WF.OP_NAMES))),
+                  f"word_prop {label}: opcodes {sorted(codes)}")
+        if label.startswith("node cap"):
+            check(table.n_bv + table.n_bool == WORD_MAX_NODES,
+                  f"word_prop {label}: {table.n_bv + table.n_bool} nodes")
+        cases.append((label, (table, want0, rounds)))
+    edge_pool.shutdown(wait=True)
     for name in ("scale_mul d6 g16", "guard chain 64x32"):
         check(WORD_CAPTURES.get(name) is not None,
               f"word_prop: no program captured on the main path {name}")
@@ -1786,10 +1870,16 @@ def word_prop_phase(card):
         B = want0.shape[1]
         got = WF.word_fixpoint(table, want0, rounds)
         torch.cuda.synchronize()
-        started = time.perf_counter()
-        want = WF.word_fixpoint_plain(table, want0, rounds)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - started) * 1e3
+        if label in plain_of:  # the worker's plain walk, on the CPU
+            _, *want, plain_s = plain_of[label]
+            want = [torch.from_numpy(w).to(DEVICE) for w in want]
+            plain_ms, plain_where = plain_s * 1e3, "the CPU worker"
+        else:
+            started = time.perf_counter()
+            want = WF.word_fixpoint_plain(table, want0, rounds)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - started) * 1e3
+            plain_where = "eager torch on the card"
         err = 0
         for name, g, w in zip(("planes", "tri", "conflict"), got, want):
             check(g.shape == w.shape and torch.equal(g, w),
@@ -1804,7 +1894,7 @@ def word_prop_phase(card):
             f"({table.n_bv} bv, {table.n_bool} bool), {B} lanes, "
             f"{conflicts} lanes in conflict, {roots_true} must-true "
             f"tri-states; bit-equal to the plain version; device "
-            f"{ms:.4f} ms, plain (eager torch on the card) {plain_ms:.1f} "
+            f"{ms:.4f} ms, plain ({plain_where}) {plain_ms:.1f} "
             f"ms, bound {bound_ms:.5f} ms ({bound_by}, "
             f"{100 * bound_ms / ms:.2f}% of it)")
         if label == f"main path {WORD_ENTRY_CASE}":
@@ -1996,6 +2086,15 @@ def main() -> int:
     from mythril_tpu_torch import frontiers
     from mythril_tpu_torch.ops import default_device
 
+    pool, edge_futures = start_edge_plain()
+    try:
+        return _main(torch, frontiers, default_device, pool, edge_futures)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _main(torch, frontiers, default_device, edge_pool,
+          edge_futures) -> int:
     started = last = time.perf_counter()
     seconds = {}
 
@@ -2045,7 +2144,7 @@ def main() -> int:
         _add(totals if not knobs or expect == "round lanes" else kill_switch,
              launches)
     phase_done("main path")
-    word_entry = word_prop_phase(card)
+    word_entry = word_prop_phase(card, edge_pool, edge_futures)
     phase_done("word fixpoint")
     _add(totals, prefetch_phase(card))
     phase_done("prefetch")

@@ -323,3 +323,132 @@ def word_dag_lanes(seed: int, n_lanes: int, widths=(256, 64, 8), terms=None):
         pick = sorted(rng.choice(len(cons), size=k, replace=False).tolist())
         lanes.append([cons[i] for i in pick])
     return lanes
+
+
+def _spread_lanes(rng, cons, n_lanes, extra=2):
+    """``n_lanes`` constraint lists that together hold every constraint
+    of ``cons`` (lane k takes every ``n_lanes``-th one from k), each with
+    up to ``extra`` more drawn at random."""
+    lanes = []
+    for k in range(n_lanes):
+        own = set(range(k, len(cons), n_lanes))
+        more = int(rng.integers(0, extra + 1))
+        own.update(rng.choice(len(cons), size=min(more, len(cons)),
+                              replace=False).tolist())
+        lanes.append([cons[i] for i in sorted(own)])
+    return lanes
+
+
+def word_opcode_lanes(seed: int, n_lanes: int,
+                      widths=(1, 8, 31, 33, 160, 256), terms=None):
+    """Constraint sets whose word-tier program holds every opcode of the
+    word kernel's table (``ops/word_fixpoint.OP_NAMES``): a seeded random
+    DAG at ``widths`` and, at each width, one term of every bv op of the
+    fragment under a comparison, the bool connectives, bool constants,
+    bool vars and bool-sorted ite, and an opaque subterm (``sdiv``)."""
+    if terms is None:
+        from mythril_tpu_torch.smt import terms
+    T = terms
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def rand_int(width):
+        return int.from_bytes(rng.bytes(32), "little") & ((1 << width) - 1)
+
+    cons = list(_word_dag(T, seed, widths))
+    cmps = ("eq", "ult", "ule", "slt", "sle")
+    made = []
+    for w in widths:
+        a, b = T.var(f"a{w}", w), T.var(f"b{w}", w)
+        k = T.const(rand_int(w), w)
+        amount = T.const(int(rng.integers(0, w + 2)), w)
+        made += [T.add(a, b), T.sub(a, k), T.mul(a, b), T.udiv(a, b),
+                 T.urem(a, k), T.bv_and(a, k), T.bv_or(a, b),
+                 T.bv_xor(a, k), T.bv_not(a), T.shl(a, amount),
+                 T.lshr(a, b), T.ashr(a, amount),
+                 T.ite(T.ult(a, b), a, k)]
+        if w > 1:
+            made.append(T.extract(w - 1, w // 2, a))
+        wider = [x for x in widths if x > w]
+        if wider:
+            made += [T.zext(wider[0] - w, a), T.sext(wider[-1] - w, b)]
+        if 2 * w <= 256:
+            made.append(T.concat([a, b]))
+    for i, node in enumerate(made):
+        other = T.const(rand_int(node.width), node.width)
+        if rng.random() < 0.5:
+            other = T.var(f"o{node.width}_{i % 3}", node.width)
+        cons.append(getattr(T, cmps[i % len(cmps)])(node, other))
+    p, q = T.bvar("p"), T.bvar("q")
+    base = [c for c in cons if c.sort == "bool" and not c.is_const]
+    x, y = T.var("sx", 33), T.var("sy", 33)
+    cons += [T.band(base[0], base[1]), T.bor(base[2], base[3]),
+             T.bxor(base[4], base[5]), T.bnot(T.band(p, base[6])),
+             T.ite(p, base[7], q), T.ite(q, T.bconst(True), base[8]),
+             T.eq(T.sdiv(x, y), x)]
+    cons = [c for c in cons if c.sort == "bool" and not c.is_const]
+    return _spread_lanes(rng, cons, n_lanes)
+
+
+def word_deep_lanes(n_lanes: int, levels: int = 10, terms=None):
+    """Constraint sets over a 64-bit word built ``levels`` deep from
+    ``concat`` and ``extract`` (each level a fresh byte on top of the
+    previous level's low 56 bits), so that a comparison on the top word
+    pushes its refinement down the word tier's full depth of 8 (two
+    levels a frame pair) and stops there.  Each lane compares the top
+    word (or one of its levels) with its own constant; some lanes pin a
+    byte to a value that contradicts another, for conflicts met during
+    the push-down."""
+    if terms is None:
+        from mythril_tpu_torch.smt import terms
+    T = terms
+    import numpy as np
+
+    rng = np.random.default_rng(levels)
+    chain = [T.var("deep", 64)]
+    for k in range(levels):
+        chain.append(T.concat([T.var(f"d{k}", 8),
+                               T.extract(55, 0, chain[-1])]))
+    top = chain[-1]
+    lanes = []
+    for lane in range(n_lanes):
+        value = int.from_bytes(rng.bytes(8), "little")
+        cons = [T.eq(top, T.const(value, 64))]
+        if lane % 3 == 1:
+            cons.append(T.ult(chain[levels // 2], T.const(value >> 8, 64)))
+        if lane % 4 == 2:  # the low byte two ways: a conflict
+            cons.append(T.eq(T.extract(7, 0, chain[0]),
+                             T.const((value & 0xFF) ^ 1, 8)))
+        if lane % 5 == 3:
+            cons = [T.ule(T.const(value, 64), top)]
+        lanes.append(cons)
+    return lanes
+
+
+def word_cap_lanes(seed: int, n_lanes: int, cap: int = 1024, terms=None):
+    """Constraint sets over one seeded random term DAG whose lanes
+    together reach as close to ``cap`` term nodes as the constraints
+    allow without passing it (the word tier's node cap): the largest
+    program the word kernel takes."""
+    if terms is None:
+        from mythril_tpu_torch.smt import terms
+    T = terms
+    import numpy as np
+
+    cons = _word_dag(T, seed, (256, 64, 8), n_vars=4, n_nodes=1400,
+                     n_cons=400)
+    seen = set()
+    kept = []
+    for c in cons:
+        cone, stack = set(), [c]
+        while stack:
+            node = stack.pop()
+            if node.id in seen or node.id in cone:
+                continue
+            cone.add(node.id)
+            stack.extend(node.args)
+        if len(seen) + len(cone) <= cap:
+            seen |= cone
+            kept.append(c)
+    return _spread_lanes(np.random.default_rng(seed + 1), kept, n_lanes)

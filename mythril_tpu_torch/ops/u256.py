@@ -23,6 +23,8 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from mythril_tpu_torch.ops import default_device
+
 NUM_LIMBS = 8
 MASK32 = 0xFFFFFFFF
 DTYPE = torch.int64
@@ -36,12 +38,14 @@ Amount = Union[int, torch.Tensor]
 
 
 def from_int(value: int, batch_shape: Tuple[int, ...] = (),
-             device="cpu") -> torch.Tensor:
-    """Python int -> int64[*batch_shape, 8] limbs (value broadcast)."""
+             device=None) -> torch.Tensor:
+    """Python int -> int64[*batch_shape, 8] limbs (value broadcast), on
+    ``device`` (the card when None, as ``ops.default_device`` resolves
+    it)."""
     value &= (1 << 256) - 1
     limbs = torch.tensor(
         [(value >> (32 * i)) & MASK32 for i in range(NUM_LIMBS)],
-        dtype=DTYPE, device=device,
+        dtype=DTYPE, device=default_device(device),
     )
     return limbs.expand(tuple(batch_shape) + (NUM_LIMBS,)).clone()
 

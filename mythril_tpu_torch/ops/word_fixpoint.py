@@ -10,7 +10,8 @@ which the JAX package takes for a batch of 16 or more lanes on a TPU.
 - :func:`lower_program` packs a compiled ``smt/word_tier._Program`` once
   into a :class:`NodeTable`: one int32 row a node (opcode, width, state
   slot, flags, argument count and offset into the argument list, two
-  parameters), the argument list (node rows) and the constant words;
+  parameters, and by position the level schedule the kernel's forward
+  passes follow), the argument list (node rows) and the constant words;
 - :func:`word_fixpoint` runs the whole fixpoint (one forward pass, then
   ``rounds`` x (backward, forward)) over every lane in one kernel
   launch for CUDA tensors, and :func:`word_fixpoint_plain` for CPU
@@ -21,6 +22,11 @@ which the JAX package takes for a batch of 16 or more lanes on a TPU.
 
 The kernel builds with ``nvcc`` at first use into
 ``mythril_tpu_torch/_build/libword_prop.so`` and is bound with ctypes.
+A block holds one lane, its state in shared memory beside the node
+table, and its warps share each level of a forward pass.  The library
+holds the block's shared memory (``word_prop_smem_bytes``) against the
+card's before it launches and refuses a program that does not fit, which
+the wrapper raises; every program within the word tier's node cap fits.
 """
 
 import ctypes
@@ -47,11 +53,17 @@ OP_NAMES = (
     "ult", "ule", "slt", "sle", "bite",
 )
 _OP_CODE = {name: code for code, name in enumerate(OP_NAMES)}
-#: the columns of a table row (``enum Col`` in the source)
+#: the columns of a table row (``enum Col`` in the source); "sched" and
+#: "level_end" are by position k: the row at position k of the nodes
+#: ordered by level (a node's level is one more than its args' highest),
+#: and the first position past that node's level
 ENTRY_COLUMNS = ("op", "width", "slot", "flags", "nargs", "argoff", "p0",
-                 "p1")
+                 "p1", "sched", "level_end")
 F_OPAQUE = 1
 F_BOOL = 2
+#: ``word_prop_launch``'s refusal of a block that does not fit the card's
+#: shared memory (``wp::kDoesNotFit``)
+DOES_NOT_FIT = -1
 
 #: kernel launches since the last reset (the wrapper adds one per launch
 #: and nowhere else)
@@ -113,6 +125,7 @@ def lower_program(prog) -> NodeTable:
             row[6], row[7] = node.params
         elif node.op == "bconst":
             row[6] = 1 if node.params[0] else 0
+    _level_schedule(entries, np.asarray(args, dtype=np.int64), len(prog.order))
     const_limbs = np.zeros((max(len(consts), 1), u256.NUM_LIMBS),
                            dtype=np.int64)
     for k, value in enumerate(consts):
@@ -124,6 +137,22 @@ def lower_program(prog) -> NodeTable:
         torch.from_numpy(const_limbs),
         len(prog.bv_slot), len(prog.bool_slot),
     )
+
+
+def _level_schedule(entries, args, n: int) -> None:
+    """Fill the schedule columns: the rows ordered by level (stable), and
+    for each position the end of its level."""
+    level = np.zeros(max(n, 1), dtype=np.int64)
+    for k in range(n):
+        nargs, argoff = entries[k, 4], entries[k, 5]
+        if nargs:
+            level[k] = 1 + level[args[argoff:argoff + nargs]].max()
+    order = np.argsort(level[:n], kind="stable")
+    entries[:n, 8] = order
+    ends = np.searchsorted(level[order], level[order], side="right")
+    entries[:n, 9] = ends
+    if n == 0:
+        entries[0, 9] = 0
 
 
 class _Entry:
@@ -146,7 +175,8 @@ def decode_table(table: NodeTable):
     consts = table.consts.cpu().numpy()
     prog = _Program()
     for k, row in enumerate(entries[: _rows(table)]):
-        code, width, slot, flags, nargs, argoff, p0, p1 = (int(x) for x in row)
+        code, width, slot, flags, nargs, argoff, p0, p1 = (
+            int(x) for x in row[:8])
         e = _Entry()
         e.id = k
         name = OP_NAMES[code]
@@ -218,6 +248,26 @@ def word_fixpoint(table: NodeTable, want0: torch.Tensor, rounds: int):
     return _launch(table, want0, rounds)
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a build of ``word_prop.cu``, declare its entry points, and
+    hold its table layout against this module's."""
+    lib = ctypes.CDLL(path)
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    lib.word_prop_launch.argtypes = [
+        ptr, c_int, ptr, ptr, ptr, c_int, c_int, c_int, ptr, ptr,
+        ptr, ptr, ptr,
+    ]
+    lib.word_prop_launch.restype = c_int
+    lib.word_prop_smem_bytes.argtypes = [c_int, c_int]
+    lib.word_prop_smem_bytes.restype = c_int
+    lib.word_prop_op_count.restype = c_int
+    lib.word_prop_entry_columns.restype = c_int
+    if (lib.word_prop_op_count() != len(OP_NAMES)
+            or lib.word_prop_entry_columns() != len(ENTRY_COLUMNS)):
+        raise RuntimeError("word_prop: table layout mismatch")
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     global _lib, build_info
     if _lib is not None:
@@ -227,19 +277,7 @@ def load_library() -> ctypes.CDLL:
             info = build_cuda_library(SOURCE, LIBRARY)
             if info is not None:
                 build_info = info
-            lib = ctypes.CDLL(LIBRARY)
-            ptr, c_int = ctypes.c_void_p, ctypes.c_int
-            lib.word_prop_launch.argtypes = [
-                ptr, c_int, ptr, ptr, ptr, c_int, c_int, c_int, ptr, ptr,
-                ptr, ptr, ptr,
-            ]
-            lib.word_prop_launch.restype = c_int
-            lib.word_prop_op_count.restype = c_int
-            lib.word_prop_entry_columns.restype = c_int
-            if (lib.word_prop_op_count() != len(OP_NAMES)
-                    or lib.word_prop_entry_columns() != len(ENTRY_COLUMNS)):
-                raise RuntimeError("word_prop: table layout mismatch")
-            _lib = lib
+            _lib = bind(LIBRARY)
     return _lib
 
 
@@ -277,6 +315,11 @@ def _launch(table: NodeTable, want0: torch.Tensor, rounds: int):
         tri.data_ptr(), want.data_ptr(), conflict.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    if err == DOES_NOT_FIT:
+        raise ValueError(
+            f"word_prop: a program of {n_rows} nodes ({table.n_bv} bv) needs "
+            f"{lib.word_prop_smem_bytes(n_rows, table.n_bool)} B of shared "
+            f"memory a block, more than the card has")
     if err:
         raise RuntimeError(f"word_prop kernel launch failed: cudaError {err}")
     launch_count += 1

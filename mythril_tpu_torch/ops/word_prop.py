@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from mythril_tpu_torch.ops import u256
+from mythril_tpu_torch.ops import default_device, u256
 from mythril_tpu_torch.ops.u256 import DTYPE, MASK32, NUM_LIMBS
 
 #: AbstractWord = (lo, hi, km, kv), each int64[..., NUM_LIMBS]
@@ -39,29 +39,35 @@ Word = Tuple
 # ---------------------------------------------------------------------------
 
 
-def ones_plane(batch_shape, device="cpu"):
+# Each constructor runs on ``device``, which resolves as every entry point
+# of the port does (``ops.default_device``): the card when it is None.
+
+
+def ones_plane(batch_shape, device=None):
     return torch.full(tuple(batch_shape) + (NUM_LIMBS,), MASK32,
-                      dtype=DTYPE, device=device)
+                      dtype=DTYPE, device=default_device(device))
 
 
-def zeros_plane(batch_shape, device="cpu"):
+def zeros_plane(batch_shape, device=None):
     return torch.zeros(tuple(batch_shape) + (NUM_LIMBS,), dtype=DTYPE,
-                       device=device)
+                       device=default_device(device))
 
 
-def width_mask(width: int, batch_shape, device="cpu"):
+def width_mask(width: int, batch_shape, device=None):
     """2^width - 1 as a limb plane (width in [0, 256])."""
     return u256.from_int((1 << width) - 1, tuple(batch_shape), device)
 
 
-def top(width: int, batch_shape, device="cpu") -> Word:
+def top(width: int, batch_shape, device=None) -> Word:
     """No information beyond the width bound."""
+    device = default_device(device)
     wm = width_mask(width, batch_shape, device)
     return (zeros_plane(batch_shape, device), wm, u256.bit_not(wm),
             zeros_plane(batch_shape, device))
 
 
-def const_word(value: int, width: int, batch_shape, device="cpu") -> Word:
+def const_word(value: int, width: int, batch_shape, device=None) -> Word:
+    device = default_device(device)
     v = u256.from_int(value & ((1 << width) - 1), tuple(batch_shape), device)
     return (v, v, ones_plane(batch_shape, device), v)
 

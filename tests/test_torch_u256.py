@@ -61,7 +61,7 @@ def test_arithmetic_and_compare_match_jax(seed):
 
 def test_from_int_to_int_round_trip():
     for value in _words(7, 16):
-        limbs = P.from_int(value, (3,))
+        limbs = P.from_int(value, (3,), "cpu")
         assert limbs.shape == (3, 8) and limbs.dtype == torch.int64
         assert np.array_equal(limbs[1].numpy(), J.from_int(value))
         assert P.to_int(limbs[2]) == value == J.to_int(J.from_int(value))
@@ -101,3 +101,18 @@ def test_limb_select_and_norm_amount_match_jax():
                  P._norm_amount(300, (4,), "cpu"))
     assert _same(J._norm_amount(np.array([0, 5, 256, 9999]), (4,), np),
                  P._norm_amount(torch.tensor([0, 5, 256, 9999]), (4,), "cpu"))
+
+
+def test_from_int_defaults_to_the_card():
+    """``from_int`` resolves its device as every entry point of the port
+    does: the card unless the caller passes ``device="cpu"``, and no
+    silent CPU fall back without one."""
+    value = (1 << 200) + 12345
+    on_cpu = P.from_int(value, (3,), device="cpu")
+    assert on_cpu.device.type == "cpu"
+    assert _same(J.from_int(value, (3,)), on_cpu)
+    if torch.cuda.is_available():
+        assert P.from_int(value, (3,)).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            P.from_int(value, (3,))

@@ -34,7 +34,12 @@ from mythril_tpu.smt import terms as JT
 from mythril_tpu.smt import word_tier as JWT
 from mythril_tpu.smt.solver import get_blast_context as jax_context
 from mythril_tpu.smt.solver import reset_blast_context as jax_reset
-from mythril_tpu_torch.frontiers import word_dag_lanes
+from mythril_tpu_torch.frontiers import (
+    word_cap_lanes,
+    word_dag_lanes,
+    word_deep_lanes,
+    word_opcode_lanes,
+)
 from mythril_tpu_torch.ops import batched_sat as port_bs
 from mythril_tpu_torch.ops import word_fixpoint as WF
 from mythril_tpu_torch.smt import terms as PT
@@ -289,8 +294,39 @@ def _jax_planes(prog, lanes, rounds=2):
 @pytest.mark.parametrize("seed,n_lanes,widths", DAG_CASES[:3])
 def test_word_fixpoint_plain_equals_the_batched_walk_and_jax(
         seed, n_lanes, widths):
-    j_lanes = word_dag_lanes(seed, n_lanes, widths, terms=JT)
-    p_lanes = word_dag_lanes(seed, n_lanes, widths, terms=PT)
+    _hold_table_against_walk_and_jax(
+        lambda T: word_dag_lanes(seed, n_lanes, widths, terms=T))
+
+
+#: the word kernel's edge programs (the chip check's cases, fewer lanes):
+#: every opcode of the table at widths 1/8/31/33/160/256, a comparison
+#: pushed down to depth 8 through concat and extract, the node cap
+EDGE_PROGRAMS = {
+    "every opcode": lambda T: word_opcode_lanes(3, 24, terms=T),
+    "push-down to depth 8": lambda T: word_deep_lanes(24, terms=T),
+    "the node cap": lambda T: word_cap_lanes(5, 4, terms=T),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_PROGRAMS))
+def test_word_fixpoint_plain_equals_jax_on_the_kernel_edge_programs(name):
+    prog = _hold_table_against_walk_and_jax(EDGE_PROGRAMS[name])
+    if name == "every opcode":
+        table = WF.lower_program(prog)
+        assert {WF.OP_NAMES[int(row[0])] for row in table.entries} == set(
+            WF.OP_NAMES)
+    if name == "the node cap":
+        assert len(prog.order) == PWT.WORD_MAX_NODES
+
+
+def _hold_table_against_walk_and_jax(make_lanes):
+    """``word_fixpoint`` on the CPU (the plain version over the packed
+    table) of the lanes ``make_lanes(terms)`` builds, against the port's
+    batched walk and the JAX package's numpy planes; returns the port's
+    program."""
+    j_lanes = make_lanes(JT)
+    p_lanes = make_lanes(PT)
+    n_lanes = len(p_lanes)
     j_roots = list({n.id: n for lane in j_lanes for n in lane}.values())
     p_roots = list({n.id: n for lane in p_lanes for n in lane}.values())
     j_prog = JWT._compile(j_roots, JWT.WORD_MAX_NODES)
@@ -313,13 +349,16 @@ def test_word_fixpoint_plain_equals_the_batched_walk_and_jax(
     assert np.array_equal(planes.numpy(), j_planes)
     assert np.array_equal(tri.numpy(), j_tri)
     assert np.array_equal(conflict.numpy(), j_conflict)
-    # the table round-trips: decoding gives the program's structure
+    # the table round-trips: decoding gives the program's structure (an
+    # op outside the table's fragment is encoded as "opaque")
     decoded = WF.decode_table(table)
     assert [(e.op, e.sort, e.width) for e in decoded.order] == [
-        (n.op, n.sort, n.width if n.sort == "bv" else 0)
+        (n.op if n.op in WF.OP_NAMES else "opaque", n.sort,
+         n.width if n.sort == "bv" else 0)
         for n in p_prog.order]
     assert decoded.opaque == {k for k, n in enumerate(p_prog.order)
                               if n.id in p_prog.opaque}
+    return p_prog
 
 
 def test_word_fixpoint_refuses_mismatched_inputs():
@@ -332,7 +371,7 @@ def test_word_fixpoint_refuses_mismatched_inputs():
     assert planes.shape == (4, table.n_bv, 4, 8)
     assert tri.shape == (4, table.n_bool) and conflict.shape == (4,)
     assert WF.launch_count == 0  # the CPU never launches the kernel
-    assert len(WF.OP_NAMES) == 32 and len(WF.ENTRY_COLUMNS) == 8
+    assert len(WF.OP_NAMES) == 32 and len(WF.ENTRY_COLUMNS) == 10
 
 
 # -------------------------------------------------- seams and lifecycle
