@@ -11,9 +11,9 @@ failure):
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: the native CDCL library (g++), the dense sweep kernel, the
-   frontier kernels, the round lane and the word fixpoint (nvcc,
-   sm_90a), all five started together, with their build seconds and the
-   ``-Xptxas -v`` register / shared-memory lines;
+   frontier kernels, the round lane, the word fixpoint and the lockstep
+   interpreter (nvcc, sm_90a), all six started together, with their
+   build seconds and the ``-Xptxas -v`` register / shared-memory lines;
 3. kernels vs plain: the hand-written sweep against ``sweep_plain`` at
    the slice's shape (C = 16384 clauses, V = 4096 variables, B = 64
    lanes, random sparse 0/1 planes from a numpy seed), scores on and off
@@ -83,7 +83,21 @@ failure):
    (``device_min_save_s`` 1e9): launched on the worker's stream, joined,
    harvested by the next call; checks a harvest, no drop, the memo's
    verdicts and the audited round-lane launches;
-7. analyze: ``myth analyze`` on the card through the port's analyzer
+7. lockstep: the ``lockstep`` kernel against ``run_plain`` on the card,
+   every state field, the visited bitmaps and the step count bit for
+   bit: (a) the main path's own launches (the dispatcher pre-split's
+   validation of every chip contract, of ``batchtoken`` and of a
+   64-selector dispatcher, and the replay of a three-transaction
+   ``batchtoken`` sequence, each launch held against the plain loop);
+   device ms, plain ms and the bound on the ``vault_withdraw``
+   validation (the kernels line's numbers); (b) the gauntlet
+   (``contracts.lockstep_gauntlet``) at 4,096 lanes with the JAX
+   arenas, calldata from a numpy seed: held against the plain loop on
+   its first 1,024 lanes at a cap of 1,024 steps (the eager plain loop
+   takes seconds a division step), every halt code and NEEDS_HOST cause
+   required in both that batch and the 4,096 x 4,096 run, the kernel
+   timed alone at both sizes;
+8. analyze: ``myth analyze`` on the card through the port's analyzer
    (``mythril.MythrilAnalyzer``, as ``python3 -m mythril_tpu_torch
    analyze`` runs it) over the runs of ``contracts.CHIP_RUNS`` (the
    ``bench.py`` scale contract at -t 1 and -t 2, two vendored fixtures,
@@ -105,8 +119,14 @@ failure):
    went through the resident solver with all three frontier kernels;
    repeats each scale contract with the batched path off (per-state
    CDCL only) and prints the three walls side by side; then the
-   ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` yardstick at d4 -t 1;
-8. the launches of the main path's configurations and, apart, of the
+   ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` yardstick at d4 -t 1.  The
+   dispatcher pre-split and the concrete replay are on, as the CLI runs
+   them: per run it prints the pre-split's seeded states, the lockstep
+   launches (each held against the plain loop in the default rungs) and
+   the issues' replay statuses, and fails where a run made no lockstep
+   launch, left an issue unreplayed, or where the pre-split's seeding
+   differs from the run's ``presplit`` flag;
+9. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; one JSON line per kernel
    (launches of the main path), the card line, then the result line.
 
@@ -243,16 +263,17 @@ def kernel_device_ms(fn, iters, kernel="dense_sweep_kernel", tries=10):
 
 
 def build_all():
-    """The five builds, started together; returns their log lines."""
+    """The six builds, started together; returns their log lines."""
     from mythril_tpu_torch.native import load as load_native
     from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import frontier_kernels as FK
+    from mythril_tpu_torch.ops import lockstep as LS
     from mythril_tpu_torch.ops import round_lane as RL
     from mythril_tpu_torch.ops import word_fixpoint as WF
 
     jobs = {"native CDCL": load_native, "dense_sweep.cu": ds.load_library,
             "frontier.cu": FK.load_library, "round_lane.cu": RL.load_library,
-            "word_prop.cu": WF.load_library}
+            "word_prop.cu": WF.load_library, "lockstep.cu": LS.load_library}
     seconds, errors = {}, {}
 
     def run(name, fn):
@@ -275,7 +296,8 @@ def build_all():
     for name, info in (("dense_sweep.cu", ds.build_info),
                        ("frontier.cu", FK.build_info),
                        ("round_lane.cu", RL.build_info),
-                       ("word_prop.cu", WF.build_info)):
+                       ("word_prop.cu", WF.build_info),
+                       ("lockstep.cu", LS.build_info)):
         if info is not None:
             lines.append(f"nvcc -Xptxas -v {name}: " + " | ".join(
                 line.strip() for line in info[1].splitlines()
@@ -1478,16 +1500,80 @@ class WordAudit:
             for k in sorted(self.calls))
 
 
+def lockstep_equal(got, want, what):
+    """Hold a lockstep launch's ``(state, visited, steps)`` against the
+    plain loop's, every field bit for bit; returns the largest absolute
+    difference (0)."""
+    import torch
+
+    from mythril_tpu_torch.ops import lockstep as LS
+
+    for name, g, w in zip(LS.EVMState._fields, got[0], want[0]):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"lockstep {what}: {name} differs from the plain version")
+    check(torch.equal(got[1], want[1]),
+          f"lockstep {what}: visited differs from the plain version")
+    check(got[2] == want[2], f"lockstep {what}: steps {got[2]} != {want[2]}")
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(list(got[0]) + [got[1]],
+                               list(want[0]) + [want[1]]))
+
+
+class LockstepAudit:
+    """Stands in for ``lockstep.run_kernel`` (which ``run_batch`` calls for
+    a state on the card) and holds every launch against ``run_plain`` on
+    the card, on the path's own inputs (``mode`` "every"), or only counts
+    them ("count").  It launches no kernel of its own."""
+
+    def __init__(self, real, mode):
+        self.real = real
+        self.mode = mode
+        self.calls = 0
+        self.checked = 0
+        self.seconds = 0.0
+        self.shapes = {}
+        #: the first launch's inputs of each program (by code length)
+        self.captured = {}
+
+    def __call__(self, program, state, max_steps, record_visited):
+        import torch
+
+        from mythril_tpu_torch.ops import lockstep as LS
+
+        got = self.real(program, state, max_steps, record_visited)
+        self.calls += 1
+        self.captured.setdefault(program.length, (program, state, max_steps,
+                                                  record_visited))
+        key = (state.pc.shape[0], max_steps, record_visited)
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+        if self.mode == "every":
+            started = time.perf_counter()
+            want = LS.run_plain(program, state, max_steps, record_visited)
+            torch.cuda.synchronize()
+            lockstep_equal(got, want, f"B={key[0]} max_steps={max_steps}")
+            self.checked += 1
+            self.seconds += time.perf_counter() - started
+        return got
+
+    def summary(self):
+        shapes = ", ".join(f"B={b} steps<={n}{' visited' if v else ''} x{c}"
+                           for (b, n, v), c in sorted(self.shapes.items()))
+        return (f"lockstep {self.checked} of {self.calls} launches equal bit "
+                f"for bit ({shapes})" if self.calls else "")
+
+
 @contextlib.contextmanager
-def audited_kernels(round_lane="sample", word="first"):
+def audited_kernels(round_lane="sample", word="first", lockstep="every"):
     """Every kernel call of the block audited (the round lane's as
     ``round_lane`` says: "every", "sample" or "count"; the word
-    fixpoint's as ``word`` says: "first" or "count"); the launch
+    fixpoint's as ``word`` says: "first" or "count"; the lockstep
+    interpreter's as ``lockstep`` says: "every" or "count"); the launch
     counts zeroed just before and read into the yielded dict just
     after."""
     from mythril_tpu_torch.ops import dense_prop
     from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import frontier_kernels as FK
+    from mythril_tpu_torch.ops import lockstep as LS
     from mythril_tpu_torch.ops import round_lane as RL
     from mythril_tpu_torch.ops import word_fixpoint as WF
 
@@ -1497,7 +1583,10 @@ def audited_kernels(round_lane="sample", word="first"):
     RL.round_lane = lanes
     word = WordAudit(WF.word_fixpoint, word)
     WF.word_fixpoint = word
-    out = {"sweep": sweep, "round_lane": lanes, "word": word}
+    steps = LockstepAudit(LS.run_kernel, lockstep)
+    LS.run_kernel = steps
+    out = {"sweep": sweep, "round_lane": lanes, "word": word,
+           "lockstep": steps}
     try:
         with FrontierAudit() as frontier:
             out["frontier"] = frontier
@@ -1505,17 +1594,20 @@ def audited_kernels(round_lane="sample", word="first"):
             FK.reset_launch_counts()
             RL.reset_launch_count()
             WF.reset_launch_count()
+            LS.reset_launch_count()
             yield out
             out["launches"] = {"dense_sweep": ds.launch_count,
                                **FK.launch_counts,
                                "round_lane": RL.launch_count,
-                               "word_prop": WF.launch_count}
+                               "word_prop": WF.launch_count,
+                               "lockstep": LS.launch_count}
     finally:
         dense_prop.dense_sweep = sweep.sweep
         RL.round_lane = lanes.real
         WF.word_fixpoint = word.real
+        LS.run_kernel = steps.real
     out["seconds"] = (sweep.seconds + frontier.seconds + lanes.seconds
-                      + word.seconds)
+                      + word.seconds + steps.seconds)
 
 
 @contextlib.contextmanager
@@ -1910,6 +2002,252 @@ def word_prop_phase(card, edge_pool, edge_futures):
     return entry
 
 
+#: the lockstep phase's wide batch: the gauntlet at the JAX arenas,
+#: with lanes and step cap of the concolic regime; the plain comparison
+#: takes its first LOCKSTEP_PLAIN lanes at a cap of LOCKSTEP_PLAIN_STEPS
+#: (the eager plain loop takes seconds a division step)
+LOCKSTEP_LANES, LOCKSTEP_STEPS = 4096, 4096
+LOCKSTEP_PLAIN, LOCKSTEP_PLAIN_STEPS = 1024, 1024
+#: integer operations a lane of the lockstep kernel's work, by opcode
+#: class (the bound's count): every step's fetch, decode and bookkeeping;
+#: a word's limb arithmetic (8 limbs, about 4 operations each); a
+#: multiply's 64 partial products and their sums; a division round (a
+#: shift, a compare and a subtract over 8 limbs); a byte window; a
+#: storage key compared a used slot
+OPS_STEP, OPS_ALU, OPS_MUL, OPS_DIV_ROUND, OPS_WINDOW, OPS_SLOT = (
+    16, 32, 256, 48, 40, 8)
+_ALU_OPS = (0x01, 0x03, 0x10, 0x11, 0x12, 0x13, 0x14, 0x15, 0x16, 0x17,
+            0x18, 0x19, 0x1B, 0x1C, 0x1D)
+
+
+def _bit_lengths(words):
+    """Bit length of each [n, 8] limb word (int64 tensor, on the host)."""
+    w = words.cpu().numpy()
+    out = np.zeros(w.shape[0], dtype=np.int64)
+    for k in range(8):
+        nz = w[:, k] != 0
+        out[nz] = 32 * k + np.floor(np.log2(w[nz, k])).astype(np.int64) + 1
+    return out
+
+
+class LockstepOps:
+    """Counts the integer operations the lockstep kernel's work needs on
+    a run's own data, from the plain loop's states (``run_plain``'s
+    ``observe``): the executed opcodes by class, each division's rounds
+    (the dividend's bit length, none for a zero divisor) and each
+    exponent's multiplies (the exponent's bit length plus its set
+    bits)."""
+
+    def __init__(self, program):
+        self.program = program
+        self.ops = 0
+
+    def __call__(self, state, code):
+        import torch
+
+        from mythril_tpu_torch.ops import lockstep as LS
+        from mythril_tpu_torch.ops import u256
+
+        running = state.halt == LS.RUNNING
+        pc = state.pc.clamp(0, code.shape[0] - 1).long()
+        op = torch.where(state.pc >= self.program.length, 0,
+                         code[pc].long())
+        hist = torch.bincount(op[running], minlength=256).cpu().numpy()
+        ops = OPS_STEP * int(hist.sum()) + OPS_ALU * int(hist[list(
+            _ALU_OPS)].sum()) + OPS_MUL * int(hist[0x02])
+        ops += OPS_WINDOW * int(hist[[0x35, 0x51, 0x52, 0x53]].sum())
+        ops += 8 * int(hist[0x5F:0xA0].sum() + hist[[0x33, 0x34, 0x58]].sum())
+        rows = torch.arange(op.shape[0], device=op.device)
+        top = state.stack[rows, (state.sp.long() - 1).clamp(0, 63)]
+        second = state.stack[rows, (state.sp.long() - 2).clamp(0, 63)]
+        divs = running & (op >= 0x04) & (op <= 0x07) & (state.sp >= 2)
+        if bool(divs.any()):
+            a, b = top[divs], second[divs]
+            signed = ((op[divs] == 0x05) | (op[divs] == 0x07))[:, None]
+            a = torch.where(signed & ((a[:, 7:] >> 31) == 1), u256.neg(a), a)
+            live = ~u256.is_zero(b).cpu().numpy()
+            ops += OPS_DIV_ROUND * int(_bit_lengths(a)[live].sum())
+        exps = running & (op == 0x0A) & (state.sp >= 2)
+        if bool(exps.any()):
+            e = second[exps]
+            bits = int(np.unpackbits(e.cpu().numpy().astype(">u4").view(
+                np.uint8)).sum())
+            ops += OPS_MUL * (int(_bit_lengths(e).sum()) + bits)
+        slots = running & ((op == 0x54) | (op == 0x55))
+        if bool(slots.any()):
+            ops += OPS_SLOT * 8 * int(state.sused[slots].sum())
+        self.ops += ops
+
+
+def lockstep_bound(program, state, ops):
+    """(least ms, what bounds it) of one launch: the lane state (stack,
+    memory, storage, scalars) read once and written once, the calldata,
+    value, caller and the program read once, the visited words written
+    once, against ``ops`` integer operations at the scalar rate."""
+    B, C = state.calldata.shape
+    lane_state = 64 * 8 * 4 + 4096 + 2 * 32 * 8 * 4 + 32 + 7 * 4
+    words = len(program.code) // 32 + 1
+    bytes_moved = (2 * B * lane_state + B * (C + 4 + 2 * 8 * 4)
+                   + 2 * len(program.code) + B * 4 * words)
+    return bound(bytes_moved, ops)
+
+
+def lockstep_kernel_ms(program, state, max_steps, record_visited, iters):
+    """Device ms of one launch of the kernel alone: CUDA events around
+    each bare launch, each on its own copy of the inputs (a launch
+    updates its state in place), after one warm-up launch."""
+    import torch
+
+    from mythril_tpu_torch.ops import lockstep as LS
+
+    lib = LS.load_library()
+    runs = [LS.launch_args(program, state, max_steps, record_visited)
+            for _ in range(iters + 1)]
+    stream = torch.cuda.current_stream().cuda_stream
+    check(lib.lockstep_launch(*runs[0][3], stream) == 0, "lockstep launch")
+    torch.cuda.synchronize()
+    events = []
+    for _packed, _visited, _steps, args in runs[1:]:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        check(lib.lockstep_launch(*args, stream) == 0, "lockstep launch")
+        stop.record()
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
+
+
+def lockstep_case(name, program, state, max_steps, record_visited, iters):
+    """One kernel call held against the plain loop on the card (every
+    field bit for bit), with the kernel's and the plain loop's times and
+    the bound on this data; returns (result, ms, plain ms, bound ms,
+    bound by, max abs err)."""
+    import torch
+
+    from mythril_tpu_torch.ops import lockstep as LS
+
+    got = LS.run_kernel(program, state, max_steps, record_visited)
+    counter = LockstepOps(program)
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    want = LS.run_plain(program, state, max_steps, record_visited,
+                        observe=counter)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - started) * 1e3
+    err = lockstep_equal(got, want, name)
+    ms = lockstep_kernel_ms(program, state, max_steps, record_visited, iters)
+    bound_ms, bound_by = lockstep_bound(program, state, counter.ops)
+    log(f"lockstep {name}: B={state.pc.shape[0]}, {got[2]} steps, "
+        f"{counter.ops} integer operations; bit-equal to the plain loop; "
+        f"kernel {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.6f} ms by {bound_by})")
+    return got, ms, plain_ms, bound_ms, bound_by, err
+
+
+def lockstep_phase(card):
+    """The lockstep kernel against the plain loop on the card: (a) the
+    main path's own launches outside an analysis (the pre-split
+    validations of the matching chip contracts, of ``batchtoken`` and of
+    a 64-selector dispatcher, and replays of ``batchtoken`` transaction
+    sequences), (b) the gauntlet at 4096 lanes; returns the kernel's
+    JSON entry (times and bound of the ``vault_withdraw`` validation, a
+    launch of the main path's shape)."""
+    from mythril_tpu_torch import contracts
+    from mythril_tpu_torch.analysis.concrete_replay import replay_issue
+    from mythril_tpu_torch.disassembler.disassembly import Disassembly
+    from mythril_tpu_torch.laser.ethereum import lockstep_dispatch as LD
+    from mythril_tpu_torch.ops import lockstep as LS
+    from mythril_tpu_torch.support.signatures import selector_of
+
+    # (a) the pre-split's validations and replays, each launch audited
+    plans = {run.name: (run.code, run.presplit) for run in contracts.CHIP_RUNS}
+    plans["batchtoken"] = (contracts.batchtoken_contract, True)
+    plans["wide dispatcher (64)"] = (contracts.wide_dispatcher, True)
+    with rung_args(device=DEVICE), audited_kernels() as audit:
+        for name, (code, matches) in plans.items():
+            LD._plan_cache.clear()
+            plan = LD.dispatcher_plan(Disassembly(code()))
+            log(f"lockstep pre-split {name}: "
+                + ("declined" if plan is None
+                   else f"{len(plan.branches)} selectors validated"))
+            check((plan is not None) == matches,
+                  f"lockstep pre-split {name}: unexpected verdict")
+        token = bytes.fromhex(contracts.batchtoken_contract())
+        caller = "0x" + "de" * 20
+
+        class Sequence:
+            address = -1
+            transaction_sequence = {"steps": [
+                {"address": "0x01", "origin": caller, "value": "0x0",
+                 "input": selector_of("approve(address,uint256)")
+                 + f"{0xDE:064x}{5:064x}"},
+                {"address": "0x01", "origin": caller, "value": "0x0",
+                 "input": selector_of(
+                     "batchTransfer(uint256,uint256)")
+                 + f"{3:064x}{0:064x}"},
+                {"address": "0x01", "origin": caller, "value": "0x0",
+                 "input": selector_of("transfer(address,uint256)")
+                 + f"{7:064x}{1:064x}"},
+            ]}
+
+        status = replay_issue(Sequence(), token)
+        log(f"lockstep replay of a batchtoken sequence: {status}")
+        check(status == "executed", f"batchtoken replay: {status}")
+    log(f"lockstep main-path launches vs plain: {audit['lockstep'].summary()}")
+    check(audit["lockstep"].calls == audit["lockstep"].checked > 0,
+          "lockstep: a main-path launch was not held against the plain loop")
+
+    vault = bytes.fromhex(contracts.fixture("vault_withdraw"))
+    program, state, max_steps, record = audit["lockstep"].captured[len(vault)]
+    _got, ms, plain_ms, bound_ms, bound_by, err = lockstep_case(
+        "vault_withdraw pre-split validation", program, state, max_steps,
+        record, iters=20)
+    entry = {
+        "name": "lockstep", "route": "cuda",
+        "source": "mythril_tpu_torch/ops/csrc/lockstep.cu",
+        "replaces": "mythril_tpu/ops/lockstep.py:736",
+        "max_abs_err": err, "ms": round(ms, 4),
+        "plain_ms": round(plain_ms, 4), "bound_ms": round(bound_ms, 8),
+        "bound_by": bound_by, "library_ms": None,
+    }
+
+    # (b) the wide batch
+    program = LS.prepare_program(bytes.fromhex(contracts.lockstep_gauntlet()))
+    rng = np.random.default_rng(2026)
+    calldata = contracts.gauntlet_calldata(LOCKSTEP_LANES, 2026)
+    value = rng.integers(0, 1 << 32, size=(LOCKSTEP_LANES, 8),
+                         dtype=np.uint64)
+    value[::2, 1:] = 0
+    caller = rng.integers(0, 1 << 32, size=(LOCKSTEP_LANES, 8),
+                          dtype=np.uint64)
+    state = LS.init_state(LOCKSTEP_LANES, calldata,
+                          np.full(LOCKSTEP_LANES, calldata.shape[1], np.int32),
+                          value, caller, device=DEVICE)
+    sub = LS.EVMState(*(t[:LOCKSTEP_PLAIN] for t in state))
+    got, ms_sub, plain_sub, bound_sub, by_sub, _err = lockstep_case(
+        f"gauntlet {LOCKSTEP_PLAIN} lanes x {LOCKSTEP_PLAIN_STEPS} steps",
+        program, sub, LOCKSTEP_PLAIN_STEPS, True, iters=3)
+    for final, what in ((got[0], "the compared batch"),
+                        (LS.run_kernel(program, state, LOCKSTEP_STEPS,
+                                       True)[0], "the wide batch")):
+        halts = set(final.halt.tolist())
+        causes = {LS.decode_cause(c)[0] for c in final.cause.tolist() if c}
+        check(halts == set(range(6)), f"lockstep {what}: halts {halts}")
+        check(causes == {"mem-arena-oob", "storage-arena-full",
+                         "unsupported-op"}, f"lockstep {what}: {causes}")
+        log(f"lockstep gauntlet, {what}: halts "
+            f"{np.bincount(final.halt.cpu().numpy(), minlength=6).tolist()} "
+            f"(running, stop, return, revert, error, needs host), causes "
+            f"{LS.cause_histogram(final)}")
+    ms_wide = lockstep_kernel_ms(program, state, LOCKSTEP_STEPS, True, 3)
+    log(f"lockstep gauntlet {LOCKSTEP_LANES} lanes x {LOCKSTEP_STEPS} steps "
+        f"[{card}]: kernel {ms_wide:.4f} ms; at {LOCKSTEP_PLAIN} x "
+        f"{LOCKSTEP_PLAIN_STEPS}: kernel {ms_sub:.4f} ms, plain "
+        f"{plain_sub:.1f} ms, bound {bound_sub:.6f} ms by {by_sub}")
+    return entry
+
+
 #: wall-clock limit of one chip-check analysis (no run comes close)
 ANALYZE_TIMEOUT_S = 600
 
@@ -1954,7 +2292,8 @@ def analyze_audited(run, card, label="", force=True):
     from mythril_tpu_torch.smt.solver import get_blast_context
 
     with audited_kernels("sample" if force else "count",
-                         "first" if force else "count") as audit:
+                         "first" if force else "count",
+                         "count" if force else "every") as audit:
         report, analyzer, wall = analyze_once(run, force=force)
     fused = bs.dispatch_fuse.fused_generation == get_blast_context().generation
     wall -= audit["seconds"]
@@ -2005,6 +2344,18 @@ def analyze_audited(run, card, label="", force=True):
         f"{audit['frontier'].summary() or 'no frontier kernel'}; "
         f"{audit['round_lane'].summary() or 'no round lane'}; "
         f"{audit['word'].summary() or 'no word fixpoint'}")
+    replays = {}
+    for issue in report.issues.values():
+        status = getattr(issue, "concrete_replay", None)
+        replays[status] = replays.get(status, 0) + 1
+    log(f"analyze {run.name}{label} lockstep: {stats.presplit_states} "
+        f"pre-split states, {launches['lockstep']} launches "
+        f"({audit['lockstep'].summary() or 'none'}), replay statuses "
+        f"{replays}")
+    check(None not in replays, f"{run.name}: an issue was not replayed")
+    check(launches["lockstep"] > 0, f"{run.name}: no lockstep launch")
+    check((stats.presplit_states > 0) == run.presplit,
+          f"{run.name}: {stats.presplit_states} pre-split states")
     check(found == run.swc_ids,
           f"{run.name}: SWC {sorted(found)} != {sorted(run.swc_ids)}")
     check(not laser.timed_out and time_handler.time_remaining() > 0,
@@ -2148,6 +2499,8 @@ def _main(torch, frontiers, default_device, edge_pool,
     phase_done("word fixpoint")
     _add(totals, prefetch_phase(card))
     phase_done("prefetch")
+    lockstep_entry = lockstep_phase(card)
+    phase_done("lockstep")
     default, yardstick = analyze_phase(card)
     phase_done("analyze")
     _add(totals, default)
@@ -2155,7 +2508,8 @@ def _main(torch, frontiers, default_device, edge_pool,
     log(f"launches in the default configuration (the kernels line): "
         f"{totals}; in the MYTHRIL_TPU_RESIDENT_KERNEL=0 runs (not in it): "
         f"{kill_switch}")
-    entries = [sweep_entry] + frontier_entries + [round_entry, word_entry]
+    entries = [sweep_entry] + frontier_entries + [round_entry, word_entry,
+                                                   lockstep_entry]
     for entry in entries:
         entry["launches"] = totals.get(entry["name"], 0)
         check(entry["launches"] > 0, f"{entry['name']} never launched")

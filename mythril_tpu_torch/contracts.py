@@ -2,14 +2,18 @@
 (``support/assembler.py``; no solc is needed).
 
 Byte-for-byte the contracts of the repository's ``bench.py``
-(``_corpus`` and ``scale_contract``), which build them with the JAX
-package's assembler; ``tests/test_torch_analyze.py`` holds the two
-against each other.  :data:`CHIP_RUNS` are the analyses the chip check
-runs on the card, each with the SWC set the JAX package finds.
+(``_corpus``, ``scale_contract`` and ``batchtoken_contract``), which build
+them with the JAX package's assembler; ``tests/test_torch_analyze.py``
+holds the two against each other.  :data:`CHIP_RUNS` are the analyses
+the chip check runs on the card, each with the SWC set the JAX package
+finds.  :func:`lockstep_gauntlet` and :func:`wide_dispatcher` are the
+lockstep interpreter's test programs.
 """
 
 import os
 from typing import Callable, List, NamedTuple, Set, Tuple
+
+import numpy as np
 
 from mythril_tpu_torch.support.assembler import asm
 from mythril_tpu_torch.support.signatures import selector_of
@@ -167,6 +171,189 @@ def scale_contract(
     return asm("\n".join(lines))
 
 
+def batchtoken_contract() -> str:
+    """BECToken-shaped token of ``bench.batchtoken_contract``: three
+    dispatched functions, storage-keyed balances, a bounded batch loop,
+    and the ``cnt * value`` multiplication overflow (SWC-101)."""
+    t_sel = selector_of("transfer(address,uint256)")
+    b_sel = selector_of("batchTransfer(uint256,uint256)")
+    a_sel = selector_of("approve(address,uint256)")
+    return asm(
+        f"""
+        PUSH 0; CALLDATALOAD; PUSH 0xe0; SHR
+        DUP1; PUSH4 {t_sel}; EQ; PUSH @transfer; JUMPI
+        DUP1; PUSH4 {b_sel}; EQ; PUSH @batch; JUMPI
+        DUP1; PUSH4 {a_sel}; EQ; PUSH @approve; JUMPI
+        PUSH 0; PUSH 0; REVERT
+      transfer:
+        JUMPDEST
+        PUSH 0x24; CALLDATALOAD
+        CALLER; SLOAD
+        DUP1; DUP3; GT; PUSH @fail; JUMPI
+        DUP2; DUP2; SUB
+        CALLER; SSTORE
+        POP
+        PUSH 4; CALLDATALOAD
+        DUP1; SLOAD
+        DUP3; ADD
+        SWAP1; SSTORE
+        STOP
+      batch:
+        JUMPDEST
+        PUSH 4; CALLDATALOAD
+        PUSH 0x24; CALLDATALOAD
+        DUP2; DUP2; MUL
+        CALLER; SLOAD
+        DUP2; DUP2; LT; PUSH @fail; JUMPI
+        SUB
+        CALLER; SSTORE
+        PUSH 0
+      bloop:
+        JUMPDEST
+        DUP3; DUP2; LT; ISZERO; PUSH @bdone; JUMPI
+        DUP1; PUSH 0x1000; ADD
+        DUP1; SLOAD
+        DUP4; ADD
+        SWAP1; SSTORE
+        PUSH 1; ADD
+        PUSH @bloop; JUMP
+      bdone:
+        JUMPDEST; STOP
+      approve:
+        JUMPDEST
+        PUSH 0x24; CALLDATALOAD
+        PUSH 4; CALLDATALOAD
+        CALLER; ADD
+        SSTORE
+        STOP
+      fail:
+        JUMPDEST; PUSH 0; PUSH 0; REVERT
+        """
+    )
+
+
+def wide_dispatcher(n_selectors: int = 64) -> str:
+    """A canonical dispatcher of ``n_selectors`` functions (the pre-split's
+    cap is 64), each a JUMPDEST that stores its index and stops."""
+    lines = ["PUSH 0; CALLDATALOAD; PUSH 0xe0; SHR"]
+    for i in range(n_selectors):
+        lines.append(f"DUP1; PUSH4 {selector_of(f'f{i}(uint256)')}; EQ; "
+                     f"PUSH @f{i}; JUMPI")
+    lines.append("PUSH 0; PUSH 0; REVERT")
+    for i in range(n_selectors):
+        lines.append(f"f{i}:")
+        lines.append(f"JUMPDEST; PUSH {i}; PUSH 4; CALLDATALOAD; SSTORE; STOP")
+    return asm("\n".join(lines))
+
+
+MIN_WORD = 1 << 255
+MAX_WORD = (1 << 256) - 1
+
+
+def lockstep_gauntlet() -> str:
+    """A program for the lockstep interpreter that runs every handled
+    opcode group on the operands ``x = calldata[0:32]`` and ``y =
+    calldata[32:64]`` and on fixed edge operands (x/0, MIN / -1, signed
+    remainders, 2^255, exponents of 0 and of 2^256 - 1, shifts by 0, 255,
+    256 and 2^255, reads past the calldata), keeps results in memory and
+    storage, then leaves by the route ``calldata[64:96] % 16``: STOP,
+    RETURN, REVERT, a bad JUMP and a bad JUMPI (ERROR), SHA3 and
+    ASSERT_FAIL (unsupported), storage past its 32 slots, MSTORE, MSTORE8
+    and MLOAD past the arena, stack overflow and underflow (ERROR),
+    RETURN at offsets that wrap as int32, or a loop of ``x % 1024``
+    rounds that outlasts short step caps."""
+    binops = ["ADD", "SUB", "MUL", "DIV", "SDIV", "MOD", "SMOD", "EXP",
+              "LT", "GT", "SLT", "SGT", "EQ", "AND", "OR", "XOR", "SHL",
+              "SHR", "SAR"]
+    lines = ["PUSH 0; CALLDATALOAD", "PUSH 32; CALLDATALOAD"]  # y x
+    for k, op in enumerate(binops):
+        # a = y, b = x, and the other way round
+        lines.append(f"DUP2; DUP2; {op}; PUSH {0x20 * k}; MSTORE")
+        lines.append(f"DUP1; DUP3; {op}; PUSH {0x20 * k + 0x400}; SSTORE")
+    edges = [
+        (5, 0, "DIV"), (5, 0, "MOD"), (5, 0, "SDIV"), (5, 0, "SMOD"),
+        (MIN_WORD, MAX_WORD, "SDIV"), (MIN_WORD, MAX_WORD, "SMOD"),
+        (MAX_WORD - 6, 3, "SMOD"), (7, MAX_WORD - 2, "SMOD"),
+        (MAX_WORD - 6, 3, "SDIV"), (MAX_WORD, MAX_WORD, "DIV"),
+        (2, 255, "EXP"), (3, MAX_WORD, "EXP"), (0, 0, "EXP"),
+        (MAX_WORD, 2, "EXP"), (MIN_WORD, 1, "EXP"),
+        (255, MIN_WORD, "SHL"), (256, 1, "SHL"), (MIN_WORD, MAX_WORD, "SHR"),
+        (300, MIN_WORD, "SAR"), (0, MIN_WORD + 1, "SAR"), (255, MIN_WORD, "SAR"),
+        (MIN_WORD, 1, "SLT"), (MIN_WORD, 1, "LT"),
+    ]
+    for k, (a, b, op) in enumerate(edges):
+        lines.append(f"PUSH {b}; PUSH {a}; {op}; PUSH {0x800 + 0x20 * k}; "
+                     "MSTORE")
+    lines += [
+        "DUP1; ISZERO; PUSH 0x700; MSTORE; DUP1; NOT; PUSH 0x720; MSTORE",
+        "PUSH 0; ISZERO; POP",
+        # reads past the calldata: a partial window, beyond, high limbs
+        "CALLDATASIZE; PUSH 3; SWAP1; SUB; CALLDATALOAD; PUSH 0x740; MSTORE",
+        "PUSH 0x100000000; CALLDATALOAD; PUSH 0x760; MSTORE",
+        f"PUSH {MIN_WORD + 4}; CALLDATALOAD; PUSH 0x780; MSTORE",
+        "CALLER; CALLVALUE; CALLDATASIZE; PC; PUSH 0x7a0; MSTORE8",
+        "PUSH 0x7c0; MSTORE; PUSH 0x7e0; MSTORE; PUSH 0xfe0; MSTORE",
+        "PUSH 0x7e0; MLOAD; PUSH 0x1234; SSTORE; PUSH 0x1234; SLOAD; POP",
+        "PUSH 0x4321; SLOAD; PUSH 0xfff; MSTORE8",
+        "PUSH 0x0; MLOAD; PUSH 0xfe0; MLOAD; ADD; PUSH 0xfc0; MSTORE",
+        # a taken and an untaken JUMPI, SWAP and DUP depths
+        "PUSH 1; PUSH @j1; JUMPI; ASSERT_FAIL",
+        "j1:", "JUMPDEST; PUSH 0; PUSH @j1; JUMPI",
+        "PUSH 1; PUSH 2; PUSH 3; PUSH 4; PUSH 5; PUSH 6; PUSH 7; PUSH 8",
+        "PUSH 9; PUSH 10; PUSH 11; PUSH 12; PUSH 13; PUSH 14; PUSH 15",
+        "DUP16; DUP16; SWAP16; SWAP15; SWAP1; DUP3; SWAP3",
+        "POP; POP; POP; POP; POP; POP; POP; POP; POP; POP; POP; POP",
+        "POP; POP; POP; POP; POP",
+        # the route
+        "PUSH 64; CALLDATALOAD; PUSH 15; AND",
+    ]
+    routes = {
+        1: "PUSH 0x40; PUSH 0x20; RETURN",
+        2: "PUSH 0x20; PUSH 0; REVERT",
+        3: "PUSH 3; JUMP",
+        4: "PUSH 1; PUSH 0x10000; JUMPI",
+        5: "PUSH 0x20; PUSH 0; SHA3",
+        6: "ASSERT_FAIL",
+        7: "PUSH 0\nr7l:\nJUMPDEST; DUP1; DUP1; PUSH 0x10000; ADD; SSTORE; "
+           "PUSH 1; ADD; PUSH @r7l; JUMP",
+        8: "DUP3; PUSH 0xff; AND; PUSH 4000; ADD; DUP1; DUP1; MSTORE; MLOAD; "
+           "STOP",
+        9: "r9l:\nJUMPDEST; PC; PUSH @r9l; JUMP",
+        10: "r10l:\nJUMPDEST; POP; PUSH @r10l; JUMP",
+        11: "DUP3; PUSH 1023; AND\nr11l:\nJUMPDEST; DUP1; ISZERO; "
+            "PUSH @r11d; JUMPI; PUSH 1; SWAP1; SUB; PUSH @r11l; JUMP\n"
+            "r11d:\nJUMPDEST; STOP",
+        12: f"PUSH {0xFFFFFFF0}; PUSH {(1 << 40) + 0x80000000}; RETURN",
+        13: "PUSH 1; PUSH 4095; MSTORE8; PUSH 1; PUSH 4096; MSTORE8; STOP",
+        14: "PUSH 4064; MLOAD; PUSH 4065; MLOAD; STOP",
+    }
+    for r in routes:
+        lines.append(f"DUP1; PUSH {r}; EQ; PUSH @r{r}; JUMPI")
+    lines.append("STOP")
+    for r, body in routes.items():
+        lines.append(f"r{r}:")
+        lines.append("JUMPDEST; " + body)
+    return asm("\n".join(lines))
+
+
+def gauntlet_calldata(n_lanes: int, seed: int) -> np.ndarray:
+    """uint8[n_lanes, 100] calldata for :func:`lockstep_gauntlet`: ``x``
+    and ``y`` each an edge operand (0, 1, 2, MIN, MIN + 1, -1, -2, 2^255 -
+    1, 255, 256) or a random word, the route a random word, from a numpy
+    seed."""
+    rng = np.random.default_rng(seed)
+    edges = [0, 1, 2, MIN_WORD, MIN_WORD + 1, MAX_WORD, MAX_WORD - 1,
+             MIN_WORD - 1, 255, 256]
+    out = rng.integers(0, 256, size=(n_lanes, 100), dtype=np.uint8)
+    for lane in range(n_lanes):
+        for word in range(2):
+            if rng.random() < 0.6:
+                value = edges[int(rng.integers(len(edges)))]
+                out[lane, 32 * word:32 * word + 32] = list(
+                    value.to_bytes(32, "big"))
+    return out
+
+
 FIXTURES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "tests", "fixtures", "mainnet",
@@ -192,6 +379,9 @@ class ChipRun(NamedTuple):
     #: tests/test_torch_analyze.py).  The word tier decides enough scale
     #: lanes that the dense tier now delegates every such frontier
     dense: bool
+    #: whether the dispatcher pre-split matches and seeds the run's
+    #: transactions (re-derived by tests/test_torch_analyze.py)
+    presplit: bool
 
 
 #: The chip check's analyses.  The two-transaction scale run is cut from
@@ -201,14 +391,14 @@ class ChipRun(NamedTuple):
 #: would not fit the chip check's time limit.
 CHIP_RUNS: Tuple[ChipRun, ...] = (
     ChipRun("scale_mul d6 g16 -t 1", lambda: scale_contract(6, 16, "mul"),
-            1, {"106"}, True),
+            1, {"106"}, True, False),
     ChipRun("scale_mul d4 g16 -t 2", lambda: scale_contract(4, 16, "mul"),
-            2, {"106"}, True),
+            2, {"106"}, True, False),
     ChipRun("erc20_transfer -t 2", lambda: fixture("erc20_transfer"), 2,
-            {"101"}, False),
+            {"101"}, False, True),
     ChipRun("vault_withdraw -t 2", lambda: fixture("vault_withdraw"), 2,
-            {"101", "104", "105", "107"}, False),
-    ChipRun("killbilly -t 1", killbilly, 1, {"106"}, False),
+            {"101", "104", "105", "107"}, False, True),
+    ChipRun("killbilly -t 1", killbilly, 1, {"106"}, False, True),
 )
 #: The chip check's yardstick of the resident solver: the scale run under
 #: ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` (the dense tier keeps the frontiers),
@@ -216,4 +406,4 @@ CHIP_RUNS: Tuple[ChipRun, ...] = (
 #: (at depth 6 it took 129-188 s of it).
 YARDSTICK_RUN = ChipRun("scale_mul d4 g16 -t 1",
                         lambda: scale_contract(4, 16, "mul"), 1, {"106"},
-                        True)
+                        True, False)

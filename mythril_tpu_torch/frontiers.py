@@ -426,17 +426,18 @@ def word_deep_lanes(n_lanes: int, levels: int = 10, terms=None):
     return lanes
 
 
-def word_cap_lanes(seed: int, n_lanes: int, cap: int = 1024, terms=None):
-    """Constraint sets over one seeded random term DAG whose lanes
-    together reach as close to ``cap`` term nodes as the constraints
-    allow without passing it (the word tier's node cap): the largest
-    program the word kernel takes."""
+def word_cap_lanes(seed: int, n_lanes: int, cap: int = 1024, terms=None,
+                   n_nodes: int = 1400):
+    """Constraint sets over one seeded random term DAG of ``n_nodes``
+    nodes whose lanes together reach as close to ``cap`` term nodes as
+    the constraints allow without passing it (the word tier's node cap):
+    the largest program the word kernel takes."""
     if terms is None:
         from mythril_tpu_torch.smt import terms
     T = terms
     import numpy as np
 
-    cons = _word_dag(T, seed, (256, 64, 8), n_vars=4, n_nodes=1400,
+    cons = _word_dag(T, seed, (256, 64, 8), n_vars=4, n_nodes=n_nodes,
                      n_cons=400)
     seen = set()
     kept = []

@@ -10,9 +10,11 @@ Commands: ``analyze`` (``a``), ``disassemble`` (``d``),
 ``analyze`` runs the JAX package's analysis under the slice pins
 (``support/support_args.py``: ``SLICE_PINS_ENV``/``SLICE_PINS_ARGS``),
 with the word tier and the host word probing on, as the JAX default
-(``MYTHRIL_TPU_WORD_TIER=0`` turns the tier off), and puts the solver
-tiers on the card, behind
-the JAX funnel's default dispatch rungs (profit gate, async prefetch,
+(``MYTHRIL_TPU_WORD_TIER=0`` turns the tier off), the dispatcher
+pre-split and the concrete replay of exploit sequences on, as the JAX
+default (``--no-lockstep-dispatch`` turns the pre-split off), and puts
+the solver tiers and the lockstep interpreter on the card, behind the
+JAX funnel's default dispatch rungs (profit gate, async prefetch,
 coalescer; ``--device-force-dispatch`` and ``--no-async-dispatch`` as in
 the JAX CLI).  ``--device cpu`` is the only way to run it on the CPU;
 without a card the command exits 2 with a clear message.  Options that
@@ -49,7 +51,7 @@ REFUSED_OPTIONS = (
     "--metrics-out", "--lane-ledger-out", "--proof-log", "--persist-dir",
     "--rpc", "--rpctls", "-a", "--address", "--solv", "--solc-json",
     "-g", "--graph", "-j", "--statespace-json", "--enable-coverage-strategy",
-    "--lockstep-dispatch", "--no-lockstep-dispatch", "--parallel-solving",
+    "--parallel-solving",
     "-q", "--query-signature",
 )
 
@@ -158,6 +160,17 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         "--device-force-dispatch", action="store_true",
         help="Dispatch frontiers to the device whenever the size gates "
         "allow, bypassing the adaptive profit gate",
+    )
+    options.add_argument(
+        "--lockstep-dispatch", action="store_true",
+        help="Pre-split transaction seeds by function selector via the "
+        "lockstep-validated dispatcher plan (the default; kept for "
+        "script compatibility)",
+    )
+    options.add_argument(
+        "--no-lockstep-dispatch", action="store_true",
+        help="Disable the dispatcher pre-split: every transaction seed "
+        "executes the full dispatcher prefix symbolically",
     )
     options.add_argument(
         "--no-async-dispatch", action="store_true",
@@ -309,6 +322,7 @@ def _analyze(disassembler, address, args) -> int:
         batched_solving=not args.no_batched_solving,
         device_force_dispatch=args.device_force_dispatch,
         async_dispatch=not args.no_async_dispatch,
+        lockstep_dispatch=not args.no_lockstep_dispatch,
         device=args.device,
     )
     if not disassembler.contracts:

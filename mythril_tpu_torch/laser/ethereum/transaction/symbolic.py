@@ -157,7 +157,27 @@ def _setup_global_state_for_execution(
     global_state.node = new_node
     new_node.constraints = global_state.world_state.constraints
 
-    laser_evm.work_list.append(global_state)
+    # concrete-prefix dispatch (laser/ethereum/lockstep_dispatch.py): a
+    # validated dispatcher prefix replaces the seed by per-selector states
+    # positioned at the function entries
+    split = None
+    if isinstance(transaction, MessageCallTransaction) and isinstance(
+        transaction.call_data, SymbolicCalldata
+    ):
+        from mythril_tpu_torch.laser.ethereum.lockstep_dispatch import (
+            presplit_states,
+        )
+
+        split = presplit_states(global_state)
+    if split:
+        from mythril_tpu_torch.ops.batched_sat import dispatch_stats
+
+        for state, condition in split:
+            laser_evm._new_node_state(state, JumpType.CONDITIONAL, condition)
+            laser_evm.work_list.append(state)
+        dispatch_stats.presplit_states += len(split)
+    else:
+        laser_evm.work_list.append(global_state)
 
 
 def execute_contract_creation(

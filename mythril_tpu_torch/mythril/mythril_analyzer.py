@@ -4,12 +4,15 @@
 Builds a symbolic executor per contract, harvests detection issues
 (salvaging partial results on interrupt or crash) and assembles the
 final :class:`Report`.  The port runs the JAX package's analyzer under
-the slice pins (``support/support_args.py``): no concrete replay of
-exploit sequences, no corpus sharding over devices, no governor, no
-checkpoints, no fleet, no statespace or graph dumps.  The funnel's
+the slice pins (``support/support_args.py``): no corpus sharding over
+devices, no governor, no checkpoints, no fleet, no statespace or graph
+dumps.  As in the JAX package, the dispatcher pre-split
+(``lockstep_dispatch``) and the lockstep replay of each issue's exploit
+sequence (``_confirm_by_replay``, on by default) run.  The funnel's
 dispatch rungs take the JAX package's arguments (``device_force_dispatch``,
 ``async_dispatch``); the port's one new knob is ``device``: the solver
-tiers run on the card unless ``device="cpu"`` is passed.
+tiers and the lockstep interpreter run on the card unless
+``device="cpu"`` is passed.
 
 Reference counterpart: mythril/mythril/mythril_analyzer.py (the
 per-contract loop + statistics toggles).
@@ -43,9 +46,11 @@ def reset_analysis_state() -> None:
     behind (a fresh CLI process starts this way): the blast context with
     its term interner and model cache, the detection modules' issues
     and caches, the transaction-id counter, the keccak function
-    manager, the funnel's and prune's counters, and the async prefetch
-    (its worker joined, its batch and statistics dropped)."""
+    manager, the funnel's and prune's counters, the dispatcher
+    pre-split's plans, and the async prefetch (its worker joined, its
+    batch and statistics dropped)."""
     from mythril_tpu_torch.laser.batch import prune_stats
+    from mythril_tpu_torch.laser.ethereum import lockstep_dispatch
     from mythril_tpu_torch.laser.ethereum.keccak_function_manager import (
         keccak_function_manager,
     )
@@ -66,6 +71,7 @@ def reset_analysis_state() -> None:
     keccak_function_manager.reset()
     dispatch_stats.reset()
     prune_stats.reset()
+    lockstep_dispatch._plan_cache.clear()
     SolverStatistics().reset()
 
 
@@ -104,6 +110,7 @@ class MythrilAnalyzer:
         batched_solving: bool = True,
         device_force_dispatch: bool = False,
         async_dispatch: bool = True,
+        lockstep_dispatch: bool = True,
         device: Optional[str] = None,
     ):
         self.contracts: List[EVMContract] = disassembler.contracts or []
@@ -126,6 +133,7 @@ class MythrilAnalyzer:
         args.batched_solving = batched_solving
         args.device_force_dispatch = device_force_dispatch
         args.async_dispatch = async_dispatch
+        args.lockstep_dispatch = lockstep_dispatch
         args.device = device
         #: the last contract's executor (its LaserEVM carries the run's
         #: state count and whether a deadline cut it)
@@ -188,6 +196,18 @@ class MythrilAnalyzer:
             issues = retrieve_callback_issues(modules)
         return issues, execution_info, failure
 
+    @staticmethod
+    def _confirm_by_replay(issues: List[Issue], contract) -> None:
+        """Replay each issue's exploit sequence on the lockstep interpreter
+        for an independent confirmation (an annotation only: findings and
+        report formats are unaffected).  A kernel or device failure
+        propagates."""
+        if not issues or not getattr(args, "concrete_replay", True):
+            return
+        from mythril_tpu_torch.analysis.concrete_replay import replay_issues
+
+        replay_issues(issues, contract.code)
+
     def fire_lasers(
         self,
         modules: Optional[List[str]] = None,
@@ -207,6 +227,7 @@ class MythrilAnalyzer:
                 exceptions.append(failure)
             for issue in issues:
                 issue.add_code_info(contract)
+            self._confirm_by_replay(issues, contract)
             all_issues.extend(issues)
             log.info("Solver statistics: \n%s", SolverStatistics())
 

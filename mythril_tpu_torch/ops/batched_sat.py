@@ -162,6 +162,12 @@ class DispatchStats:
         self.word_decided_sat = 0
         self.word_tightened_bits = 0
         self.word_prop_s = 0.0
+        # word-tier decides of DEVICE_MIN_LANES or more on the card whose
+        # program does not fit a block of the word kernel (run scalar)
+        self.word_too_large_scalar = 0
+        # states seeded at function entries by the dispatcher pre-split
+        # (laser/ethereum/lockstep_dispatch.py)
+        self.presplit_states = 0
         # per-lane tier that decided each lane of the last
         # batch_check_states call: "structural", "memo", "word", "device",
         # "probe" (a host probe hit, or a zero assignment that verified

@@ -13,9 +13,10 @@ A shift amount is either a Python int (a static shift) or an integer
 tensor over the batch (a per-lane shift); amounts of 256 and more give
 0 (``shl``/``lshr``) or the sign fill (``sar``), as the EVM does.
 
-``udivmod``, ``sdiv``, ``smod`` and ``exp`` (``lax.fori_loop`` loops that
-only the lockstep stepper uses) are not here: the word tier's
-``f_udiv``/``f_urem`` are division-free.
+``udivmod``, ``sdiv``, ``smod`` and ``exp`` are the JAX package's
+256-round ``lax.fori_loop`` loops written as eager loops.  Only the
+lockstep interpreter's plain step (``ops/lockstep.py``) calls them; its
+kernel (``csrc/lockstep.cu``) has them as device functions.
 """
 
 from typing import Tuple, Union
@@ -62,6 +63,29 @@ def to_int(limbs) -> int:
     return value
 
 
+def bytes_to_limbs(data):
+    """uint8[..., 32] big-endian byte windows -> int64[..., 8] limb words
+    (``from_int(int.from_bytes(row, "big"))`` a row)."""
+    data = data.to(DTYPE)
+    limbs = []
+    for limb in range(NUM_LIMBS):
+        # limb k covers big-endian bytes [32-4k-4, 32-4k)
+        base = 32 - 4 * limb - 4
+        limbs.append((data[..., base] << 24) | (data[..., base + 1] << 16)
+                     | (data[..., base + 2] << 8) | data[..., base + 3])
+    return torch.stack(limbs, dim=-1)
+
+
+def limbs_to_bytes(word):
+    """int64[..., 8] limb words -> uint8[..., 32] big-endian byte windows
+    (inverse of :func:`bytes_to_limbs`)."""
+    cols = []
+    for limb in range(NUM_LIMBS - 1, -1, -1):
+        for shift in (24, 16, 8, 0):
+            cols.append((word[..., limb] >> shift) & 0xFF)
+    return torch.stack(cols, dim=-1).to(torch.uint8)
+
+
 # ---------------------------------------------------------------------------
 # add / sub / neg
 # ---------------------------------------------------------------------------
@@ -86,6 +110,18 @@ def add(a, b):
 
 def bit_not(a):
     return a ^ MASK32
+
+
+def bit_and(a, b):
+    return a & b
+
+
+def bit_or(a, b):
+    return a | b
+
+
+def bit_xor(a, b):
+    return a ^ b
 
 
 def neg(a):
@@ -259,17 +295,19 @@ def sar_wide(a, amount_limbs):
 # multiplication
 # ---------------------------------------------------------------------------
 
-_COLUMN_MASKS = {}
+_COLUMNS = {}
 
 
-def _column_mask(device):
-    """[16, 16, 16] 0/1: column k gathers the half-limb products i + j = k."""
-    mask = _COLUMN_MASKS.get(device)
-    if mask is None:
-        i = torch.arange(16)
-        mask = ((i[None, :, None] + i[None, None, :]) == i[:, None, None])
-        mask = _COLUMN_MASKS[device] = mask.to(DTYPE).to(device)
-    return mask
+def _columns(device):
+    """The half-limb products that fall below 2^256, as flat indices into
+    the [16 x 16] product table, and the column (i + j) each adds to."""
+    cols = _COLUMNS.get(device)
+    if cols is None:
+        pairs = [(i, j) for i in range(16) for j in range(16 - i)]
+        cols = _COLUMNS[device] = (
+            torch.tensor([16 * i + j for i, j in pairs], device=device),
+            torch.tensor([i + j for i, j in pairs], device=device))
+    return cols
 
 
 def mul(a, b):
@@ -279,8 +317,10 @@ def mul(a, b):
     a, b = torch.broadcast_tensors(a, b)
     ah = torch.stack([a & 0xFFFF, a >> 16], dim=-1).flatten(-2)  # [..., 16]
     bh = torch.stack([b & 0xFFFF, b >> 16], dim=-1).flatten(-2)
-    prod = ah[..., :, None] * bh[..., None, :]  # [..., 16, 16]
-    cols = (prod[..., None, :, :] * _column_mask(a.device)).sum((-1, -2))
+    prod = (ah[..., :, None] * bh[..., None, :]).flatten(-2)  # [..., 256]
+    pair, column = _columns(a.device)
+    cols = torch.zeros(a.shape[:-1] + (16,), dtype=DTYPE, device=a.device)
+    cols = cols.index_add(-1, column, prod.index_select(-1, pair))
     carry = torch.zeros(a.shape[:-1], dtype=DTYPE, device=a.device)
     halves = []
     for k in range(16):
@@ -291,3 +331,93 @@ def mul(a, b):
         [halves[2 * i] | (halves[2 * i + 1] << 16) for i in range(NUM_LIMBS)],
         dim=-1,
     )
+
+
+# ---------------------------------------------------------------------------
+# division / modulo / exponentiation
+# ---------------------------------------------------------------------------
+
+
+def _shl1_with_bit(r, bit):
+    """(r << 1) | bit, ``bit`` an int64 0/1 tensor over the batch."""
+    carry_in = torch.cat([bit[..., None].to(DTYPE), r[..., :-1] >> 31],
+                         dim=-1)
+    return ((r << 1) & MASK32) | carry_in
+
+
+def _bit_at(a, index: int):
+    """Bit ``index`` (0 = LSB) of each word, as int64 0/1."""
+    return (a[..., index // 32] >> (index % 32)) & 1
+
+
+def _max_bit_length(a) -> int:
+    """The largest bit length of the batch's words."""
+    used = torch.nonzero((a != 0).reshape(-1, NUM_LIMBS).any(0))
+    if used.numel() == 0:
+        return 0
+    top = int(used.max())
+    return 32 * top + int(a[..., top].max()).bit_length()
+
+
+def _sub_borrow(a, b):
+    """((a - b) mod 2^256, a < b): the difference and its borrow out."""
+    out = []
+    borrow = torch.zeros(a.shape[:-1], dtype=DTYPE, device=a.device)
+    for i in range(NUM_LIMBS):
+        t = a[..., i] - b[..., i] - borrow
+        borrow = (t < 0).to(DTYPE)
+        out.append(t & MASK32)
+    return torch.stack(out, dim=-1), borrow == 1
+
+
+def udivmod(a, b):
+    """(a // b, a % b) with the EVM's x/0 = 0 and x%0 = 0: restoring long
+    division, the JAX package's 256-round ``fori_loop``.  The rounds
+    above the batch's highest dividend bit leave every quotient and
+    remainder 0 (or zeroed with a zero divisor), so they are skipped."""
+    a, b = torch.broadcast_tensors(a, b)
+    q = torch.zeros_like(a)
+    r = torch.zeros_like(a)
+    for i in range(_max_bit_length(a) - 1, -1, -1):
+        r2 = _shl1_with_bit(r, _bit_at(a, i))
+        diff, below = _sub_borrow(r2, b)  # below: r2 < b
+        r = torch.where(below[..., None], r2, diff)
+        q = _shl1_with_bit(q, (~below).to(DTYPE))
+    div_zero = is_zero(b)[..., None]
+    return (torch.where(div_zero, 0, q), torch.where(div_zero, 0, r))
+
+
+def _abs_signed(a):
+    negative = (a[..., -1] >> 31) == 1
+    return torch.where(negative[..., None], neg(a), a), negative
+
+
+def sdiv(a, b):
+    """EVM SDIV: truncated signed division, x/0 = 0 (MIN / -1 wraps)."""
+    aa, na = _abs_signed(a)
+    ab, nb = _abs_signed(b)
+    q, _ = udivmod(aa, ab)
+    return torch.where((na ^ nb)[..., None], neg(q), q)
+
+
+def smod(a, b):
+    """EVM SMOD: the result takes the dividend's sign, x%0 = 0."""
+    aa, na = _abs_signed(a)
+    ab, _ = _abs_signed(b)
+    _, r = udivmod(aa, ab)
+    return torch.where(na[..., None], neg(r), r)
+
+
+def exp(a, e):
+    """a ** e mod 2^256 by square-and-multiply, the JAX package's
+    256-round ``fori_loop``; the rounds above the batch's highest
+    exponent bit multiply nothing in, so they are skipped."""
+    a, e = torch.broadcast_tensors(a, e)
+    result = torch.zeros_like(a)
+    result[..., 0] = 1
+    base = a
+    for i in range(_max_bit_length(e)):
+        bit = _bit_at(e, i) == 1
+        result = torch.where(bit[..., None], mul(result, base), result)
+        base = mul(base, base)
+    return result

@@ -26,7 +26,9 @@ A block holds one lane, its state in shared memory beside the node
 table, and its warps share each level of a forward pass.  The library
 holds the block's shared memory (``word_prop_smem_bytes``) against the
 card's before it launches and refuses a program that does not fit, which
-the wrapper raises; every program within the word tier's node cap fits.
+the wrapper raises; every program within the word tier's default node cap
+fits, and the word tier holds a larger one against the same rule
+(:func:`fits_a_block`) and runs it scalar.
 """
 
 import ctypes
@@ -216,6 +218,14 @@ def _pack(bv, tri, conflict):
         planes = torch.zeros((batch, 0, 4, u256.NUM_LIMBS), dtype=u256.DTYPE,
                              device=conflict.device)
     return planes, torch.stack(tri, dim=1), conflict
+
+
+def fits_a_block(n_rows: int, n_bool: int, dev) -> bool:
+    """The library's fit rule (``word_prop_smem_bytes``): does a block of
+    a program of ``n_rows`` nodes, ``n_bool`` of them bool, fit the
+    shared memory a block of ``dev``'s card may opt in to?"""
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    return load_library().word_prop_smem_bytes(n_rows, n_bool) <= limit
 
 
 def word_fixpoint_plain(table: NodeTable, want0: torch.Tensor, rounds: int):

@@ -31,9 +31,11 @@ it, all with the same results:
   ``ops/csrc/word_prop.cu`` in one launch for all lanes, on the card;
   with ``device="cpu"`` the kernel's plain version interprets the same
   table.  The funnel takes it for a batch of :data:`DEVICE_MIN_LANES`
-  or more when its device is ``cuda``, as the JAX package takes its
+  or more when its device is ``cuda`` and the program fits a block of
+  the card (``word_fixpoint.fits_a_block``), as the JAX package takes its
   ``jax.numpy`` executor on a TPU; ``MYTHRIL_TPU_WORD_XP=jax|jnp|device``
-  forces it.
+  forces it.  A program past the fit runs scalar, as the JAX package
+  runs off a TPU (``dispatch_stats.word_too_large_scalar`` counts it).
 
 Everything is scoped to the blast-context generation and keyed by
 interned node ids (``reset_word_tier``, which
@@ -349,12 +351,14 @@ class WordTier:
             self._programs[key] = prog
         return prog
 
-    def _executor(self, batch: int, device) -> str:
+    def _executor(self, batch: int, device, prog=None) -> str:
         """``"scalar"``, ``"host"`` or ``"device"`` for this batch:
         ``MYTHRIL_TPU_WORD_XP=scalar|int``, ``np|numpy|host`` or
         ``jax|jnp|device`` forces one; otherwise a batch of
         :data:`DEVICE_MIN_LANES` or more lanes goes to the kernel when
-        ``device`` is the card, and every other batch runs scalar."""
+        ``device`` is the card and ``prog`` fits one of its blocks (the
+        library's rule, held before any launch), and every other batch
+        runs scalar."""
         forced = os.environ.get("MYTHRIL_TPU_WORD_XP", "").lower()
         if forced in ("scalar", "int"):
             return "scalar"
@@ -364,7 +368,19 @@ class WordTier:
             return "device"
         on_card = torch.device(
             "cuda" if device is None else device).type == "cuda"
-        return "device" if batch >= DEVICE_MIN_LANES and on_card else "scalar"
+        if batch < DEVICE_MIN_LANES or not on_card:
+            return "scalar"
+        from mythril_tpu_torch.ops import default_device
+        from mythril_tpu_torch.ops.word_fixpoint import fits_a_block
+
+        if prog is not None and not fits_a_block(
+                len(prog.bv_slot) + len(prog.bool_slot),
+                len(prog.bool_slot), default_device(device)):
+            from mythril_tpu_torch.ops.batched_sat import dispatch_stats
+
+            dispatch_stats.word_too_large_scalar += 1
+            return "scalar"
+        return "device"
 
     def _wm(self, width: int, batch: int, dev):
         key = (width, batch, dev, u256.DTYPE)
@@ -387,7 +403,7 @@ class WordTier:
         prog = self._program_for(list(roots.values()))
         if prog is None:
             return [("open", None)] * batch
-        kind = self._executor(batch, device)
+        kind = self._executor(batch, device, prog)
         self.last_executor = kind
         rounds = _env_int("MYTHRIL_TPU_WORD_ROUNDS", WORD_ROUNDS)
         if kind == "scalar":

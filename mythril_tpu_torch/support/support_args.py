@@ -33,8 +33,6 @@ SLICE_PINS_ENV = {
 SLICE_PINS_CPU_ENV = {"MYTHRIL_TPU_PALLAS": "force"}
 #: Analysis flags of the JAX package:
 SLICE_PINS_ARGS = {
-    "lockstep_dispatch": False,
-    "concrete_replay": False,
     "proof_log": False,
     "fleet_workers": 0,
 }
@@ -77,8 +75,14 @@ class Args(object, metaclass=Singleton):
         self.device_min_save_s = 0.5
         self.async_dispatch = True
         self.device_coalesce = True
-        # where the dense tier runs: None = the card (an error without
-        # one), "cpu" only when asked for
+        # the dispatcher pre-split (laser/ethereum/lockstep_dispatch.py)
+        # and the lockstep replay of exploit sequences
+        # (analysis/concrete_replay.py), on by default as in the JAX
+        # package
+        self.lockstep_dispatch = True
+        self.concrete_replay = True
+        # where the solver tiers and the lockstep interpreter run: None =
+        # the card (an error without one), "cpu" only when asked for
         self.device = None
 
 

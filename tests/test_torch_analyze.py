@@ -2,11 +2,13 @@
 
 Each case runs the JAX package's ``SymExecWrapper`` + ``fire_lasers``
 and the port's, one after the other in this process, under the slice
-pins (``mythril_tpu_torch/support/support_args.py``; the word tier and
-the host probe on, on both sides), with the port's dense tier on
+pins (``mythril_tpu_torch/support/support_args.py``; the word tier, the
+host probe, the dispatcher pre-split and the concrete replay on, on both
+sides), with the port's dense tier and lockstep interpreter on
 ``device="cpu"``.  The issue lists (field by field, with the exploit
-transactions' calldata, value and caller), the total state count, the
-number of prune calls, every prune call's per-state verdicts and the
+transactions' calldata, value and caller, and each issue's concrete
+replay status), the total state count, the pre-split's seeded states,
+the number of prune calls, every prune call's per-state verdicts and the
 solver, probe and word-tier counters must be exactly equal; neither
 side may time out.
 """
@@ -139,6 +141,7 @@ def _issue_fields(issue):
         "description": issue.description,
         "steps": [(step["calldata"], step["value"], step["origin"])
                   for step in sequence.get("steps", [])],
+        "concrete_replay": getattr(issue, "concrete_replay", None),
     }
 
 
@@ -150,6 +153,7 @@ def _run(side, code, tx_count):
         import mythril_tpu.analysis.symbolic as symbolic
         import mythril_tpu.solidity.evmcontract as evmcontract
         from mythril_tpu.laser.ethereum.time_handler import time_handler
+        from mythril_tpu.mythril.mythril_analyzer import MythrilAnalyzer
 
         svm, stats = jax_svm, jax_bs.dispatch_stats
         _reset_jax()
@@ -159,6 +163,7 @@ def _run(side, code, tx_count):
         import mythril_tpu_torch.solidity.evmcontract as evmcontract
         from mythril_tpu_torch.laser.ethereum.time_handler import time_handler
         from mythril_tpu_torch.mythril.mythril_analyzer import (
+            MythrilAnalyzer,
             reset_analysis_state,
         )
 
@@ -185,8 +190,9 @@ def _run(side, code, tx_count):
     svm.LaserEVM._exec_round = watched_round
     try:
         time_handler.start_execution(EXEC_TIMEOUT)
+        contract = evmcontract.EVMContract(code=code, name="MAIN")
         sym = symbolic.SymExecWrapper(
-            evmcontract.EVMContract(code=code, name="MAIN"),
+            contract,
             address=ADDRESS,
             strategy="bfs",
             max_depth=128,
@@ -196,6 +202,8 @@ def _run(side, code, tx_count):
             compulsory_statespace=False,
         )
         issues = security.fire_lasers(sym)
+        # the analyzer's replay of each issue's exploit sequence
+        MythrilAnalyzer._confirm_by_replay(issues, contract)
     finally:
         svm.prune_infeasible = real_prune
         svm.LaserEVM._exec_round = real_round
@@ -205,6 +213,7 @@ def _run(side, code, tx_count):
         "issues": sorted((_issue_fields(i) for i in issues),
                          key=lambda f: (f["address"], f["title"])),
         "total_states": sym.laser.total_states,
+        "presplit_states": stats.presplit_states,
         "prunes": prunes,
         "dispatches": stats.dispatches,
         "sweeps": (stats.rounds, stats.device_sweeps),
@@ -230,6 +239,7 @@ def _parity(code, tx_count):
     port = _run("port", code, tx_count)
     assert port["issues"] == jax["issues"]
     assert port["total_states"] == jax["total_states"]
+    assert port["presplit_states"] == jax["presplit_states"]
     assert len(port["prunes"]) == len(jax["prunes"])
     assert port["prunes"] == jax["prunes"]
     assert port["dispatches"] == jax["dispatches"]
@@ -486,22 +496,22 @@ def _jsonv2_issues(stdout):
     return issues
 
 
-def test_cli_report_matches_jax_cli():
-    """``python -m mythril_tpu_torch analyze --device cpu`` and the JAX
-    package's ``myth analyze``, each in its own process under the slice
-    pins and force-dispatched (``--device-force-dispatch
-    --no-async-dispatch``, ``MYTHRIL_TPU_COALESCE=0``), report the same
-    issues."""
+def _cli_issues(extra=()):
+    """The jsonv2 issues of ``python -m mythril_tpu_torch analyze --device
+    cpu`` and of the JAX package's ``myth analyze``, each in its own
+    process under the slice pins and force-dispatched
+    (``--device-force-dispatch --no-async-dispatch``,
+    ``MYTHRIL_TPU_COALESCE=0``), with ``extra`` options on both."""
     hexfile = os.path.join(FIXTURES, "suicide_anyone.hex")
     common = ["-f", hexfile, "--bin-runtime", "-t", "1",
               "--no-onchain-data", "-o", "jsonv2",
-              "--device-force-dispatch", "--no-async-dispatch"]
+              "--device-force-dispatch", "--no-async-dispatch", *extra]
     env = dict(os.environ, JAX_PLATFORMS="cpu", MYTHRIL_TPU_COALESCE="0",
                **SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV)
     pins = json.dumps({"args": {**SLICE_PINS_ARGS, **FORCE_DISPATCH_ARGS}})
     jax = subprocess.run(
         [sys.executable, "-c", JAX_MYTH, pins, "analyze", *common,
-         "--no-lockstep-dispatch", "--workers", "0"],
+         "--workers", "0"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert jax.returncode == 0, jax.stderr[-2000:]
@@ -511,9 +521,23 @@ def test_cli_report_matches_jax_cli():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert port.returncode == 0, port.stderr[-2000:]
-    want = _jsonv2_issues(jax.stdout)
+    return _jsonv2_issues(jax.stdout), _jsonv2_issues(port.stdout)
+
+
+def test_cli_report_matches_jax_cli():
+    """Both CLIs at their defaults (the dispatcher pre-split and the
+    concrete replay on) report the same issues."""
+    want, got = _cli_issues()
     assert want and [i["swcID"] for i in want] == ["SWC-106"]
-    assert _jsonv2_issues(port.stdout) == want
+    assert got == want
+
+
+def test_cli_report_matches_jax_cli_without_presplit():
+    """``--no-lockstep-dispatch`` on both CLIs: the pre-split off, the
+    same issues."""
+    want, got = _cli_issues(["--no-lockstep-dispatch"])
+    assert want and [i["swcID"] for i in want] == ["SWC-106"]
+    assert got == want
 
 
 def test_cli_refuses_missing_card_and_unported_options():
@@ -533,6 +557,23 @@ def test_cli_refuses_missing_card_and_unported_options():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert run.returncode == 2 and "--workers" in run.stderr
+
+
+@pytest.mark.parametrize("flag", ["--lockstep-dispatch",
+                                  "--no-lockstep-dispatch"])
+def test_cli_takes_the_lockstep_dispatch_flags(flag):
+    """Neither pre-split flag is refused any more: the option parses and
+    the command gets as far as the card check (exit 2 for the missing
+    card, not for the option)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    hexfile = os.path.join(FIXTURES, "suicide_anyone.hex")
+    run = subprocess.run(
+        [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
+         hexfile, "--bin-runtime", "-t", "1", "--no-onchain-data", flag],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert "not supported by this build" not in run.stderr
+    assert run.returncode == 2 and "CUDA" in run.stderr
 
 
 def test_port_assembler_builds_the_bench_contracts():
@@ -562,9 +603,11 @@ def test_native_keccak_matches_python_and_jax():
 def test_recorded_swc_sets_match_jax():
     """The SWC sets the chip check holds the card's runs to
     (``contracts.CHIP_RUNS``) are the JAX package's, on the CPU, under
-    the slice pins (the word tier and the host probe on), and so is each
-    run's ``dense`` flag: force-dispatched, the JAX funnel engages a
-    device tier on exactly the runs so flagged; the port builds the same
+    the slice pins (the word tier, the host probe, the dispatcher
+    pre-split and the concrete replay on), and so are each run's
+    ``dense`` flag (force-dispatched, the JAX funnel engages a device
+    tier on exactly the runs so flagged) and ``presplit`` flag (the JAX
+    pre-split seeds exactly those runs); the port builds the same
     contracts."""
     for run in contracts.CHIP_RUNS:
         code = run.code()
@@ -574,3 +617,4 @@ def test_recorded_swc_sets_match_jax():
         jax = _run("jax", code, run.transaction_count)
         assert {i["swc_id"] for i in jax["issues"]} == run.swc_ids, run.name
         assert (jax["dispatches"] >= 1) == run.dense, run.name
+        assert (jax["presplit_states"] > 0) == run.presplit, run.name

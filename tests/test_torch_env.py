@@ -194,7 +194,7 @@ def test_frontier_off_cli_matches_jax_cli():
     runs = {}
     for side, argv in (
         ("jax", [sys.executable, "-c", JAX_MYTH, pins, "analyze", *common,
-                 "--no-lockstep-dispatch", "--workers", "0"]),
+                 "--workers", "0"]),
         ("port", [sys.executable, "-m", "mythril_tpu_torch", "analyze",
                   *common, "--device", "cpu"]),
     ):

@@ -432,3 +432,62 @@ def test_every_program_within_the_node_cap_fits_a_block(monkeypatch,
     with pytest.raises(ValueError, match=f"{smem(rows, 1)} B of shared"):
         WF._launch(table, torch.zeros((1, 64), dtype=torch.int8), 2)
     assert WF.launch_count == 0
+
+
+def _outcomes(outcomes):
+    """A decide's outcomes with each SAT model as its variable values."""
+    return [(kind, payload.variables if kind == "sat" else payload)
+            for kind, payload in outcomes]
+
+
+def test_a_program_past_the_fit_runs_scalar_on_the_card(monkeypatch,
+                                                        host_kernel):
+    """A node cap the knob gate accepts (``MYTHRIL_TPU_WORD_MAX_NODES=
+    2048``) lets a decide compile a program whose block does not fit the
+    card.  The word tier holds the program against the library's fit
+    rule before it chooses the kernel, and runs such a decide of 16 or
+    more lanes on the scalar executor, as the JAX package does off a
+    TPU: the scalar executor's outcomes, no launch and no ValueError.
+    The card is a stand-in: the host build's fit rule, an H100's
+    per-block limit, and a library that refuses every launch."""
+    from mythril_tpu_torch.ops.batched_sat import dispatch_stats
+
+    monkeypatch.setenv("MYTHRIL_TPU_WORD_MAX_NODES", "2048")
+    lanes = frontiers.word_cap_lanes(5, 16, cap=2048, n_nodes=2600)
+    monkeypatch.setenv("MYTHRIL_TPU_WORD_XP", "scalar")
+    want = _outcomes(PWT.WordTier()._run(lanes, device="cpu"))
+    monkeypatch.delenv("MYTHRIL_TPU_WORD_XP")
+
+    refusing = types.SimpleNamespace(
+        word_prop_launch=lambda *args: WF.DOES_NOT_FIT,
+        word_prop_smem_bytes=host_kernel.word_prop_smem_bytes)
+    monkeypatch.setattr(WF, "load_library", lambda: refusing)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda dev: types.SimpleNamespace(
+            shared_memory_per_block_optin=H100_SMEM_OPTIN))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+
+    def launch_with_host_tensors(prog, root_mask, batch, rounds, dev):
+        """The card's route up to the launch, on host tensors."""
+        table = WF.lower_program(prog)
+        want0 = torch.zeros((table.n_bool, batch), dtype=torch.int8)
+        return WF._launch(table, want0, rounds)
+
+    monkeypatch.setattr(WF, "run_program", launch_with_host_tensors)
+    tier = PWT.WordTier()
+    prog = tier._program_for(list({n.id: n for lane in lanes
+                                   for n in lane}.values()))
+    n_rows = len(prog.bv_slot) + len(prog.bool_slot)
+    assert n_rows > PWT.WORD_MAX_NODES
+    assert host_kernel.word_prop_smem_bytes(
+        n_rows, len(prog.bool_slot)) > H100_SMEM_OPTIN
+    dispatch_stats.reset()
+    WF.reset_launch_count()
+    got = _outcomes(tier._run(lanes, device="cuda"))
+    assert tier.last_executor == "scalar"
+    assert got == want
+    assert dispatch_stats.word_too_large_scalar == 1
+    assert WF.launch_count == 0
