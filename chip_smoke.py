@@ -2094,20 +2094,21 @@ def lockstep_bound(program, state, ops):
 
 def lockstep_kernel_ms(program, state, max_steps, record_visited, iters):
     """Device ms of one launch of the kernel alone: CUDA events around
-    each bare launch, each on its own copy of the inputs (a launch
-    updates its state in place), after one warm-up launch."""
+    each bare launch on an idle stream, after one warm-up launch (a
+    launch writes fresh outputs and leaves its input state as it was, so
+    every launch runs the same work)."""
     import torch
 
     from mythril_tpu_torch.ops import lockstep as LS
 
     lib = LS.load_library()
-    runs = [LS.launch_args(program, state, max_steps, record_visited)
-            for _ in range(iters + 1)]
+    _out, _visited, _count, args = LS.launch_args(
+        program, state, LS.check_state(state), max_steps, record_visited)
     stream = torch.cuda.current_stream().cuda_stream
-    check(lib.lockstep_launch(*runs[0][3], stream) == 0, "lockstep launch")
+    check(lib.lockstep_launch(*args, stream) == 0, "lockstep launch")
     torch.cuda.synchronize()
     events = []
-    for _packed, _visited, _steps, args in runs[1:]:
+    for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2127,7 +2128,11 @@ def lockstep_case(name, program, state, max_steps, record_visited, iters):
 
     from mythril_tpu_torch.ops import lockstep as LS
 
+    before = [t.clone() for t in state]
     got = LS.run_kernel(program, state, max_steps, record_visited)
+    for field, t, t0 in zip(LS.EVMState._fields, state, before):
+        check(torch.equal(t, t0),
+              f"lockstep {name}: the launch changed the input's {field}")
     counter = LockstepOps(program)
     torch.cuda.synchronize()
     started = time.perf_counter()
@@ -2145,6 +2150,31 @@ def lockstep_case(name, program, state, max_steps, record_visited, iters):
     return got, ms, plain_ms, bound_ms, bound_by, err
 
 
+def batchtoken_sequence():
+    """An issue stand-in whose concrete transaction sequence the replay
+    runs on ``batchtoken``: approve, batchTransfer, transfer (three
+    one-lane launches)."""
+    from mythril_tpu_torch.support.signatures import selector_of
+
+    caller = "0x" + "de" * 20
+
+    class Sequence:
+        address = -1
+        transaction_sequence = {"steps": [
+            {"address": "0x01", "origin": caller, "value": "0x0",
+             "input": selector_of("approve(address,uint256)")
+             + f"{0xDE:064x}{5:064x}"},
+            {"address": "0x01", "origin": caller, "value": "0x0",
+             "input": selector_of("batchTransfer(uint256,uint256)")
+             + f"{3:064x}{0:064x}"},
+            {"address": "0x01", "origin": caller, "value": "0x0",
+             "input": selector_of("transfer(address,uint256)")
+             + f"{7:064x}{1:064x}"},
+        ]}
+
+    return Sequence()
+
+
 def lockstep_phase(card):
     """The lockstep kernel against the plain loop on the card: (a) the
     main path's own launches outside an analysis (the pre-split
@@ -2158,7 +2188,6 @@ def lockstep_phase(card):
     from mythril_tpu_torch.disassembler.disassembly import Disassembly
     from mythril_tpu_torch.laser.ethereum import lockstep_dispatch as LD
     from mythril_tpu_torch.ops import lockstep as LS
-    from mythril_tpu_torch.support.signatures import selector_of
 
     # (a) the pre-split's validations and replays, each launch audited
     plans = {run.name: (run.code, run.presplit) for run in contracts.CHIP_RUNS}
@@ -2174,24 +2203,7 @@ def lockstep_phase(card):
             check((plan is not None) == matches,
                   f"lockstep pre-split {name}: unexpected verdict")
         token = bytes.fromhex(contracts.batchtoken_contract())
-        caller = "0x" + "de" * 20
-
-        class Sequence:
-            address = -1
-            transaction_sequence = {"steps": [
-                {"address": "0x01", "origin": caller, "value": "0x0",
-                 "input": selector_of("approve(address,uint256)")
-                 + f"{0xDE:064x}{5:064x}"},
-                {"address": "0x01", "origin": caller, "value": "0x0",
-                 "input": selector_of(
-                     "batchTransfer(uint256,uint256)")
-                 + f"{3:064x}{0:064x}"},
-                {"address": "0x01", "origin": caller, "value": "0x0",
-                 "input": selector_of("transfer(address,uint256)")
-                 + f"{7:064x}{1:064x}"},
-            ]}
-
-        status = replay_issue(Sequence(), token)
+        status = replay_issue(batchtoken_sequence(), token)
         log(f"lockstep replay of a batchtoken sequence: {status}")
         check(status == "executed", f"batchtoken replay: {status}")
     log(f"lockstep main-path launches vs plain: {audit['lockstep'].summary()}")

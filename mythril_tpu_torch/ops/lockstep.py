@@ -14,8 +14,10 @@ package's layout, with each 32-bit limb held in ``u256.DTYPE`` (int64):
 :func:`run_batch` runs every lane to a halt or the step cap.  On the
 card it is one launch of the hand-written sm_90a kernel
 ``csrc/lockstep.cu`` (each lane loops on its own: lanes are
-independent); for CPU tensors it runs :func:`plain_step` in a loop, the
-JAX package's ``make_step`` in eager torch.  Ops that need host services
+independent), which reads the state's tensors as they are and writes a
+fresh state, and one read of the loop count; for CPU tensors it runs
+:func:`plain_step` in a loop, the JAX package's ``make_step`` in eager
+torch.  Ops that need host services
 (KECCAK, calls, logs, ...) and arena limits halt a lane NEEDS_HOST with
 a packed ``(reason << 8) | opcode`` cause.
 """
@@ -646,13 +648,20 @@ def run_plain(program: Program, state: EVMState, max_steps: int,
 # ---------------------------------------------------------------------------
 
 
+#: ``lockstep_launch``'s return when a block's shared memory is past the
+#: card's (``lockstep_smem_bytes``)
+DOES_NOT_FIT = 1000
+
+
 def bind(path: str) -> ctypes.CDLL:
-    """Load a build of ``lockstep.cu`` and declare its entry point."""
+    """Load a build of ``lockstep.cu`` and declare its entry points."""
     lib = ctypes.CDLL(path)
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    lib.lockstep_launch.argtypes = [ptr] * 4 + [c_int] * 2 + [ptr] * 15 + [
-        c_int] * 4 + [ptr]
+    lib.lockstep_launch.argtypes = [ptr, ptr, c_int, c_int] + [ptr] * (
+        len(EVMState._fields) + len(OUT_FIELDS) + 2) + [c_int] * 4 + [ptr]
     lib.lockstep_launch.restype = c_int
+    lib.lockstep_smem_bytes.argtypes = [c_int, c_int, c_int]
+    lib.lockstep_smem_bytes.restype = c_int
     lib.lockstep_arenas.argtypes = [ptr]
     lib.lockstep_arenas.restype = None
     arenas = (ctypes.c_int * 3)()
@@ -675,123 +684,132 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-#: the packed form of a state, the kernel's layout: limbs as int32
-#: (mod 2^32), flags and bytes as uint8
-_LIMB_FIELDS = ("stack", "skeys", "svals", "callvalue", "caller")
+#: the fields the kernel writes; its output state takes the calldata, its
+#: size, the value and the caller from the input, as ``run_plain`` does
+OUT_FIELDS = ("stack", "sp", "pc", "memory", "skeys", "svals", "sused",
+              "halt", "ret_off", "ret_len", "cause")
+#: the fields whose rows the kernel moves by bulk copies
+_ALIGNED = ("stack", "memory", "skeys", "svals", "sused", "calldata",
+            "callvalue", "caller")
 
 
-def pack_state(state: EVMState) -> dict:
-    """The kernel's inputs from ``state``: contiguous copies, limbs
-    narrowed to int32, ``sused`` as uint8."""
-    packed = {}
-    for name, t in state._asdict().items():
-        if name in _LIMB_FIELDS:
-            t = t.to(torch.int32)  # a copy
-        elif name == "sused":
-            t = t.to(torch.uint8)  # a copy
-        else:
-            t = t.clone()  # the launch updates it in place
-        packed[name] = t.contiguous()
-    return packed
+def _layout(B: int, C: int) -> dict:
+    """The dtype and shape of each field of a state the kernel takes."""
+    limbs, i32 = u256.DTYPE, torch.int32
+    return {
+        "stack": (limbs, (B, STACK_SLOTS, 8)), "sp": (i32, (B,)),
+        "pc": (i32, (B,)), "memory": (torch.uint8, (B, MEMORY_BYTES)),
+        "skeys": (limbs, (B, STORAGE_SLOTS, 8)),
+        "svals": (limbs, (B, STORAGE_SLOTS, 8)),
+        "sused": (torch.bool, (B, STORAGE_SLOTS)),
+        "calldata": (torch.uint8, (B, C)), "calldatasize": (i32, (B,)),
+        "callvalue": (limbs, (B, 8)), "caller": (limbs, (B, 8)),
+        "halt": (i32, (B,)), "ret_off": (i32, (B,)), "ret_len": (i32, (B,)),
+        "cause": (i32, (B,)),
+    }
 
 
-def unpack_state(packed: dict) -> EVMState:
-    fields = {}
-    for name in EVMState._fields:
-        t = packed[name]
-        if name in _LIMB_FIELDS:
-            t = t.to(u256.DTYPE) & u256.MASK32
-        elif name == "sused":
-            t = t.bool()
-        fields[name] = t
-    return EVMState(**fields)
+def check_state(state: EVMState) -> tuple:
+    """``(B, C)`` of a state the kernel takes as it is: every field of the
+    dtype and shape of :func:`init_state`'s, on one device, contiguous,
+    the rows the kernel moves 16 bytes at a time 16-byte aligned, and a
+    calldata arena that is a multiple of 16 bytes.  Raises ValueError on
+    anything else."""
+    B = state.pc.shape[0] if state.pc.dim() == 1 else 0
+    calldata = state.calldata
+    C = calldata.shape[1] if calldata.dim() == 2 else 0
+    if B < 1 or C < 32 or C % 16:
+        raise ValueError(f"lockstep: pc {tuple(state.pc.shape)}, calldata "
+                         f"{tuple(calldata.shape)} (want B >= 1 lanes and an "
+                         f"arena of 32 or more bytes, a multiple of 16)")
+    dev = state.pc.device
+    for name, (dtype, shape) in _layout(B, C).items():
+        t = getattr(state, name)
+        if t.dtype != dtype or t.shape != shape:
+            raise ValueError(f"lockstep: {name} {t.dtype} "
+                             f"{tuple(t.shape)}, want {dtype} {shape}")
+        if t.device != dev:
+            raise ValueError(f"lockstep: {name} on {t.device}, pc on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"lockstep: {name} is not contiguous")
+        if name in _ALIGNED and t.data_ptr() % 16:
+            raise ValueError(f"lockstep: {name} is not 16-byte aligned")
+    return B, C
 
 
 _PROGRAMS = {}
 
 
 def _program_tensors(program: Program, dev):
+    """The program on ``dev`` as the kernel reads it: the code zero-padded
+    by 16 bytes (a PUSH window's aligned words stay inside), and the
+    JUMPDEST flags as int32 words of 32 bits."""
     key = (program.code.tobytes(), program.length, dev)
     tensors = _PROGRAMS.get(key)
     if tensors is None:
         if len(_PROGRAMS) > 64:
             _PROGRAMS.clear()
+        code = np.zeros(len(program.code) + 16, np.uint8)
+        code[: len(program.code)] = program.code
+        bits = (program.jumpdest.reshape(-1, 32).astype(np.uint64)
+                << np.arange(32, dtype=np.uint64)).sum(axis=1)
         tensors = _PROGRAMS[key] = (
-            torch.from_numpy(program.code).to(dev),
-            torch.from_numpy(program.jumpdest.astype(np.uint8)).to(dev))
+            torch.from_numpy(code).to(dev),
+            torch.from_numpy(bits.astype(np.uint32).view(np.int32)).to(dev))
     return tensors
 
 
-def _check(state: EVMState) -> int:
-    B = state.pc.shape[0]
-    shapes = {
-        "stack": (B, STACK_SLOTS, 8), "memory": (B, MEMORY_BYTES),
-        "skeys": (B, STORAGE_SLOTS, 8), "svals": (B, STORAGE_SLOTS, 8),
-        "sused": (B, STORAGE_SLOTS), "callvalue": (B, 8), "caller": (B, 8),
-    }
-    for name, shape in shapes.items():
-        if tuple(getattr(state, name).shape) != shape:
-            raise ValueError(f"lockstep: {name} {tuple(getattr(state, name).shape)}, "
-                             f"want {shape}")
-    calldata = state.calldata
-    if B < 1 or calldata.dim() != 2 or calldata.shape[0] != B \
-            or calldata.shape[1] < 32:
-        raise ValueError(f"lockstep: calldata {tuple(calldata.shape)}")
-    dev = state.pc.device
-    if any(t.device != dev for t in state):
-        raise ValueError("lockstep: state fields on different devices")
-    return B
-
-
-def launch_args(program: Program, state: EVMState, max_steps: int,
-                record_visited: bool):
+def launch_args(program: Program, state: EVMState, dims: tuple,
+                max_steps: int, record_visited: bool):
     """The kernel's arguments for ``state`` (``lockstep_launch``'s, less
-    the stream; ``lockstep_host`` of the host build takes the same):
-    ``(packed, visited, steps, args)``, the first three the buffers the
-    launch fills."""
-    B = _check(state)
+    the stream; ``lockstep_host`` of the host build takes the same), with
+    ``dims`` from :func:`check_state`: ``(out, visited, count, args)``,
+    the output state, visited words and loop count (int32[1], zeroed:
+    the launch's lanes write their step counts into it by max) the launch
+    writes, fresh tensors (the input state is left as it was)."""
     if max_steps < 0:
         raise ValueError(f"lockstep: max_steps {max_steps}")
+    B, C = dims
     dev = state.pc.device
     code, jumpdest = _program_tensors(program, dev)
     bucket = len(program.code)
     words = _visited_words(bucket) if record_visited else 0
-    p = pack_state(state)
-    visited = torch.zeros((B, max(words, 1)), dtype=torch.int32, device=dev)
-    steps = torch.zeros((B,), dtype=torch.int32, device=dev)
+    out = state._replace(**{name: torch.empty_like(getattr(state, name))
+                            for name in OUT_FIELDS})
+    visited = torch.empty((B, max(words, 1)), dtype=torch.int64, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
     args = (
-        code.data_ptr(), jumpdest.data_ptr(), p["calldata"].data_ptr(),
-        p["calldatasize"].data_ptr(), program.length, bucket,
-        p["stack"].data_ptr(), p["sp"].data_ptr(), p["pc"].data_ptr(),
-        p["memory"].data_ptr(), p["skeys"].data_ptr(), p["svals"].data_ptr(),
-        p["sused"].data_ptr(), p["callvalue"].data_ptr(),
-        p["caller"].data_ptr(), p["halt"].data_ptr(), p["ret_off"].data_ptr(),
-        p["ret_len"].data_ptr(), p["cause"].data_ptr(), visited.data_ptr(),
-        steps.data_ptr(), B, p["calldata"].shape[1], max_steps, words,
+        code.data_ptr(), jumpdest.data_ptr(), program.length, bucket,
+        *(t.data_ptr() for t in state),
+        *(getattr(out, name).data_ptr() for name in OUT_FIELDS),
+        visited.data_ptr(), count.data_ptr(), B, C, max_steps, words,
     )
-    return p, visited, steps, args
-
-
-def launch_results(packed: dict, visited, steps):
-    """``(state, visited, steps)`` from the buffers a launch filled."""
-    n = int(steps.max()) if steps.numel() else 0
-    return unpack_state(packed), visited.to(torch.int64) & u256.MASK32, n
+    return out, visited, count, args
 
 
 def run_kernel(program: Program, state: EVMState, max_steps: int,
                record_visited: bool):
     """:func:`run_plain`'s function as one launch of ``lockstep.cu`` on
-    the state's card (same signature and results)."""
+    the state's card (same signature and results): the state's checks,
+    then the launch and one read of the count."""
     global launch_count
+    dims = check_state(state)
     lib = load_library()
-    packed, visited, steps, args = launch_args(program, state, max_steps,
-                                               record_visited)
-    err = lib.lockstep_launch(
-        *args, torch.cuda.current_stream(state.pc.device).cuda_stream)
+    dev = state.pc.device
+    out, visited, count, args = launch_args(program, state, dims, max_steps,
+                                            record_visited)
+    err = lib.lockstep_launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err == DOES_NOT_FIT:
+        bucket = len(program.code)
+        need = lib.lockstep_smem_bytes(dims[1], args[-1], bucket)
+        raise ValueError(
+            f"lockstep: a block needs {need} B of shared memory "
+            f"(calldata arena {dims[1]} B, bucket {bucket}), more than "
+            f"the card has")
     if err:
         raise RuntimeError(f"lockstep kernel launch failed: cudaError {err}")
     launch_count += 1
-    return launch_results(packed, visited, steps)
+    return out, visited, int(count.item())
 
 
 def run_batch(code: bytes, state: EVMState, max_steps: int = 4096,

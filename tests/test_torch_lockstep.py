@@ -8,7 +8,11 @@
   field, the visited bitmaps, the loop count and the cause histogram;
 - ``ops/csrc/lockstep.cu`` built as host C++ with g++ (``lockstep_host``:
   the kernel's own step, division and exponent on an emulated group of 8
-  threads) against the plain loop on the same cases;
+  threads) against the plain loop on the same cases, through the
+  wrapper's own arguments (``check_state``, ``launch_args``); its
+  division by 32-bit digits and its exponent (``lockstep_host_binop``)
+  against ``mythril_tpu.ops.u256`` on edge, random and add-back operands;
+- the wrapper's checks, which raise before any library is loaded;
 - the dispatcher pre-split's plans against the JAX package's.
 
 Every comparison is exact (bit-equal): the interpreter is integer logic
@@ -17,6 +21,8 @@ JAX runners compile a few times only.
 """
 
 import ctypes
+import importlib.util
+import os
 import subprocess
 
 import numpy as np
@@ -248,19 +254,22 @@ def test_run_batch_matches_jax(name):
 # ------------------------------------------------- the kernel's source
 
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
-    """``lockstep.cu`` built as host C++ (``lockstep_host``: the kernel's
-    lane walk on an emulated group of 8 threads), bound with ctypes."""
-    lib_path = tmp_path_factory.mktemp("lockstep") / "liblockstep_host.so"
+def build_host(source: str, lib_path) -> ctypes.CDLL:
+    """``source`` (``lockstep.cu`` or a variant of it) built as host C++
+    (``lockstep_host``: the kernel's lane walk on an emulated group of 8
+    threads), bound with ctypes."""
     subprocess.run(["g++", "-O2", "-std=c++17", "-x", "c++", "-shared",
-                    "-fPIC", "-o", str(lib_path), PL.SOURCE],
+                    "-fPIC", "-o", str(lib_path), source],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    lib.lockstep_host.argtypes = [ptr] * 4 + [c_int] * 2 + [ptr] * 15 + [
-        c_int] * 4
+    lib.lockstep_host.argtypes = [ptr, ptr, c_int, c_int] + [ptr] * (
+        len(PL.EVMState._fields) + len(PL.OUT_FIELDS) + 2) + [c_int] * 4
     lib.lockstep_host.restype = c_int
+    lib.lockstep_host_binop.argtypes = [c_int, ptr, ptr, c_int, ptr]
+    lib.lockstep_host_binop.restype = ctypes.c_long
+    lib.lockstep_smem_bytes.argtypes = [c_int] * 3
+    lib.lockstep_smem_bytes.restype = c_int
     arenas = (ctypes.c_int * 3)()
     lib.lockstep_arenas(arenas)
     assert tuple(arenas) == (PL.STACK_SLOTS, PL.MEMORY_BYTES,
@@ -268,13 +277,22 @@ def host_kernel(tmp_path_factory):
     return lib
 
 
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """``lockstep.cu`` built as host C++."""
+    return build_host(PL.SOURCE, tmp_path_factory.mktemp("lockstep")
+                      / "liblockstep_host.so")
+
+
 def _run_host(lib, code, state, max_steps, record_visited=True):
+    """The host build's launch on ``state`` through the wrapper's own
+    checks and arguments."""
     program = PL.prepare_program(code)
-    packed, visited, steps, args = PL.launch_args(program, state, max_steps,
-                                                  record_visited)
+    out, visited, count, args = PL.launch_args(
+        program, state, PL.check_state(state), max_steps, record_visited)
     fault = lib.lockstep_host(*args)
     assert fault == 0, "a group-uniform value differed across the limbs"
-    return PL.launch_results(packed, visited, steps)
+    return out, visited, int(count.item())
 
 
 HOST_CASES = {
@@ -307,10 +325,34 @@ def test_kernel_source_matches_the_plain_loop(name, host_kernel):
     assert unrecorded[2] == got[2]
 
 
+def test_shared_memory_rule_stages_programs_of_4096_bytes_or_less(
+        host_kernel):
+    """A block's shared memory (``lockstep_smem_bytes``, held against the
+    card before each launch): the state at int64 limbs with the pops
+    table (12,720 B), the calldata arena and the visited words in fours; a
+    program whose bucket
+    is 4,096 bytes or less is staged with its JUMPDEST bits (bucket +
+    bucket / 8), a larger one, as the oversized fixture's, is read from
+    global memory."""
+    smem = host_kernel.lockstep_smem_bytes
+    state = 12720
+    assert smem(64, 0, 256) == state + 64 + 16 + 256 + 32
+    assert smem(256, 65, 2048) == state + 256 + 4 * 68 + 2048 + 256
+    assert smem(128, 129, 4096) == state + 128 + 4 * 132 + 4096 + 512
+    assert smem(128, 257, 8192) == state + 128 + 4 * 260
+    oversized = PL.prepare_program(bytes.fromhex(contracts.fixture(
+        "oversized")))
+    bucket = len(oversized.code)
+    words = PL._visited_words(bucket)
+    assert bucket == 131072
+    assert smem(64, words, bucket) == state + 64 + 4 * ((words + 3) & ~3)
+
+
 def test_kernel_wrapper_raises_without_a_card(monkeypatch):
     """A state on the card goes to the kernel and nowhere else: with no
     library to load, ``run_batch`` raises rather than run the plain loop
-    (the card is a stand-in: a device type of ``cuda``)."""
+    (the card is a stand-in: the state on the ``meta`` device, which
+    passes the wrapper's layout checks)."""
     state = PL.init_state(2, np.zeros((2, 4), np.uint8), [4, 4],
                           device="cpu")
 
@@ -319,12 +361,214 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch):
 
     monkeypatch.setattr(PL, "load_library", no_library)
     monkeypatch.setattr(PL, "run_plain", None)
-    fake = state._replace(pc=torch.zeros(2, dtype=torch.int32,
-                                         device="meta"))
+    fake = PL.EVMState(*(t.to("meta") for t in state))
     PL.reset_launch_count()
     with pytest.raises(RuntimeError, match="nvcc"):
         PL.run_batch(b"\x00", fake)
     assert PL.launch_count == 0
+
+
+# ------------------------------------- the kernel's division and exponent
+
+MASK32 = (1 << 32) - 1
+
+
+def _limbs_of(x, n=8):
+    return [(x >> (32 * i)) & MASK32 for i in range(n)]
+
+
+def knuth_divide(a: int, b: int) -> tuple:
+    """``(a // b, a % b, add-back steps)`` by Knuth's Algorithm D with
+    32-bit digits (TAOCP vol. 2, 4.3.1; the kernel's division, whose
+    whole limb shift leaves every estimate and add-back as they are
+    here), for 256-bit ``a`` and ``b`` of two limbs or more."""
+    limbs = _limbs_of(b)
+    n = max(i + 1 for i in range(8) if limbs[i])
+    s = 32 - limbs[n - 1].bit_length()
+    vn, un, v = _limbs_of(b << s, n), _limbs_of(a << s, 9), b << s
+    count, q = 0, 0
+    for j in range(8 - n, -1, -1):
+        qhat, rhat = divmod((un[j + n] << 32) | un[j + n - 1], vn[n - 1])
+        while qhat > MASK32 or qhat * vn[n - 2] > (rhat << 32) + un[j + n - 2]:
+            qhat, rhat = qhat - 1, rhat + vn[n - 1]
+            if rhat > MASK32:
+                break
+        window = sum(un[j + i] << (32 * i) for i in range(n + 1))
+        if window < qhat * v:
+            count, qhat = count + 1, qhat - 1
+        window -= qhat * v
+        un[j:j + n + 1] = _limbs_of(window, n + 1)
+        q |= qhat << (32 * j)
+    r = sum(un[i] << (32 * i) for i in range(n)) >> s
+    return q, r, count
+
+
+def knuth_addbacks(a: int, b: int) -> int:
+    """The add-back steps of the kernel's division of ``a`` by ``b`` (none
+    for a zero or one-limb divisor: short division)."""
+    return knuth_divide(a, b)[2] if b >> 32 else 0
+
+
+def addback_operands(seed=7, want=6, tries=20000):
+    """Seeded operand pairs on which the division adds back, ``want`` of
+    each kind: divisors of 2 to 8 limbs, and divisors of 8 limbs whose
+    top limb is below 2^31 (the add-back's carry then reaches the
+    remainder through the normalisation shift).  Their words' limbs are
+    drawn mostly from the digit edges: random operands reach the step
+    about 2 in 2^32 times."""
+    rng = np.random.default_rng(seed)
+    edges = [0, 1, 2, (1 << 31) - 1, 1 << 31, (1 << 31) + 1, MASK32 - 1,
+             MASK32]
+
+    def word(n):
+        return sum((edges[int(rng.integers(len(edges)))]
+                    if rng.random() < 0.7 else int(rng.integers(0, 1 << 32)))
+                   << (32 * i) for i in range(n))
+
+    def short_top():
+        top = int(rng.choice([1, 2, (1 << 31) - 1, 0]))
+        return top or int(rng.integers(1, 1 << 31))
+
+    out = []
+    for kind in range(2):
+        found = 0
+        for _ in range(tries):
+            a = word(8)
+            b = (word(int(rng.integers(2, 9))) if kind == 0
+                 else word(7) | short_top() << 224)
+            if b and knuth_addbacks(a, b):
+                out.append((a, b))
+                found += 1
+                if found == want:
+                    break
+    return out
+
+
+def division_operands(seed=13):
+    """The division's cases: every pair of ``EDGES``; seeded random words
+    of random bit lengths; divisors whose top limb needs a normalisation
+    shift of 0 and of 31 bits; one-limb divisors; divisors longer than
+    the dividend; and the add-back pairs."""
+    rng = np.random.default_rng(seed)
+
+    def rand(bits):
+        return int.from_bytes(rng.bytes(32), "big") >> (256 - bits)
+
+    pairs = [(x, y) for x in EDGES for y in EDGES]
+    for _ in range(64):
+        pairs.append((rand(int(rng.integers(1, 257))),
+                      rand(int(rng.integers(1, 257)))))
+    for limbs in range(1, 9):
+        top = 32 * (limbs - 1)
+        pairs += [(rand(256), (1 << (top + 31)) | rand(top)),  # shift 0
+                  (rand(256), (1 << top) | rand(top)),         # shift 31
+                  (rand(32 * limbs - 16), rand(32 * limbs))]   # divisor longer
+    pairs += [(rand(256), int(rng.integers(1, 1 << 32))) for _ in range(8)]
+    pairs += addback_operands()
+    return pairs
+
+
+BINOPS = {
+    "udiv": (0x04, lambda a, b: JU.udivmod(a, b)[0]),
+    "umod": (0x06, lambda a, b: JU.udivmod(a, b)[1]),
+    "sdiv": (0x05, JU.sdiv),
+    "smod": (0x07, JU.smod),
+    "exp": (0x0A, JU.exp),
+}
+
+
+def test_addback_operands_reach_the_addback_step():
+    """The Python model finds add-back pairs, and divides right: its
+    quotient and remainder are Python's on every pair of the division's
+    cases."""
+    pairs = addback_operands()
+    assert len(pairs) == 12
+    assert all(knuth_addbacks(a, b) >= 1 for a, b in pairs)
+    for a, b in division_operands():
+        if b >> 32:
+            assert knuth_divide(a, b)[:2] == (a // b, a % b)
+
+
+@pytest.mark.parametrize("name", sorted(BINOPS))
+def test_kernel_division_and_exp_match_jax(name, host_kernel):
+    """The kernel's own DIV, MOD, SDIV, SMOD (Algorithm D by 32-bit
+    digits) and EXP, run by the host build on the emulated group, equal
+    the JAX package's u256 bit for bit; the division takes the add-back
+    step on the pairs built to reach it."""
+    import jax.numpy as jnp
+
+    op, jax_fn = BINOPS[name]
+    pairs = division_operands()
+    if name == "exp":
+        pairs = pairs[: len(EDGES) ** 2 + 64]  # every bit length once
+    a = _words([p[0] for p in pairs])
+    b = _words([p[1] for p in pairs])
+    want = np.asarray(jax_fn(jnp.asarray(a), jnp.asarray(b))).astype(np.uint32)
+    got = np.zeros_like(a)
+    addbacks = host_kernel.lockstep_host_binop(
+        op, a.ctypes.data, b.ctypes.data, len(pairs), got.ctypes.data)
+    assert addbacks >= 0, "a group-uniform value differed across the limbs"
+    np.testing.assert_array_equal(got, want)
+    if name != "exp":
+        assert addbacks >= 1
+    if name in ("udiv", "umod"):
+        assert addbacks == sum(knuth_addbacks(x, y) for x, y in pairs)
+
+
+def test_host_build_leaves_the_input_state_unchanged(host_kernel):
+    """The kernel writes fresh tensors: after a launch the input state
+    holds what it held before, and the output's read-only fields are the
+    input's own tensors, as ``run_plain``'s are."""
+    code = bytes.fromhex(contracts.lockstep_gauntlet())
+    calldata, sizes, value, caller, keys, vals = _inputs(16, seed=3)
+    state = PL.init_state(16, calldata, sizes, value, caller, keys, vals,
+                          device="cpu")
+    before = [t.clone() for t in state]
+    out, _visited, steps = _run_host(host_kernel, code, state, 512)
+    assert steps > 0
+    for name, t, t0 in zip(PL.EVMState._fields, state, before):
+        assert torch.equal(t, t0), name
+    for name in PL.EVMState._fields:
+        shared = getattr(out, name) is getattr(state, name)
+        assert shared == (name not in PL.OUT_FIELDS), name
+    assert not torch.equal(out.stack, state.stack)
+
+
+def _bad_states():
+    state = PL.init_state(4, np.zeros((4, 36), np.uint8), [36] * 4,
+                          device="cpu")
+    wide = torch.zeros((4, STORAGE_COLUMNS), dtype=torch.bool)
+    return {
+        "stack int32": state._replace(stack=state.stack.to(torch.int32)),
+        "sused uint8": state._replace(sused=state.sused.to(torch.uint8)),
+        "memory int64": state._replace(memory=state.memory.long()),
+        "pc int64": state._replace(pc=state.pc.long()),
+        "stack transposed": state._replace(
+            stack=state.stack.transpose(1, 2).contiguous().transpose(1, 2)),
+        "sused a column view": state._replace(sused=wide[:, ::2]),
+        "skeys misaligned": state._replace(
+            skeys=torch.zeros(4 * 32 * 8 + 1, dtype=torch.int64)[1:].view(
+                4, 32, 8)),
+        "calldata arena of 40": state._replace(
+            calldata=torch.zeros((4, 40), dtype=torch.uint8)),
+        "caller of 4 lanes short": state._replace(caller=state.caller[:2]),
+    }
+
+
+STORAGE_COLUMNS = 2 * PL.STORAGE_SLOTS
+
+
+@pytest.mark.parametrize("name", sorted(_bad_states()))
+def test_kernel_checks_raise_before_loading(name, monkeypatch):
+    """``run_kernel`` raises ValueError on a field of another dtype, shape
+    or layout than the kernel takes, before it loads the library."""
+    def no_load():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(PL, "load_library", no_load)
+    bad = _bad_states()[name]
+    with pytest.raises(ValueError, match="lockstep"):
+        PL.run_kernel(PL.prepare_program(b"\x00"), bad, 16, True)
 
 
 # ------------------------------------------------- dispatcher pre-split
@@ -400,3 +644,34 @@ def test_dispatcher_plan_declines_a_selector_the_interpreter_misses(
     broken = plan._replace(branches={selector: (revert, *_rest)})
     assert not PLD._validate_on_lockstep(bytes.fromhex(code), broken)
     assert PLD._validate_on_lockstep(bytes.fromhex(code), plan)
+
+
+# ------------------------- the design variants of chip_tools/lockstep_times.py
+
+
+def _timing_script():
+    spec = importlib.util.spec_from_file_location(
+        "lockstep_times", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_tools", "lockstep_times.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", sorted(_timing_script().VARIANTS))
+def test_chip_tool_variants_apply_to_the_source(name):
+    """Each design variant ``chip_tools/lockstep_times.py`` times on the
+    card (the source under named edits) applies to the source as it is:
+    every edit's text is found once and its replacement lands (that
+    script holds each variant's launches against the plain loop on the
+    card before it times them)."""
+    script = _timing_script()
+    edits, threads = script.VARIANTS[name]
+    source = open(PL.SOURCE).read()
+    variant = script.apply_edits(source, edits)
+    assert variant != source
+    for _old, new in edits:
+        assert new in variant
+    assert threads in (8, 32)
+    with pytest.raises(RuntimeError, match="not found once"):
+        script.apply_edits(variant, [(edits[0][1] + "\n#missing", "")])
