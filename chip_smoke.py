@@ -11,9 +11,10 @@ failure):
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: the native CDCL library (g++), the dense sweep kernel, the
-   frontier kernels, the round lane, the word fixpoint and the lockstep
-   interpreter (nvcc, sm_90a), all six started together, with their
-   build seconds and the ``-Xptxas -v`` register / shared-memory lines;
+   frontier kernels, the round lane, the word fixpoint, the lockstep
+   interpreter and the keccak sponge (nvcc, sm_90a), all seven started
+   together, with their build seconds and the ``-Xptxas -v`` register /
+   shared-memory lines;
 3. kernels vs plain: the hand-written sweep against ``sweep_plain`` at
    the slice's shape (C = 16384 clauses, V = 4096 variables, B = 64
    lanes, random sparse 0/1 planes from a numpy seed), scores on and off
@@ -101,7 +102,8 @@ failure):
    (``mythril.MythrilAnalyzer``, as ``python3 -m mythril_tpu_torch
    analyze`` runs it) over the runs of ``contracts.CHIP_RUNS`` (the
    ``bench.py`` scale contract at -t 1 and -t 2, two vendored fixtures,
-   killbilly), first in the JAX default configuration of the dispatch
+   killbilly, the constant-key mapping), first in the JAX default
+   configuration of the dispatch
    rungs (profit gate, async prefetch, coalescer: what the CLI runs),
    then force-dispatched; per run, checks the SWC set against the JAX
    package's, that no deadline cut the run, that no prefetch was
@@ -125,8 +127,21 @@ failure):
    launches (each held against the plain loop in the default rungs) and
    the issues' replay statuses, and fails where a run made no lockstep
    launch, left an issue unreplayed, or where the pre-split's seeding
-   differs from the run's ``presplit`` flag;
-9. the launches of the main path's configurations and, apart, of the
+   differs from the run's ``presplit`` flag.  The symbolic lockstep tier
+   is on, as the CLI runs it: per run it prints the states stepped in
+   segments, ``segment_s``, the host boundaries by cause, the plane
+   density (known over total bits), the memory and storage plane ops,
+   the keccak hashes and launches (every call held against the plain
+   version), and fails where no segment ran, where hashes and launches
+   disagree, or where the constant-key mapping made no keccak launch in
+   the default rungs;
+9. keccak: the ``keccak`` kernel against ``keccak256_batch_plain`` on
+   the card, every digest byte for byte, and a sample of rows against
+   the native ``keccak256``: the analyses' own calls, then 65,536 seeded
+   rows at widths 32, 64, 136, 137 and 256; device ms (CUDA events
+   around each bare launch on an idle stream), plain ms, the bound and
+   the share;
+10. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; one JSON line per kernel
    (launches of the main path), the card line, then the result line.
 
@@ -263,17 +278,19 @@ def kernel_device_ms(fn, iters, kernel="dense_sweep_kernel", tries=10):
 
 
 def build_all():
-    """The six builds, started together; returns their log lines."""
+    """The seven builds, started together; returns their log lines."""
     from mythril_tpu_torch.native import load as load_native
     from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import frontier_kernels as FK
+    from mythril_tpu_torch.ops import keccak as KC
     from mythril_tpu_torch.ops import lockstep as LS
     from mythril_tpu_torch.ops import round_lane as RL
     from mythril_tpu_torch.ops import word_fixpoint as WF
 
     jobs = {"native CDCL": load_native, "dense_sweep.cu": ds.load_library,
             "frontier.cu": FK.load_library, "round_lane.cu": RL.load_library,
-            "word_prop.cu": WF.load_library, "lockstep.cu": LS.load_library}
+            "word_prop.cu": WF.load_library, "lockstep.cu": LS.load_library,
+            "keccak.cu": KC.load_library}
     seconds, errors = {}, {}
 
     def run(name, fn):
@@ -297,7 +314,8 @@ def build_all():
                        ("frontier.cu", FK.build_info),
                        ("round_lane.cu", RL.build_info),
                        ("word_prop.cu", WF.build_info),
-                       ("lockstep.cu", LS.build_info)):
+                       ("lockstep.cu", LS.build_info),
+                       ("keccak.cu", KC.build_info)):
         if info is not None:
             lines.append(f"nvcc -Xptxas -v {name}: " + " | ".join(
                 line.strip() for line in info[1].splitlines()
@@ -1562,17 +1580,63 @@ class LockstepAudit:
                 f"for bit ({shapes})" if self.calls else "")
 
 
+class KeccakAudit:
+    """Stands in for ``keccak.keccak256_batch`` (which the symbolic
+    lockstep tier calls for a SHA3 width group) and holds every launch
+    against ``keccak256_batch_plain`` on the card, bit for bit, on the
+    path's own rows (``mode`` "every"), or only counts them ("count");
+    keeps each call's rows (the kernels line times them).  It launches no
+    kernel of its own."""
+
+    def __init__(self, real, mode):
+        self.real = real
+        self.mode = mode
+        self.calls = 0
+        self.checked = 0
+        self.seconds = 0.0
+        self.shapes = {}
+        self.captured = []
+
+    def __call__(self, data):
+        import torch
+
+        from mythril_tpu_torch.ops import keccak as KC
+
+        got = self.real(data)
+        self.calls += 1
+        self.captured.append(data.clone())
+        key = tuple(data.shape)
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+        if self.mode == "every":
+            started = time.perf_counter()
+            want = KC.keccak256_batch_plain(data)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"keccak {key}: the kernel differs from the plain version")
+            self.checked += 1
+            self.seconds += time.perf_counter() - started
+        return got
+
+    def summary(self):
+        shapes = ", ".join(f"{b} x {n} B x{c}"
+                           for (b, n), c in sorted(self.shapes.items()))
+        return (f"keccak {self.checked} of {self.calls} calls equal bit for "
+                f"bit ({shapes})" if self.calls else "")
+
+
 @contextlib.contextmanager
-def audited_kernels(round_lane="sample", word="first", lockstep="every"):
+def audited_kernels(round_lane="sample", word="first", lockstep="every",
+                    keccak="every"):
     """Every kernel call of the block audited (the round lane's as
     ``round_lane`` says: "every", "sample" or "count"; the word
     fixpoint's as ``word`` says: "first" or "count"; the lockstep
-    interpreter's as ``lockstep`` says: "every" or "count"); the launch
-    counts zeroed just before and read into the yielded dict just
-    after."""
+    interpreter's and the keccak's as ``lockstep`` and ``keccak`` say:
+    "every" or "count"); the launch counts zeroed just before and read
+    into the yielded dict just after."""
     from mythril_tpu_torch.ops import dense_prop
     from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import frontier_kernels as FK
+    from mythril_tpu_torch.ops import keccak as KC
     from mythril_tpu_torch.ops import lockstep as LS
     from mythril_tpu_torch.ops import round_lane as RL
     from mythril_tpu_torch.ops import word_fixpoint as WF
@@ -1585,8 +1649,10 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every"):
     WF.word_fixpoint = word
     steps = LockstepAudit(LS.run_kernel, lockstep)
     LS.run_kernel = steps
+    hashes = KeccakAudit(KC.keccak256_batch, keccak)
+    KC.keccak256_batch = hashes
     out = {"sweep": sweep, "round_lane": lanes, "word": word,
-           "lockstep": steps}
+           "lockstep": steps, "keccak": hashes}
     try:
         with FrontierAudit() as frontier:
             out["frontier"] = frontier
@@ -1595,19 +1661,22 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every"):
             RL.reset_launch_count()
             WF.reset_launch_count()
             LS.reset_launch_count()
+            KC.reset_launch_count()
             yield out
             out["launches"] = {"dense_sweep": ds.launch_count,
                                **FK.launch_counts,
                                "round_lane": RL.launch_count,
                                "word_prop": WF.launch_count,
-                               "lockstep": LS.launch_count}
+                               "lockstep": LS.launch_count,
+                               "keccak": KC.launch_count}
     finally:
         dense_prop.dense_sweep = sweep.sweep
         RL.round_lane = lanes.real
         WF.word_fixpoint = word.real
         LS.run_kernel = steps.real
+        KC.keccak256_batch = hashes.real
     out["seconds"] = (sweep.seconds + frontier.seconds + lanes.seconds
-                      + word.seconds + steps.seconds)
+                      + word.seconds + steps.seconds + hashes.seconds)
 
 
 @contextlib.contextmanager
@@ -2092,9 +2161,28 @@ def lockstep_bound(program, state, ops):
     return bound(bytes_moved, ops)
 
 
+def idle_stream_ms(name, launch, iters):
+    """Device ms of one bare launch (``launch()`` returns the library's
+    error code): CUDA events around each launch on an idle stream, after
+    one warm-up launch."""
+    import torch
+
+    check(launch() == 0, f"{name} launch")
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        check(launch() == 0, f"{name} launch")
+        stop.record()
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
+
+
 def lockstep_kernel_ms(program, state, max_steps, record_visited, iters):
-    """Device ms of one launch of the kernel alone: CUDA events around
-    each bare launch on an idle stream, after one warm-up launch (a
+    """Device ms of one launch of the kernel alone, on an idle stream (a
     launch writes fresh outputs and leaves its input state as it was, so
     every launch runs the same work)."""
     import torch
@@ -2105,18 +2193,8 @@ def lockstep_kernel_ms(program, state, max_steps, record_visited, iters):
     _out, _visited, _count, args = LS.launch_args(
         program, state, LS.check_state(state), max_steps, record_visited)
     stream = torch.cuda.current_stream().cuda_stream
-    check(lib.lockstep_launch(*args, stream) == 0, "lockstep launch")
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        check(lib.lockstep_launch(*args, stream) == 0, "lockstep launch")
-        stop.record()
-        events.append((start, stop))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in events) / iters
+    return idle_stream_ms(
+        "lockstep", lambda: lib.lockstep_launch(*args, stream), iters)
 
 
 def lockstep_case(name, program, state, max_steps, record_visited, iters):
@@ -2260,6 +2338,111 @@ def lockstep_phase(card):
     return entry
 
 
+#: the keccak phase's batches: rows, and widths (a word, the mapping
+#: slot's key and slot, the rate, one byte past it, the tier's cap)
+KECCAK_ROWS = 65536
+KECCAK_WIDTHS = (32, 64, 136, 137, 256)
+#: rows of each batch also held against the native keccak256
+KECCAK_SAMPLE = 64
+#: 32-bit integer operations of one keccak-f round (csrc/keccak.cu's
+#: count: on 64-bit lanes 76 XORs, 25 NOT-ANDs and 29 rotations, two
+#: operations a half each, a rotation two funnel shifts)
+KECCAK_OPS_ROUND = 310
+
+
+def keccak_bound(rows, width):
+    """(least ms, what bounds it) of one launch over ``rows`` rows of
+    ``width`` bytes: each row read once and its 32-byte digest written
+    once, against 24 rounds of :data:`KECCAK_OPS_ROUND` operations for
+    each of a row's ``width // 136 + 1`` blocks, at the scalar rate."""
+    from mythril_tpu_torch.ops.keccak import RATE_BYTES
+
+    blocks = width // RATE_BYTES + 1
+    return bound(rows * (width + 32), 24 * KECCAK_OPS_ROUND * blocks * rows)
+
+
+def keccak_kernel_ms(data, iters):
+    """Device ms of one launch of the kernel alone, on an idle stream."""
+    import torch
+
+    from mythril_tpu_torch.ops import keccak as KC
+
+    lib = KC.load_library()
+    out = torch.empty((data.shape[0], 32), dtype=torch.uint8,
+                      device=data.device)
+    args = (data.data_ptr(), out.data_ptr(), data.shape[0], data.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    return idle_stream_ms("keccak", lambda: lib.keccak_launch(*args), iters)
+
+
+def keccak_case(name, data, iters):
+    """One kernel call on the card held against the plain version on the
+    card (every digest byte for byte) and a sample of rows against the
+    native ``keccak256``; returns (ms, plain ms, bound ms, bound by, max
+    abs err)."""
+    import torch
+
+    from mythril_tpu_torch.native import keccak256 as native_keccak
+    from mythril_tpu_torch.ops import keccak as KC
+
+    data = data.contiguous()
+    got = KC.keccak256_batch(data)
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    want = KC.keccak256_batch_plain(data)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - started) * 1e3
+    check(torch.equal(got, want),
+          f"keccak {name}: the kernel differs from the plain version")
+    rows = data[:KECCAK_SAMPLE].cpu().numpy()
+    digests = got[:KECCAK_SAMPLE].cpu().numpy()
+    for row, digest in zip(rows, digests):
+        check(native_keccak(row.tobytes()) == digest.tobytes(),
+              f"keccak {name}: a digest differs from the native keccak256")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    ms = keccak_kernel_ms(data, iters)
+    bound_ms, bound_by = keccak_bound(data.shape[0], data.shape[1])
+    log(f"keccak {name}: {data.shape[0]} rows x {data.shape[1]} B; "
+        f"bit-equal to the plain version and, on {min(KECCAK_SAMPLE, len(rows))} "
+        f"rows, to the native keccak256; kernel {ms:.4f} ms (plain "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
+        f"{100 * bound_ms / ms:.1f}% of it)")
+    return ms, plain_ms, bound_ms, bound_by, err
+
+
+def keccak_phase(card, captured):
+    """The keccak kernel against its plain version on the card: (a) the
+    analyses' own calls (``captured``: the rows of every call the
+    symbolic lockstep tier made in the default rungs, each already held
+    against the plain version as it ran), (b) batches of
+    :data:`KECCAK_ROWS` seeded rows at each of :data:`KECCAK_WIDTHS`;
+    returns the kernel's JSON entry (times and bound of the first
+    main-path call)."""
+    import torch
+
+    check(captured, "keccak: the analyses made no call to capture")
+    entry = None
+    for index, data in enumerate(captured):
+        ms, plain_ms, bound_ms, bound_by, err = keccak_case(
+            f"main-path call {index}", data, iters=20)
+        if entry is None:
+            entry = {
+                "name": "keccak", "route": "cuda",
+                "source": "mythril_tpu_torch/ops/csrc/keccak.cu",
+                "replaces": "mythril_tpu/ops/keccak.py:139",
+                "max_abs_err": err, "ms": round(ms, 4),
+                "plain_ms": round(plain_ms, 4),
+                "bound_ms": round(bound_ms, 10), "bound_by": bound_by,
+                "library_ms": None,
+            }
+    rng = np.random.default_rng(2026)
+    for width in KECCAK_WIDTHS:
+        data = torch.from_numpy(rng.integers(
+            0, 256, size=(KECCAK_ROWS, width), dtype=np.uint8)).to(DEVICE)
+        keccak_case(f"batch [{card}]", data, iters=20)
+    return entry
+
+
 #: wall-clock limit of one chip-check analysis (no run comes close)
 ANALYZE_TIMEOUT_S = 600
 
@@ -2364,8 +2547,26 @@ def analyze_audited(run, card, label="", force=True):
         f"pre-split states, {launches['lockstep']} launches "
         f"({audit['lockstep'].summary() or 'none'}), replay statuses "
         f"{replays}")
+    causes = ", ".join(f"{k} {v}" for k, v in sorted(
+        stats.boundary_causes.items()))
+    density = (stats.plane_known_bits / stats.plane_total_bits
+               if stats.plane_total_bits else 0.0)
+    log(f"analyze {run.name}{label} segments: {stats.states_stepped} states "
+        f"stepped in segments, segment_s {stats.segment_s:.3f} s (with the "
+        f"audits), {stats.needs_host_boundaries} host boundaries ({causes}), "
+        f"plane density {stats.plane_known_bits}/{stats.plane_total_bits} "
+        f"known bits ({density:.3f}), {stats.mem_plane_ops} memory and "
+        f"{stats.storage_plane_ops} storage plane ops, "
+        f"{stats.keccak_device_hashes} keccak hashes in "
+        f"{launches['keccak']} launches "
+        f"({audit['keccak'].summary() or 'none'})")
     check(None not in replays, f"{run.name}: an issue was not replayed")
     check(launches["lockstep"] > 0, f"{run.name}: no lockstep launch")
+    check(stats.states_stepped > 0, f"{run.name}: no segment ran")
+    check((launches["keccak"] > 0) == (stats.keccak_device_hashes > 0)
+          and audit["keccak"].calls == launches["keccak"],
+          f"{run.name}: {stats.keccak_device_hashes} keccak hashes in "
+          f"{launches['keccak']} launches of {audit['keccak'].calls} calls")
     check((stats.presplit_states > 0) == run.presplit,
           f"{run.name}: {stats.presplit_states} pre-split states")
     check(found == run.swc_ids,
@@ -2376,7 +2577,8 @@ def analyze_audited(run, card, label="", force=True):
           f"{run.name}: {a.dropped} prefetches dropped, {a.abandoned} "
           f"abandoned")
     return launches, {"dispatches": stats.dispatches,
-                      "resident": stats.resident_dispatches, "wall": wall}
+                      "resident": stats.resident_dispatches, "wall": wall,
+                      "keccak": audit["keccak"].captured}
 
 
 def analyze_phase(card):
@@ -2386,17 +2588,26 @@ def analyze_phase(card):
     scale runs also CDCL-only.  Returns the launches of every kernel
     over the batched runs in both configurations, and those of the
     ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` yardstick."""
-    from mythril_tpu_torch.contracts import CHIP_RUNS, YARDSTICK_RUN
+    from mythril_tpu_torch.contracts import (
+        CHIP_RUNS,
+        YARDSTICK_RUN,
+        constant_key_mapping,
+    )
     from mythril_tpu_torch.smt import SolverStatistics
 
     total = {}
     walls = {}
+    hashed = []
     for run in CHIP_RUNS:
         launches, stats = analyze_audited(run, card, " default rungs",
                                           force=False)
         walls[run.name] = [stats["wall"]]
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+        hashed += stats["keccak"]
+        if run.code is constant_key_mapping:
+            check(launches["keccak"] > 0,
+                  f"{run.name}: no keccak launch in the default rungs")
     through_resident = False
     for run in CHIP_RUNS:
         launches, stats = analyze_audited(run, card, " force-dispatched")
@@ -2432,7 +2643,7 @@ def analyze_phase(card):
             YARDSTICK_RUN, card, " MYTHRIL_TPU_RESIDENT_KERNEL=0")
     check(stats["resident"] == 0 and launches["dense_sweep"] > 0,
           "the RESIDENT_KERNEL=0 yardstick did not run the dense tier")
-    return total, launches
+    return total, launches, hashed
 
 
 def _add(total, launches):
@@ -2513,15 +2724,18 @@ def _main(torch, frontiers, default_device, edge_pool,
     phase_done("prefetch")
     lockstep_entry = lockstep_phase(card)
     phase_done("lockstep")
-    default, yardstick = analyze_phase(card)
+    default, yardstick, hashed = analyze_phase(card)
     phase_done("analyze")
+    keccak_entry = keccak_phase(card, hashed)
+    phase_done("keccak")
     _add(totals, default)
     _add(kill_switch, yardstick)
     log(f"launches in the default configuration (the kernels line): "
         f"{totals}; in the MYTHRIL_TPU_RESIDENT_KERNEL=0 runs (not in it): "
         f"{kill_switch}")
     entries = [sweep_entry] + frontier_entries + [round_entry, word_entry,
-                                                   lockstep_entry]
+                                                   lockstep_entry,
+                                                   keccak_entry]
     for entry in entries:
         entry["launches"] = totals.get(entry["name"], 0)
         check(entry["launches"] > 0, f"{entry['name']} never launched")

@@ -6,7 +6,8 @@ Byte-for-byte the contracts of the repository's ``bench.py``
 them with the JAX package's assembler; ``tests/test_torch_analyze.py``
 holds the two against each other.  :data:`CHIP_RUNS` are the analyses
 the chip check runs on the card, each with the SWC set the JAX package
-finds.  :func:`lockstep_gauntlet` and :func:`wide_dispatcher` are the
+finds; :func:`constant_key_mapping` is the one whose SHA3 windows are
+concrete.  :func:`lockstep_gauntlet` and :func:`wide_dispatcher` are the
 lockstep interpreter's test programs.
 """
 
@@ -232,6 +233,40 @@ def batchtoken_contract() -> str:
     )
 
 
+def constant_key_mapping() -> str:
+    """A ledger of one account: ``balances[0x1234]`` of a Solidity
+    ``mapping(uint256 => uint256)`` at slot 1, its address the keccak of
+    64 concrete bytes (the key, then the slot), read before the
+    dispatcher; ``deposit(uint256)`` adds the argument to it (the
+    addition may overflow: SWC-101) and ``withdraw(uint256)`` subtracts
+    it (may underflow).  The key is a constant, so every path hashes a
+    concrete window: the symbolic lockstep tier hashes it on the card."""
+    dep_sel = selector_of("deposit(uint256)")
+    wd_sel = selector_of("withdraw(uint256)")
+    return asm(
+        f"""
+        PUSH 0x1234; PUSH 0; MSTORE
+        PUSH 1; PUSH 0x20; MSTORE
+        PUSH 0x40; PUSH 0; SHA3       # the slot of balances[0x1234]
+        DUP1; SLOAD                   # slot, balance
+        PUSH 0; CALLDATALOAD; PUSH 0xe0; SHR
+        DUP1; PUSH4 {dep_sel}; EQ; PUSH @deposit; JUMPI
+        DUP1; PUSH4 {wd_sel}; EQ; PUSH @withdraw; JUMPI
+        PUSH 0; PUSH 0; REVERT
+      deposit:
+        JUMPDEST; POP
+        PUSH 4; CALLDATALOAD; ADD     # balance + amount
+        SWAP1; SSTORE
+        STOP
+      withdraw:
+        JUMPDEST; POP
+        PUSH 4; CALLDATALOAD; SWAP1; SUB   # balance - amount
+        SWAP1; SSTORE
+        STOP
+        """
+    )
+
+
 def wide_dispatcher(n_selectors: int = 64) -> str:
     """A canonical dispatcher of ``n_selectors`` functions (the pre-split's
     cap is 64), each a JUMPDEST that stores its index and stops."""
@@ -399,6 +434,10 @@ CHIP_RUNS: Tuple[ChipRun, ...] = (
     ChipRun("vault_withdraw -t 2", lambda: fixture("vault_withdraw"), 2,
             {"101", "104", "105", "107"}, False, True),
     ChipRun("killbilly -t 1", killbilly, 1, {"106"}, False, True),
+    # the one run whose SHA3 windows are concrete: the symbolic lockstep
+    # tier hashes them with the keccak kernel
+    ChipRun("constant_key_mapping -t 2", constant_key_mapping, 2, {"101"},
+            False, False),
 )
 #: The chip check's yardstick of the resident solver: the scale run under
 #: ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` (the dense tier keeps the frontiers),

@@ -135,6 +135,13 @@ class StateTransition:
             return new_global_states
 
         wrapper.__name__ = func.__name__
+        # the symbolic lockstep tier (laser/ethereum/symbolic_lockstep)
+        # drives the raw mutator itself — one state copy per SEGMENT
+        # instead of one per opcode — and replays the decorator's
+        # gas/pc bookkeeping from these attributes, so the two paths
+        # can never drift
+        wrapper.mutator = func
+        wrapper.transition = self
         return wrapper
 
 

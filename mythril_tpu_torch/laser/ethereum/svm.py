@@ -1,7 +1,7 @@
 """LaserEVM: the symbolic-execution virtual machine (reference:
 laser/ethereum/svm.py; own copy of ``mythril_tpu/laser/ethereum/svm.py``
-without the checkpoint, governor, fleet, veritesting and symbolic
-lockstep seams, which the port does not have).
+without the checkpoint, governor, fleet and veritesting seams, which the
+port does not have).
 
 Architecture matches the reference's control contract — worklist +
 strategy, per-opcode pre/post hooks, laser-level hooks, transaction
@@ -248,7 +248,18 @@ class LaserEVM:
         """One scheduler round: execute the drawn batch, prune the
         union of successors, record survivors.  Returns the state that
         hit the wall-clock deadline (the caller unwinds), or None."""
-        timed_out = None
+        from mythril_tpu_torch.laser.ethereum import symbolic_lockstep
+
+        # lockstep tier: sibling states grouped by (bytecode, pc) run
+        # straight-line segments batched; whatever it declines (or the
+        # whole batch, behind MYTHRIL_TPU_SYM_LOCKSTEP=0) falls through
+        # to the per-state loop below.  Successors from both paths meet
+        # in the same rounds list, so the single prune_infeasible pass
+        # hands the whole frontier's fork masks to batch_check_states
+        # in one dispatch.
+        batch, timed_out = symbolic_lockstep.run_lockstep(
+            self, batch, rounds, create, track_gas
+        )
         for lane, global_state in enumerate(batch):
             deadline = (
                 self.create_timeout

@@ -168,6 +168,23 @@ class DispatchStats:
         # states seeded at function entries by the dispatcher pre-split
         # (laser/ethereum/lockstep_dispatch.py)
         self.presplit_states = 0
+        # symbolic lockstep tier (laser/ethereum/symbolic_lockstep.py):
+        # interpreter (state, opcode) steps executed inside batched
+        # segments and the wall-clock of those segments; known bits over
+        # total bits across every shadowed stack push; lanes handed back
+        # to the serial interpreter at a segment boundary, keyed by the
+        # opcode that parked them ("cap" = op budget, "end-of-code" = fell
+        # off the bytecode); lane-ops through the memory and storage
+        # planes, and SHA3 results hashed by ops/keccak.py
+        self.states_stepped = 0
+        self.segment_s = 0.0
+        self.plane_known_bits = 0
+        self.plane_total_bits = 0
+        self.needs_host_boundaries = 0
+        self.boundary_causes = {}
+        self.mem_plane_ops = 0
+        self.storage_plane_ops = 0
+        self.keccak_device_hashes = 0
         # per-lane tier that decided each lane of the last
         # batch_check_states call: "structural", "memo", "word", "device",
         # "probe" (a host probe hit, or a zero assignment that verified

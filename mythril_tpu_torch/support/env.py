@@ -18,9 +18,10 @@ class EnvSpecError(RuntimeError):
 #: package's entries (``KNOWN_SPECS``) for the knobs this port reads.  The
 #: port
 #: also reads MYTHRIL_TPU_FRONTIER, MYTHRIL_TPU_PALLAS,
-#: MYTHRIL_TPU_ROUND_LADDER, MYTHRIL_TPU_WORD_TIER, MYTHRIL_TPU_WORD_XP and
-#: its own alias MYTHRIL_TPU_DENSE, which that table does not hold: like
-#: the JAX package, the gate takes any value of theirs.
+#: MYTHRIL_TPU_ROUND_LADDER, MYTHRIL_TPU_WORD_TIER, MYTHRIL_TPU_WORD_XP,
+#: MYTHRIL_TPU_SYM_LOCKSTEP, MYTHRIL_TPU_SEG_PLANES and its own alias
+#: MYTHRIL_TPU_DENSE, which that table does not hold: like the JAX
+#: package, the gate takes any value of theirs.
 KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_FRONTIER_PERIOD": ("int", 1, None),
     "MYTHRIL_TPU_FRONTIER_FAN": ("int", 1, None),
@@ -37,6 +38,16 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_RESIDENT_EXTRA": ("int", 1, None),
     "MYTHRIL_TPU_RESIDENT_POOL": ("flag", None, None),
     "MYTHRIL_TPU_WARM_START": ("flag", None, None),
+    "MYTHRIL_TPU_SEG_MIN_LANES": ("int", 1, None),
+    "MYTHRIL_TPU_SEG_MAX_OPS": ("int", 1, None),
+    "MYTHRIL_TPU_SEG_CEIL_MS": ("float", 0.0, None),
+    # lockstep memory/storage/keccak planes (symbolic_lockstep.py):
+    # kill switch, per-lane arena sizes, and the concrete-width cap
+    # past which SHA3 parks to the host keccak path
+    "MYTHRIL_TPU_SEG_PLANES_MEM": ("flag", None, None),
+    "MYTHRIL_TPU_SEG_MEM_WORDS": ("int", 1, None),
+    "MYTHRIL_TPU_SEG_STORAGE_SLOTS": ("int", 1, None),
+    "MYTHRIL_TPU_SEG_KECCAK_MAX_BYTES": ("int", 0, None),
 }
 
 #: raw values :func:`env_flag` understands; anything else on a "flag"

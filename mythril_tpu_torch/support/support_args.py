@@ -14,13 +14,13 @@ from mythril_tpu_torch.support.support_utils import Singleton
 #: parity tests apply the same pins to the JAX package.  The port honors
 #: ``MYTHRIL_TPU_RESIDENT_KERNEL`` both ways, as the JAX package does
 #: (0 = the multi-dispatch frontier ladder), ``MYTHRIL_TPU_FRONTIER``
-#: both ways (0 = the round-lane ladder) and ``MYTHRIL_TPU_WORD_TIER``
-#: both ways (0 = no word tier).
+#: both ways (0 = the round-lane ladder), ``MYTHRIL_TPU_WORD_TIER``
+#: both ways (0 = no word tier) and ``MYTHRIL_TPU_SYM_LOCKSTEP`` both
+#: ways (0 = no symbolic lockstep tier).
 #:
 #: Environment knobs of the JAX package:
 SLICE_PINS_ENV = {
     "MYTHRIL_TPU_AUTOPILOT": "0",
-    "MYTHRIL_TPU_SYM_LOCKSTEP": "0",
     "MYTHRIL_TPU_VERITEST": "0",
     "MYTHRIL_TPU_FLEET": "0",
     "MYTHRIL_TPU_PERSIST": "0",

@@ -2,14 +2,14 @@
 
 Each case runs the JAX package's ``SymExecWrapper`` + ``fire_lasers``
 and the port's, one after the other in this process, under the slice
-pins (``mythril_tpu_torch/support/support_args.py``; the word tier, the
-host probe, the dispatcher pre-split and the concrete replay on, on both
-sides), with the port's dense tier and lockstep interpreter on
+pins (``mythril_tpu_torch/support/support_args.py``; the symbolic
+lockstep tier, the word tier, the host probe, the dispatcher pre-split
+and the concrete replay on, on both sides), with the port's dense tier and lockstep interpreter on
 ``device="cpu"``.  The issue lists (field by field, with the exploit
 transactions' calldata, value and caller, and each issue's concrete
 replay status), the total state count, the pre-split's seeded states,
 the number of prune calls, every prune call's per-state verdicts and the
-solver, probe and word-tier counters must be exactly equal; neither
+solver, probe, word-tier and segment-tier counters must be exactly equal; neither
 side may time out.
 """
 
@@ -217,11 +217,16 @@ def _run(side, code, tx_count):
         "prunes": prunes,
         "dispatches": stats.dispatches,
         "sweeps": (stats.rounds, stats.device_sweeps),
-        "counters": {name: getattr(stats, name) for name in COUNTERS},
+        "counters": {name: _copy(getattr(stats, name)) for name in COUNTERS},
     }
 
 
-#: solver-tier counters both packages keep, compared exactly
+def _copy(value):
+    return dict(value) if isinstance(value, dict) else value
+
+
+#: solver-tier and segment-tier counters both packages keep, compared
+#: exactly (``boundary_causes`` as a dict)
 COUNTERS = (
     "lanes", "unsat", "sat_verified", "undecided", "frontier_steps",
     "learned_clauses", "size_bailouts", "cone_bailouts",
@@ -231,6 +236,10 @@ COUNTERS = (
     # the probe phase and the word tier, on by default on both sides
     "host_probe_sat", "word_decided_unsat", "word_decided_sat",
     "word_tightened_bits",
+    # the symbolic lockstep tier, on by default on both sides
+    "states_stepped", "needs_host_boundaries", "boundary_causes",
+    "plane_known_bits", "plane_total_bits", "mem_plane_ops",
+    "storage_plane_ops", "keccak_device_hashes",
 )
 
 
@@ -272,6 +281,23 @@ def test_fixture_findings_match_jax(name, tx_count):
         counters = port["counters"]
         assert counters["host_probe_sat"] > 0
         assert counters["word_decided_unsat"] > 0
+
+
+@pytest.mark.parametrize("knob", [None, "MYTHRIL_TPU_SYM_LOCKSTEP",
+                                  "MYTHRIL_TPU_SEG_PLANES_MEM"])
+def test_constant_key_mapping_matches_jax(monkeypatch, knob):
+    """The chip run whose SHA3 windows are concrete: the tier hashes them
+    (the keccak kernel's plain version on the port's side) with the same
+    issues, states, prunes and counters as the JAX package; with either
+    kill switch set on both sides, no hash, and still equal."""
+    if knob is not None:
+        monkeypatch.setenv(knob, "0")
+    _jax, port = _parity(contracts.constant_key_mapping(), 2)
+    counters = port["counters"]
+    assert {i["swc_id"] for i in port["issues"]} == {"101"}
+    assert (counters["keccak_device_hashes"] > 0) == (knob is None)
+    assert (counters["states_stepped"] > 0) == (
+        knob != "MYTHRIL_TPU_SYM_LOCKSTEP")
 
 
 #: the CPU tier's cell cap (2^22, the JAX package's interpret tier) is

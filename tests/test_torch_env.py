@@ -45,7 +45,9 @@ KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "PROBE_MEMO_CAP", "RESIDENT_BUDGET", "RESIDENT_EXTRA", "RESIDENT_KERNEL",
     "RESIDENT_POOL", "RESIDENT_WATCHDOG", "ROUND_LADDER", "TIER_PERIOD",
     "WARM_START", "PALLAS", "WORD_MAX_NODES", "WORD_ROUNDS", "WORD_TIER",
-    "WORD_XP"))
+    "WORD_XP", "SYM_LOCKSTEP", "SEG_MIN_LANES", "SEG_MAX_OPS", "SEG_CEIL_MS",
+    "SEG_PLANES", "SEG_PLANES_MEM", "SEG_MEM_WORDS", "SEG_STORAGE_SLOTS",
+    "SEG_KECCAK_MAX_BYTES"))
 
 
 @pytest.fixture(autouse=True)
