@@ -11,10 +11,10 @@ failure):
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: the native CDCL library (g++), the dense sweep kernel, the
-   frontier kernels, the round lane, the word fixpoint, the lockstep
-   interpreter and the keccak sponge (nvcc, sm_90a), all seven started
-   together, with their build seconds and the ``-Xptxas -v`` register /
-   shared-memory lines;
+   DPLL step, the frontier kernels, the round lane, the word fixpoint,
+   the lockstep interpreter and the keccak sponge (nvcc, sm_90a), all
+   eight started together, with their build seconds and the
+   ``-Xptxas -v`` register / shared-memory lines;
 3. kernels vs plain: the hand-written sweep against ``sweep_plain`` at
    the slice's shape (C = 16384 clauses, V = 4096 variables, B = 64
    lanes, random sparse 0/1 planes from a numpy seed), scores on and off
@@ -53,7 +53,21 @@ failure):
    bailed and went UNSAT and every cluster size held; and the plain model
    of the kernel's skip record on the full pool, until a backtrack
    cleared a record with every scan equal to the full one;
-4. main path: frontiers through ``ops.batched_sat.batch_check_states``
+4. DPLL step: the ``dpll_step`` kernel against ``dpll_step_plain`` on
+   the card, every state field, the zeroed sweep workspace and the
+   flags bit for bit, on ``frontiers.dpll_step_problem``'s seeded states
+   at the check's shape (B = 64, V = 4096, D = 1024), at V = 16384
+   BCP-only, at V = 8192, at B = 1 and 7, and at B = 7, V = 16384 with
+   decisions (a 64 KiB score row: the opt-in launch), on a full view, a
+   hot view and a gated hot view, until every transition of
+   ``STEP_EVENTS`` showed (the phase fails if one is missing); whole
+   rounds of ``make_dense_rounds`` (64 steps) on a planted CNF at
+   C = 16384, V = 4096, B = 64, tiered and not, against the same round
+   with the plain step on the card; the profiler's count of one round's device
+   operations (two a step, plus the round's set-up and its live-marker
+   reads); device ms (profiler), plain ms (CUDA events) and the bound at
+   the check's shape;
+5. main path: frontiers through ``ops.batched_sat.batch_check_states``
    on ``cuda``, force-dispatched: the ``scale_mul`` frontier of
    ``bench.py`` (depth 6 / 16-bit guards, past the cone caps: dense
    tier), and 64 sibling forks sharing a 32-bit MUL guard chain, four
@@ -67,9 +81,11 @@ failure):
    of the rest), checks the launch counts (the word tier's kernel once a
    run: both frontiers have 64 lanes, and the funnel's word rung takes
    the device executor from 16), every verdict against the known ones,
-   and every device or word-tier UNSAT against the port's own CDCL; the
-   word tier's launch of each default run is captured;
-5. word fixpoint: the ``word_prop`` kernel against
+   every 1st, 2nd, 4th ... DPLL step of each shape against the plain
+   step on clones of its inputs, and every device or word-tier UNSAT
+   against the port's own CDCL; the word tier's launch of each default
+   run is captured;
+6. word fixpoint: the ``word_prop`` kernel against
    ``word_fixpoint_plain`` on the card, bit for bit, on seeded random
    term DAGs at 16, 64 and 256 lanes, on a DAG that holds every opcode
    of the kernel's table at widths 1, 8, 31, 33, 160 and 256, on a
@@ -80,11 +96,11 @@ failure):
    loses records of these launches), plain ms (one run), bound; the plain
    walks of the three edge cases run on the CPU in one worker process
    that the check starts first, beside the builds and earlier phases;
-6. prefetch: the guard chain with the profit gate always declining
+7. prefetch: the guard chain with the profit gate always declining
    (``device_min_save_s`` 1e9): launched on the worker's stream, joined,
    harvested by the next call; checks a harvest, no drop, the memo's
    verdicts and the audited round-lane launches;
-7. lockstep: the ``lockstep`` kernel against ``run_plain`` on the card,
+8. lockstep: the ``lockstep`` kernel against ``run_plain`` on the card,
    every state field, the visited bitmaps and the step count bit for
    bit: (a) the main path's own launches (the dispatcher pre-split's
    validation of every chip contract, of ``batchtoken`` and of a
@@ -98,7 +114,7 @@ failure):
    takes seconds a division step), every halt code and NEEDS_HOST cause
    required in both that batch and the 4,096 x 4,096 run, the kernel
    timed alone at both sizes;
-8. analyze: ``myth analyze`` on the card through the port's analyzer
+9. analyze: ``myth analyze`` on the card through the port's analyzer
    (``mythril.MythrilAnalyzer``, as ``python3 -m mythril_tpu_torch
    analyze`` runs it) over the runs of ``contracts.CHIP_RUNS`` (the
    ``bench.py`` scale contract at -t 1 and -t 2, two vendored fixtures,
@@ -135,13 +151,13 @@ failure):
    version), and fails where no segment ran, where hashes and launches
    disagree, or where the constant-key mapping made no keccak launch in
    the default rungs;
-9. keccak: the ``keccak`` kernel against ``keccak256_batch_plain`` on
+10. keccak: the ``keccak`` kernel against ``keccak256_batch_plain`` on
    the card, every digest byte for byte, and a sample of rows against
    the native ``keccak256``: the analyses' own calls, then 65,536 seeded
    rows at widths 32, 64, 136, 137 and 256; device ms (CUDA events
    around each bare launch on an idle stream), plain ms, the bound and
    the share;
-10. the launches of the main path's configurations and, apart, of the
+11. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; one JSON line per kernel
    (launches of the main path), the card line, then the result line.
 
@@ -278,9 +294,10 @@ def kernel_device_ms(fn, iters, kernel="dense_sweep_kernel", tries=10):
 
 
 def build_all():
-    """The seven builds, started together; returns their log lines."""
+    """The eight builds, started together; returns their log lines."""
     from mythril_tpu_torch.native import load as load_native
     from mythril_tpu_torch.ops import dense_sweep as ds
+    from mythril_tpu_torch.ops import dpll_step as DSTEP
     from mythril_tpu_torch.ops import frontier_kernels as FK
     from mythril_tpu_torch.ops import keccak as KC
     from mythril_tpu_torch.ops import lockstep as LS
@@ -288,6 +305,7 @@ def build_all():
     from mythril_tpu_torch.ops import word_fixpoint as WF
 
     jobs = {"native CDCL": load_native, "dense_sweep.cu": ds.load_library,
+            "dpll_step.cu": DSTEP.load_library,
             "frontier.cu": FK.load_library, "round_lane.cu": RL.load_library,
             "word_prop.cu": WF.load_library, "lockstep.cu": LS.load_library,
             "keccak.cu": KC.load_library}
@@ -311,6 +329,7 @@ def build_all():
         raise CheckFailed(f"build of {name} failed: {exc}")
     lines = [f"build: {name} {seconds[name]:.1f} s" for name in jobs]
     for name, info in (("dense_sweep.cu", ds.build_info),
+                       ("dpll_step.cu", DSTEP.build_info),
                        ("frontier.cu", FK.build_info),
                        ("round_lane.cu", RL.build_info),
                        ("word_prop.cu", WF.build_info),
@@ -437,6 +456,266 @@ def kernel_phase():
                 "bound_by": bound_by, "library_ms": library_ms,
             }
     return entry
+
+
+# ---------------------------------------------------------------------------
+# the DPLL step
+# ---------------------------------------------------------------------------
+
+#: (B, V, D, decisions) of the step phase's seeded states: the check's
+#: shape, the widest BCP-only cone, the widest cone with decisions, narrow
+#: batches, and a score row past 48 KiB of shared memory (the kernel's
+#: opt-in launch, which no tier of the main path reaches)
+STEP_SHAPES = ((SWEEP_B, SWEEP_V, 1024, True), (SWEEP_B, 16384, 1, False),
+               (SWEEP_B, 8192, 1024, True), (1, SWEEP_V, 1024, True),
+               (7, SWEEP_V, 1024, True), (7, 16384, 1024, True))
+#: (full_view, hot_gate): a full view, a hot view, a hot view under the gate
+STEP_VIEWS = ((True, False), (False, False), (False, True))
+#: steps of a whole round in the step phase
+STEP_BUDGET = 64
+
+
+def step_clones(state, outs, flags):
+    return ([t.clone() for t in state], [t.clone() for t in outs],
+            flags.clone())
+
+
+def step_compare(what, got, want):
+    """Every state field, sweep output and flag of two steps, bit for
+    bit; returns the largest absolute difference (0.0)."""
+    import torch
+
+    from mythril_tpu_torch.ops.dense_prop import DPLL_STATE_FIELDS
+
+    names = DPLL_STATE_FIELDS + ("fpos", "fneg", "conf", "spos", "sneg")
+    (gs, go, gf), (ws, wo, wf) = got, want
+    for name, g, w in zip(names, gs + go, ws + wo):
+        check(torch.equal(g, w), f"{what}: {name} differs from the plain "
+              f"version")
+    check(torch.equal(gf, wf), f"{what}: flags {gf.tolist()} != "
+          f"{wf.tolist()}")
+    return max(float((g.double() - w.double()).abs().max())
+               for g, w in zip(gs + go, ws + wo))
+
+
+def step_bound(pre, outs, post, decisions):
+    """(least ms, what bounds it) of one step: every sweep row read (its
+    nonzero cells are zeroed) and the live lanes' A, dflip and dbulk rows
+    read once (and lvl where A changes), the scalars read; the cells that
+    change and the nonzero sweep cells written once; against a dozen
+    operations a live cell at the scalar rate."""
+    B, V = pre[0].shape
+    D = pre[2].shape[1]
+    live = int((pre[7] == 0).sum())
+    moved = int((pre[0] != post[0]).any(dim=1).sum())
+    planes = 4 if decisions else 2
+    read = B * V * planes + B + live * (V + 2 * D) + moved * V + 4 * B
+    changed = sum(int((a != b).sum()) for a, b in zip(pre[:10], post[:10]))
+    cleared = sum(int((o != 0).sum()) for o in outs)
+    return bound(4 * (read + changed + cleared), 12 * live * (V + D))
+
+
+def planted_round_inputs(C, V, B, seed=0):
+    """A planted CNF at the check's sweep shape (rows of 2-8 literals on
+    distinct columns >= 2, each satisfied by a hidden assignment; the last
+    eighth of the rows bucket padding) and a round's start state: every
+    lane assumes 6 random literals (some against the hidden assignment),
+    a warm-start plane, the last 4 lanes retired pads."""
+    import torch
+
+    from mythril_tpu_torch.ops import dense_prop
+
+    rng = np.random.default_rng(seed)
+    live = C - C // 8
+    widths = rng.integers(2, 9, size=live)
+    rows = np.repeat(np.arange(live), widths)
+    cols = np.concatenate([
+        rng.choice(np.arange(2, V), size=w, replace=False) for w in widths
+    ])
+    hidden = rng.choice([-1, 1], size=V)
+    signs = rng.choice([-1, 1], size=rows.size)
+    first = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    signs[first] = hidden[cols[first]]
+    dev = torch.device(DEVICE)
+    P = torch.zeros((C, V), dtype=torch.bfloat16, device=dev)
+    N = torch.zeros((C, V), dtype=torch.bfloat16, device=dev)
+    pos = signs > 0
+    P[torch.from_numpy(rows[pos]).to(dev),
+      torch.from_numpy(cols[pos]).to(dev)] = 1
+    N[torch.from_numpy(rows[~pos]).to(dev),
+      torch.from_numpy(cols[~pos]).to(dev)] = 1
+    width = np.zeros((1, C), np.float32)
+    width[0, :live] = widths
+    A0 = np.zeros((B, V), np.float32)
+    A0[:, 1] = 1.0
+    for lane in range(B):
+        picked = rng.choice(np.arange(2, V), size=6, replace=False)
+        A0[lane, picked] = rng.choice([-1.0, 1.0], size=6)
+    state = dense_prop._dpll_state0(A0, min(dense_prop.MAX_DECISIONS, V),
+                                    B - 4, dev)
+    state[-1].copy_(torch.from_numpy(
+        rng.choice([-1.0, 0.0, 1.0], size=(B, V)).astype(np.float32)))
+    return (P, N, torch.from_numpy(width).to(dev)), state
+
+
+def round_device_ops(fn, planes, state, tries=10):
+    """Device operations of one round (``fn(*planes, *state)``), from the
+    profiler: {name: count} of kernels, copies and fills, and the round's
+    steps.  A profile whose sweep and step records differ from the steps
+    run is taken again, up to ``tries`` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mythril_tpu_torch.ops import dense_sweep as ds
+    from mythril_tpu_torch.ops import dpll_step as DSTEP
+
+    for _ in range(tries):
+        run = [t.clone() for t in state]
+        torch.cuda.synchronize()
+        ds.reset_launch_count()
+        DSTEP.reset_launch_count()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*planes, *run)
+            torch.cuda.synchronize()
+        steps = DSTEP.launch_count
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        sweeps = sum(n for k, n in ops.items() if "dense_sweep_kernel" in k)
+        kernel = sum(n for k, n in ops.items() if "dpll_step_kernel" in k)
+        if sweeps == kernel == steps == ds.launch_count:
+            return ops, steps
+        log(f"profiler: {sweeps} sweep and {kernel} step records of "
+            f"{steps} steps; profiling again")
+    raise CheckFailed(f"profiler did not keep a round's records in {tries} "
+                      f"runs")
+
+
+def dpll_step_phase():
+    """The step kernel against ``dpll_step_plain`` on the card, bit for
+    bit: seeded states (``frontiers.dpll_step_problem``) at the
+    ``STEP_SHAPES``, on every view, until every transition of
+    ``STEP_EVENTS`` showed; whole rounds
+    of ``make_dense_rounds`` on a planted CNF at the check's sweep shape,
+    tiered and not, against the same round with the plain step; the
+    device operations of one round; device ms, plain ms and the bound at
+    the check's shape.  Returns the kernel's JSON entry."""
+    import torch
+
+    from mythril_tpu_torch import frontiers
+    from mythril_tpu_torch.ops import dense_prop
+    from mythril_tpu_torch.ops import dpll_step as DSTEP
+
+    dev = torch.device(DEVICE)
+    seen = dict.fromkeys(DSTEP.STEP_EVENTS, 0)
+    err = 0.0
+    timed = None
+    for B, V, D, decisions in STEP_SHAPES:
+        for seed in (0, 1):
+            state, outs = frontiers.dpll_step_problem(B, V, D, decisions,
+                                                      seed)
+            state = [torch.from_numpy(a).to(dev) for a in state]
+            outs = [torch.from_numpy(a).to(dev) for a in outs]
+            for full_view, hot_gate in (STEP_VIEWS if decisions
+                                        else STEP_VIEWS[:2]):
+                flags = torch.tensor([4, 6], dtype=torch.int32, device=dev)
+                for name, n in DSTEP.step_events(state, outs, full_view,
+                                                 hot_gate).items():
+                    seen[name] += n
+                got = step_clones(state, outs, flags)
+                want = step_clones(state, outs, flags)
+                DSTEP.dpll_step(*got, 9, full_view, hot_gate, True)
+                torch.cuda.synchronize()
+                DSTEP.dpll_step_plain(*want, 9, full_view, hot_gate, True)
+                err = max(err, step_compare(
+                    f"dpll_step B={B} V={V} D={D} seed {seed} view "
+                    f"{full_view}/{hot_gate}", got, want))
+                if (B, V, D, seed, full_view) == (SWEEP_B, SWEEP_V, 1024, 0,
+                                                  True):
+                    timed = (state, outs, flags)
+    log(f"dpll_step seeded states: {len(STEP_SHAPES)} shapes x 2 seeds x "
+        f"views, every field equal bit for bit; transitions {seen}")
+    missing = [k for k, n in seen.items() if not n]
+    check(not missing, f"dpll_step: no case showed {missing}")
+
+    # whole rounds at the check's sweep shape, kernel step against plain
+    planes, state0 = planted_round_inputs(SWEEP_C, SWEEP_V, SWEEP_B)
+    for hot_c, period in ((0, 1), (HOT_ROWS, 8)):
+        fn = dense_prop.make_dense_rounds(
+            SWEEP_C, SWEEP_V, SWEEP_B, STEP_BUDGET, dense_prop.CUDA_TIER,
+            dense_prop.MAX_DECISIONS, hot_c, period)
+        got = fn(*planes, *[t.clone() for t in state0])
+        real = dense_prop.dpll_step
+        dense_prop.dpll_step = DSTEP.dpll_step_plain
+        try:
+            want = fn(*planes, *[t.clone() for t in state0])
+        finally:
+            dense_prop.dpll_step = real
+        check(got[-1] == want[-1] > 0, f"round steps {got[-1]} vs "
+              f"{want[-1]}")
+        for name, g, w in zip(dense_prop.DPLL_STATE_FIELDS, got[:-1],
+                              want[:-1]):
+            check(torch.equal(g, w), f"round (hot_c={hot_c}): {name} "
+                  f"differs from the plain step's round")
+        st = got[dense_prop._STATUS_IDX][:, 0].tolist()
+        log(f"dpll_step round C={SWEEP_C} V={SWEEP_V} B={SWEEP_B} hot rows "
+            f"{hot_c or 'none'} period {period}: {got[-1]} steps, status "
+            f"{ {k: st.count(k) for k in sorted(set(st))} }, depth max "
+            f"{int(got[6].max())}, every field equal to the plain step's "
+            f"round bit for bit")
+        if not hot_c:
+            ops, steps = round_device_ops(fn, planes, state0)
+            total = sum(ops.values())
+            other = total - 2 * steps
+            others = "; ".join(
+                f"{n} x {k[:90]}" for k, n in sorted(ops.items())
+                if "dense_sweep_kernel" not in k
+                and "dpll_step_kernel" not in k)
+            log(f"dpll_step round device ops: {total} for {steps} steps "
+                f"({steps} sweeps, {steps} steps, {other} others: "
+                f"{others})")
+            check(other <= 6 + steps // dense_prop.SYNC_EVERY,
+                  f"a round's step is more than two device operations "
+                  f"({other} others in {steps} steps)")
+
+    # times at the check's shape: each launch from the same seeded state
+    state, outs, flags = timed
+    work = step_clones(state, outs, flags)
+
+    def restore():
+        for dst, src in zip(work[0] + work[1] + [work[2]],
+                            state + outs + [flags]):
+            dst.copy_(src)
+
+    def launch():
+        restore()
+        DSTEP.dpll_step(*work, 9, True, False, True)
+
+    ms = kernel_device_ms(launch, 20, kernel="dpll_step_kernel")
+    plain_ms = 0.0
+    for _ in range(5):
+        restore()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        DSTEP.dpll_step_plain(*work, 9, True, False, True)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(stop) / 5
+    restore()
+    DSTEP.dpll_step(*work, 9, True, False, True)
+    bound_ms, bound_by = step_bound(state, outs, work[0], True)
+    log(f"dpll_step B={SWEEP_B} V={SWEEP_V} D=1024 full view: kernel "
+        f"{ms:.4f} ms (device), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
+        f"the bound")
+    return {
+        "name": "dpll_step", "route": "cuda",
+        "source": "mythril_tpu_torch/ops/csrc/dpll_step.cu",
+        "replaces": "mythril_tpu/ops/pallas_prop.py:592",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1390,12 +1669,12 @@ class SweepAudit:
         self.checked = {}
         self.seconds = 0.0
 
-    def __call__(self, P, N, width, A, scores, rows=None):
+    def __call__(self, P, N, width, A, scores, rows=None, out=None):
         import torch
 
         from mythril_tpu_torch.ops import dense_sweep as ds
 
-        got = self.sweep(P, N, width, A, scores, rows)
+        got = self.sweep(P, N, width, A, scores, rows, out=out)
         key = (P.shape[0], P.shape[1], A.shape[0], rows or P.shape[0],
                bool(scores))
         n = self.calls[key] = self.calls.get(key, 0) + 1
@@ -1420,6 +1699,61 @@ class SweepAudit:
             f"C={k[0]} V={k[1]} B={k[2]} rows={k[3]} scores={k[4]}: "
             f"{self.checked[k]} of {self.calls[k]} calls equal bit for bit"
             for k in sorted(self.calls))
+
+
+class StepAudit:
+    """Stands in for the DPLL step that ``dense_prop``'s round loop calls
+    and holds the kernel against ``dpll_step_plain`` on the main path's
+    own inputs: on the 1st, 2nd, 4th, 8th ... call of each (B, V, D,
+    decisions, view) it runs the plain step on clones of the inputs taken
+    before the launch and compares every field, the zeroed workspace and
+    the flags, before the loop moves on; the audited calls' transitions
+    are counted.  It launches no kernel of its own."""
+
+    def __init__(self, step):
+        self.step = step
+        self.calls = {}
+        self.checked = {}
+        self.events = {}
+        self.seconds = 0.0
+
+    def __call__(self, state, outs, flags, step, full_view, hot_gate, clear):
+        import torch
+
+        from mythril_tpu_torch.ops import dpll_step as DSTEP
+
+        key = (state[0].shape[0], state[0].shape[1], state[2].shape[1],
+               len(outs) == 5, bool(full_view), bool(hot_gate))
+        n = self.calls[key] = self.calls.get(key, 0) + 1
+        if n & (n - 1):
+            return self.step(state, outs, flags, step, full_view, hot_gate,
+                             clear)
+        started = time.perf_counter()
+        want = step_clones(state, outs, flags)
+        for name, k in DSTEP.step_events(*want[:2], full_view,
+                                         hot_gate).items():
+            self.events[name] = self.events.get(name, 0) + k
+        self.seconds += time.perf_counter() - started
+        self.step(state, outs, flags, step, full_view, hot_gate, clear)
+        started = time.perf_counter()
+        torch.cuda.synchronize()
+        DSTEP.dpll_step_plain(*want, step, full_view, hot_gate, clear)
+        step_compare(f"main-path dpll_step {key}, call {n}",
+                     (list(state), list(outs), flags), want)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - started
+        self.checked[key] = self.checked.get(key, 0) + 1
+
+    def summary(self):
+        if not self.calls:
+            return ""
+        seen = ", ".join(f"{k} {v}" for k, v in self.events.items() if v)
+        return "; ".join(
+            f"dpll_step B={k[0]} V={k[1]} D={k[2]} "
+            f"{'scores' if k[3] else 'bcp'} "
+            f"{'full' if k[4] else 'hot'}{' gated' if k[5] else ''}: "
+            f"{self.checked[k]} of {self.calls[k]} calls equal bit for bit"
+            for k in sorted(self.calls)) + f" (transitions: {seen})"
 
 
 class RoundLaneAudit:
@@ -1635,6 +1969,7 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every",
     into the yielded dict just after."""
     from mythril_tpu_torch.ops import dense_prop
     from mythril_tpu_torch.ops import dense_sweep as ds
+    from mythril_tpu_torch.ops import dpll_step as DSTEP
     from mythril_tpu_torch.ops import frontier_kernels as FK
     from mythril_tpu_torch.ops import keccak as KC
     from mythril_tpu_torch.ops import lockstep as LS
@@ -1643,6 +1978,8 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every",
 
     sweep = SweepAudit(dense_prop.dense_sweep)
     dense_prop.dense_sweep = sweep
+    dpll = StepAudit(dense_prop.dpll_step)
+    dense_prop.dpll_step = dpll
     lanes = RoundLaneAudit(RL.round_lane, round_lane)
     RL.round_lane = lanes
     word = WordAudit(WF.word_fixpoint, word)
@@ -1651,12 +1988,13 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every",
     LS.run_kernel = steps
     hashes = KeccakAudit(KC.keccak256_batch, keccak)
     KC.keccak256_batch = hashes
-    out = {"sweep": sweep, "round_lane": lanes, "word": word,
+    out = {"sweep": sweep, "step": dpll, "round_lane": lanes, "word": word,
            "lockstep": steps, "keccak": hashes}
     try:
         with FrontierAudit() as frontier:
             out["frontier"] = frontier
             ds.reset_launch_count()
+            DSTEP.reset_launch_count()
             FK.reset_launch_counts()
             RL.reset_launch_count()
             WF.reset_launch_count()
@@ -1664,6 +2002,7 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every",
             KC.reset_launch_count()
             yield out
             out["launches"] = {"dense_sweep": ds.launch_count,
+                               "dpll_step": DSTEP.launch_count,
                                **FK.launch_counts,
                                "round_lane": RL.launch_count,
                                "word_prop": WF.launch_count,
@@ -1671,11 +2010,13 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every",
                                "keccak": KC.launch_count}
     finally:
         dense_prop.dense_sweep = sweep.sweep
+        dense_prop.dpll_step = dpll.step
         RL.round_lane = lanes.real
         WF.word_fixpoint = word.real
         LS.run_kernel = steps.real
         KC.keccak256_batch = hashes.real
-    out["seconds"] = (sweep.seconds + frontier.seconds + lanes.seconds
+    out["seconds"] = (sweep.seconds + dpll.seconds + frontier.seconds
+                      + lanes.seconds
                       + word.seconds + steps.seconds + hashes.seconds)
 
 
@@ -1750,6 +2091,7 @@ def main_path_phase(name, build, expect, knobs):
         f"(with the audit)")
     log(f"main path {name} [{expect}] kernels vs plain: "
         f"{audit['sweep'].summary() or 'no sweep'}; "
+        f"{audit['step'].summary() or 'no dpll_step'}; "
         f"{audit['frontier'].summary() or 'no frontier kernel'}; "
         f"{audit['round_lane'].summary() or 'no round lane'}; "
         f"{audit['word'].summary() or 'no word fixpoint'}")
@@ -1763,6 +2105,10 @@ def main_path_phase(name, build, expect, knobs):
     if expect == "dense":
         check(audit["sweep"].checked and launches["dense_sweep"] > 0,
               f"{name}: no main-path sweep reached the kernel")
+        check(audit["step"].checked
+              and launches["dpll_step"] >= stats.device_sweeps > 0,
+              f"{name}: {launches['dpll_step']} dpll_step launches for "
+              f"{stats.device_sweeps} sweeps")
     elif expect == "round lanes":
         audit_lanes = audit["round_lane"]
         check(launches["round_lane"] > 0
@@ -2534,7 +2880,8 @@ def analyze_audited(run, card, label="", force=True):
         f"{solver.cone_s:.3f} s, native CDCL {solver.native_s:.3f} s over "
         f"{solver.native_calls} calls")
     log(f"analyze {run.name}{label} kernels vs plain: "
-        f"{audit['sweep'].summary() or 'no sweep'}; hot-prefix sweeps "
+        f"{audit['sweep'].summary() or 'no sweep'}; "
+        f"{audit['step'].summary() or 'no dpll_step'}; hot-prefix sweeps "
         f"{audit['sweep'].hot_prefix_calls()}; "
         f"{audit['frontier'].summary() or 'no frontier kernel'}; "
         f"{audit['round_lane'].summary() or 'no round lane'}; "
@@ -2641,7 +2988,8 @@ def analyze_phase(card):
     with env(MYTHRIL_TPU_RESIDENT_KERNEL="0"):
         launches, stats = analyze_audited(
             YARDSTICK_RUN, card, " MYTHRIL_TPU_RESIDENT_KERNEL=0")
-    check(stats["resident"] == 0 and launches["dense_sweep"] > 0,
+    check(stats["resident"] == 0 and launches["dense_sweep"] > 0
+          and launches["dpll_step"] > 0,
           "the RESIDENT_KERNEL=0 yardstick did not run the dense tier")
     return total, launches, hashed
 
@@ -2689,6 +3037,8 @@ def _main(torch, frontiers, default_device, edge_pool,
 
     sweep_entry = kernel_phase()
     phase_done("sweep kernel")
+    step_entry = dpll_step_phase()
+    phase_done("dpll step")
     frontier_entries = frontier_kernel_phase()
     phase_done("frontier kernels")
     lane_step_phase()
@@ -2733,9 +3083,8 @@ def _main(torch, frontiers, default_device, edge_pool,
     log(f"launches in the default configuration (the kernels line): "
         f"{totals}; in the MYTHRIL_TPU_RESIDENT_KERNEL=0 runs (not in it): "
         f"{kill_switch}")
-    entries = [sweep_entry] + frontier_entries + [round_entry, word_entry,
-                                                   lockstep_entry,
-                                                   keccak_entry]
+    entries = [sweep_entry, step_entry] + frontier_entries + [
+        round_entry, word_entry, lockstep_entry, keccak_entry]
     for entry in entries:
         entry["launches"] = totals.get(entry["name"], 0)
         check(entry["launches"] > 0, f"{entry['name']} never launched")

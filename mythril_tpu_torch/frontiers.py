@@ -226,6 +226,147 @@ def learning_problem(C: int, V1: int, B: int, E: int, seed: int = 1,
     return rows, assign, extra
 
 
+#: the lane kinds of :func:`dpll_step_problem`, one lane each in turn
+DPLL_STEP_KINDS = ("retired", "backtrack", "bulk backtrack", "unsat",
+                   "tainted", "force", "contradiction", "single", "bulk",
+                   "warm", "dontcare", "bail", "hot", "sat", "random")
+
+
+def dpll_step_problem(B: int, V: int, D: int, decisions: bool = True,
+                      seed: int = 0):
+    """Seeded inputs of one step of the dense tier's DPLL (the state
+    before the step and the sweep's outputs), for holding the step
+    kernel against its plain version where every transition shows.
+
+    Lane ``b`` is of kind ``DPLL_STEP_KINDS[(b + seed) % 15]``: a retired
+    lane (status 1-3, dirty sweep rows); a conflict under an unflipped
+    decision (``backtrack``), with that level bulk (``bulk backtrack``:
+    it taints); a conflict at depth 0 (``unsat``) or with every level
+    flipped on a tainted lane (``tainted``); forced literals; a column
+    forced both ways (``contradiction``); a quiet lane inside the
+    single-var window (``single``), past it (``bulk``, scores of 0-1 so
+    the top 16 tie), with a warm-start plane (``warm``) or with free
+    columns of no open clause (``dontcare``); a quiet lane at depth ``D``
+    (``bail``); a quiet lane whose sweep saw no open clause (``hot``); a
+    fully assigned quiet lane (``sat``); and random state.  Depths are
+    capped by ``D``; ``decisions`` False gives no scores.
+
+    Returns ``(state, outs)``: numpy arrays in ``DPLL_STATE_FIELDS``
+    order and ``(fpos, fneg, conf[, spos, sneg])``."""
+    import numpy as np
+
+    from mythril_tpu_torch.ops.dpll_step import DPLL_SINGLE_WINDOW
+
+    rng = np.random.default_rng(seed)
+    f32, i32 = np.float32, np.int32
+    A = rng.choice([-1.0, 1.0], size=(B, V)).astype(f32)
+    A[:, 0] = 0.0
+    A[:, 1] = 1.0
+    lvl = np.zeros((B, V), i32)
+    dvar = np.zeros((B, D), i32)
+    dphase, dflip, dbulk = (np.zeros((B, D), f32) for _ in range(3))
+    depth, status = np.zeros((B, 1), i32), np.zeros((B, 1), i32)
+    taint = np.zeros((B, 1), f32)
+    active = rng.integers(0, 50, size=(B, 1)).astype(i32)
+    pref = np.zeros((B, V), f32)
+    fpos, fneg, spos, sneg = (np.zeros((B, V), f32) for _ in range(4))
+    conf = np.zeros((B, 1), f32)
+    cols = np.arange(2, V)
+    n_free = max(24, V // 8)
+
+    def stack(b, d, flipped=0.5, bulk=0.0):
+        d = int(min(d, D))
+        depth[b] = d
+        dvar[b, :d] = rng.integers(2, V, size=d)
+        dphase[b, :d] = rng.choice([-1.0, 1.0], size=d)
+        dflip[b, :d] = rng.random(d) < flipped
+        dbulk[b, :d] = rng.random(d) < bulk
+        lvl[b] = rng.integers(0, d + 1, size=V)
+        return d
+
+    def free(b, n=n_free):
+        picked = rng.choice(cols, size=min(n, cols.size), replace=False)
+        A[b, picked] = 0.0
+        return picked
+
+    def scores(b, high=3):
+        if decisions:
+            spos[b] = rng.integers(0, high, size=V)
+            sneg[b] = rng.integers(0, high, size=V)
+
+    quiet_depth = min(DPLL_SINGLE_WINDOW, D) - 1 if D > 1 else 0
+    for b in range(B):
+        kind = DPLL_STEP_KINDS[(b + seed) % len(DPLL_STEP_KINDS)]
+        if kind == "retired":
+            status[b] = rng.integers(1, 4)
+            stack(b, rng.integers(0, 6))
+            picked = free(b)
+            fpos[b, picked[:3]] = 1.0
+            conf[b] = rng.integers(0, 2)
+            scores(b)
+        elif kind in ("backtrack", "bulk backtrack"):
+            d = stack(b, rng.integers(2, 12), flipped=0.0)
+            u = int(rng.integers(0, d))     # the deepest unflipped slot
+            dflip[b, u + 1:d] = 1.0
+            dbulk[b, u] = kind == "bulk backtrack"
+            conf[b] = 1.0
+            free(b)
+            scores(b)
+        elif kind in ("unsat", "tainted"):
+            stack(b, 0 if kind == "unsat" else rng.integers(1, 6),
+                  flipped=1.0)
+            taint[b] = kind == "tainted"
+            conf[b] = 1.0
+            free(b)
+            scores(b)
+        elif kind in ("force", "contradiction"):
+            stack(b, rng.integers(0, 6))
+            picked = free(b)
+            fpos[b, picked[:4]] = 1.0
+            fneg[b, picked[4:8]] = 2.0
+            if kind == "contradiction":
+                fneg[b, picked[0]] = 1.0
+            fpos[b, np.nonzero(A[b] != 0.0)[0][:5]] = 1.0  # not free
+            scores(b)
+        elif kind in ("single", "warm", "dontcare"):
+            stack(b, rng.integers(0, quiet_depth + 1))
+            picked = free(b)
+            scores(b)
+            if kind == "warm":
+                pref[b] = rng.choice([-1.0, 1.0], size=V)
+            if kind == "dontcare" and decisions:
+                spos[b, picked[::2]] = 0.0
+                sneg[b, picked[::2]] = 0.0
+        elif kind == "bulk":
+            low = min(DPLL_SINGLE_WINDOW, D - 1)
+            stack(b, rng.integers(low, max(low, min(D - 1, 40)) + 1))
+            free(b, max(n_free, 40))
+            scores(b, high=2)
+        elif kind == "bail":
+            stack(b, D)
+            free(b)
+            scores(b)
+        elif kind == "hot":
+            stack(b, rng.integers(0, quiet_depth + 1))
+            free(b)
+        elif kind == "sat":
+            stack(b, rng.integers(0, 6))
+            scores(b)
+        else:
+            stack(b, rng.integers(0, D + 1), bulk=0.3)
+            picked = free(b)
+            fpos[b, rng.choice(picked, 2)] = rng.integers(0, 2, size=2)
+            fneg[b, rng.choice(picked, 2)] = rng.integers(0, 2, size=2)
+            conf[b] = rng.integers(0, 2)
+            taint[b] = rng.integers(0, 2)
+            pref[b] = rng.choice([-1.0, 0.0, 1.0], size=V)
+            scores(b)
+    state = [A, lvl, dvar, dphase, dflip, dbulk, depth, status, taint,
+             active, pref]
+    outs = [fpos, fneg, conf] + ([spos, sneg] if decisions else [])
+    return state, outs
+
+
 def _word_dag(T, seed, widths, n_vars=2, n_nodes=30, n_cons=12):
     """Seeded random term DAG over every op of the word tier's fragment;
     returns its constraint nodes."""

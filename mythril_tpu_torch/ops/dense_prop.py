@@ -18,11 +18,12 @@ Clause evaluation is reformulated over dense *clause-incidence planes*:
 Around one sweep per step runs a batched DPLL search: per-lane trail
 levels and an explicit decision stack, dynamic DLIS decisions (with
 bulk top-K levels past a single-var window and the don't-care cascade),
-chronological backtracking, and tiered hot/cold sweeping.  The control
-loop is eager torch; it reads the "any lane live" flag back to the host
-only every :data:`SYNC_EVERY` steps (extra steps on a batch with no live
-lane are no-ops, and ``steps_used`` counts exactly the steps the JAX
-``while_loop`` runs).
+chronological backtracking, and tiered hot/cold sweeping.  Each step is
+the sweep and one DPLL step (``ops/dpll_step.py``: on the card the
+hand-written kernel ``csrc/dpll_step.cu``, two launches a step); the
+host reads the step's 4-byte live marker only every :data:`SYNC_EVERY`
+steps (extra steps on a batch with no live lane are no-ops, and
+``steps_used`` counts exactly the steps the JAX ``while_loop`` runs).
 
 Soundness contract (unchanged from the JAX package): UNSAT only from a
 BCP conflict with zero decisions or an exhausted untainted search, both
@@ -51,6 +52,7 @@ from torch.profiler import record_function
 
 from mythril_tpu_torch.ops import default_device
 from mythril_tpu_torch.ops.dense_sweep import dense_sweep
+from mythril_tpu_torch.ops.dpll_step import dpll_step
 from mythril_tpu_torch.support.env import env_flag, env_int
 
 log = logging.getLogger(__name__)
@@ -97,18 +99,12 @@ CUDA_TIER = Tier("cuda", 1 << 14, 1 << 17, 1 << 28, 1 << 22, 4096, 8192,
 
 MAX_LANES = 64               # per-chunk lane cap
 MAX_DECISIONS = 1024
-# chunked decisions: after DPLL_SINGLE_WINDOW single-var levels, each
-# level assigns the top-K scoring free vars at once (a conflict that
-# backtracks into a bulk level taints the lane: its exhaustion is no
-# longer a refutation)
-DPLL_SINGLE_WINDOW = 8
-DPLL_BULK_K = 16
 # tiered cone sweeping: the hot tier is swept every step, the cold
 # remainder joins every TIER_PERIOD-th sweep (the verdict-bearing
 # transitions are gated on full sweeps)
 TIER_PERIOD = 8
 HOT_WIDTH = 3  # clauses at most this wide are always hot (unit fuel)
-#: the eager loop reads the live flag back every SYNC_EVERY steps
+#: the round loop reads the live marker back every SYNC_EVERY steps
 SYNC_EVERY = 16
 
 
@@ -379,25 +375,33 @@ def _dpll_state0(A0: np.ndarray, D: int, n_real: int, device,
     return [torch.from_numpy(a).to(device) for a in state]
 
 
-def _top_k(score: torch.Tensor, k: int):
-    """``lax.top_k`` semantics: the k largest per row, ties in ascending
-    index order (a stable descending sort; ``torch.topk`` promises no tie
-    order on the card)."""
-    vals, idxs = torch.sort(score, dim=1, descending=True, stable=True)
-    return vals[:, :k], idxs[:, :k]
+def _sweep_workspace(B: int, V: int, scores: bool, device) -> tuple:
+    """Zeroed sweep outputs (fpos, fneg, conf[, spos, sneg]) for a round,
+    views of one allocation: the sweep adds into them and the DPLL step
+    zeroes them again after reading them."""
+    planes = 4 if scores else 2
+    flat = torch.zeros(planes * B * V + B, dtype=torch.float32,
+                       device=device)
+    views = [flat[i * B * V:(i + 1) * B * V].view(B, V)
+             for i in range(planes)]
+    conf = flat[planes * B * V:].view(B, 1)
+    return (views[0], views[1], conf, *views[2:])
 
 
 def _dpll_round_loop(sweep, B, V, budget, max_decisions, sweep_hot=None,
-                     tier_period=1):
+                     tier_period=1, workspace=False):
     """Resumable DPLL control loop around a sweep callable
-    (``mythril_tpu/ops/pallas_prop.py:_dpll_round_loop`` in eager
-    torch).
+    (``mythril_tpu/ops/pallas_prop.py:_dpll_round_loop``): each step is
+    the sweep and one :func:`~mythril_tpu_torch.ops.dpll_step.dpll_step`.
 
-    ``sweep(P, N, width, A)`` returns (fpos, fneg, conf[, spos, sneg]).
-    Returns ``rounds(P, N, width, *state) -> (*state', steps_used)``
-    over the DPLL_STATE_FIELDS tuple.  Status is RAW: 0 live, 1 SAT
-    candidate, 2 sound UNSAT, 3 retired-undecided (budget/taint bail);
-    ``active`` counts per-lane live sweeps.
+    ``sweep(P, N, width, A, out)`` returns (fpos, fneg, conf[, spos,
+    sneg]); with ``workspace`` the round allocates ``out`` once (zeroed)
+    and the step zeroes it again after each read, else ``out`` is None
+    and the sweep returns fresh tensors.  Returns
+    ``rounds(P, N, width, *state) -> (*state', steps_used)`` over the
+    DPLL_STATE_FIELDS tuple; the state is updated in place.  Status is
+    RAW: 0 live, 1 SAT candidate, 2 sound UNSAT, 3 retired-undecided
+    (budget/taint bail); ``active`` counts per-lane live sweeps.
 
     ``sweep_hot`` (with ``tier_period > 1``) scans only the hot clause
     prefix on steps where ``step % tier_period != 0``; SAT completion,
@@ -406,143 +410,89 @@ def _dpll_round_loop(sweep, B, V, budget, max_decisions, sweep_hot=None,
     is made on the host (no device branch).
     """
     decisions_on = max_decisions > 0
-    D = max(1, min(max_decisions, V))
     tiered = sweep_hot is not None and tier_period > 1
 
-    def rounds(P, N, width, A, lvl, dvar, dphase, dflip, dbulk, depth,
-               status, taint, sweeps, pref):
-        dev = A.device
-        col = torch.arange(V, dtype=torch.int32, device=dev)[None, :]
-        dcol = torch.arange(D, dtype=torch.int32, device=dev)[None, :]
-        krow = torch.arange(DPLL_BULK_K, device=dev)[None, :]
-        steps_used = torch.zeros((), dtype=torch.int32, device=dev)
-        step = 0
-        while step < budget:
+    def rounds(P, N, width, *state):
+        state = list(state)
+        A, status = state[0], state[_STATUS_IDX]
+        out = (_sweep_workspace(B, V, decisions_on, A.device)
+               if workspace else None)
+        # flags[0]: last step + 1 after which a lane was live; flags[1]:
+        # steps in which a lane was live (the JAX loop's count)
+        flags = torch.zeros(2, dtype=torch.int32, device=A.device)
+        for step in range(budget):
             # the JAX loop tests any(status == 0) before every step; a
             # step on a batch with no live lane changes nothing, so the
-            # flag is read back only every SYNC_EVERY steps and
-            # steps_used counts the live ones
-            if step % SYNC_EVERY == 0 and not bool((status == 0).any()):
+            # marker is read back only every SYNC_EVERY steps
+            if step % SYNC_EVERY == 0 and not (
+                bool((status == 0).any()) if step == 0
+                else int(flags[0]) >= step
+            ):
                 break
             full_view = (not tiered) or step % tier_period == 0
-            outs = (sweep if full_view else sweep_hot)(P, N, width, A)
-            if decisions_on:
-                fpos, fneg, conf, spos, sneg = outs
-            else:
-                fpos, fneg, conf = outs
-            active = status == 0                           # [B,1]
-            steps_used += active.any().to(torch.int32)
-            free = (A == 0.0) & (col > 1)  # col 1 = constant-TRUE anchor
-            force_pos = (fpos > 0.5) & free
-            force_neg = (fneg > 0.5) & free
-            contra = (force_pos & force_neg).any(dim=1, keepdim=True)
-            conflict = (conf > 0.5) | contra
-            has_force = (force_pos | force_neg).any(dim=1, keepdim=True)
-            open_any = free.any(dim=1, keepdim=True)
-
-            # --- conflict: backtrack to the deepest unflipped decision
-            held = dcol < depth
-            unflipped = held & (dflip < 0.5)
-            Lm = torch.where(unflipped, dcol + 1, 0).amax(
-                dim=1, keepdim=True
-            )                                              # 0 = none
-            unsat_now = active & conflict & (Lm == 0)
-            do_bt = active & conflict & (Lm > 0)
-            bslot = (Lm - 1).clamp(min=0).long()
-            bvar = dvar.gather(1, bslot)
-            bphase = -dphase.gather(1, bslot)
-            A1 = torch.where(do_bt & (A != 0.0) & (lvl >= Lm), 0.0, A)
-            at_bvar = do_bt & (col == bvar)
-            A1 = torch.where(at_bvar, bphase, A1)
-            lvl1 = torch.where(at_bvar, Lm, lvl)
-            popped = do_bt & (dcol >= Lm)
-            at_b = do_bt & (dcol == bslot)
-            bulk_popped = (popped & (dbulk > 0.5)).any(
-                dim=1, keepdim=True
-            ) | (dbulk.gather(1, bslot) > 0.5)
-            taint1 = torch.where(do_bt & bulk_popped, 1.0, taint)
-            dvar1 = torch.where(popped, 0, dvar)
-            dphase1 = torch.where(
-                popped, 0.0, torch.where(at_b, bphase, dphase)
-            )
-            dflip1 = torch.where(popped, 0.0, torch.where(at_b, 1.0, dflip))
-            dbulk1 = torch.where(popped | at_b, 0.0, dbulk)
-            depth1 = torch.where(do_bt, Lm, depth)
-
-            # --- no conflict, forced literals: assign at this level
-            do_force = active & ~conflict & has_force
-            forced = force_pos | force_neg
-            assigned_now = do_force & forced & ~(force_pos & force_neg)
-            delta = torch.where(force_pos, 1.0, -1.0)
-            A2 = torch.where(assigned_now, delta, A1)
-            lvl2 = torch.where(assigned_now, depth, lvl1)
-
-            # --- decide at BCP quiescence (dynamic DLIS var + polarity)
-            want = active & ~conflict & open_any & ~has_force
-            if decisions_on and tiered and not full_view:
-                # hot-quiescence gate: no open HOT clause to score means
-                # waiting for the full-cone sweep
-                want = want & (spos + sneg > 0.5).any(dim=1, keepdim=True)
-            if decisions_on:
-                can = depth < D
-                in_bulk = (depth >= DPLL_SINGLE_WINDOW) & full_view
-                do_dec = want & can
-                bail = want & ~can
-                score = torch.where(free & ~forced, spos + sneg + 1.0, -1.0)
-                vals, idxs = _top_k(score, DPLL_BULK_K)     # [B,K]
-                keep = (vals > 0.0) & ((krow == 0) | in_bulk)
-                do_dec = do_dec & keep.any(dim=1, keepdim=True)
-                # top-k indices are distinct per row, so the scatter
-                # equals the JAX any-over-K membership test
-                chosen = torch.zeros_like(free).scatter_(1, idxs, keep)
-                ph_full = torch.where(
-                    pref != 0.0, pref, torch.where(spos >= sneg, 1.0, -1.0)
-                )
-                primary = idxs[:, :1]
-                phase = ph_full.gather(1, primary)
-                real_keep = keep & (vals > 1.5)
-                is_bulk = (
-                    real_keep.to(torch.int32).sum(dim=1, keepdim=True) > 1
-                ).to(torch.float32)
-                ndepth = depth + 1
-                # don't-care cascade (full-view sweeps only)
-                dontcare = free & ~forced & (spos + sneg < 0.5) & full_view
-                newly = do_dec & (dontcare | chosen)
-                A3 = torch.where(
-                    newly, torch.where(chosen, ph_full, 1.0), A2
-                )
-                lvl3 = torch.where(newly, ndepth, lvl2)
-                at_new = do_dec & (dcol == depth)
-                dvar2 = torch.where(at_new, primary.to(torch.int32), dvar1)
-                dphase2 = torch.where(at_new, phase, dphase1)
-                dflip2 = torch.where(at_new, 0.0, dflip1)
-                dbulk2 = torch.where(at_new, is_bulk, dbulk1)
-                depth2 = torch.where(do_dec, ndepth, depth1)
-            else:
-                bail = want
-                A3, lvl3 = A2, lvl2
-                dvar2, dphase2, dflip2, depth2 = dvar1, dphase1, dflip1, depth1
-                dbulk2 = dbulk1
-
-            # --- quiet and complete on a full view: SAT candidate
-            done_sat = active & ~conflict & ~has_force & ~open_any \
-                & full_view
-            # tainted exhaustion is NOT a refutation — report undecided
-            status1 = torch.where(
-                unsat_now, 2 + (taint1 > 0.5).to(torch.int32), status
-            )
-            status1 = torch.where(done_sat, 1, status1)
-            status1 = torch.where(bail, 3, status1)  # 3 = budget-bailed
-            sweeps = sweeps + active.to(torch.int32)
-            A, lvl, dvar, dphase, dflip, dbulk, depth = (
-                A3, lvl3, dvar2, dphase2, dflip2, dbulk2, depth2
-            )
-            status, taint = status1, taint1
-            step += 1
-        return (A, lvl, dvar, dphase, dflip, dbulk, depth, status, taint,
-                sweeps, pref, int(steps_used))
+            outs = (sweep if full_view else sweep_hot)(P, N, width, A, out)
+            dpll_step(state, outs, flags, step, full_view,
+                      decisions_on and not full_view, out is not None)
+        return (*state, int(flags[1]))
 
     return rounds
+
+
+def _dpll_solve_loop(sweep, B, V, steps, max_decisions, workspace=False):
+    """One-shot wrapper over :func:`_dpll_round_loop`
+    (``pallas_prop.py:_dpll_solve_loop``): zero state in, mapped status
+    out (3 = bailed becomes 0 = undecided).  Returns
+    ``solve(P, N, width, A0) -> (A, status, steps_used)``; ``A0`` is not
+    written."""
+    rounds = _dpll_round_loop(sweep, B, V, steps, max_decisions,
+                              workspace=workspace)
+    D = max(1, min(max_decisions, V))
+
+    def solve(P, N, width, A0):
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=A0.device)
+
+        i32, f32 = torch.int32, torch.float32
+        out = rounds(
+            P, N, width, A0.clone(), z((B, V), i32), z((B, D), i32),
+            z((B, D), f32), z((B, D), f32), z((B, D), f32),
+            z((B, 1), i32), z((B, 1), i32), z((B, 1), f32),
+            z((B, 1), i32),
+            z((B, V), f32),  # no warm-start preference
+        )
+        A, status, steps_used = out[0], out[_STATUS_IDX], out[-1]
+        status = torch.where(status == 3, 0, status)  # bailed = undecided
+        return A, status, steps_used
+
+    return solve
+
+
+def make_dense_solve(C: int, V: int, B: int, steps: int,
+                     max_decisions: int = MAX_DECISIONS):
+    """One-shot DPLL over a shared pool (``pallas_prop.py:
+    make_dense_solve``): fn(P[C,V] bf16, N[C,V] bf16, width[1,C] f32,
+    A0[B,V] f32) -> (A[B,V] f32, status[B,1] i32, steps_used int) with
+    status 2 = UNSAT, 1 = complete assignment for the device clause set
+    (the host verifies it), 0 = undecided.  Its sweeps and steps are the
+    kernels of the round loop on the card.  ``max_decisions=0`` runs
+    BCP only."""
+    scores = max_decisions > 0
+
+    def sweep(P, N, width, A, out):
+        return dense_sweep(P, N, width, A, scores, out=out)
+
+    return _dpll_solve_loop(sweep, B, V, steps, max_decisions,
+                            workspace=True)
+
+
+def make_batched_solve(C: int, V: int, B: int, steps: int,
+                       max_decisions: int = MAX_DECISIONS):
+    """One-shot DPLL over per-lane planes (``pallas_prop.py:
+    make_batched_solve``): fn(P[B,C,V] f32, N[B,C,V] f32, width[B,C]
+    f32, A0[B,V] f32) -> (A, status, steps_used) as
+    :func:`make_dense_solve`."""
+    sweep = _make_batched_sweep(max_decisions > 0)
+    return _dpll_solve_loop(sweep, B, V, steps, max_decisions)
 
 
 def make_dense_rounds(
@@ -560,16 +510,17 @@ def make_dense_rounds(
     TC = _tile_c(C, V, tier)
     scores = max_decisions > 0
 
-    def sweep(P, N, width, A):
-        return dense_sweep(P, N, width, A, scores)
+    def sweep(P, N, width, A, out):
+        return dense_sweep(P, N, width, A, scores, out=out)
 
     sweep_hot = None
     if hot_c and tier_period > 1 and TC <= hot_c < C:
-        def sweep_hot(P, N, width, A):  # noqa: F811 — tier closure
-            return dense_sweep(P, N, width, A, scores, rows=hot_c)
+        def sweep_hot(P, N, width, A, out):  # noqa: F811 — tier closure
+            return dense_sweep(P, N, width, A, scores, rows=hot_c, out=out)
 
     return _dpll_round_loop(
-        sweep, B, V, budget, max_decisions, sweep_hot, tier_period
+        sweep, B, V, budget, max_decisions, sweep_hot, tier_period,
+        workspace=True,
     )
 
 
@@ -586,7 +537,7 @@ def make_batched_rounds(
     if hot_c and tier_period > 1 and hot_c < C:
         base = sweep
 
-        def sweep_hot(P, N, width, A):  # noqa: F811 — tier closure
+        def sweep_hot(P, N, width, A, out=None):  # noqa: F811
             return base(P[:, :hot_c], N[:, :hot_c], width[:, :hot_c], A)
 
     return _dpll_round_loop(
@@ -597,9 +548,10 @@ def make_batched_rounds(
 def _make_batched_sweep(decisions_on: bool):
     """One batched clause scan over per-lane float32 planes
     ``P/N [B, C, V]`` (``torch.bmm``, TF32 off: 0/1 products and integer
-    sums are exact, like the JAX bf16-in/f32-out dots)."""
+    sums are exact, like the JAX bf16-in/f32-out dots).  The sweep takes
+    no workspace (``out`` is always None): its results are fresh."""
 
-    def sweep(P, N, width, A):
+    def sweep(P, N, width, A, out=None):
         pos = A.clamp(min=0.0)[:, None, :]               # [B,1,V]
         neg = (-A).clamp(min=0.0)[:, None, :]
         Pt, Nt = P.transpose(1, 2), N.transpose(1, 2)    # [B,V,C]

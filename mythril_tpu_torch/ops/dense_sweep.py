@@ -166,13 +166,25 @@ def sweep_plain(P, N, width, A, scores: bool, rows: Optional[int] = None):
     return fpos, fneg, conf
 
 
-def dense_sweep(P, N, width, A, scores: bool, rows: Optional[int] = None):
+def dense_sweep(P, N, width, A, scores: bool, rows: Optional[int] = None,
+                out=None):
     """One clause sweep: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (same signature and results as
-    :func:`sweep_plain`)."""
+    :func:`sweep_plain`).
+
+    ``out`` (fpos, fneg, conf[, spos, sneg]), zeroed, receives the
+    results in place of fresh tensors and is returned: the round loop's
+    sweep workspace, which the DPLL step zeroes again after reading it
+    (``ops/dpll_step.py``).  The sweep adds its counts into it (on the
+    CPU too), so a workspace left dirty shows in the results."""
     if P.device.type == "cpu":
-        return sweep_plain(P, N, width, A, scores, rows)
-    return _launch(P, N, width, A, scores, rows)
+        got = sweep_plain(P, N, width, A, scores, rows)
+        if out is None:
+            return got
+        for dst, src in zip(out, got):
+            dst.add_(src)
+        return tuple(out)
+    return _launch(P, N, width, A, scores, rows, out)
 
 
 def _check_widths(width) -> None:
@@ -190,7 +202,19 @@ def _check_widths(width) -> None:
     _width_ok = (weakref.ref(width), width._version)
 
 
-def _launch(P, N, width, A, scores, rows):
+def _check_out(out, scores, B, V, device) -> None:
+    """Refuse a workspace the kernel cannot write into."""
+    shapes = [(B, V), (B, V), (B, 1)] + ([(B, V), (B, V)] if scores else [])
+    if len(out) != len(shapes) or any(
+        t.dtype != torch.float32 or tuple(t.shape) != shape
+        or t.device != device or not t.is_contiguous()
+        for t, shape in zip(out, shapes)
+    ):
+        raise ValueError("dense_sweep: the output workspace takes "
+                         "contiguous f32 (fpos, fneg, conf[, spos, sneg])")
+
+
+def _launch(P, N, width, A, scores, rows, out=None):
     global launch_count
     tensors = (P, N, width, A)
     if any(not t.is_cuda for t in tensors):
@@ -217,11 +241,16 @@ def _launch(P, N, width, A, scores, rows):
     if not 1 <= B <= lib.dense_sweep_max_lanes():
         raise ValueError(f"dense_sweep: {B} lanes, kernel takes at most "
                          f"{lib.dense_sweep_max_lanes()}")
-    out = [torch.zeros((B, V), dtype=torch.float32, device=P.device)
-           for _ in range(4 if scores else 2)]
-    conf = torch.zeros((B, 1), dtype=torch.float32, device=P.device)
-    fpos, fneg = out[0], out[1]
-    spos, sneg = (out[2], out[3]) if scores else (None, None)
+    if out is None:
+        planes = [torch.zeros((B, V), dtype=torch.float32, device=P.device)
+                  for _ in range(4 if scores else 2)]
+        conf = torch.zeros((B, 1), dtype=torch.float32, device=P.device)
+    else:
+        _check_out(out, scores, B, V, P.device)
+        planes = [out[0], out[1], *out[3:]]
+        conf = out[2]
+    fpos, fneg = planes[0], planes[1]
+    spos, sneg = (planes[2], planes[3]) if scores else (None, None)
     if rows == 0:   # nothing to scan: no launch, nothing counted
         return (fpos, fneg, conf, spos, sneg) if scores else (fpos, fneg, conf)
     err = lib.dense_sweep_launch(
