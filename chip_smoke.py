@@ -58,15 +58,16 @@ failure):
    flags bit for bit, on ``frontiers.dpll_step_problem``'s seeded states
    at the check's shape (B = 64, V = 4096, D = 1024), at V = 16384
    BCP-only, at V = 8192, at B = 1 and 7, and at B = 7, V = 16384 with
-   decisions (a 64 KiB score row: the opt-in launch), on a full view, a
-   hot view and a gated hot view, until every transition of
-   ``STEP_EVENTS`` showed (the phase fails if one is missing); whole
-   rounds of ``make_dense_rounds`` (64 steps) on a planted CNF at
-   C = 16384, V = 4096, B = 64, tiered and not, against the same round
-   with the plain step on the card; the profiler's count of one round's device
-   operations (two a step, plus the round's set-up and its live-marker
-   reads); device ms (profiler), plain ms (CUDA events) and the bound at
-   the check's shape;
+   decisions, on a full view, a hot view and a gated hot view, until
+   every transition of ``STEP_EVENTS`` showed (the phase fails if one
+   is missing), with each shape's blocks a lane (the cluster size)
+   printed; whole rounds of ``make_dense_rounds`` (64 steps) on a
+   planted CNF at C = 16384, V = 4096, B = 64, tiered and not, against
+   the same round with the plain step on the card; the profiler's count
+   of one round's device operations (two a step, plus the round's
+   set-up and its live-marker reads); device ms (profiler), plain ms
+   (CUDA events) and the bound at the check's shape and at the main
+   path's most launched B = 16, V = 4096, D = 1024;
 5. main path: frontiers through ``ops.batched_sat.batch_check_states``
    on ``cuda``, force-dispatched: the ``scale_mul`` frontier of
    ``bench.py`` (depth 6 / 16-bit guards, past the cone caps: dense
@@ -158,8 +159,12 @@ failure):
    around each bare launch on an idle stream), plain ms, the bound and
    the share;
 11. the launches of the main path's configurations and, apart, of the
-   ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; one JSON line per kernel
-   (launches of the main path), the card line, then the result line.
+   ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; the histogram of the (B, V,
+   D) shapes at which every audited run launched ``dpll_step``; the
+   dense tier's rounds by step budget and their hot-view steps over
+   every main-path and analyze run (each run's are on its own line);
+   one JSON line per kernel (launches of the main path), the card line,
+   then the result line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -463,9 +468,9 @@ def kernel_phase():
 # ---------------------------------------------------------------------------
 
 #: (B, V, D, decisions) of the step phase's seeded states: the check's
-#: shape, the widest BCP-only cone, the widest cone with decisions, narrow
-#: batches, and a score row past 48 KiB of shared memory (the kernel's
-#: opt-in launch, which no tier of the main path reaches)
+#: shape, the widest BCP-only cone (4 blocks a lane at B = 64), the widest
+#: cone with decisions, narrow batches (8 blocks a lane), and B = 7 with
+#: 16,384 columns (past 48 KiB of shared memory for a block-a-lane grid)
 STEP_SHAPES = ((SWEEP_B, SWEEP_V, 1024, True), (SWEEP_B, 16384, 1, False),
                (SWEEP_B, 8192, 1024, True), (1, SWEEP_V, 1024, True),
                (7, SWEEP_V, 1024, True), (7, 16384, 1024, True))
@@ -591,6 +596,39 @@ def round_device_ops(fn, planes, state, tries=10):
                       f"runs")
 
 
+#: the (B, V, D) at which the main path launches dpll_step most (the
+#: histogram at the end of the check; the force-dispatched d4 -t 2 and
+#: the RESIDENT_KERNEL=0 yardstick launch it there)
+MAIN_STEP_SHAPE = (16, 4096, 1024)
+
+
+def step_ms_at(B, V, D):
+    """(device ms, bound ms) of one step on a full view from
+    ``frontiers.dpll_step_problem``'s seeded state 0 at (B, V, D)."""
+    import torch
+
+    from mythril_tpu_torch import frontiers
+    from mythril_tpu_torch.ops import dpll_step as DSTEP
+
+    dev = torch.device(DEVICE)
+    state, outs = frontiers.dpll_step_problem(B, V, D, True, 0)
+    state = [torch.from_numpy(a).to(dev) for a in state]
+    outs = [torch.from_numpy(a).to(dev) for a in outs]
+    flags = torch.tensor([4, 6], dtype=torch.int32, device=dev)
+    work = step_clones(state, outs, flags)
+
+    def launch():
+        for dst, src in zip(work[0] + work[1] + [work[2]],
+                            state + outs + [flags]):
+            dst.copy_(src)
+        DSTEP.dpll_step(*work, 9, True, False, True)
+
+    ms = kernel_device_ms(launch, 20, kernel="dpll_step_kernel")
+    launch()
+    torch.cuda.synchronize()
+    return ms, step_bound(state, outs, work[0], True)[0]
+
+
 def dpll_step_phase():
     """The step kernel against ``dpll_step_plain`` on the card, bit for
     bit: seeded states (``frontiers.dpll_step_problem``) at the
@@ -633,8 +671,11 @@ def dpll_step_phase():
                 if (B, V, D, seed, full_view) == (SWEEP_B, SWEEP_V, 1024, 0,
                                                   True):
                     timed = (state, outs, flags)
+    clusters = {f"B={B} V={V}": DSTEP.cluster_size(B, V)
+                for B, V, _, _ in STEP_SHAPES}
     log(f"dpll_step seeded states: {len(STEP_SHAPES)} shapes x 2 seeds x "
-        f"views, every field equal bit for bit; transitions {seen}")
+        f"views, every field equal bit for bit; blocks a lane {clusters}; "
+        f"transitions {seen}")
     missing = [k for k, n in seen.items() if not n]
     check(not missing, f"dpll_step: no case showed {missing}")
 
@@ -692,6 +733,7 @@ def dpll_step_phase():
         DSTEP.dpll_step(*work, 9, True, False, True)
 
     ms = kernel_device_ms(launch, 20, kernel="dpll_step_kernel")
+    main_ms = step_ms_at(*MAIN_STEP_SHAPE)
     plain_ms = 0.0
     for _ in range(5):
         restore()
@@ -706,9 +748,13 @@ def dpll_step_phase():
     DSTEP.dpll_step(*work, 9, True, False, True)
     bound_ms, bound_by = step_bound(state, outs, work[0], True)
     log(f"dpll_step B={SWEEP_B} V={SWEEP_V} D=1024 full view: kernel "
-        f"{ms:.4f} ms (device), plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
-        f"the bound")
+        f"{ms:.4f} ms (device, {DSTEP.cluster_size(SWEEP_B, SWEEP_V)} "
+        f"blocks a lane), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}), {100 * bound_ms / ms:.1f}% of the bound; at the "
+        f"main path's B, V, D = {MAIN_STEP_SHAPE}: kernel {main_ms[0]:.4f} "
+        f"ms ({DSTEP.cluster_size(*MAIN_STEP_SHAPE[:2])} blocks a lane), "
+        f"bound {main_ms[1]:.6f} ms, {100 * main_ms[1] / main_ms[0]:.1f}% "
+        f"of the bound")
     return {
         "name": "dpll_step", "route": "cuda",
         "source": "mythril_tpu_torch/ops/csrc/dpll_step.cu",
@@ -1958,6 +2004,25 @@ class KeccakAudit:
                 f"bit ({shapes})" if self.calls else "")
 
 
+#: dpll_step launches by (B, V, D) over every audited run of the check
+STEP_SHAPE_LAUNCHES = {}
+#: dense-tier rounds by step budget, and their hot-view steps, over every
+#: main-path and analyze run the check prints
+DENSE_ROUNDS = {"budgets": {}, "hot_view_steps": 0}
+
+
+def dense_rounds(stats):
+    """The run's dense rounds by step budget and hot-view steps, as text,
+    added to :data:`DENSE_ROUNDS`."""
+    budgets = dict(sorted(stats.dense_round_budgets.items()))
+    for budget, n in budgets.items():
+        DENSE_ROUNDS["budgets"][budget] = (
+            DENSE_ROUNDS["budgets"].get(budget, 0) + n)
+    DENSE_ROUNDS["hot_view_steps"] += stats.hot_view_steps
+    return (f"dense rounds by step budget {budgets}, "
+            f"{stats.hot_view_steps} hot-view steps")
+
+
 @contextlib.contextmanager
 def audited_kernels(round_lane="sample", word="first", lockstep="every",
                     keccak="every"):
@@ -2001,6 +2066,9 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every",
             LS.reset_launch_count()
             KC.reset_launch_count()
             yield out
+            for shape, n in DSTEP.launch_shapes.items():
+                STEP_SHAPE_LAUNCHES[shape] = (
+                    STEP_SHAPE_LAUNCHES.get(shape, 0) + n)
             out["launches"] = {"dense_sweep": ds.launch_count,
                                "dpll_step": DSTEP.launch_count,
                                **FK.launch_counts,
@@ -2071,6 +2139,7 @@ def main_path_phase(name, build, expect, knobs):
               if expect == "dense" else "")
     log(f"main path {name} [{expect}]: {len(lanes)} lanes, {layout}"
         f"{stats.rounds} rounds, {stats.device_sweeps} full sweeps, "
+        f"{dense_rounds(stats)}, "
         f"{stats.frontier_steps} gather steps, {stats.resident_dispatches} "
         f"resident solves ({stats.resident_exit_all_decided} all decided, "
         f"{stats.resident_exit_budget} budget, "
@@ -2857,6 +2926,7 @@ def analyze_audited(run, card, label="", force=True):
         f"{stats.unsat + stats.sat_verified} ({stats.unsat} unsat, "
         f"{stats.sat_verified} sat), on the tail {prune_stats.tail_states}, "
         f"{stats.rounds} rounds, {stats.device_sweeps} full sweeps, "
+        f"{dense_rounds(stats)}, "
         f"{stats.frontier_steps} gather steps, {stats.learned_clauses} "
         f"learned clauses, adaptive fuse {'blown' if fused else 'armed'} "
         f"at the end, launches {launches}, device tiers "
@@ -3083,6 +3153,13 @@ def _main(torch, frontiers, default_device, edge_pool,
     log(f"launches in the default configuration (the kernels line): "
         f"{totals}; in the MYTHRIL_TPU_RESIDENT_KERNEL=0 runs (not in it): "
         f"{kill_switch}")
+    log("dpll_step launches by (B, V, D) over every audited run, the most "
+        "first: " + ", ".join(
+            f"{shape}: {n}" for shape, n in sorted(
+                STEP_SHAPE_LAUNCHES.items(), key=lambda item: -item[1])))
+    log(f"dense rounds by step budget over every main-path and analyze "
+        f"run: {dict(sorted(DENSE_ROUNDS['budgets'].items()))}; hot-view "
+        f"steps {DENSE_ROUNDS['hot_view_steps']}")
     entries = [sweep_entry, step_entry] + frontier_entries + [
         round_entry, word_entry, lockstep_entry, keccak_entry]
     for entry in entries:

@@ -139,6 +139,10 @@ class DispatchStats:
         self.delta_uploads = 0
         self.size_bailouts = 0
         self.cone_bailouts = 0
+        # the dense tier's rounds by step budget, and the steps of those
+        # rounds that swept only the hot clause prefix
+        self.dense_round_budgets = {}
+        self.hot_view_steps = 0
         # resident solves, their exits, and the dense dispatches that
         # delegated their frontier to it
         self.resident_dispatches = 0

@@ -407,12 +407,15 @@ def _dpll_round_loop(sweep, B, V, budget, max_decisions, sweep_hot=None,
     prefix on steps where ``step % tier_period != 0``; SAT completion,
     bulk decisions and the don't-care cascade are gated on full sweeps.
     Because the step number is a host integer here, the full/hot choice
-    is made on the host (no device branch).
+    is made on the host (no device branch); ``dispatch_stats`` counts the
+    hot-view steps.
     """
     decisions_on = max_decisions > 0
     tiered = sweep_hot is not None and tier_period > 1
 
     def rounds(P, N, width, *state):
+        from mythril_tpu_torch.ops.batched_sat import dispatch_stats
+
         state = list(state)
         A, status = state[0], state[_STATUS_IDX]
         out = (_sweep_workspace(B, V, decisions_on, A.device)
@@ -430,6 +433,8 @@ def _dpll_round_loop(sweep, B, V, budget, max_decisions, sweep_hot=None,
             ):
                 break
             full_view = (not tiered) or step % tier_period == 0
+            if not full_view:
+                dispatch_stats.hot_view_steps += 1
             outs = (sweep if full_view else sweep_hot)(P, N, width, A, out)
             dpll_step(state, outs, flags, step, full_view,
                       decisions_on and not full_view, out is not None)
@@ -641,6 +646,8 @@ def _run_dense_ladder(
             break
         fn = round_fn(B, budget, hot_c)
         dispatch_stats.device_dispatch_calls += 1
+        dispatch_stats.dense_round_budgets[budget] = (
+            dispatch_stats.dense_round_budgets.get(budget, 0) + 1)
         with record_function("dense.round"):
             out = fn(*planes, *state)
         state, steps_used = list(out[:-1]), out[-1]

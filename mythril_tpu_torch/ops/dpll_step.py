@@ -45,14 +45,17 @@ DPLL_BULK_K = 16
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "ops", "csrc", "dpll_step.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libdpll_step.so")
-#: the kernel keeps a deciding lane's score row in shared memory
-MAX_SCORE_COLS = 32768
+#: the kernel keeps a lane's columns in the registers of a cluster of at
+#: most 8 blocks, 4,096 columns a block
+MAX_COLS = 32768
 #: pointers the C entry point takes, in this order
 _POINTERS = 17
 
 #: kernel launches since the last reset (the wrapper adds one per launch
 #: and nowhere else)
 launch_count = 0
+#: the same launches by (B, V, D)
+launch_shapes: Dict[tuple, int] = {}
 #: (seconds, compiler output) of this process's build, when it built
 build_info: Optional[tuple] = None
 _lib: Optional[ctypes.CDLL] = None
@@ -62,6 +65,7 @@ _lock = threading.Lock()
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
+    launch_shapes.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +284,7 @@ def bind(path: str) -> ctypes.CDLL:
     C++ build)."""
     lib = ctypes.CDLL(path)
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    ints = [c_int] * 8
+    ints = [c_int] * 9
     if hasattr(lib, "dpll_step_launch"):
         lib.dpll_step_launch.argtypes = [ptr, *ints, ptr]
         lib.dpll_step_launch.restype = c_int
@@ -288,11 +292,13 @@ def bind(path: str) -> ctypes.CDLL:
         lib.dpll_step_host.argtypes = [ptr, *ints]
         lib.dpll_step_host.restype = c_int
     for name in ("dpll_step_threads", "dpll_step_bulk_k",
-                 "dpll_step_single_window", "dpll_step_max_score_cols"):
+                 "dpll_step_single_window", "dpll_step_max_cols",
+                 "dpll_step_cluster_size"):
         getattr(lib, name).restype = c_int
+    lib.dpll_step_cluster_size.argtypes = [c_int, c_int]
     if (lib.dpll_step_bulk_k(), lib.dpll_step_single_window(),
-            lib.dpll_step_max_score_cols()) != (
-            DPLL_BULK_K, DPLL_SINGLE_WINDOW, MAX_SCORE_COLS):
+            lib.dpll_step_max_cols()) != (
+            DPLL_BULK_K, DPLL_SINGLE_WINDOW, MAX_COLS):
         raise RuntimeError("dpll_step: the kernel's constants differ from "
                            "the wrapper's")
     return lib
@@ -312,12 +318,19 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
+def cluster_size(B: int, V: int) -> int:
+    """Blocks a lane of the kernel's launch at ``B`` lanes of ``V``
+    columns (the library's rule)."""
+    return load_library().dpll_step_cluster_size(B, V)
+
+
 def step_args(state, outs, flags, step: int, full_view: bool,
-              hot_gate: bool, clear: bool):
+              hot_gate: bool, clear: bool, cluster: int = 0):
     """Check the step's tensors and give the C entry point's arguments
-    after the stream: (pointer array, B, V, D, step, full_view, hot_gate,
-    decisions, clear).  Raises on a dtype, shape, device or contiguity
-    the kernel does not take."""
+    before the stream: (pointer array, B, V, D, step, full_view, hot_gate,
+    decisions, clear, cluster); ``cluster`` 0 takes the library's cluster
+    size.  Raises on a dtype, shape, device or contiguity the kernel does
+    not take."""
     if len(state) != 11 or len(outs) not in (3, 5):
         raise ValueError("dpll_step: 11 state fields and 3 or 5 sweep "
                          "outputs")
@@ -344,10 +357,9 @@ def step_args(state, outs, flags, step: int, full_view: bool,
         if t.device != A.device or not t.is_contiguous():
             raise ValueError("dpll_step: every tensor contiguous, on one "
                              "device")
-    if B < 1 or V < 2 or D < 1 or (decisions and V > MAX_SCORE_COLS):
-        raise ValueError(f"dpll_step: B={B} V={V} D={D} (decisions "
-                         f"{decisions}; at most {MAX_SCORE_COLS} columns "
-                         f"with decisions)")
+    if B < 1 or V < 2 or D < 1 or V > MAX_COLS:
+        raise ValueError(f"dpll_step: B={B} V={V} D={D} (at most "
+                         f"{MAX_COLS} columns)")
     if hot_gate and not decisions:
         raise ValueError("dpll_step: the hot gate needs the sweep's scores")
     ptrs = [t.data_ptr() for t in state] + [t.data_ptr() for t in outs[:3]]
@@ -357,7 +369,7 @@ def step_args(state, outs, flags, step: int, full_view: bool,
     assert len(ptrs) == _POINTERS
     return ((ctypes.c_void_p * _POINTERS)(*ptrs), B, V, D, int(step),
             int(bool(full_view)), int(bool(hot_gate)), int(decisions),
-            int(bool(clear)))
+            int(bool(clear)), int(cluster))
 
 
 def dpll_step(state: Sequence[torch.Tensor], outs, flags, step: int,
@@ -376,3 +388,5 @@ def dpll_step(state: Sequence[torch.Tensor], outs, flags, step: int,
     if err:
         raise RuntimeError(f"dpll_step kernel launch failed: cudaError {err}")
     launch_count += 1
+    shape = tuple(args[1:4])
+    launch_shapes[shape] = launch_shapes.get(shape, 0) + 1

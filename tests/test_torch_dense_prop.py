@@ -214,6 +214,46 @@ def test_backend_matches_pallas_backend(recipe):
     assert False in presults  # vacuity: the device refuted a lane
 
 
+@pytest.mark.parametrize("recipe", sorted(LAYOUTS))
+def test_backend_counts_round_budgets_and_hot_view_steps(recipe,
+                                                         monkeypatch):
+    """``dispatch_stats.dense_round_budgets`` counts the rounds the
+    ladder ran by their step budget, and ``hot_view_steps`` the steps
+    that swept only the hot prefix: each equal to what the round makers
+    and the step saw."""
+    jctx = jax_context()
+    lanes = LAYOUTS[recipe](JS)
+    sets = [list(dict.fromkeys(jctx.blast_lit(c.raw) for c in lane))
+            for lane in lanes]
+    lits, indptr = jctx.pool.csr()
+    carried = frontier_from_numpy(
+        lits, indptr, jctx.solver.num_vars,
+        [(s, *jctx.cone(s)) for s in sets],
+    )
+    budgets, views = {}, []
+    for name in ("make_dense_rounds", "make_batched_rounds"):
+        def maker(C, V, B, budget, *args, _real=getattr(port_dp, name),
+                  **kwargs):
+            budgets[budget] = budgets.get(budget, 0) + 1
+            return _real(C, V, B, budget, *args, **kwargs)
+        monkeypatch.setattr(port_dp, name, maker)
+    real_step = port_dp.dpll_step
+
+    def step(state, outs, flags, k, full_view, *args):
+        views.append(full_view)
+        return real_step(state, outs, flags, k, full_view, *args)
+    monkeypatch.setattr(port_dp, "dpll_step", step)
+    port_bs.dispatch_stats.reset()
+    port_dp.DenseSatBackend(device="cpu").check_assumption_sets(carried,
+                                                                sets)
+    stats = port_bs.dispatch_stats
+    assert stats.dense_round_budgets == budgets
+    assert sum(budgets.values()) == stats.rounds > 0
+    assert set(budgets) <= set(port_dp.CPU_TIER.round_budgets)
+    assert stats.hot_view_steps == views.count(False)
+    assert len(views) >= stats.device_sweeps > 0
+
+
 def test_differential_random_cnf_vs_cdcl():
     """Random 3-CNF instances: the port's dense DPLL never calls a
     satisfiable instance UNSAT, its SAT assignments satisfy every

@@ -379,3 +379,33 @@ def test_word_tier_kill_switch_matches_jax(monkeypatch, value, enabled):
     monkeypatch.setenv("MYTHRIL_TPU_WORD_TIER", value)
     assert jax_word.word_tier_enabled() is enabled
     assert port_word.word_tier_enabled() is enabled
+
+
+def test_sym_lockstep_pins_leave_the_jax_ledger_on(monkeypatch):
+    """The symbolic-lockstep tests' pins (``MYTHRIL_TPU_LEDGER=0`` among
+    them) around one JAX segment group make the JAX package's lane
+    ledger, a process-wide singleton that reads the switch once, off.
+    Once the pins are gone and the switch is unset, the ledger the next
+    caller gets is on and counts a transition: the disabled one did not
+    outlive the pins (it used to, and the JAX package's ledger tests
+    that ran later in the same process read zeros)."""
+    import test_torch_sym_lockstep as tsl
+    from mythril_tpu.observability import ledger
+
+    monkeypatch.delenv("MYTHRIL_TPU_LEDGER", raising=False)
+    ledger.reset_for_tests()
+    with pytest.MonkeyPatch.context() as pinned:
+        with tsl.slice_pins(pinned):
+            side = tsl.SIDES["jax"]
+            tsl.lockstep_pass(side, [
+                tsl.make_state(side, "6001600201600055", stack)
+                for stack in ([("s", "a")], [("s", "b"), 5], [0xFFFF])])
+            made = ledger._ledger
+            assert made is not None and not made.enabled
+    assert "MYTHRIL_TPU_LEDGER" not in os.environ
+    led = ledger.get_ledger()
+    assert led.enabled
+    before = led.transitions.get("quarantined", 0)
+    led.count_transition("quarantined")
+    assert led.transitions.get("quarantined", 0) == before + 1
+    ledger.reset_for_tests()

@@ -17,6 +17,7 @@ a stand-in card whose keccak library refuses every launch, which must
 raise and not quietly kill the shadow.
 """
 
+import contextlib
 import random
 import types
 from datetime import datetime
@@ -54,6 +55,7 @@ from mythril_tpu_torch.support.support_args import (
     SLICE_PINS_ENV,
 )
 from mythril_tpu_torch.support.support_args import args as port_args
+from test_torch_analyze import fresh_jax_ledger
 
 pytestmark = pytest.mark.lockstep
 
@@ -93,10 +95,14 @@ SEGMENT_KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "SEG_KECCAK_MAX_BYTES"))
 
 
-@pytest.fixture(autouse=True)
-def pins(monkeypatch):
+@contextlib.contextmanager
+def slice_pins(monkeypatch):
     """The slice pins on both sides (the tier itself on), the port's
-    solver tiers and keccak on the CPU, fresh plan caches."""
+    solver tiers and keccak on the CPU, fresh plan caches.  The JAX
+    package's lane ledger, which reads ``MYTHRIL_TPU_LEDGER`` once when
+    a segment group first asks for it, is made afresh inside the pins
+    and forgotten when they go, so the disabled ledger they make never
+    outlives them."""
     for name in SEGMENT_KNOBS:
         monkeypatch.delenv(name, raising=False)
     for name, value in {**SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV}.items():
@@ -104,7 +110,14 @@ def pins(monkeypatch):
     monkeypatch.setattr(port_args, "device", "cpu")
     for side in SIDES.values():
         side.sl.reset_for_tests()
-    yield
+    with fresh_jax_ledger():
+        yield
+
+
+@pytest.fixture(autouse=True)
+def pins(monkeypatch):
+    with slice_pins(monkeypatch):
+        yield
 
 
 # ---------------------------------------------------------------------------
