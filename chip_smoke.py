@@ -15,11 +15,20 @@ failure):
    the lockstep interpreter and the keccak sponge (nvcc, sm_90a), all
    eight started together, with their build seconds and the
    ``-Xptxas -v`` register / shared-memory lines;
-3. kernels vs plain: the hand-written sweep against ``sweep_plain`` at
-   the slice's shape (C = 16384 clauses, V = 4096 variables, B = 64
-   lanes, random sparse 0/1 planes from a numpy seed), scores on and off
-   and a 2048-row hot prefix; the frontier kernels (``scan_rows``,
-   ``lane_step``, ``round_epilogue``) against their plain versions,
+3. kernels vs plain: the hand-written sweep over clause rows
+   (``SweepRows``: row pointers and cells) against ``sweep_plain`` over
+   the planes built from the same coordinates, bit for bit, at the
+   check's shape (C = 16384 clauses, V = 4096 variables, B = 64 lanes)
+   and at the main path's (C = 32768, B = 16), CNF rows of 1-12 literals
+   from a numpy seed, scores on and off and a 2048-row hot prefix; its
+   device ms, its plain version's over the rows, ``sweep_plain``'s, the
+   bound (row pointers, cells, widths and A read once, the outputs
+   written once, against the operations the data needs; which of the two
+   bounds it) and two yardsticks the port never uses: the 4 + 4 dense
+   float32 ``torch.matmul`` products and the same products as
+   ``torch.sparse.mm`` over CSR copies of the planes; the frontier
+   kernels (``scan_rows``, ``lane_step``, ``round_epilogue``) against
+   their plain versions,
    iteration by iteration, on ``frontiers.learning_problem`` at the
    resident solver's caps (C = 16384, K = 8, V1 = 8193, B = 64,
    fan x deg = 512, E = 64, 40 shared rows prefilled), until the
@@ -42,9 +51,8 @@ failure):
    from full that overflows, every lane learning one row, a row of the
    live pool learned again, an ``okl`` lane with an all-zero row); every
    output equal bit for bit; times each kernel on the device, its plain
-   version and the bound (for the sweep also 4 + 4 float32
-   ``torch.matmul`` calls, a yardstick the port never uses; the frontier
-   kernels and the round lane have no library counterpart); the round
+   version and the bound (the frontier kernels and the round lane have
+   no library counterpart); the round
    lane (``round_lane``) against ``round_lane_plain`` on the learning
    problem at the full-pool shape (C = 16384, V1 = 8193, K = 8, B = 64),
    a union-cone shape (V1 = 2049) and the full pool at 8, 32 and 256
@@ -130,7 +138,10 @@ failure):
    resident solves and their exits, delegations, lanes decided on the
    device and on the tail, kernel launches, learned clauses and the
    rungs' counters (profit skips, async launches, harvests, UNSAT lanes,
-   models, drops, coalesced dispatches and lanes), and the probe phase's
+   models, drops, coalesced dispatches and lanes), the device seconds by
+   tier (dense, of them its round ladders, gather and cone, of them
+   resident, and the word rung: ``dispatch_stats.dense_s`` and the
+   others), and the probe phase's
    and the word tier's (lanes the host probe and the word tier decided,
    bits pinned, ``word_prop_s``, decide calls on the kernel, the first
    held against its plain version when force-dispatched); the word tier
@@ -156,8 +167,8 @@ failure):
    the card, every digest byte for byte, and a sample of rows against
    the native ``keccak256``: the analyses' own calls, then 65,536 seeded
    rows at widths 32, 64, 136, 137 and 256; device ms (CUDA events
-   around each bare launch on an idle stream), plain ms, the bound and
-   the share;
+   around each bare launch on an idle stream), plain ms, the bound (its
+   32-bit integer operations at the integer issue rate) and the share;
 11. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; the histogram of the (B, V,
    D) shapes at which every audited run launched ``dpll_step``; the
@@ -180,8 +191,10 @@ import time
 
 import numpy as np
 
-#: the sweep shape of the slice's main path (C clauses, V vars, B lanes)
+#: the sweep shape of the check (C clauses, V vars, B lanes), and the
+#: main path's most launched one (the histogram at the end of the check)
 SWEEP_C, SWEEP_V, SWEEP_B, HOT_ROWS = 16384, 4096, 64, 2048
+MAIN_SWEEP_SHAPE = (32768, 4096, 16)
 #: the frontier kernels' shape: the resident solver at the cone caps, its
 #: shared pool prefilled with 40 rows (so 32 distinct learned rows overflow
 #: it); and the union-cone tier's largest var bucket
@@ -196,11 +209,14 @@ GEOMETRY_C = 2300
 FRONTIER_ITERS = 64
 #: where the check runs its kernels (only ever "cuda" when run as a script)
 DEVICE = "cuda"
-#: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit); the table of
-#: peaks has no int32 rate, so integer work is held against the float32
-#: rate outside the tensor cores
+#: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory and
+#: float32 outside the tensor cores (an FMA counted as two operations);
+#: 32-bit integer add, logic and shift issue at 64 a clock an SM on
+#: compute capability 9.0 (half the 128 float32 lanes), at 132 SMs and
+#: the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 class CheckFailed(RuntimeError):
@@ -348,12 +364,10 @@ def build_all():
     return lines
 
 
-def random_sweep_inputs(C, V, B, seed=0):
-    """CNF-like planes: each live row has 1-12 literals on distinct
+def sweep_coords(C, V, seed=0):
+    """CNF-like clause rows: each live row has 1-12 literals on distinct
     columns >= 2 with random signs; the last eighth of the rows is bucket
-    padding (width 0).  A holds the anchor, and random {-1, 0, +1}."""
-    import torch
-
+    padding (width 0).  Host (row, column, negative, width [1, C])."""
     rng = np.random.default_rng(seed)
     live = C - C // 8
     widths = rng.integers(1, 13, size=live)
@@ -362,104 +376,161 @@ def random_sweep_inputs(C, V, B, seed=0):
         rng.choice(np.arange(2, V), size=w, replace=False) for w in widths
     ])
     neg = rng.random(rows.size) < 0.5
-    dev = torch.device("cuda")
-    P = torch.zeros((C, V), dtype=torch.bfloat16, device=dev)
-    N = torch.zeros((C, V), dtype=torch.bfloat16, device=dev)
-    P[torch.from_numpy(rows[~neg]).to(dev),
-      torch.from_numpy(cols[~neg]).to(dev)] = 1
-    N[torch.from_numpy(rows[neg]).to(dev),
-      torch.from_numpy(cols[neg]).to(dev)] = 1
     width = np.zeros((1, C), np.float32)
     width[0, :live] = widths
-    A = rng.choice([-1.0, 0.0, 1.0], size=(B, V)).astype(np.float32)
-    A[:, 0] = 0.0
-    A[:, 1] = 1.0
-    return (P, N, torch.from_numpy(width).to(dev),
-            torch.from_numpy(A).to(dev), int(rows.size))
+    return rows, cols, neg, width
 
 
-def bound(bytes_moved, ops):
-    """(least ms, what bounds it): the bytes at the HBM rate against
-    the operations at the scalar rate."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def sweep_operands(row, col, negative, width, V):
+    """The sweep's pool operands of host coordinates, on the card: the
+    union pool's ``SweepRows`` (row pointers, cells, widths)."""
+    from mythril_tpu_torch.ops import dense_sweep as ds
+
+    return ds.rows_from_coords(row, col, negative, width, V, DEVICE)
 
 
-def sweep_bound(C, V, B, nnz, outputs, scatter_adds):
-    """Least time for one sweep: each input read once and each output
-    written once at the HBM rate, against the operations this data needs
-    (two counts per nonzero cell and lane, one add per output unit) at
-    the float32 rate."""
-    bytes_moved = 2 * C * V * 2 + 4 * C + 4 * B * V \
-        + outputs * 4 * B * V + 4 * B
-    return bound(bytes_moved, 2 * nnz * B + scatter_adds)
-
-
-def kernel_phase():
-    """Sweep kernel vs plain at the slice's shape; returns the kernel's
-    JSON entry (the scores-on full sweep, the main path's
-    configuration)."""
+def random_sweep_inputs(C, V, B, seed=0):
+    """``sweep_coords``' clause rows as ``SweepRows`` on the card, the
+    planes they expand to (``rows_to_planes``), and A: the anchor and
+    random {-1, 0, +1}."""
     import torch
 
     from mythril_tpu_torch.ops import dense_sweep as ds
 
-    P, N, width, A, nnz = random_sweep_inputs(SWEEP_C, SWEEP_V, SWEEP_B)
+    rng = np.random.default_rng(seed + 1)
+    rows = sweep_operands(*sweep_coords(C, V, seed), V)
+    A = rng.choice([-1.0, 0.0, 1.0], size=(B, V)).astype(np.float32)
+    A[:, 0] = 0.0
+    A[:, 1] = 1.0
+    return rows, ds.rows_to_planes(rows, V), torch.from_numpy(A).to(DEVICE)
+
+
+def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
+    """(least ms, what bounds it): the bytes at the HBM rate against
+    the operations at ``ops_per_s`` (the float32 rate by default)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sweep_bound(rows, V, B, cells, outputs, scatter_adds):
+    """Least time for one sweep over ``rows`` clause rows holding
+    ``cells`` literals: the row pointers, cells, widths and the [B, V]
+    assignment read once and each output written once at the HBM rate,
+    against the operations this data needs (two counts a cell and lane,
+    one add a scattered unit) at the 32-bit integer rate."""
+    bytes_moved = 4 * (rows + 1) + 4 * cells + 4 * rows + 4 * B * V \
+        + outputs * 4 * B * V + 4 * B
+    return bound(bytes_moved, 2 * cells * B + scatter_adds, INT32_OPS_PER_S)
+
+
+def sparse_library(planes, A, rows, scores):
+    """The sweep's products as one PyTorch call each on CSR copies of the
+    planes (``torch.sparse.mm``, float32: what a user writes for a sparse
+    product; cuSPARSE), a yardstick the port never calls: returns a
+    zero-argument function that runs them."""
+    import torch
+
+    P, N = (p[:rows].float() for p in planes)
+    csr = [m.to_sparse_csr() for m in (P, N, P.T.contiguous(),
+                                       N.T.contiguous())]
+    pos_t = A.clamp(min=0.0).T.contiguous()
+    neg_t = (-A).clamp(min=0.0).T.contiguous()
+    member = torch.ones((rows, A.shape[0]), device=A.device)
+
+    def run():
+        for lhs, rhs in ((csr[0], pos_t), (csr[1], neg_t), (csr[0], neg_t),
+                         (csr[1], pos_t)):
+            torch.sparse.mm(lhs, rhs)               # [C, B] counts
+        for lhs in ((csr[2], csr[3]) * (2 if scores else 1)):
+            torch.sparse.mm(lhs, member)            # [V, B] scatters
+    return run
+
+
+def sweep_case(rows, planes, A, scores, hot):
+    """The kernel over ``rows`` against ``sweep_plain`` over ``planes``,
+    bit for bit, then its times beside the plain versions', the bound and
+    both library yardsticks; returns the kernels-line entry's numbers."""
+    import torch
+
+    from mythril_tpu_torch.ops import dense_sweep as ds
+
+    C = rows.width.shape[1]
+    R = C if hot is None else hot
+    B, V = A.shape
+    got = ds.dense_sweep(*rows, A, scores, hot)
+    torch.cuda.synchronize()
+    want = ds.sweep_plain(*planes, rows.width, A, scores, hot)
+    what = f"C={C} V={V} B={B} scores={scores} rows={R}"
+    err = 0.0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape, f"sweep {what}: {g.shape} vs {w.shape}")
+        check(torch.equal(g, w), f"sweep {what}: kernel != sweep_plain")
+        err = max(err, float((g - w).abs().max()))
+    check(float(got[0].sum()) > 0 and float(got[2].sum()) > 0,
+          f"sweep {what}: vacuous inputs (no unit clause or no conflict)")
+    cells = int(rows.indptr[R])
+
+    def launch():
+        return ds.dense_sweep(*rows, A, scores, hot)
+
+    ms = kernel_device_ms(launch, 20)
+    wrapper_ms = cuda_ms(launch, 20)
+    plain_ms = cuda_ms(lambda: ds.sweep_rows_plain(*rows, A, scores, hot),
+                       5, 1)
+    planes_ms = cuda_ms(
+        lambda: ds.sweep_plain(*planes, rows.width, A, scores, hot), 5, 1)
+    Pf, Nf = (p[:R].float() for p in planes)
+    pos, neg = A.clamp(min=0.0), (-A).clamp(min=0.0)
+    mask = torch.ones((B, R), device=A.device)
+
+    def dense_library():
+        for lhs, rhs in ((pos, Pf), (neg, Nf), (neg, Pf), (pos, Nf)):
+            torch.matmul(lhs, rhs.T)
+        for rhs in ((Pf, Nf, Pf, Nf) if scores else (Pf, Nf)):
+            torch.matmul(mask, rhs)
+
+    dense_ms = cuda_ms(dense_library, 5, 1)
+    del Pf, Nf
+    sparse_ms = cuda_ms(sparse_library(planes, A, R, scores), 5, 1)
+    outputs = 4 if scores else 2
+    adds = int(sum(float(t.sum()) for t in got[:2] + got[3:]))
+    bound_ms, bound_by = sweep_bound(R, V, B, cells, outputs, adds)
+    log(f"sweep {what} cells={cells}: kernel {ms:.4f} ms (device; "
+        f"{wrapper_ms:.4f} ms a call through the wrapper), plain over the "
+        f"rows {plain_ms:.4f} ms, sweep_plain over planes {planes_ms:.4f} "
+        f"ms, 4+{outputs} f32 matmuls {dense_ms:.4f} ms, 4+{outputs} "
+        f"torch.sparse.mm on CSR {sparse_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms (bound by {bound_by}), "
+        f"{100 * bound_ms / ms:.1f}% of it; equal to sweep_plain bit for "
+        f"bit")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sparse_ms, "library_dense_ms": dense_ms}
+
+
+def kernel_phase():
+    """The sweep kernel over clause rows against ``sweep_plain`` over the
+    planes of the same rows, at the check's shape and at the main path's,
+    scores on and off and a hot prefix; returns the kernel's JSON entry
+    (the check's shape, scores on, every row: the main path's
+    configuration)."""
+    import torch
+
     entry = None
-    for scores, rows in ((True, None), (False, None), (True, HOT_ROWS)):
-        got = ds.dense_sweep(P, N, width, A, scores, rows)
-        torch.cuda.synchronize()
-        want = ds.sweep_plain(P, N, width, A, scores, rows)
-        err = 0.0
-        for g, w in zip(got, want):
-            check(g.shape == w.shape, f"shape {g.shape} vs {w.shape}")
-            check(torch.equal(g, w),
-                  f"kernel != plain (scores={scores}, rows={rows})")
-            err = max(err, float((g - w).abs().max()))
-        check(float(got[0].sum()) > 0 and float(got[2].sum()) > 0,
-              "vacuous sweep inputs (no unit clause or no conflict)")
-        C = rows or SWEEP_C
-        rows_nnz = nnz if rows is None else int(
-            ((P[:rows] != 0).sum() + (N[:rows] != 0).sum()).item())
-
-        def launch():
-            return ds.dense_sweep(P, N, width, A, scores, rows)
-
-        ms = kernel_device_ms(launch, 20)
-        wrapper_ms = cuda_ms(launch, 20)
-        plain_ms = cuda_ms(
-            lambda: ds.sweep_plain(P, N, width, A, scores, rows), 5, 1)
-        Pf = P[:C].float()
-        Nf = N[:C].float()
-        pos, neg = A.clamp(min=0.0), (-A).clamp(min=0.0)
-        mask = torch.ones((SWEEP_B, C), device=A.device)
-
-        def library():
-            for lhs, rhs in ((pos, Pf), (neg, Nf), (neg, Pf), (pos, Nf)):
-                torch.matmul(lhs, rhs.T)
-            for rhs in ((Pf, Nf, Pf, Nf) if scores else (Pf, Nf)):
-                torch.matmul(mask, rhs)
-
-        library_ms = cuda_ms(library, 5, 1)
-        del Pf, Nf
-        outputs = 4 if scores else 2
-        adds = int(sum(float(t.sum()) for t in got[:2] + got[3:]))
-        bound_ms, bound_by = sweep_bound(C, SWEEP_V, SWEEP_B, rows_nnz,
-                                         outputs, adds)
-        log(f"sweep C={C} V={SWEEP_V} B={SWEEP_B} scores={scores} "
-            f"nnz={rows_nnz}: kernel {ms:.4f} ms (device; {wrapper_ms:.4f} ms "
-            f"a call through the wrapper), plain {plain_ms:.4f} ms, "
-            f"4+{outputs} f32 matmuls {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), equal bit for bit")
-        if entry is None:
-            entry = {
-                "name": "dense_sweep", "route": "cuda",
-                "source": "mythril_tpu_torch/ops/csrc/dense_sweep.cu",
-                "replaces": "mythril_tpu/ops/pallas_prop.py:435",
-                "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms,
-            }
+    for C, V, B in ((SWEEP_C, SWEEP_V, SWEEP_B), MAIN_SWEEP_SHAPE):
+        rows, planes, A = random_sweep_inputs(C, V, B)
+        for scores, hot in ((True, None), (False, None), (True, HOT_ROWS)):
+            numbers = sweep_case(rows, planes, A, scores, hot)
+            if entry is None:
+                entry = {
+                    "name": "dense_sweep", "route": "cuda",
+                    "source": "mythril_tpu_torch/ops/csrc/dense_sweep.cu",
+                    "replaces": "mythril_tpu/ops/pallas_prop.py:435",
+                    "launches": 0, **numbers,
+                }
+        del rows, planes, A
+        torch.cuda.empty_cache()
     return entry
 
 
@@ -525,7 +596,8 @@ def planted_round_inputs(C, V, B, seed=0):
     distinct columns >= 2, each satisfied by a hidden assignment; the last
     eighth of the rows bucket padding) and a round's start state: every
     lane assumes 6 random literals (some against the hidden assignment),
-    a warm-start plane, the last 4 lanes retired pads."""
+    a warm-start plane, the last 4 lanes retired pads.  The clauses come
+    as ``sweep_operands`` gives them."""
     import torch
 
     from mythril_tpu_torch.ops import dense_prop
@@ -542,15 +614,9 @@ def planted_round_inputs(C, V, B, seed=0):
     first = np.concatenate([[0], np.cumsum(widths)[:-1]])
     signs[first] = hidden[cols[first]]
     dev = torch.device(DEVICE)
-    P = torch.zeros((C, V), dtype=torch.bfloat16, device=dev)
-    N = torch.zeros((C, V), dtype=torch.bfloat16, device=dev)
-    pos = signs > 0
-    P[torch.from_numpy(rows[pos]).to(dev),
-      torch.from_numpy(cols[pos]).to(dev)] = 1
-    N[torch.from_numpy(rows[~pos]).to(dev),
-      torch.from_numpy(cols[~pos]).to(dev)] = 1
     width = np.zeros((1, C), np.float32)
     width[0, :live] = widths
+    operands = sweep_operands(rows, cols, signs < 0, width, V)
     A0 = np.zeros((B, V), np.float32)
     A0[:, 1] = 1.0
     for lane in range(B):
@@ -560,11 +626,11 @@ def planted_round_inputs(C, V, B, seed=0):
                                     B - 4, dev)
     state[-1].copy_(torch.from_numpy(
         rng.choice([-1.0, 0.0, 1.0], size=(B, V)).astype(np.float32)))
-    return (P, N, torch.from_numpy(width).to(dev)), state
+    return operands, state
 
 
-def round_device_ops(fn, planes, state, tries=10):
-    """Device operations of one round (``fn(*planes, *state)``), from the
+def round_device_ops(fn, operands, state, tries=10):
+    """Device operations of one round (``fn(*operands, *state)``), from the
     profiler: {name: count} of kernels, copies and fills, and the round's
     steps.  A profile whose sweep and step records differ from the steps
     run is taken again, up to ``tries`` times."""
@@ -581,7 +647,7 @@ def round_device_ops(fn, planes, state, tries=10):
         ds.reset_launch_count()
         DSTEP.reset_launch_count()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(*planes, *run)
+            fn(*operands, *run)
             torch.cuda.synchronize()
         steps = DSTEP.launch_count
         ops = {e.key: e.count for e in prof.key_averages()
@@ -680,16 +746,16 @@ def dpll_step_phase():
     check(not missing, f"dpll_step: no case showed {missing}")
 
     # whole rounds at the check's sweep shape, kernel step against plain
-    planes, state0 = planted_round_inputs(SWEEP_C, SWEEP_V, SWEEP_B)
+    operands, state0 = planted_round_inputs(SWEEP_C, SWEEP_V, SWEEP_B)
     for hot_c, period in ((0, 1), (HOT_ROWS, 8)):
         fn = dense_prop.make_dense_rounds(
             SWEEP_C, SWEEP_V, SWEEP_B, STEP_BUDGET, dense_prop.CUDA_TIER,
             dense_prop.MAX_DECISIONS, hot_c, period)
-        got = fn(*planes, *[t.clone() for t in state0])
+        got = fn(*operands, *[t.clone() for t in state0])
         real = dense_prop.dpll_step
         dense_prop.dpll_step = DSTEP.dpll_step_plain
         try:
-            want = fn(*planes, *[t.clone() for t in state0])
+            want = fn(*operands, *[t.clone() for t in state0])
         finally:
             dense_prop.dpll_step = real
         check(got[-1] == want[-1] > 0, f"round steps {got[-1]} vs "
@@ -705,7 +771,7 @@ def dpll_step_phase():
             f"{int(got[6].max())}, every field equal to the plain step's "
             f"round bit for bit")
         if not hot_c:
-            ops, steps = round_device_ops(fn, planes, state0)
+            ops, steps = round_device_ops(fn, operands, state0)
             total = sum(ops.values())
             other = total - 2 * steps
             others = "; ".join(
@@ -1705,9 +1771,11 @@ class SweepAudit:
     """Stands in for the sweep that ``dense_prop`` calls and holds the
     kernel against ``sweep_plain`` on the main path's own inputs: after
     the 1st, 2nd, 4th, 8th ... call of each (C, V, B, rows, scores) it
-    compares the kernel's outputs with the plain version on the same
-    tensors, before the loop moves on.  It launches no kernel of its
-    own, so the launch count stays the main path's."""
+    compares the kernel's outputs with the plain version over the planes
+    the call's clause rows expand to, before the loop moves on; it fails
+    where the union pool hands the sweep anything but int32 rows.  It
+    launches no kernel of its own, so the launch count stays the main
+    path's."""
 
     def __init__(self, sweep):
         self.sweep = sweep
@@ -1715,19 +1783,25 @@ class SweepAudit:
         self.checked = {}
         self.seconds = 0.0
 
-    def __call__(self, P, N, width, A, scores, rows=None, out=None):
+    def __call__(self, indptr, cells, width, A, scores, rows=None,
+                 out=None):
         import torch
 
         from mythril_tpu_torch.ops import dense_sweep as ds
 
-        got = self.sweep(P, N, width, A, scores, rows, out=out)
-        key = (P.shape[0], P.shape[1], A.shape[0], rows or P.shape[0],
-               bool(scores))
+        got = self.sweep(indptr, cells, width, A, scores, rows, out=out)
+        C, V = width.shape[1], A.shape[1]
+        check(indptr.dtype == cells.dtype == torch.int32
+              and indptr.dim() == cells.dim() == 1,
+              "the union pool's sweep was not handed clause rows")
+        key = (C, V, A.shape[0], rows or C, bool(scores))
         n = self.calls[key] = self.calls.get(key, 0) + 1
         if n & (n - 1) == 0:
             started = time.perf_counter()
             torch.cuda.synchronize()
-            want = ds.sweep_plain(P, N, width, A, scores, rows)
+            planes = ds.rows_to_planes(ds.SweepRows(indptr, cells, width), V)
+            want = ds.sweep_plain(*planes, width, A, scores, rows)
+            del planes
             for g, w in zip(got, want):
                 check(torch.equal(g, w),
                       f"main-path sweep {key}, call {n}: kernel != plain")
@@ -2759,21 +2833,31 @@ KECCAK_ROWS = 65536
 KECCAK_WIDTHS = (32, 64, 136, 137, 256)
 #: rows of each batch also held against the native keccak256
 KECCAK_SAMPLE = 64
-#: 32-bit integer operations of one keccak-f round (csrc/keccak.cu's
-#: count: on 64-bit lanes 76 XORs, 25 NOT-ANDs and 29 rotations, two
-#: operations a half each, a rotation two funnel shifts)
-KECCAK_OPS_ROUND = 310
+#: 32-bit integer operations one keccak-f[1600] round needs on the
+#: 64-bit lanes' halves, with three-input logic (LOP3) fused: theta's
+#: five column parities (two 3-input XORs a half), their 1-bit rotations
+#: (two funnel shifts a lane) and each lane's XOR with two of them (one
+#: 3-input XOR a half), 20 + 10 + 50; rho's 24 rotations, two funnel
+#: shifts each, 48; chi's NOT-AND-XOR, one LOP3 a half, 50.  iota adds
+#: one XOR for each nonzero half of the round's constant.
+KECCAK_OPS_ROUND = 178
 
 
 def keccak_bound(rows, width):
     """(least ms, what bounds it) of one launch over ``rows`` rows of
     ``width`` bytes: each row read once and its 32-byte digest written
-    once, against 24 rounds of :data:`KECCAK_OPS_ROUND` operations for
-    each of a row's ``width // 136 + 1`` blocks, at the scalar rate."""
-    from mythril_tpu_torch.ops.keccak import RATE_BYTES
+    once, against the 32-bit integer operations of each of a row's
+    ``width // 136 + 1`` blocks (24 rounds of :data:`KECCAK_OPS_ROUND`,
+    iota's XORs of the round constants' nonzero halves, and after the
+    first block the XOR of its 17 lanes into the state) at the integer
+    issue rate (:data:`INT32_OPS_PER_S`)."""
+    from mythril_tpu_torch.ops.keccak import _RC64, RATE_BYTES
 
     blocks = width // RATE_BYTES + 1
-    return bound(rows * (width + 32), 24 * KECCAK_OPS_ROUND * blocks * rows)
+    iota = sum(((rc & 0xFFFFFFFF) != 0) + ((rc >> 32) != 0) for rc in _RC64)
+    per_row = blocks * (24 * KECCAK_OPS_ROUND + iota) \
+        + (blocks - 1) * 2 * (RATE_BYTES // 8)
+    return bound(rows * (width + 32), per_row * rows, INT32_OPS_PER_S)
 
 
 def keccak_kernel_ms(data, iters):
@@ -2917,7 +3001,8 @@ def analyze_audited(run, card, label="", force=True):
         f"audits' {audit['seconds']:.3f} s, {laser.total_states} states, "
         f"{prune_stats.calls} prune calls ({prune_stats.batched_calls} "
         f"through the funnel), {stats.dispatches} dispatches ({stats.lanes} "
-        f"lanes; {stats.dense_declines} past the dense caps, "
+        f"lanes; {stats.dense_declines} past the dense caps "
+        f"{stats.dense_decline_caps}, "
         f"{stats.resident_delegations} delegated, {stats.size_bailouts} "
         f"past the gather caps), {stats.resident_dispatches} resident solves "
         f"({stats.resident_exit_all_decided} all decided, "
@@ -2933,6 +3018,12 @@ def analyze_audited(run, card, label="", force=True):
         f"{stats.device_s:.3f} s (with the audits), native CDCL "
         f"{SolverStatistics().native_s:.3f} s, SWC {sorted(found)}")
     a = AD.async_stats
+    log(f"analyze {run.name}{label} device tiers by tier (with the "
+        f"audits): dense {stats.dense_s:.3f} s (of them rounds "
+        f"{stats.dense_rounds_s:.3f} s), gather and cone "
+        f"{stats.gather_s:.3f} s (of them resident {stats.resident_s:.3f} "
+        f"s), of device_s {stats.device_s:.3f} s; word rung "
+        f"{stats.word_s:.3f} s")
     log(f"analyze {run.name}{label} rungs: {stats.profit_skips} profit "
         f"skips, async {a.launches} launches, {a.harvested} harvested, "
         f"{a.unsat} UNSAT lanes, {a.models} models, {a.dropped} dropped, "

@@ -21,6 +21,7 @@ wrappers load them, then:
   held bit for bit against ``dpll_step_plain`` first; device ms from the
   profiler (the mean of ``--iters`` launches), the bound;
 - rounds: ``make_dense_rounds`` on the planted CNF of ``chip_smoke.py``
+  (its pool in the tree's own form, ``tree_smoke``)
   (``ROUNDS``: the check's C, V, B = 16,384, 4,096, 64 and the main
   path's 32,768, 4,096, 16, untiered at the ladder's step budgets 64,
   256 and 1,024 and tiered with 2,048 hot rows, period 8): the round's
@@ -110,6 +111,34 @@ def load_smoke():
     return smoke
 
 
+def planes_operands(row, col, negative, width, V):
+    """The sweep's pool operands as a tree of this repository from before
+    the clause rows holds them: bf16 planes (P, N) and the widths."""
+    import torch
+
+    dev = torch.device("cuda")
+    planes = []
+    for sel in (~negative, negative):
+        plane = torch.zeros((width.shape[1], V), dtype=torch.bfloat16,
+                            device=dev)
+        plane[torch.from_numpy(row[sel]).to(dev),
+              torch.from_numpy(col[sel]).to(dev)] = 1
+        planes.append(plane)
+    return (*planes, torch.from_numpy(width).to(dev))
+
+
+def tree_smoke():
+    """This tree's ``chip_smoke``, its sweep operands in the form the
+    imported tree's union pool holds (call it with that tree's package
+    first on the path)."""
+    smoke = load_smoke()
+    from mythril_tpu_torch.ops import dense_sweep as ds
+
+    if not hasattr(ds, "rows_from_coords"):
+        smoke.sweep_operands = planes_operands
+    return smoke
+
+
 def emit(record):
     print(json.dumps(record), flush=True)
 
@@ -153,23 +182,23 @@ def round_case(smoke, C, V, B, hot_c, period, budget):
 
     from mythril_tpu_torch.ops import dense_prop
 
-    planes, state0 = smoke.planted_round_inputs(C, V, B)
+    operands, state0 = smoke.planted_round_inputs(C, V, B)
     fn = dense_prop.make_dense_rounds(C, V, B, budget, dense_prop.CUDA_TIER,
                                       dense_prop.MAX_DECISIONS, hot_c, period)
-    fn(*planes, *[t.clone() for t in state0])  # warm
+    fn(*operands, *[t.clone() for t in state0])  # warm
     walls, steps = [], 0
     for _ in range(11):
         run = [t.clone() for t in state0]
         torch.cuda.synchronize()
         started = time.perf_counter()
-        out = fn(*planes, *run)
+        out = fn(*operands, *run)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - started)
         steps = out[-1]
     run = [t.clone() for t in state0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*planes, *run)
+        fn(*operands, *run)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
@@ -193,16 +222,16 @@ def window_graph_case(smoke, C, V, B, hot_c, period):
     from mythril_tpu_torch.ops.dense_sweep import dense_sweep
     from mythril_tpu_torch.ops.dpll_step import dpll_step
 
-    (P, N, width), state0 = smoke.planted_round_inputs(C, V, B)
+    operands, state0 = smoke.planted_round_inputs(C, V, B)
     state = [t.clone() for t in state0]
-    out = dense_prop._sweep_workspace(B, V, True, P.device)
-    flags = torch.zeros(2, dtype=torch.int32, device=P.device)
+    out = dense_prop._sweep_workspace(B, V, True, state[0].device)
+    flags = torch.zeros(2, dtype=torch.int32, device=state[0].device)
     window = dense_prop.SYNC_EVERY
 
     def run_window():
         for step in range(window):
             full_view = period == 1 or step % period == 0
-            outs = dense_sweep(P, N, width, state[0], True,
+            outs = dense_sweep(*operands, state[0], True,
                                rows=None if full_view else hot_c, out=out)
             dpll_step(state, outs, flags, step, full_view, not full_view,
                       True)
@@ -249,7 +278,7 @@ def window_graph_case(smoke, C, V, B, hot_c, period):
 def worker(tree, label, iters):
     """One tree's measurements (its package first on the path)."""
     sys.path.insert(0, tree)
-    smoke = load_smoke()
+    smoke = tree_smoke()
     import torch
 
     import mythril_tpu_torch

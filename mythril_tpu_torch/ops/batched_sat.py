@@ -48,6 +48,7 @@ bisection, quarantine, drain).  A failure in a tier, in the word tier's
 kernel, or in the prefetch's worker, reaches the caller.
 """
 
+import contextlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -124,11 +125,24 @@ class DispatchStats:
         self.lane_slots_total = 0
         self.device_s = 0.0        # wall-clock inside the solver tiers
         self.tail_s = 0.0          # wall-clock inside the CDCL tail
+        # wall-clock by tier (tier_clock): the dense tier (cone walk,
+        # rows, rounds) and the gather and cone tiers after it (pool
+        # syncs, cone builds, their solves), which split device_s; of
+        # the first its round ladders, of the second the resident
+        # solves; and the funnel's word rung
+        self.dense_s = 0.0
+        self.dense_rounds_s = 0.0
+        self.gather_s = 0.0
+        self.resident_s = 0.0
+        self.word_s = 0.0
         self.h2d_bytes = 0         # coordinates, rows, planes shipped
         self.device_dispatch_calls = 0
         self.warm_start_hits = 0
         self.cone_memo_hits = 0
         self.dense_declines = 0    # dispatches no dense layout could fit
+        # of them, by the caps each layout passed ("union C+cells;
+        # per-lane cells")
+        self.dense_decline_caps = {}
         # frontier solvers (ops/frontier.py, ops/resident.py): gather
         # steps beside the full sweeps, first-UIP clauses the pool
         # accepted, full pool uploads vs delta appends, and dispatches
@@ -198,6 +212,19 @@ class DispatchStats:
 
 
 dispatch_stats = DispatchStats()
+
+
+@contextlib.contextmanager
+def tier_clock(tier: str, span: str):
+    """A ``record_function`` range ``span`` around the block, and its
+    wall-clock added to ``dispatch_stats.<tier>_s``."""
+    started = time.perf_counter()
+    try:
+        with record_function(span):
+            yield
+    finally:
+        setattr(dispatch_stats, f"{tier}_s", getattr(
+            dispatch_stats, f"{tier}_s") + time.perf_counter() - started)
 
 
 class DispatchFuse:
@@ -430,13 +457,21 @@ class BatchedSatBackend:
         self.device_engaged = False
         dense_backend = get_dense_backend(self.device)
         if dense_backend.available_for(ctx):
-            dense = dense_backend.check_assumption_sets(ctx, assumption_sets)
+            with tier_clock("dense", "tier.dense"):
+                dense = dense_backend.check_assumption_sets(ctx,
+                                                            assumption_sets)
             if dense is not None:
                 results, assignments = dense
                 self.last_assignments = assignments
                 self.device_engaged = True
                 return results
+        with tier_clock("gather", "tier.gather"):
+            return self._gather_tiers(ctx, assumption_sets)
 
+    def _gather_tiers(self, ctx, assumption_sets: List[List[int]]
+                      ) -> List[Optional[bool]]:
+        """The full-pool gather tier, or past its caps the union-cone
+        tier (:meth:`check_assumption_sets` after the dense tier)."""
         verdict, num_vars = self._gather_eligibility(ctx)
         if verdict is not None:
             # the pool is too big, but the batch's union cone may still
@@ -544,7 +579,7 @@ class BatchedSatBackend:
                     getattr(dispatch_stats, counter) + 1)
             return out
 
-        with record_function("resident.solve"):
+        with tier_clock("resident", "resident.solve"):
             state = self._dispatch_round(step_fn, state)
         dispatch_stats.rounds += 1
         self._account_sweeps(state, batch, B)
@@ -1055,7 +1090,7 @@ def _word_rung(ctx, node_sets, decided, tiers, device):
         return [None] * len(node_sets)
     open_sets = [nodes if decided[i] is None else None
                  for i, nodes in enumerate(node_sets)]
-    with record_function("funnel.word"):
+    with tier_clock("word", "funnel.word"):
         verdicts, hints, envs = get_word_tier().decide(ctx, open_sets,
                                                        device=device)
     for i, verdict in enumerate(verdicts):

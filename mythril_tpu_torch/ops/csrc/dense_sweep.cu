@@ -1,7 +1,8 @@
-// One DPLL clause sweep over dense clause-incidence planes, for sm_90a.
+// One DPLL clause sweep over the clause rows' literals, for sm_90a.
 //
 // Replaces the Pallas TPU kernel mythril_tpu/ops/pallas_prop.py:435
-// (_make_dpll_sweep, pl.pallas_call at :535).  Same function:
+// (_make_dpll_sweep, pl.pallas_call at :535).  Same function, as if over
+// the dense clause-incidence planes P, N [C, V] of the JAX package:
 //
 //   true[b,c]  = relu(A)[b]·P[c] + relu(-A)[b]·N[c]   (satisfied literals)
 //   false[b,c] = relu(-A)[b]·P[c] + relu(A)[b]·N[c]   (falsified literals)
@@ -10,168 +11,226 @@
 //   fpos = unit·P, fneg = unit·N, (spos = open·P, sneg = open·N),
 //   conf[b] = any clause of lane b with every literal false.
 //
-// Inputs: P, N [C, V] bf16 holding 0/1 (any nonzero bit pattern counts as
-// an incidence), width [1, C] f32, A [B, V] f32 in {-1, 0, +1}.  Outputs
-// [B, V] / [B, 1] f32, zeroed by the caller.  Only the leading `rows`
-// clause rows are scanned (the hot-tier sweep).  Every sum is a count of
-// 0/1 terms below 2^24, so the float32 results are exact in any order
-// and equal the plain PyTorch version (ops/dense_sweep.py:sweep_plain)
-// bit for bit.
+// Inputs: the rows in CSR form, indptr [C + 1] int32 and cells [nnz]
+// int32, one cell a (row, column, sign) incidence coded
+// (column << 2) | n << 1 | p (p for P, n for N; a row's cells in any
+// order, no cell twice), width [1, C] f32, A [B, V] f32 in {-1, 0, +1}.
+// Outputs [B, V] / [B, 1] f32, zeroed by the caller.  Only the leading
+// `rows` clause rows are scanned (the hot-tier sweep).  Every sum is a
+// count of 0/1 terms below 2^24, so the float32 results are exact in any
+// order and equal the plain PyTorch versions (ops/dense_sweep.py:
+// sweep_plain over planes, sweep_rows_plain over these rows) bit for
+// bit.
 //
-// Design.  The TPU kernel streams [TC, V] tiles through the MXU and
-// carries [B, V] sums across a sequential grid.  CUDA blocks run in no
-// order, and the planes are very sparse (a CNF clause has a handful of
-// literals in a row of thousands of columns), so here one block owns one
-// clause row and works on the row's nonzeros only:
-//   1. the block streams the row of P and N once, 16 bytes per thread per
-//      load, and collects its nonzero cells into shared memory;
-//   2. thread b (one per lane) counts true/false literals of lane b over
-//      that list and classifies the clause (unit / open / all-false);
-//   3. the block scatters the unit/open memberships into the [B, V]
-//      outputs with float atomics (integer-valued, so order-free).
-// A row holds at most kMaxNz nonzero cells: the wrapper refuses wider
-// clauses (ops/dense_sweep.py, MAX_ROW_LITERALS), and a row that still
-// overflows traps rather than return a wrong count.
+// Design.  The TPU kernel streams [TC, V] tiles of the planes through the
+// MXU and carries [B, V] sums across a sequential grid.  A CNF row holds
+// a handful of literals among thousands of columns, so here the kernel
+// reads the literals only: one thread a (row, lane) pair.  A block takes
+// 256 / G rows for a group of G = 8 lanes (G = B where 8 does not divide
+// B), the G threads of a row neighbours that read the row's cells at the
+// same addresses (broadcast loads), and the grid runs lane group after
+// lane group, so the blocks on the card at one time gather from the same
+// G rows of A: 128 KiB at V = 4,096, which the SM's L1 holds, where the
+// whole of A (0.25-1 MiB on the main path) would go to L2 for every
+// gather.  Each thread
+//   1. gathers A[b, column] of the row's cells and counts its true and
+//      false literals;
+//   2. classifies the clause for its lane (all false / unit / open);
+//   3. walks the cells again and adds 1.0 into fpos/fneg (unit) or
+//      spos/sneg (open, with scores) at its lane's columns, by float
+//      atomics: integer-valued and below 2^24, so order-free.
+// conf[b] is the same 1.0 stored from any row.  Rows of width 0 (bucket
+// padding) count nothing and stop at once.  A row of any width loops
+// over its cells: there is no per-row list to overflow.
 //
-// Bound at the slice's shape (C = 16384, V = 4096, B = 64): the two bf16
-// planes are 2·C·V·2 B = 256 MiB, read once: ≈ 80 µs at 3.35 TB/s.  The
-// dense formulation's 8 products are ≈ 69 GFLOP, ≈ 70 µs at the bf16
-// tensor-core rate, but this kernel does only the sparse work the data
-// needs (nnz·B counts and scatters), so the sweep is memory-bound and
-// this design reads the planes once.  The [B, V] assignment (1 MiB) and
-// outputs stay in L2.  wgmma/TMA or bit-packed planes belong to a later
-// change.
+// Bound at the check's shape (C = 16384, V = 4096, B = 64; about 93,000
+// cells): the row pointers, cells and widths (about 0.5 MiB), A (1 MiB)
+// and the four outputs (4 MiB) moved once, ≈ 5.5 MiB: ≈ 1.7 µs at
+// 3.35 TB/s.  The operations (two counts a cell and lane, one add a
+// scattered unit) are below that at the 32-bit integer rate.  What holds
+// the kernel is the gathers of A, one a cell and lane (6 million at the
+// check's shape), each to its own line: on an H100 at 700 W it runs at
+// about 8 ns a thousand gathers at both main-path shapes
+// (chip_tools/dense_sweep_times.py), far from HBM; no dense tile exists
+// for wgmma or TMA to feed.
+//
+// Compiled as host C++ (no __CUDACC__), the same source emulates the
+// grid (dense_sweep_host): block after block, each thread taking its
+// (row, lane) pair as the kernel does, so the CPU tests hold the kernel's
+// own mapping and pair function against the plain versions and the JAX
+// package.
 
-#include <cstdint>
+#include <stddef.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#define DS_FN __device__ __forceinline__
+#define DS_HD __host__ __device__ __forceinline__
+#else
+#define DS_FN inline
+#define DS_HD inline
+#endif
 
-namespace {
+namespace ds {
 
-constexpr int kThreads = 256;   // threads per block; also the lane cap
-constexpr int kMaxNz = 2048;    // nonzero cells of one row kept in smem
+constexpr int kThreads = 256;   // threads a block
+constexpr int kLaneGroup = 8;   // lanes a block's rows are swept for
+constexpr long long kMaxPairs = 1LL << 30;   // (row, lane) pairs a launch
 
-__device__ __forceinline__ void count_cell(float a, int p, int n,
-                                           int& t, int& f) {
-  if (a > 0.0f) {
-    t += p;
-    f += n;
-  } else if (a < 0.0f) {
-    t += n;
-    f += p;
+// Lanes of a block: kLaneGroup where it divides B, else all B (at most
+// kThreads: the launch refuses more).
+DS_HD int lane_group(int B) { return B % kLaneGroup == 0 ? kLaneGroup : B; }
+
+// Blocks of a launch over `rows` rows and B lanes: every row block of
+// one lane group, then the next group's.
+DS_HD long long grid_blocks(int B, int rows) {
+  const int G = lane_group(B);
+  const int per = kThreads / G;
+  return (long long)(B / G) * ((rows + per - 1) / per);
+}
+
+// The (row, lane) pair of thread t of block blk; false for a thread past
+// the last row or past the block's rows.
+DS_HD bool pair_of(int blk, int t, int B, int rows, int* r, int* b) {
+  const int G = lane_group(B);
+  const int per = kThreads / G;             // rows a block
+  const int row_blocks = (rows + per - 1) / per;
+  const int group = blk / row_blocks;
+  const int k = t / G;
+  if (k >= per) return false;
+  *r = (blk - group * row_blocks) * per + k;
+  *b = group * G + (t - k * G);
+  return *r < rows;
+}
+
+// A launch's arguments the kernel takes (B lanes in groups of at most a
+// block, the grid in int range).
+DS_HD bool launch_ok(int B, int V, int rows) {
+  return B >= 1 && V >= 1 && rows >= 1
+      && (long long)rows * B <= kMaxPairs && lane_group(B) <= kThreads;
+}
+
+DS_FN void add_one(float* at) {
+#ifdef __CUDACC__
+  atomicAdd(at, 1.0f);
+#else
+  *at += 1.0f;
+#endif
+}
+
+// Thread (row r, lane b): counts, classifies and scatters one clause row
+// for one lane.
+DS_FN void sweep_pair(const int* __restrict__ indptr,
+                      const int* __restrict__ cells,
+                      const float* __restrict__ width,
+                      const float* __restrict__ A, int V, int r, int b,
+                      float* __restrict__ fpos, float* __restrict__ fneg,
+                      float* __restrict__ conf, float* __restrict__ spos,
+                      float* __restrict__ sneg, int scores) {
+  const float w = width[r];
+  if (!(w > 0.5f)) return;           // bucket padding: counts nothing
+  const int begin = indptr[r];
+  const int end = indptr[r + 1];
+  const float* a_row = A + (size_t)b * (size_t)V;
+
+  // 1. true and false literals of lane b
+  int t = 0, f = 0;
+  for (int e = begin; e < end; ++e) {
+    const int cell = cells[e];
+    const float a = a_row[cell >> 2];
+    const int p = cell & 1;
+    const int n = (cell >> 1) & 1;
+    if (a > 0.0f) {
+      t += p;
+      f += n;
+    } else if (a < 0.0f) {
+      t += n;
+      f += p;
+    }
+  }
+
+  // 2. classification (sweep_plain's float arithmetic, exact on counts)
+  const float tc = (float)t, fc = (float)f;
+  if (fc > w - 0.5f) conf[b] = 1.0f;   // same value from any row
+  if (!(tc < 0.5f)) return;            // satisfied
+  const float unk = w - tc - fc;
+  const bool unit = unk > 0.5f && unk < 1.5f;
+  const bool open = scores && unk > 1.5f;
+  if (!unit && !open) return;
+
+  // 3. the row's memberships at lane b's columns
+  const size_t lane = (size_t)b * (size_t)V;
+  float* out_p = (unit ? fpos : spos) + lane;
+  float* out_n = (unit ? fneg : sneg) + lane;
+  for (int e = begin; e < end; ++e) {
+    const int cell = cells[e];
+    if (cell & 1) add_one(out_p + (cell >> 2));
+    if (cell & 2) add_one(out_n + (cell >> 2));
   }
 }
 
-__device__ __forceinline__ void scatter_cell(int flag, int p, int n,
-                                             float* fpos, float* fneg,
-                                             float* spos, float* sneg,
-                                             size_t at, int scores) {
-  if (flag & 1) {
-    if (p) atomicAdd(fpos + at, 1.0f);
-    if (n) atomicAdd(fneg + at, 1.0f);
-  }
-  if ((flag & 2) && scores) {
-    if (p) atomicAdd(spos + at, 1.0f);
-    if (n) atomicAdd(sneg + at, 1.0f);
-  }
-}
+}  // namespace ds
 
-__global__ void __launch_bounds__(kThreads)
-dense_sweep_kernel(const uint16_t* __restrict__ P,
-                   const uint16_t* __restrict__ N,
+#ifdef __CUDACC__
+
+__global__ void __launch_bounds__(ds::kThreads)
+dense_sweep_kernel(const int* __restrict__ indptr,
+                   const int* __restrict__ cells,
                    const float* __restrict__ width,
-                   const float* __restrict__ A,
-                   int B, int V,
+                   const float* __restrict__ A, int B, int V, int rows,
                    float* __restrict__ fpos, float* __restrict__ fneg,
-                   float* __restrict__ conf,
-                   float* __restrict__ spos, float* __restrict__ sneg,
-                   int scores) {
-  __shared__ int nz[kMaxNz];          // (column << 2) | n << 1 | p
-  __shared__ int nz_count;
-  __shared__ unsigned char lane_flag[kThreads];  // bit0 unit, bit1 open
-
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t row = (size_t)c * (size_t)V;
-  if (tid == 0) nz_count = 0;
-  __syncthreads();
-
-  // 1. stream the row: 8 bf16 cells of each plane per 16-byte load
-  const uint4* prow = reinterpret_cast<const uint4*>(P + row);
-  const uint4* nrow = reinterpret_cast<const uint4*>(N + row);
-  const int nvec = V / 8;
-  for (int i = tid; i < nvec; i += kThreads) {
-    const uint4 p4 = prow[i];
-    const uint4 n4 = nrow[i];
-    if ((p4.x | p4.y | p4.z | p4.w | n4.x | n4.y | n4.z | n4.w) == 0u)
-      continue;
-    const unsigned pw[4] = {p4.x, p4.y, p4.z, p4.w};
-    const unsigned nw[4] = {n4.x, n4.y, n4.z, n4.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int p = ((pw[j >> 1] >> (16 * (j & 1))) & 0xffffu) != 0u;
-      const int n = ((nw[j >> 1] >> (16 * (j & 1))) & 0xffffu) != 0u;
-      if (p | n) {
-        const int k = atomicAdd(&nz_count, 1);
-        if (k < kMaxNz) nz[k] = ((i * 8 + j) << 2) | (n << 1) | p;
-      }
-    }
-  }
-  __syncthreads();
-  const int total = nz_count;
-  if (total > kMaxNz) __trap();
-
-  // 2. per-lane literal counts and clause classification
-  if (tid < B) {
-    const float* a_row = A + (size_t)tid * (size_t)V;
-    int t = 0, f = 0;
-    for (int e = 0; e < total; ++e) {
-      const int ent = nz[e];
-      count_cell(a_row[ent >> 2], ent & 1, (ent >> 1) & 1, t, f);
-    }
-    const float w = width[c];
-    const float tc = (float)t, fc = (float)f;
-    const bool real = w > 0.5f;
-    const float unk = w - tc - fc;
-    const bool unsat_yet = (tc < 0.5f) && real;
-    int flag = 0;
-    if (unsat_yet && unk > 0.5f && unk < 1.5f) flag |= 1;
-    if (unsat_yet && unk > 1.5f) flag |= 2;
-    lane_flag[tid] = (unsigned char)flag;
-    if (real && fc > w - 0.5f) conf[tid] = 1.0f;  // same value from any row
-  }
-  __syncthreads();
-
-  // 3. scatter unit / open memberships into the [B, V] outputs
-  for (int idx = tid; idx < total * B; idx += kThreads) {
-    const int b = idx % B;
-    const int flag = lane_flag[b];
-    if (!flag) continue;
-    const int ent = nz[idx / B];
-    scatter_cell(flag, ent & 1, (ent >> 1) & 1, fpos, fneg, spos, sneg,
-                 (size_t)b * V + (ent >> 2), scores);
-  }
+                   float* __restrict__ conf, float* __restrict__ spos,
+                   float* __restrict__ sneg, int scores) {
+  int r, b;
+  if (!ds::pair_of(blockIdx.x, threadIdx.x, B, rows, &r, &b)) return;
+  ds::sweep_pair(indptr, cells, width, A, V, r, b, fpos, fneg, conf, spos,
+                 sneg, scores);
 }
-
-}  // namespace
 
 extern "C" {
 
 // Plain C entry point (bound with ctypes).  Returns the cudaError_t of the
-// launch; 0 means the kernel was queued on `stream`.
-int dense_sweep_launch(const void* P, const void* N, const float* width,
-                       const float* A, int B, int V, int rows,
-                       float* fpos, float* fneg, float* conf, float* spos,
-                       float* sneg, int scores, void* stream) {
-  if (B < 1 || B > kThreads || V < 8 || V % 8 != 0 || rows < 1)
-    return (int)cudaErrorInvalidValue;
-  dense_sweep_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint16_t*>(P), static_cast<const uint16_t*>(N),
-      width, A, B, V, fpos, fneg, conf, spos, sneg, scores);
+// launch (cudaErrorInvalidValue for arguments launch_ok refuses); 0 means
+// the kernel was queued on `stream`.
+int dense_sweep_launch(const int* indptr, const int* cells,
+                       const float* width, const float* A, int B, int V,
+                       int rows, float* fpos, float* fneg, float* conf,
+                       float* spos, float* sneg, int scores, void* stream) {
+  if (!ds::launch_ok(B, V, rows)) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)ds::grid_blocks(B, rows);
+  dense_sweep_kernel<<<blocks, ds::kThreads, 0, (cudaStream_t)stream>>>(
+      indptr, cells, width, A, B, V, rows, fpos, fneg, conf, spos, sneg,
+      scores);
   return (int)cudaGetLastError();
 }
 
-int dense_sweep_max_lanes() { return kThreads; }
+}  // extern "C"
 
-int dense_sweep_max_row_cells() { return kMaxNz; }
+#else  // host C++
+
+extern "C" {
+
+// The kernel's grid emulated: every block's threads one after another,
+// each taking its (row, lane) pair as the kernel does.  Returns 0, or -1
+// for arguments the launch refuses.
+int dense_sweep_host(const int* indptr, const int* cells, const float* width,
+                     const float* A, int B, int V, int rows, float* fpos,
+                     float* fneg, float* conf, float* spos, float* sneg,
+                     int scores) {
+  if (!ds::launch_ok(B, V, rows)) return -1;
+  const long long blocks = ds::grid_blocks(B, rows);
+  for (long long blk = 0; blk < blocks; ++blk) {
+    for (int t = 0; t < ds::kThreads; ++t) {
+      int r, b;
+      if (!ds::pair_of((int)blk, t, B, rows, &r, &b)) continue;
+      ds::sweep_pair(indptr, cells, width, A, V, r, b, fpos, fneg, conf,
+                     spos, sneg, scores);
+    }
+  }
+  return 0;
+}
 
 }  // extern "C"
+
+#endif  // __CUDACC__

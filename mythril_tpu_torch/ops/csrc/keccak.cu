@@ -25,11 +25,16 @@
 // aligned; bytes past the row are the padding.  The digest is written as
 // four 8-byte stores.
 //
-// Bound: operations.  A block is 24 rounds of 310 32-bit integer
-// operations (on 64-bit lanes: theta's 51 XORs and 5 rotations, rho's 24
-// rotations, chi's 25 NOT-ANDs and 25 XORs, iota's XOR; two operations a
-// half each, a rotation two funnel shifts) against 136 bytes read.  Neighbouring threads read rows L bytes apart, so the loads are
-// not coalesced: a tile of rows staged through shared memory would be.
+// Bound: operations.  A block needs 24 rounds of 178 32-bit integer
+// operations on the lanes' halves with three-input logic (LOP3) fused
+// (theta's column parities, 1-bit rotations and three-input XORs, 80;
+// rho's 24 rotations as two funnel shifts each, 48; chi's NOT-AND-XOR,
+// 50), plus iota's XOR of each nonzero half of the round constant,
+// against 136 bytes read.  They issue at the integer rate of compute
+// capability 9.0, 64 a clock an SM (about 16.7e12 a second at 132 SMs
+// and 1.98 GHz), not at the float32 FMA rate.  Neighbouring threads
+// read rows L bytes apart, so the loads are not coalesced: a tile of
+// rows staged through shared memory would be.
 //
 // Compiled as host C++ (no __CUDACC__), the same row function runs one
 // row an iteration (keccak_host), so the CPU tests hold the kernel's own

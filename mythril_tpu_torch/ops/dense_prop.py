@@ -5,15 +5,17 @@ is no Pallas here).
 Clause evaluation is reformulated over dense *clause-incidence planes*:
 
 - ``P[c, v] = 1`` iff variable ``v`` occurs positively in clause ``c``
-  (``N`` likewise for negative occurrences), stored bf16.
+  (``N`` likewise for negative occurrences).
 - With the assignment ``A[b, v] ∈ {-1, 0, +1}`` (f32) one sweep counts
   satisfied and falsified literals per (lane, clause), classifies each
   clause as conflicting / unit / open, and returns forced-literal votes
-  and open-clause decision scores per (lane, variable).  On the card the
-  union layout's sweep is the hand-written CUDA kernel in
-  ``ops/dense_sweep.py`` (``csrc/dense_sweep.cu``); the per-lane layout
-  sweeps with float32 ``torch.bmm`` (the JAX package leaves that one to
-  XLA's batched dots).
+  and open-clause decision scores per (lane, variable).  The union
+  layout keeps the planes' nonzero cells only, as clause rows
+  (``ops/dense_sweep.py:SweepRows``: CSR row pointers and one cell a
+  literal), and its sweep is the hand-written CUDA kernel
+  ``csrc/dense_sweep.cu`` over them on the card; the per-lane layout
+  keeps [B, C, V] float32 planes and sweeps with ``torch.bmm`` (the JAX
+  package leaves that one to XLA's batched dots).
 
 Around one sweep per step runs a batched DPLL search: per-lane trail
 levels and an explicit decision stack, dynamic DLIS decisions (with
@@ -51,7 +53,9 @@ import torch
 from torch.profiler import record_function
 
 from mythril_tpu_torch.ops import default_device
-from mythril_tpu_torch.ops.dense_sweep import dense_sweep
+from mythril_tpu_torch.ops.dense_sweep import (
+    SweepRows, dense_sweep, planes_to_rows, rows_from_coords,
+)
 from mythril_tpu_torch.ops.dpll_step import dpll_step
 from mythril_tpu_torch.support.env import env_flag, env_int
 
@@ -62,9 +66,9 @@ class Tier(NamedTuple):
     """Size caps and budgets of one device tier.
 
     ``max_vars``/``max_clauses``/``max_cells`` cap the bucketed union
-    planes; ``lane_cells`` caps the [B, V] state planes per chunk;
-    ``batched_cost`` weighs a per-lane cell against a union cell when
-    the two layouts compete (streamed bytes per cell and sweep)."""
+    pool (C, V and C x V); ``lane_cells`` caps the [B, V] state planes
+    per chunk; ``batched_cost`` weighs a per-lane cell against a union
+    cell when the two layouts compete."""
 
     name: str
     max_vars: int
@@ -82,17 +86,19 @@ class Tier(NamedTuple):
 CPU_TIER = Tier("cpu", 4096, 1 << 15, 1 << 22, 1 << 18, 192, 2048,
                 (48, 144), 1)
 #: The card's tier.  The TPU caps (pallas_prop.py:90-92, :96) came from
-#: HBM and VMEM; here the planes live in the H100's 80 GB of device
+#: HBM and VMEM; here the pool lives in the H100's 80 GB of device
 #: memory and no [B, V] plane has to stay in on-chip memory:
-#: - union planes up to 2^28 cells: two bf16 planes of 1 GiB, so one
-#:   sweep reads at most 1 GiB (≈ 0.32 ms at 3.35 TB/s) and a 4096-step
-#:   search stays in seconds; C and V keep the TPU tier's power-of-two
-#:   ceilings (the search itself is limited by DPLL_MAX_VARS anyway);
+#: - a union pool of up to 2^28 cells of C x V (the union layout holds
+#:   its rows' literals only, so the cap bounds the search, not memory);
+#:   C and V keep the TPU tier's power-of-two ceilings (the search itself
+#:   is limited by DPLL_MAX_VARS anyway);
 #: - [B, V] state planes up to 2^22 cells (16 MiB per f32 plane), so the
 #:   lane chunk is MAX_LANES wide up to V = 65536;
-#: - a per-lane cell costs 8 union cells: those planes are float32 (4 B)
-#:   and swept by four bmm passes of two planes, against one pass of two
-#:   bf16 planes in the union kernel (32 B vs 4 B per cell).
+#: - a per-lane cell costs 8 union cells when the layouts compete: the
+#:   weight the union layout's first kernel set (float32 planes swept by
+#:   four bmm passes of two planes against one pass of two bf16 planes,
+#:   32 B vs 4 B a cell), kept so that the two layouts split frontiers
+#:   as before.
 #: The DPLL budgets are the algorithmic ones of pallas_prop.py:107-129.
 CUDA_TIER = Tier("cuda", 1 << 14, 1 << 17, 1 << 28, 1 << 22, 4096, 8192,
                  (64, 256, 1024), 8)
@@ -106,6 +112,16 @@ TIER_PERIOD = 8
 HOT_WIDTH = 3  # clauses at most this wide are always hot (unit fuel)
 #: the round loop reads the live marker back every SYNC_EVERY steps
 SYNC_EVERY = 16
+
+
+def _over_caps(C: int, V: int, cell_weight: int, tier: Tier) -> str:
+    """The caps of ``tier`` that a bucketed C x V layout passes, each
+    cell weighing ``cell_weight`` against ``max_cells`` (1 for the union
+    pool, 2 for one lane of the per-lane layout: :meth:`DenseClausePool.fits_lane`)."""
+    over = [name for name, past in (
+        ("C", C > tier.max_clauses), ("V", V > tier.max_vars),
+        ("cells", C * V * cell_weight > tier.max_cells)) if past]
+    return "+".join(over) or "none"
 
 
 def tier_for(device) -> Tier:
@@ -179,7 +195,7 @@ def _tile_c(C: int, V: int, tier: Tier) -> int:
     """Granule of the hot prefix.  On the CPU tier it is the JAX
     package's Pallas clause tile (pallas_prop.py:427), so hot-tier
     growth matches ``interpret=True`` step for step.  The CUDA kernel
-    has no tile rule (one block per clause row): its granule is the
+    has no tile rule (a thread a row and lane): its granule is the
     same power-of-two floor of 128 rows, never above C."""
     if tier.name == "cpu":
         return min(C, max(128, min(256, (1 << 19) // V)))
@@ -189,23 +205,25 @@ def _tile_c(C: int, V: int, tier: Tier) -> int:
 def _pad_coords(values, size: int) -> np.ndarray:
     """Pad a coordinate list to its bucket with zero writes — cell
     (0, 0) is row 0 x column 0, and column 0 is never a variable, so a
-    spurious 1 there never changes counts (A[:, 0] stays 0 in live
-    lanes) and forced votes/scores for column 0 are masked off by
-    ``col > 1``."""
+    spurious 1 there never changes counts in live lanes (A[:, 0] stays
+    0; padding lanes, fully assigned, do count it) and forced
+    votes/scores for column 0 are masked off by ``col > 1``.  The union
+    pool's rows carry the same cell once for each padded sign
+    (:meth:`DenseClausePool.refresh_coords`)."""
     arr = np.zeros(size, dtype=np.int64)
     arr[: len(values)] = values
     return arr
 
 
 class DenseClausePool:
-    """Dense incidence planes over an explicit clause list, on one
-    device (``cuda`` unless the caller asks for another)."""
+    """The union layout's clause pool over an explicit clause list: the
+    rows' literals as :class:`~mythril_tpu_torch.ops.dense_sweep.SweepRows`
+    (no [C, V] plane), on one device (``cuda`` unless the caller asks
+    for another)."""
 
     def __init__(self, device=None):
         self.device = default_device(device)
-        self.P = None       # [C, V] bf16
-        self.N = None
-        self.width = None   # [1, C] f32
+        self.rows: Optional[SweepRows] = None  # indptr, cells, width
         self.num_vars = 0   # V - 1 usable ids (column == var id)
         self.C = 0
         self.V = 0
@@ -247,28 +265,32 @@ class DenseClausePool:
     def refresh_coords(
         self, urow, ulit, width_arr, n_rows: int, num_vars: int
     ):
-        """Build the incidence planes from deduped (row, literal)
-        coordinates: the host ships only the coordinates, the planes are
-        scattered on the device (``index_put_`` into zeroed planes)."""
+        """Build the pool's clause rows from (row, literal) coordinates
+        in any row order (``grow_hot`` permutes the rows): sorted by row
+        on the host, only the row pointers, cells and widths shipped.
+        The JAX package's plane constructors pad each sign's coordinate
+        list to its bucket with cell (0, 0) (``_pad_coords``); the rows
+        carry that cell once for each sign whose list was padded, as the
+        planes do."""
         from mythril_tpu_torch.ops.batched_sat import dispatch_stats
 
         C = _bucket(max(1, n_rows))
         V = _bucket(num_vars + 1)
         width = np.zeros((1, C), dtype=np.float32)
         width[0, :n_rows] = width_arr
-        pos = ulit > 0
-        n_pos = _bucket(max(1, int(pos.sum())), floor=256)
-        n_neg = _bucket(max(1, int((~pos).sum())), floor=256)
-        dispatch_stats.h2d_bytes += 4 * 2 * (n_pos + n_neg) + int(width.nbytes)
-        self.P = _incidence(
-            (C, V), (urow[pos], ulit[pos]), n_pos, torch.bfloat16,
-            self.device,
+        lit = np.asarray(ulit, np.int64)
+        negative = lit < 0
+        pads = [sign for sign, n in ((False, int((~negative).sum())),
+                                     (True, int(negative.sum())))
+                if _bucket(max(1, n), floor=256) > n]
+        self.rows = rows_from_coords(
+            np.concatenate([np.asarray(urow, np.int64),
+                            np.zeros(len(pads), np.int64)]),
+            np.concatenate([np.abs(lit), np.zeros(len(pads), np.int64)]),
+            np.concatenate([negative, np.array(pads, bool)]),
+            width, V, self.device,
         )
-        self.N = _incidence(
-            (C, V), (urow[~pos], -ulit[~pos]), n_neg, torch.bfloat16,
-            self.device,
-        )
-        self.width = torch.from_numpy(width).to(self.device)
+        dispatch_stats.h2d_bytes += sum(int(t.numel()) * 4 for t in self.rows)
         self.num_vars = V - 1
         self.C, self.V = C, V
 
@@ -394,11 +416,13 @@ def _dpll_round_loop(sweep, B, V, budget, max_decisions, sweep_hot=None,
     (``mythril_tpu/ops/pallas_prop.py:_dpll_round_loop``): each step is
     the sweep and one :func:`~mythril_tpu_torch.ops.dpll_step.dpll_step`.
 
-    ``sweep(P, N, width, A, out)`` returns (fpos, fneg, conf[, spos,
-    sneg]); with ``workspace`` the round allocates ``out`` once (zeroed)
-    and the step zeroes it again after each read, else ``out`` is None
-    and the sweep returns fresh tensors.  Returns
-    ``rounds(P, N, width, *state) -> (*state', steps_used)`` over the
+    ``sweep(*pool, A, out)`` returns (fpos, fneg, conf[, spos, sneg])
+    from the pool's three operands: the union layout's
+    :class:`SweepRows` (indptr, cells, width) or the per-lane layout's
+    planes (P, N, width).  With ``workspace`` the round allocates ``out``
+    once (zeroed) and the step zeroes it again after each read, else
+    ``out`` is None and the sweep returns fresh tensors.  Returns
+    ``rounds(*pool, *state) -> (*state', steps_used)`` over the
     DPLL_STATE_FIELDS tuple; the state is updated in place.  Status is
     RAW: 0 live, 1 SAT candidate, 2 sound UNSAT, 3 retired-undecided
     (budget/taint bail); ``active`` counts per-lane live sweeps.
@@ -413,10 +437,10 @@ def _dpll_round_loop(sweep, B, V, budget, max_decisions, sweep_hot=None,
     decisions_on = max_decisions > 0
     tiered = sweep_hot is not None and tier_period > 1
 
-    def rounds(P, N, width, *state):
+    def rounds(*args):
         from mythril_tpu_torch.ops.batched_sat import dispatch_stats
 
-        state = list(state)
+        pool, state = args[:3], list(args[3:])
         A, status = state[0], state[_STATUS_IDX]
         out = (_sweep_workspace(B, V, decisions_on, A.device)
                if workspace else None)
@@ -435,7 +459,7 @@ def _dpll_round_loop(sweep, B, V, budget, max_decisions, sweep_hot=None,
             full_view = (not tiered) or step % tier_period == 0
             if not full_view:
                 dispatch_stats.hot_view_steps += 1
-            outs = (sweep if full_view else sweep_hot)(P, N, width, A, out)
+            outs = (sweep if full_view else sweep_hot)(*pool, A, out)
             dpll_step(state, outs, flags, step, full_view,
                       decisions_on and not full_view, out is not None)
         return (*state, int(flags[1]))
@@ -447,19 +471,21 @@ def _dpll_solve_loop(sweep, B, V, steps, max_decisions, workspace=False):
     """One-shot wrapper over :func:`_dpll_round_loop`
     (``pallas_prop.py:_dpll_solve_loop``): zero state in, mapped status
     out (3 = bailed becomes 0 = undecided).  Returns
-    ``solve(P, N, width, A0) -> (A, status, steps_used)``; ``A0`` is not
-    written."""
+    ``solve(*pool, A0) -> (A, status, steps_used)`` over the sweep's
+    three pool operands; ``A0`` is not written."""
     rounds = _dpll_round_loop(sweep, B, V, steps, max_decisions,
                               workspace=workspace)
     D = max(1, min(max_decisions, V))
 
-    def solve(P, N, width, A0):
+    def solve(*args):
+        pool, A0 = args[:3], args[3]
+
         def z(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=A0.device)
 
         i32, f32 = torch.int32, torch.float32
         out = rounds(
-            P, N, width, A0.clone(), z((B, V), i32), z((B, D), i32),
+            *pool, A0.clone(), z((B, V), i32), z((B, D), i32),
             z((B, D), f32), z((B, D), f32), z((B, D), f32),
             z((B, 1), i32), z((B, 1), i32), z((B, 1), f32),
             z((B, 1), i32),
@@ -478,16 +504,22 @@ def make_dense_solve(C: int, V: int, B: int, steps: int,
     make_dense_solve``): fn(P[C,V] bf16, N[C,V] bf16, width[1,C] f32,
     A0[B,V] f32) -> (A[B,V] f32, status[B,1] i32, steps_used int) with
     status 2 = UNSAT, 1 = complete assignment for the device clause set
-    (the host verifies it), 0 = undecided.  Its sweeps and steps are the
-    kernels of the round loop on the card.  ``max_decisions=0`` runs
+    (the host verifies it), 0 = undecided.  The planes become
+    :class:`SweepRows` once, before the loop; its sweeps and steps are
+    the kernels of the round loop on the card.  ``max_decisions=0`` runs
     BCP only."""
     scores = max_decisions > 0
 
-    def sweep(P, N, width, A, out):
-        return dense_sweep(P, N, width, A, scores, out=out)
+    def sweep(indptr, cells, width, A, out):
+        return dense_sweep(indptr, cells, width, A, scores, out=out)
 
-    return _dpll_solve_loop(sweep, B, V, steps, max_decisions,
-                            workspace=True)
+    solve_rows = _dpll_solve_loop(sweep, B, V, steps, max_decisions,
+                                  workspace=True)
+
+    def solve(P, N, width, A0):
+        return solve_rows(*planes_to_rows(P, N, width), A0)
+
+    return solve
 
 
 def make_batched_solve(C: int, V: int, B: int, steps: int,
@@ -505,9 +537,10 @@ def make_dense_rounds(
     max_decisions: int = MAX_DECISIONS, hot_c: int = 0,
     tier_period: int = 1,
 ):
-    """Round function of the union layout: fn(P, N, width, *state) ->
-    (*state', steps_used) with RAW status.  Its sweeps go through the
-    CUDA kernel on the card.
+    """Round function of the union layout: fn(indptr, cells, width,
+    *state) -> (*state', steps_used) with RAW status, over the pool's
+    :class:`SweepRows`.  Its sweeps go through the CUDA kernel on the
+    card.
 
     ``hot_c > 0`` adds the hot-tier sweep over only the first ``hot_c``
     clause rows (the hot tier packed to the row prefix by the caller)
@@ -515,13 +548,14 @@ def make_dense_rounds(
     TC = _tile_c(C, V, tier)
     scores = max_decisions > 0
 
-    def sweep(P, N, width, A, out):
-        return dense_sweep(P, N, width, A, scores, out=out)
+    def sweep(indptr, cells, width, A, out):
+        return dense_sweep(indptr, cells, width, A, scores, out=out)
 
     sweep_hot = None
     if hot_c and tier_period > 1 and TC <= hot_c < C:
-        def sweep_hot(P, N, width, A, out):  # noqa: F811 — tier closure
-            return dense_sweep(P, N, width, A, scores, rows=hot_c, out=out)
+        def sweep_hot(indptr, cells, width, A, out):  # noqa: F811
+            return dense_sweep(indptr, cells, width, A, scores, rows=hot_c,
+                               out=out)
 
     return _dpll_round_loop(
         sweep, B, V, budget, max_decisions, sweep_hot, tier_period,
@@ -591,7 +625,7 @@ def _lane_incidence(B, C, V, coords_pos, coords_neg, device):
 
 def _run_dense_ladder(
     round_fn,
-    planes,
+    operands,
     A0: np.ndarray,
     n_real: int,
     max_decisions: int,
@@ -611,10 +645,11 @@ def _run_dense_ladder(
     assignment captured), survivors are compacted to the bucket prefix
     and re-packed into the smallest lane bucket that fits.
 
-    - ``planes`` are passed to the round function verbatim;
-      ``compact_planes(planes, idx)`` re-gathers per-lane planes on
-      lane compaction (None for lane-shared planes).
-    - ``grow_hot(live_A, hot_c) -> (planes, hot_c) | None`` folds the
+    - ``operands`` (the union pool's :class:`SweepRows`, or the
+      per-lane planes) are passed to the round function verbatim;
+      ``compact_planes(operands, idx)`` re-gathers per-lane planes on
+      lane compaction (None for the lane-shared union pool).
+    - ``grow_hot(live_A, hot_c) -> (operands, hot_c) | None`` folds the
       round's trail into the hot tier (union layout).
 
     Telemetry lands on DispatchStats: ``rounds``, ``repacks``,
@@ -649,7 +684,7 @@ def _run_dense_ladder(
         dispatch_stats.dense_round_budgets[budget] = (
             dispatch_stats.dense_round_budgets.get(budget, 0) + 1)
         with record_function("dense.round"):
-            out = fn(*planes, *state)
+            out = fn(*operands, *state)
         state, steps_used = list(out[:-1]), out[-1]
         dispatch_stats.rounds += 1
         dispatch_stats.device_sweeps += steps_used
@@ -683,13 +718,13 @@ def _run_dense_ladder(
             B = B_new
             state = new_state
             if compact_planes is not None:
-                planes = compact_planes(planes, index)
+                operands = compact_planes(operands, index)
         else:
             keep = np.arange(live.size)
         if grow_hot is not None:
             grown = grow_hot(A_host[keep], hot_c)
             if grown is not None:
-                planes, hot_c = grown
+                operands, hot_c = grown
     if live.size:
         st = state[_STATUS_IDX][:, 0].cpu().numpy()
         act = state[_ACTIVE_IDX][:, 0].cpu().numpy()
@@ -779,6 +814,10 @@ class DenseSatBackend:
                 union_C, union_V, max_C, max_V,
             )
             dispatch_stats.dense_declines += 1
+            caps = (f"union {_over_caps(union_C, union_V, 1, tier)}; "
+                    f"per-lane {_over_caps(max_C, max_V, 2, tier)}")
+            dispatch_stats.dense_decline_caps[caps] = (
+                dispatch_stats.dense_decline_caps.get(caps, 0) + 1)
             return None
 
         use_batched = batched_ok and (
@@ -798,14 +837,15 @@ class DenseSatBackend:
         return results, assignments
 
     def _solve_union(self, ctx, assumption_sets, clause_idx, cone_vars):
-        """Union-cone layout: one shared [C, V] incidence pool, solved
+        """Union-cone layout: one shared pool of C clause rows over V
+        columns (:class:`SweepRows`), solved
         through the round ladder with tiered hot/cold sweeps: hot rows —
         narrow clauses plus rows touched by the assumption frontier,
         grown with each round's trail — are packed to the row prefix and
         swept every step; the cold remainder joins every TIER_PERIOD-th
         sweep.  The first round always sweeps the full cone."""
         from mythril_tpu_torch.ops.batched_sat import (
-            dispatch_stats, warm_pref_row,
+            dispatch_stats, tier_clock, warm_pref_row,
         )
         from mythril_tpu_torch.ops.frontier import (
             LitAdjacency, frontier_enabled,
@@ -844,7 +884,7 @@ class DenseSatBackend:
         )
         hot_c = 0  # engaged by grow_hot once a trail exists
         pool = DenseClausePool(self.device)
-        with record_function("dense.planes"):
+        with record_function("dense.rows"):
             pool.refresh_coords(urow, ulit, width_arr, n_rows, num_cone_vars)
         inverse = np.zeros(pool.V, dtype=np.int64)
         inverse[1] = 1
@@ -938,15 +978,16 @@ class DenseSatBackend:
                     layout["urow"], ulit, layout["width"], n_rows,
                     num_cone_vars,
                 )
-                return (pool.P, pool.N, pool.width), new_hot_c
+                return pool.rows, new_hot_c
 
-            st_out, A_host = _run_dense_ladder(
-                round_fn, (pool.P, pool.N, pool.width), A0,
-                n, decisions, tier.steps, tier, self.device,
-                hot_c=hot_c, lane_floor=8,
-                grow_hot=grow_hot if tier_on else None,
-                pref_row=pref_row,
-            )
+            with tier_clock("dense_rounds", "dense.rounds"):
+                st_out, A_host = _run_dense_ladder(
+                    round_fn, pool.rows, A0,
+                    n, decisions, tier.steps, tier, self.device,
+                    hot_c=hot_c, lane_floor=8,
+                    grow_hot=grow_hot if tier_on else None,
+                    pref_row=pref_row,
+                )
             urow, width_arr, hot_mask = (
                 layout["urow"], layout["width"], layout["hot"]
             )
@@ -966,7 +1007,7 @@ class DenseSatBackend:
         driven through the round ladder (lane retirement compacts the
         per-lane planes too).  No tier split here."""
         from mythril_tpu_torch.ops.batched_sat import (
-            dispatch_stats, warm_pref_row,
+            dispatch_stats, tier_clock, warm_pref_row,
         )
         from mythril_tpu_torch.ops.incremental import get_cone_memo
 
@@ -1052,12 +1093,13 @@ class DenseSatBackend:
                 return tuple(p.index_select(0, index) for p in planes)
 
             n = len(chunk)
-            st_out, A_host = _run_dense_ladder(
-                round_fn, (P, N, W), A0, n, decisions, tier.steps, tier,
-                self.device, lane_floor=lane_floor,
-                compact_planes=compact_planes,
-                pref_row=pref_plane if pref_seeded else None,
-            )
+            with tier_clock("dense_rounds", "dense.rounds"):
+                st_out, A_host = _run_dense_ladder(
+                    round_fn, (P, N, W), A0, n, decisions, tier.steps, tier,
+                    self.device, lane_floor=lane_floor,
+                    compact_planes=compact_planes,
+                    pref_row=pref_plane if pref_seeded else None,
+                )
             dispatch_stats.lane_slots_filled += n
             dispatch_stats.lane_slots_total += B
             statuses[start : start + n] = st_out

@@ -27,7 +27,7 @@ from mythril_tpu_torch.native import SatSolver
 from mythril_tpu_torch.ops import batched_sat as port_bs
 from mythril_tpu_torch.ops import dense_prop as port_dp
 from mythril_tpu_torch.ops.carry import frontier_from_numpy, state_from_numpy
-from mythril_tpu_torch.ops.dense_sweep import sweep_plain
+from mythril_tpu_torch.ops.dense_sweep import rows_to_planes, sweep_plain
 from mythril_tpu_torch.ops.incremental import reset_cone_memo
 
 
@@ -130,8 +130,10 @@ def test_round_loop_state_matches(tiered):
     jpool.refresh(clauses, num_vars + 1)
     ppool = port_dp.DenseClausePool("cpu")
     ppool.refresh(clauses, num_vars + 1)
-    assert np.array_equal(np.asarray(jpool.P, np.float32),
-                          ppool.P.float().numpy())
+    for jplane, pplane in zip((jpool.P, jpool.N), rows_to_planes(
+            ppool.rows, ppool.V)):
+        assert np.array_equal(np.asarray(jplane, np.float32),
+                              pplane.float().numpy())
     C, V = jpool.C, jpool.V
     np_rng = np.random.default_rng(3)
     A0 = np.zeros((B, V), np.float32)
@@ -150,7 +152,7 @@ def test_round_loop_state_matches(tiered):
                *[jnp.asarray(a) for a in state])
     pfn = port_dp.make_dense_rounds(C, V, B, budget, port_dp.CPU_TIER,
                                     port_dp.MAX_DECISIONS, hot_c, period)
-    pout = pfn(ppool.P, ppool.N, ppool.width,
+    pout = pfn(*ppool.rows,
                *state_from_numpy(state, device="cpu"))
     assert int(jout[-1]) == pout[-1] > 0
     for name, j, p in zip(jax_pp.DPLL_STATE_FIELDS, jout[:-1], pout[:-1]):
@@ -254,6 +256,32 @@ def test_backend_counts_round_budgets_and_hot_view_steps(recipe,
     assert len(views) >= stats.device_sweeps > 0
 
 
+@pytest.mark.parametrize("caps, want", [
+    ({"max_vars": 1, "max_clauses": 1}, "union C+V; per-lane C+V"),
+    ({"max_cells": 1}, "union cells; per-lane cells"),
+])
+def test_backend_counts_declines_by_cap(caps, want):
+    """A dispatch that no dense layout fits is declined (None, for the
+    gather tiers) and counted in ``dense_declines`` and, by the caps
+    each layout passed, in ``dense_decline_caps``."""
+    jctx = jax_context()
+    lanes = LAYOUTS["union"](JS)
+    sets = [list(dict.fromkeys(jctx.blast_lit(c.raw) for c in lane))
+            for lane in lanes]
+    lits, indptr = jctx.pool.csr()
+    carried = frontier_from_numpy(
+        lits, indptr, jctx.solver.num_vars,
+        [(s, *jctx.cone(s)) for s in sets],
+    )
+    backend = port_dp.DenseSatBackend(device="cpu")
+    backend.tier = backend.tier._replace(**caps)
+    port_bs.dispatch_stats.reset()
+    assert backend.check_assumption_sets(carried, sets) is None
+    assert port_bs.dispatch_stats.dense_declines == 1
+    assert port_bs.dispatch_stats.dense_decline_caps == {want: 1}
+    assert port_bs.dispatch_stats.rounds == 0
+
+
 def test_differential_random_cnf_vs_cdcl():
     """Random 3-CNF instances: the port's dense DPLL never calls a
     satisfiable instance UNSAT, its SAT assignments satisfy every
@@ -283,7 +311,7 @@ def test_differential_random_cnf_vs_cdcl():
         rounds = port_dp.make_dense_rounds(
             pool.C, pool.V, B, 96, port_dp.CPU_TIER
         )
-        out = rounds(pool.P, pool.N, pool.width,
+        out = rounds(*pool.rows,
                      *port_dp._dpll_state0(A0, D, B, "cpu"))
         status = int(out[port_dp._STATUS_IDX][0, 0])
         truths.append(truth)
@@ -303,14 +331,14 @@ def test_differential_random_cnf_vs_cdcl():
 def test_clause_pool_defaults_to_the_card(monkeypatch):
     """``DenseClausePool()`` takes the entry points' default device: with
     no card it raises the "needs a CUDA device" error (it built its planes
-    on the CPU before); asked for the CPU, it builds them there."""
+    on the CPU before); asked for the CPU, it builds its rows there."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         port_dp.DenseClausePool()
     pool = port_dp.DenseClausePool("cpu")
     pool.refresh([(2, 3), (-2, 3)], 4)
     assert pool.device == torch.device("cpu")
-    assert pool.P.device.type == "cpu" and pool.C >= 2
+    assert all(t.device.type == "cpu" for t in pool.rows) and pool.C >= 2
 
 
 def test_state_from_numpy_defaults_to_the_card():
@@ -327,3 +355,39 @@ def test_state_from_numpy_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             state_from_numpy(state)
+
+
+@pytest.mark.parametrize("resident", ["0", "1"])
+def test_tier_clock_splits_the_device_seconds(monkeypatch, resident):
+    """``dispatch_stats`` splits the funnel's device seconds by tier: the
+    dense tier and the gather / cone tiers after it sum to ``device_s``
+    within the funnel's own bookkeeping, the resident solves lie inside
+    the gather tiers' seconds and the round ladders inside the dense
+    tier's, and the word rung has its own: with the
+    resident solver off the dense tier answers the frontier alone, with
+    it on the dense tier delegates it to the resident solve."""
+    monkeypatch.setenv("MYTHRIL_TPU_RESIDENT_KERNEL", resident)
+    monkeypatch.setenv("MYTHRIL_TPU_WORD_TIER", "1")
+    from mythril_tpu_torch.smt.solver import reset_blast_context
+    from mythril_tpu_torch.support.support_args import (
+        FORCE_DISPATCH_ARGS, args,
+    )
+
+    for key, value in FORCE_DISPATCH_ARGS.items():
+        monkeypatch.setattr(args, key, value)
+    reset_blast_context()
+    plan, expected = frontiers.guard_chain_frontier(8, 8, 2,
+                                                    calldata="words")
+    port_bs.dispatch_stats.reset()
+    assert port_bs.batch_check_states(plan, device="cpu") == expected
+    stats = port_bs.dispatch_stats
+    assert stats.dispatches == 1 and stats.word_s > 0
+    assert 0 < stats.dense_s + stats.gather_s <= stats.device_s
+    assert stats.resident_s <= stats.gather_s
+    assert stats.dense_rounds_s <= stats.dense_s
+    if resident == "0":
+        assert stats.gather_s == stats.resident_s == 0
+        assert 0 < stats.dense_rounds_s and stats.rounds > 0
+    else:
+        assert stats.resident_delegations == 1
+        assert 0 < stats.resident_s and stats.resident_dispatches > 0

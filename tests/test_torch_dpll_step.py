@@ -385,7 +385,7 @@ def test_dense_rounds_with_host_step_match_jax(host_kernel, monkeypatch,
     monkeypatch.setattr(port_dp, "dpll_step", _host_step(host_kernel))
     pfn = port_dp.make_dense_rounds(C, V, B, budget, port_dp.CPU_TIER,
                                     max_dec, hot_c, period)
-    pout = pfn(ppool.P, ppool.N, ppool.width,
+    pout = pfn(*ppool.rows,
                *state_from_numpy([a.copy() for a in state], device="cpu"))
     _compare_rounds(jout, pout)
     assert (pout[port_dp._STATUS_IDX] != 0).any()
@@ -414,7 +414,7 @@ def test_dense_rounds_at_cluster_sizes_match_jax(host_kernel, monkeypatch,
                                                          cluster))
     pout = port_dp.make_dense_rounds(C, V, B, budget, port_dp.CPU_TIER,
                                      port_dp.MAX_DECISIONS, 256, 4)(
-        ppool.P, ppool.N, ppool.width,
+        *ppool.rows,
         *state_from_numpy([a.copy() for a in state], device="cpu"))
     _compare_rounds(jout, pout)
 
@@ -497,7 +497,7 @@ def test_rounds_whose_lanes_all_finish_mid_window_match_jax(
     pout = port_dp.make_dense_rounds(ppool.C, ppool.V, B, budget,
                                      port_dp.CPU_TIER,
                                      port_dp.MAX_DECISIONS, hot_c, period)(
-        ppool.P, ppool.N, ppool.width,
+        *ppool.rows,
         *state_from_numpy([a.copy() for a in state], device="cpu"))
     _compare_rounds(jouts[windows], pout)
     steps = pout[-1]
@@ -567,6 +567,12 @@ def _dense_trials():
     return trials
 
 
+def _pool_planes(pool):
+    """The pool's rows as the planes and widths the one-shot takes (the
+    JAX signature)."""
+    return (*port_ds.rows_to_planes(pool.rows, pool.V), pool.rows.width)
+
+
 @pytest.mark.parametrize("step", ["plain", "host"])
 def test_dense_solve_matches_jax(host_kernel, monkeypatch, step):
     if step == "host":
@@ -586,7 +592,7 @@ def test_dense_solve_matches_jax(host_kernel, monkeypatch, step):
                                            jnp.asarray(A0))
         A0_port = torch.from_numpy(A0.copy())
         pA, pst, psteps = port_dp.make_dense_solve(
-            ppool.C, ppool.V, B, 96)(ppool.P, ppool.N, ppool.width, A0_port)
+            ppool.C, ppool.V, B, 96)(*_pool_planes(ppool), A0_port)
         assert np.array_equal(np.asarray(jA), pA.numpy())
         assert np.array_equal(np.asarray(jst), pst.numpy())
         assert int(jsteps) == psteps > 0
@@ -653,7 +659,7 @@ def test_dense_solve_bcp_only_and_budget_match_jax(max_dec):
     jout = jax_pp.make_dense_solve(jpool.C, jpool.V, B, 12, True, max_dec)(
         jpool.P, jpool.N, jpool.width, jnp.asarray(A0))
     pout = port_dp.make_dense_solve(ppool.C, ppool.V, B, 12, max_dec)(
-        ppool.P, ppool.N, ppool.width, torch.from_numpy(A0.copy()))
+        *_pool_planes(ppool), torch.from_numpy(A0.copy()))
     assert np.array_equal(np.asarray(jout[0]), pout[0].numpy())
     assert np.array_equal(np.asarray(jout[1]), pout[1].numpy())
     assert int(jout[2]) == pout[2] > 0
@@ -760,12 +766,14 @@ def test_sweep_workspace_adds_into_the_given_buffers():
     width = (P.sum(1) + N.sum(1))[None, :]
     A = torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], size=(B, V))
                          .astype(np.float32))
-    P, N = P.to(torch.bfloat16), N.to(torch.bfloat16)
-    fresh = port_ds.dense_sweep(P, N, width, A, True)
+    rows = port_ds.planes_to_rows(P, N, width)
+    fresh = port_ds.dense_sweep(*rows, A, True)
+    assert all(torch.equal(f, w) for f, w in zip(
+        fresh, port_ds.sweep_plain(P, N, width, A, True)))
     out = port_dp._sweep_workspace(B, V, True, "cpu")
-    got = port_ds.dense_sweep(P, N, width, A, True, out=out)
+    got = port_ds.dense_sweep(*rows, A, True, out=out)
     assert all(g is o for g, o in zip(got, out))
     for g, f in zip(got, fresh):
         assert torch.equal(g, f)
-    again = port_ds.dense_sweep(P, N, width, A, True, out=out)
+    again = port_ds.dense_sweep(*rows, A, True, out=out)
     assert torch.equal(again[0], 2 * fresh[0]) and fresh[0].any()

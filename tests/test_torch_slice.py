@@ -124,25 +124,15 @@ def test_wrapper_never_falls_back_for_device_tensors(monkeypatch):
         raise AssertionError("plain version taken for a device tensor")
 
     monkeypatch.setattr(dense_sweep, "sweep_plain", no_plain)
-    P = torch.zeros((128, 128), dtype=torch.bfloat16, device="meta")
+    monkeypatch.setattr(dense_sweep, "sweep_rows_plain", no_plain)
+    indptr = torch.zeros(129, dtype=torch.int32, device="meta")
+    cells = torch.zeros(300, dtype=torch.int32, device="meta")
     W = torch.zeros((1, 128), device="meta")
     A = torch.zeros((8, 128), device="meta")
     before = dense_sweep.launch_count
     with pytest.raises(ValueError):
-        dense_sweep.dense_sweep(P, P, W, A, True)
+        dense_sweep.dense_sweep(indptr, cells, W, A, True)
     assert dense_sweep.launch_count == before
-
-
-def test_wrapper_refuses_clauses_wider_than_the_kernel_row_list():
-    """The kernel keeps one row's cells in shared memory: the wrapper's
-    width check passes MAX_ROW_LITERALS and refuses one more, also when a
-    checked width tensor is later written in place."""
-    width = torch.zeros((1, 256))
-    width[0, 3] = dense_sweep.MAX_ROW_LITERALS
-    dense_sweep._check_widths(width)
-    width[0, 4] = dense_sweep.MAX_ROW_LITERALS + 1
-    with pytest.raises(ValueError, match="literals"):
-        dense_sweep._check_widths(width)
 
 
 def test_kernel_build_raises_without_toolkit(monkeypatch, tmp_path):
