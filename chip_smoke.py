@@ -12,8 +12,9 @@ failure):
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: the native CDCL library (g++), the dense sweep kernel, the
    DPLL step, the frontier kernels, the round lane, the word fixpoint,
-   the lockstep interpreter and the keccak sponge (nvcc, sm_90a), all
-   eight started together, with their build seconds and the
+   the lockstep interpreter and the keccak sponge (nvcc, sm_90a), and
+   the spin kernel the keccak phase times behind, all nine started
+   together, with their build seconds and the
    ``-Xptxas -v`` register / shared-memory lines;
 3. kernels vs plain: the hand-written sweep over clause rows
    (``SweepRows``: row pointers and cells) against ``sweep_plain`` over
@@ -166,9 +167,12 @@ failure):
 10. keccak: the ``keccak`` kernel against ``keccak256_batch_plain`` on
    the card, every digest byte for byte, and a sample of rows against
    the native ``keccak256``: the analyses' own calls, then 65,536 seeded
-   rows at widths 32, 64, 136, 137 and 256; device ms (CUDA events
-   around each bare launch on an idle stream), plain ms, the bound (its
-   32-bit integer operations at the integer issue rate) and the share;
+   rows at widths 32, 64, 136, 137 and 256 and 1,048,576 rows at 64;
+   device ms on two stopwatches (CUDA events around each bare launch on
+   an idle stream, and behind the spin kernel of
+   ``chip_tools/lockstep_times.py``, built with the kernels: the
+   device's time alone), plain ms, the bound (its 32-bit integer
+   operations at the integer issue rate) and the share;
 11. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; the histogram of the (B, V,
    D) shapes at which every audited run launched ``dpll_step``; the
@@ -182,6 +186,7 @@ Exits non-zero, printing no result, when no CUDA device is present.
 
 import contextlib
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -315,7 +320,7 @@ def kernel_device_ms(fn, iters, kernel="dense_sweep_kernel", tries=10):
 
 
 def build_all():
-    """The eight builds, started together; returns their log lines."""
+    """The nine builds, started together; returns their log lines."""
     from mythril_tpu_torch.native import load as load_native
     from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import dpll_step as DSTEP
@@ -329,7 +334,7 @@ def build_all():
             "dpll_step.cu": DSTEP.load_library,
             "frontier.cu": FK.load_library, "round_lane.cu": RL.load_library,
             "word_prop.cu": WF.load_library, "lockstep.cu": LS.load_library,
-            "keccak.cu": KC.load_library}
+            "keccak.cu": KC.load_library, "spin kernel": build_spin}
     seconds, errors = {}, {}
 
     def run(name, fn):
@@ -362,6 +367,37 @@ def build_all():
                 if "registers" in line or "smem" in line
                 or "spill" in line or "Function properties" in line))
     return lines
+
+
+#: ``chip_tools/lockstep_times.py`` (its spin and empty kernels' source,
+#: their cycles and its event timing) and the spin kernels' library, once
+#: ``build_spin`` has built it
+SPIN = {}
+
+
+def build_spin():
+    """Build and bind ``chip_tools/lockstep_times.py``'s spin kernels
+    (its ``spin_library``) into ``SPIN``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chip_tools", "lockstep_times.py")
+    spec = importlib.util.spec_from_file_location("lockstep_times", path)
+    times = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(times)
+    SPIN.update(times=times, lib=times.spin_library())
+
+
+def spin_ms(name, launch, iters):
+    """Device ms of one bare launch behind a spin (the stream busy while
+    the host enqueues it: the device's time alone), the mean of
+    ``iters``."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    times, lib = SPIN["times"], SPIN["lib"]
+    check(launch() == 0, f"{name} launch")
+    readings = times.event_ms(launch, iters, lambda: lib.spin_launch(
+        times.SPIN_CYCLES, stream))
+    return sum(readings) / iters
 
 
 def sweep_coords(C, V, seed=0):
@@ -2828,9 +2864,15 @@ def lockstep_phase(card):
 
 
 #: the keccak phase's batches: rows, and widths (a word, the mapping
-#: slot's key and slot, the rate, one byte past it, the tier's cap)
+#: slot's key and slot, the rate, one byte past it, the tier's cap); and
+#: a batch of many more rows at the mapping slot's width
 KECCAK_ROWS = 65536
 KECCAK_WIDTHS = (32, 64, 136, 137, 256)
+KECCAK_LARGE = (1 << 20, 64)
+#: (rows, width, byte offset) of a batch viewed from a flat buffer at a
+#: base off 8 bytes: every row's staging through raw words, the batch's
+#: first and last words read byte by byte
+KECCAK_UNALIGNED = (65536, 137, 3)
 #: rows of each batch also held against the native keccak256
 KECCAK_SAMPLE = 64
 #: 32-bit integer operations one keccak-f[1600] round needs on the
@@ -2861,7 +2903,8 @@ def keccak_bound(rows, width):
 
 
 def keccak_kernel_ms(data, iters):
-    """Device ms of one launch of the kernel alone, on an idle stream."""
+    """Device ms of one launch of the kernel alone: on an idle stream,
+    and behind a spin."""
     import torch
 
     from mythril_tpu_torch.ops import keccak as KC
@@ -2871,14 +2914,16 @@ def keccak_kernel_ms(data, iters):
                       device=data.device)
     args = (data.data_ptr(), out.data_ptr(), data.shape[0], data.shape[1],
             torch.cuda.current_stream().cuda_stream)
-    return idle_stream_ms("keccak", lambda: lib.keccak_launch(*args), iters)
+    launch = lambda: lib.keccak_launch(*args)  # noqa: E731
+    return (idle_stream_ms("keccak", launch, iters),
+            spin_ms("keccak", launch, iters))
 
 
 def keccak_case(name, data, iters):
     """One kernel call on the card held against the plain version on the
     card (every digest byte for byte) and a sample of rows against the
-    native ``keccak256``; returns (ms, plain ms, bound ms, bound by, max
-    abs err)."""
+    native ``keccak256``; returns (ms, ms behind a spin, plain ms, bound
+    ms, bound by, max abs err)."""
     import torch
 
     from mythril_tpu_torch.native import keccak256 as native_keccak
@@ -2899,14 +2944,15 @@ def keccak_case(name, data, iters):
         check(native_keccak(row.tobytes()) == digest.tobytes(),
               f"keccak {name}: a digest differs from the native keccak256")
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-    ms = keccak_kernel_ms(data, iters)
+    ms, busy_ms = keccak_kernel_ms(data, iters)
     bound_ms, bound_by = keccak_bound(data.shape[0], data.shape[1])
     log(f"keccak {name}: {data.shape[0]} rows x {data.shape[1]} B; "
         f"bit-equal to the plain version and, on {min(KECCAK_SAMPLE, len(rows))} "
-        f"rows, to the native keccak256; kernel {ms:.4f} ms (plain "
-        f"{plain_ms:.1f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
-        f"{100 * bound_ms / ms:.1f}% of it)")
-    return ms, plain_ms, bound_ms, bound_by, err
+        f"rows, to the native keccak256; kernel {ms:.4f} ms on an idle "
+        f"stream, {busy_ms:.4f} ms behind a spin (plain {plain_ms:.1f} ms, "
+        f"bound {bound_ms:.6f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% "
+        f"and {100 * bound_ms / busy_ms:.1f}% of it)")
+    return ms, busy_ms, plain_ms, bound_ms, bound_by, err
 
 
 def keccak_phase(card, captured):
@@ -2914,15 +2960,16 @@ def keccak_phase(card, captured):
     analyses' own calls (``captured``: the rows of every call the
     symbolic lockstep tier made in the default rungs, each already held
     against the plain version as it ran), (b) batches of
-    :data:`KECCAK_ROWS` seeded rows at each of :data:`KECCAK_WIDTHS`;
-    returns the kernel's JSON entry (times and bound of the first
-    main-path call)."""
+    :data:`KECCAK_ROWS` seeded rows at each of :data:`KECCAK_WIDTHS` and
+    one of :data:`KECCAK_LARGE`, and (c) a row view at a base off 8 bytes
+    (:data:`KECCAK_UNALIGNED`); returns the kernel's JSON entry (times
+    and bound of the first main-path call)."""
     import torch
 
     check(captured, "keccak: the analyses made no call to capture")
     entry = None
     for index, data in enumerate(captured):
-        ms, plain_ms, bound_ms, bound_by, err = keccak_case(
+        ms, busy_ms, plain_ms, bound_ms, bound_by, err = keccak_case(
             f"main-path call {index}", data, iters=20)
         if entry is None:
             entry = {
@@ -2930,15 +2977,23 @@ def keccak_phase(card, captured):
                 "source": "mythril_tpu_torch/ops/csrc/keccak.cu",
                 "replaces": "mythril_tpu/ops/keccak.py:139",
                 "max_abs_err": err, "ms": round(ms, 4),
+                "spin_ms": round(busy_ms, 4),
                 "plain_ms": round(plain_ms, 4),
                 "bound_ms": round(bound_ms, 10), "bound_by": bound_by,
                 "library_ms": None,
             }
     rng = np.random.default_rng(2026)
-    for width in KECCAK_WIDTHS:
+    for rows, width in [(KECCAK_ROWS, w) for w in KECCAK_WIDTHS] + [
+            KECCAK_LARGE]:
         data = torch.from_numpy(rng.integers(
-            0, 256, size=(KECCAK_ROWS, width), dtype=np.uint8)).to(DEVICE)
+            0, 256, size=(rows, width), dtype=np.uint8)).to(DEVICE)
         keccak_case(f"batch [{card}]", data, iters=20)
+    rows, width, offset = KECCAK_UNALIGNED
+    flat = torch.from_numpy(rng.integers(
+        0, 256, size=rows * width + offset + 16, dtype=np.uint8)).to(DEVICE)
+    view = flat[offset:offset + rows * width].view(rows, width)
+    check(view.data_ptr() % 8 == offset, "keccak: the view's base offset")
+    keccak_case(f"batch at base offset {offset} [{card}]", view, iters=20)
     return entry
 
 

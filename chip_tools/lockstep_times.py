@@ -324,6 +324,30 @@ extern "C" int spin_launch(long long cycles, void* stream) {
 SPIN_CYCLES = 200_000
 
 
+def spin_library():
+    """``EMPTY`` built beside the imported package's kernels
+    (``_build/libspin.so``, rebuilt when the source changes) and bound:
+    ``empty_launch(blocks, threads, stream)`` and ``spin_launch(cycles,
+    stream)``."""
+    from mythril_tpu_torch.ops import dense_sweep as ds
+
+    os.makedirs(ds.BUILD_DIR, exist_ok=True)
+    source = os.path.join(ds.BUILD_DIR, "spin.cu")
+    written = None
+    if os.path.exists(source):
+        with open(source) as f:
+            written = f.read()
+    if written != EMPTY:  # rewritten only when changed: nvcc's mtime
+        with open(source, "w") as f:
+            f.write(EMPTY)
+    library = os.path.join(ds.BUILD_DIR, "libspin.so")
+    ds.build_cuda_library(source, library)
+    lib = ctypes.CDLL(library)
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.spin_launch.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    return lib
+
+
 def apply_edits(text, edits):
     """``text`` under ``edits``; raises if an edit's text is not found
     exactly once."""
@@ -401,11 +425,11 @@ def load_parent(tree):
 
 
 def build(parent_module):
-    """This tree's source, its variants, the parent's source and the
-    empty kernel, compiled in parallel, each with the probe; name ->
-    bound library (the parent's bound by its own wrapper, the empty
-    kernel under ``"empty"``; a variant that does not build is left
-    out)."""
+    """This tree's source, its variants and the parent's source,
+    compiled in parallel, each with the probe, and the empty kernel
+    (``spin_library``); name -> bound library (the parent's bound by its
+    own wrapper, the empty kernel under ``"empty"``; a variant that does
+    not build is left out)."""
     from mythril_tpu_torch.ops import lockstep as LS
 
     own = open(LS.SOURCE).read()
@@ -419,25 +443,17 @@ def build(parent_module):
         text = open(parent_module.SOURCE).read() + PROBE
         src = variant_source("parent", text)
         jobs[PARENT] = (src, parent_module.LIBRARY)
-    src = variant_source("empty", EMPTY)
-    jobs["empty"] = (src, src[:-3] + ".so")
-    built = compile_all(jobs, required=(BUILT, PARENT, "empty"))
-    libs = {}
+    built = compile_all(jobs, required=(BUILT, PARENT))
+    libs = {"empty": spin_library()}
     for name in built:
         lib_path = jobs[name][1]
-        if name == "empty":
-            lib = ctypes.CDLL(lib_path)
-            lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_void_p]
-            lib.spin_launch.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
-        elif name == PARENT:
+        if name == PARENT:
             lib = parent_module.bind(lib_path)
             parent_module._lib = lib
         else:
             lib = LS.bind(lib_path)
-        if name != "empty":
-            lib.lockstep_probe_blocks_per_sm.argtypes = [ctypes.c_int,
-                                                         ctypes.c_int]
+        lib.lockstep_probe_blocks_per_sm.argtypes = [ctypes.c_int,
+                                                     ctypes.c_int]
         libs[name] = lib
     return libs
 

@@ -17,13 +17,37 @@
 // block as 17 little-endian 64-bit lanes, each block followed by the 24
 // rounds of Keccak-f[1600]; the digest is lanes 0 to 3, little-endian.
 //
-// Design: one thread a row.  The 25 lanes of the state sit in registers
-// as uint64_t and the 24 rounds are unrolled, so every index and every
-// rotation is a constant (a rotation compiles to funnel shifts on the
-// 32-bit halves).  A lane of the message is eight byte loads (the row's
-// start has no alignment), or one 8-byte load when the row is 8-byte
-// aligned; bytes past the row are the padding.  The digest is written as
-// four 8-byte stores.
+// Design: a block of kRows threads hashes a tile of kRows rows, one
+// thread a row.  The 25 lanes of a row's state sit in the thread's
+// registers as uint64_t and the 24 rounds are unrolled, so every index
+// and every rotation is a constant (ptxas fuses chi's logic into
+// three-input LOP3 and a rotation into two funnel shifts; theta's
+// three-input XORs are written as LOP3 by hand, xor3).
+//
+// The message reaches the threads through shared memory.  For sponge
+// block k the block's threads together stage the tile's padded messages:
+// bytes [136k, min(136k + 136, L)) of each row, then the padding (0x01
+// after the row's last byte, 0x80 in the last block's last byte, zeros
+// between), as kRows rows of 17 64-bit words, a row at an odd stride of
+// 17 words so that a thread's 64-bit reads of its own row fall on
+// distinct banks across a half-warp.  Staging goes word by word,
+// consecutive threads on consecutive words, so consecutive threads read
+// consecutive 8-byte words of the batch (for L <= 136 the tile's rows are
+// one contiguous span of kRows x L bytes), every copy an aligned 8-byte
+// cp.async that holds no register.  Where the base and L are multiples of
+// 8 a message word is one copy straight into the tile.  Elsewhere the
+// copies land in raw words (a row's 136 bytes from any offset span 18
+// aligned words), and after a barrier each tile word is funnel-shifted
+// out of two of them, the words shared out among the threads as the
+// copies are; only a word at the first or last bytes of the batch is read
+// byte by byte.  A thread's absorb is then 17 64-bit shared loads and
+// XORs into its state: no selects, no byte assembly and no branch on L a
+// lane.  Block k + 1 is staged into the same tile after block k permutes.
+// The digest leaves as two 16-byte stores a row.  Measured against this
+// (chip_tools/keccak_times.py, NVIDIA H100 80GB HBM3 at 700 W): a second
+// tile staged during the permutation was up to 4.5% slower; each thread
+// shifting its own unaligned row took 80 registers, not 72, and was 3%
+// faster at 137 B but 1% slower on aligned rows.
 //
 // Bound: operations.  A block needs 24 rounds of 178 32-bit integer
 // operations on the lanes' halves with three-input logic (LOP3) fused
@@ -32,13 +56,14 @@
 // 50), plus iota's XOR of each nonzero half of the round constant,
 // against 136 bytes read.  They issue at the integer rate of compute
 // capability 9.0, 64 a clock an SM (about 16.7e12 a second at 132 SMs
-// and 1.98 GHz), not at the float32 FMA rate.  Neighbouring threads
-// read rows L bytes apart, so the loads are not coalesced: a tile of
-// rows staged through shared memory would be.
+// and 1.98 GHz), not at the float32 FMA rate.  The staging adds a
+// dozen operations a tile word, the absorb 17 shared loads a block.
 //
-// Compiled as host C++ (no __CUDACC__), the same row function runs one
-// row an iteration (keccak_host), so the CPU tests hold the kernel's own
-// code against the plain version and the JAX package.
+// Compiled as host C++ (no __CUDACC__), the same functions run the grid
+// block by block (keccak_host): between two barriers every thread of the
+// block runs in turn over a local tile, so the CPU tests hold the
+// kernel's own staging, padding and row function against the plain
+// version and the JAX package.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -47,15 +72,19 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define KC_FN __device__ __forceinline__
+#define KC_HD __host__ __device__ __forceinline__
 #else
 #define KC_FN inline
+#define KC_HD inline
 #endif
 
 namespace kc {
 
 constexpr int kRate = 136;        // ops/keccak.py:RATE_BYTES
-constexpr int kRateLanes = kRate / 8;
-constexpr int kThreads = 128;     // rows a block
+constexpr int kRateLanes = kRate / 8;  // 17: a tile row's words (its stride)
+constexpr int kRows = 128;        // rows (threads) a block
+constexpr int kTileWords = kRows * kRateLanes;
+constexpr int kRawStride = 18;    // raw words a row: 136 bytes from any offset
 
 #ifdef __CUDACC__
 __constant__ uint64_t kRC[24] = {
@@ -94,6 +123,26 @@ KC_FN void rho_pi(const uint64_t* a, uint64_t* b) {
   if constexpr (I < 24) rho_pi<I + 1>(a, b);
 }
 
+// a ^ b ^ c, on the card one three-input LOP3 a 32-bit half: theta XORs
+// both column parities into each lane at once (left to itself, ptxas
+// computes d = c[x - 1] ^ rot(c[x + 1]) once a column and then a ^= d,
+// ten more LOP3 a round)
+KC_FN uint64_t xor3(uint64_t a, uint64_t b, uint64_t c) {
+#ifdef __CUDACC__
+  uint32_t lo, hi;
+  asm("lop3.b32 %0, %1, %2, %3, 0x96;"
+      : "=r"(lo)
+      : "r"((uint32_t)a), "r"((uint32_t)b), "r"((uint32_t)c));
+  asm("lop3.b32 %0, %1, %2, %3, 0x96;"
+      : "=r"(hi)
+      : "r"((uint32_t)(a >> 32)), "r"((uint32_t)(b >> 32)),
+        "r"((uint32_t)(c >> 32)));
+  return (uint64_t)hi << 32 | lo;
+#else
+  return a ^ b ^ c;
+#endif
+}
+
 KC_FN void keccak_f(uint64_t* a) {
 #ifdef __CUDACC__
 #pragma unroll
@@ -109,11 +158,12 @@ KC_FN void keccak_f(uint64_t* a) {
 #pragma unroll
 #endif
     for (int x = 0; x < 5; ++x) {
-      const uint64_t d = c[(x + 4) % 5] ^ rotl<1>(c[(x + 1) % 5]);
+      const uint64_t r = rotl<1>(c[(x + 1) % 5]);
 #ifdef __CUDACC__
 #pragma unroll
 #endif
-      for (int y = 0; y < 25; y += 5) a[x + y] ^= d;
+      for (int y = 0; y < 25; y += 5)
+        a[x + y] = xor3(a[x + y], c[(x + 4) % 5], r);
     }
     rho_pi<0>(a, b);
 #ifdef __CUDACC__
@@ -130,59 +180,172 @@ KC_FN void keccak_f(uint64_t* a) {
   }
 }
 
-// byte p of the padded message of a row of length len (total bytes in
-// all, a multiple of kRate)
-KC_FN uint64_t padded_byte(const uint8_t* row, int len, int total, int p) {
-  uint64_t byte = p < len ? row[p] : 0;
-  if (p == len) byte |= 0x01;
-  if (p == total - 1) byte |= 0x80;
-  return byte;
+// A launch's batch: rows x len bytes from data (addresses as integers).
+struct Batch {
+  uintptr_t data, end;  // [data, end): every byte of the batch
+  int rows, len;
+  int blocks;    // sponge blocks a row: len / kRate + 1
+  bool aligned;  // data and len multiples of 8: a message word is one copy
+};
+
+KC_HD Batch make_batch(const uint8_t* data, int rows, int len) {
+  Batch b;
+  b.data = reinterpret_cast<uintptr_t>(data);
+  b.end = b.data + (uintptr_t)rows * (uintptr_t)len;
+  b.rows = rows;
+  b.len = len;
+  b.blocks = len / kRate + 1;
+  b.aligned = b.data % 8 == 0 && len % 8 == 0;
+  return b;
 }
 
-// an 8-byte aligned little-endian load
-KC_FN uint64_t load64(const uint8_t* p) {
+// the 64-bit words of shared memory a block uses: the tile, and where the
+// rows are not aligned the raw words staging copies them into (35,840 B
+// at most: no opt-in past 48 KiB)
+KC_HD int smem_words(bool aligned) {
+  return kTileWords + (aligned ? 0 : kRows * kRawStride);
+}
+
+// the first byte of the row's block k
+KC_FN uintptr_t block_start(const Batch& b, int row, int k) {
+  return b.data + (uintptr_t)row * (uintptr_t)b.len + (uintptr_t)(kRate * k);
+}
+
+// the row's bytes in block k (0 to 136: fewer only in the last block)
+KC_FN int block_bytes(const Batch& b, int k) {
+  const int rest = b.len - kRate * k;
+  return rest < kRate ? rest : kRate;
+}
+
+// the 8 aligned bytes at src into the shared word dst, asynchronously on
+// the card (copies_done waits for this thread's copies)
+KC_FN void copy_word(uint64_t* dst, uintptr_t src) {
 #ifdef __CUDACC__
-  return *reinterpret_cast<const uint64_t*>(p);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
 #else
-  uint64_t v;
-  memcpy(&v, p, 8);
-  return v;
+  memcpy(dst, reinterpret_cast<const void*>(src), 8);
 #endif
 }
 
-// the little-endian 64-bit lane at byte off of the padded message
-KC_FN uint64_t message_lane(const uint8_t* row, int len, int total, int off,
-                            bool aligned) {
-  if (off + 8 <= len) {
-    if (aligned) return load64(row + off);
-    uint64_t lane = 0;
-    for (int j = 0; j < 8; ++j) lane |= (uint64_t)row[off + j] << (8 * j);
-    return lane;
-  }
-  uint64_t lane = 0;
-  for (int j = 0; j < 8; ++j)
-    lane |= padded_byte(row, len, total, off + j) << (8 * j);
-  return lane;
+KC_FN void copies_done() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
 }
 
-// the digest of one row into out[0:32]
-KC_FN void hash_row(const uint8_t* row, int len, uint8_t* out) {
-  uint64_t a[25];
+// the padding's bits in word j of a tile row whose block holds s bytes of
+// the row: 0x01 after the row's last byte, 0x80 at the last block's end
+KC_FN uint64_t padding(int s, int j, bool last) {
+  const int d = s - 8 * j;
+  uint64_t word = d >= 0 && d < 8 ? 1ull << (8 * d) : 0;
+  if (last && j == kRateLanes - 1) word |= 0x80ull << 56;
+  return word;
+}
+
+// Staging's first step, thread t's share, for sponge block k of the tile
+// whose first row is row0.  Aligned rows: tile words t, t + kRows, ...
+// (word w is lane w % 17 of tile row w / 17), each an 8-byte copy of the
+// row or the padding (a row past the batch is padding alone).  Other
+// rows: raw words t, t + kRows, ... (word w is the aligned word w % 18
+// from the start of tile row w / 18's block), those that hold the row's
+// bytes; only a word at the batch's first or last bytes is read byte by
+// byte, its bytes outside the batch zero.
+KC_FN void stage_copy(uint64_t* tile, uint64_t* raw, const Batch& b,
+                      int row0, int k, int t) {
+  const int s = block_bytes(b, k);
+  if (b.aligned) {
+    const bool last = k + 1 == b.blocks;
 #ifdef __CUDACC__
-#pragma unroll
+#pragma unroll 1
 #endif
-  for (int i = 0; i < 25; ++i) a[i] = 0;
-  const int total = len + (kRate - len % kRate);
-  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 7) == 0;
-  for (int block = 0; block < total; block += kRate) {
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-    for (int i = 0; i < kRateLanes; ++i)
-      a[i] ^= message_lane(row, len, total, block + 8 * i, aligned);
-    keccak_f(a);
+    for (int w = t; w < kTileWords; w += kRows) {
+      const int r = w / kRateLanes, j = w - r * kRateLanes;
+      if (8 * j < s && row0 + r < b.rows)
+        copy_word(tile + w, block_start(b, row0 + r, k) + 8 * j);
+      else
+        tile[w] = padding(s, j, last);
+    }
+    return;
   }
 #ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int w = t; w < kRows * kRawStride; w += kRows) {
+    const int r = w / kRawStride, i = w - r * kRawStride;
+    if (8 * i - 7 >= s || row0 + r >= b.rows) continue;
+    const uintptr_t start = block_start(b, row0 + r, k);
+    const uintptr_t p = (start & ~(uintptr_t)7) + 8 * i;
+    if (p >= start + s) continue;
+    if (p >= b.data && p + 8 <= b.end) {
+      copy_word(raw + w, p);
+      continue;
+    }
+    uint64_t v = 0;
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int n = 0; n < 8; ++n)
+      if (p + n >= b.data && p + n < b.end)
+        v |= (uint64_t)*reinterpret_cast<const uint8_t*>(p + n) << (8 * n);
+    raw[w] = v;
+  }
+}
+
+// Staging's second step where the rows are not aligned, thread t's share:
+// tile words t, t + kRows, ..., each the row's 8 bytes funnel-shifted out
+// of two raw words, the bytes past the row cut, and the padding.
+KC_FN void stage_shift(uint64_t* tile, const uint64_t* raw, const Batch& b,
+                       int row0, int k, int t) {
+  const int s = block_bytes(b, k);
+  const bool last = k + 1 == b.blocks;
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int w = t; w < kTileWords; w += kRows) {
+    const int r = w / kRateLanes, j = w - r * kRateLanes;
+    const int d = s - 8 * j;  // the row's bytes from this word on
+    uint64_t word = padding(s, j, last);
+    if (d > 0 && row0 + r < b.rows) {
+      // (hi << (63 - shift)) << 1: hi's bytes above lo's, none at shift 0
+      const int shift = 8 * (int)(block_start(b, row0 + r, k) & 7);
+      const uint64_t* pair = raw + r * kRawStride + j;
+      const uint64_t v = pair[0] >> shift | (pair[1] << (63 - shift)) << 1;
+      word |= d < 8 ? v & ((1ull << (8 * d)) - 1) : v;
+    }
+    tile[w] = word;
+  }
+}
+
+// the first block into a fresh state: its 17 words, the capacity zero
+KC_FN void absorb_first(uint64_t* a, const uint64_t* row) {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int i = 0; i < kRateLanes; ++i) a[i] = row[i];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int i = kRateLanes; i < 25; ++i) a[i] = 0;
+}
+
+KC_FN void absorb(uint64_t* a, const uint64_t* row) {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int i = 0; i < kRateLanes; ++i) a[i] ^= row[i];
+}
+
+// lanes 0 to 3 into out[0:32]
+KC_FN void store_digest(const uint64_t* a, uint8_t* out) {
+#ifdef __CUDACC__
+  if ((reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    ulonglong2* v = reinterpret_cast<ulonglong2*>(out);
+    v[0] = make_ulonglong2(a[0], a[1]);
+    v[1] = make_ulonglong2(a[2], a[3]);
+    return;
+  }
   uint64_t* words = reinterpret_cast<uint64_t*>(out);
   for (int i = 0; i < 4; ++i) words[i] = a[i];
 #else
@@ -194,12 +357,34 @@ KC_FN void hash_row(const uint8_t* row, int len, uint8_t* out) {
 
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(kc::kThreads)
+__global__ void __launch_bounds__(kc::kRows)
 keccak_kernel(const uint8_t* __restrict__ data, uint8_t* __restrict__ out,
               int rows, int len) {
-  const int row = blockIdx.x * kc::kThreads + threadIdx.x;
-  if (row >= rows) return;
-  kc::hash_row(data + (size_t)row * len, len, out + (size_t)row * 32);
+  extern __shared__ uint64_t smem[];
+  uint64_t* tile = smem;
+  uint64_t* raw = smem + kc::kTileWords;
+  const kc::Batch b = kc::make_batch(data, rows, len);
+  const int row0 = blockIdx.x * kc::kRows;
+  const int t = threadIdx.x;
+  uint64_t a[25];
+  kc::stage_copy(tile, raw, b, row0, 0, t);
+  for (int k = 0;; ++k) {
+    kc::copies_done();
+    __syncthreads();
+    if (!b.aligned) {
+      kc::stage_shift(tile, raw, b, row0, k, t);
+      __syncthreads();
+    }
+    if (k == 0)
+      kc::absorb_first(a, tile + t * kc::kRateLanes);
+    else
+      kc::absorb(a, tile + t * kc::kRateLanes);
+    kc::keccak_f(a);
+    if (k + 1 == b.blocks) break;
+    __syncthreads();  // every row absorbed before the tile is staged again
+    kc::stage_copy(tile, raw, b, row0, k + 1, t);
+  }
+  if (row0 + t < rows) kc::store_digest(a, out + (size_t)(row0 + t) * 32);
 }
 
 extern "C" {
@@ -209,8 +394,10 @@ extern "C" {
 // taken).  rows must be positive: a grid of zero blocks is an error.
 int keccak_launch(const uint8_t* data, uint8_t* out, int rows, int len,
                   void* stream) {
-  const int blocks = (rows + kc::kThreads - 1) / kc::kThreads;
-  keccak_kernel<<<blocks, kc::kThreads, 0, (cudaStream_t)stream>>>(
+  const kc::Batch b = kc::make_batch(data, rows, len);
+  const int bytes = 8 * kc::smem_words(b.aligned);
+  const int blocks = (rows + kc::kRows - 1) / kc::kRows;
+  keccak_kernel<<<blocks, kc::kRows, bytes, (cudaStream_t)stream>>>(
       data, out, rows, len);
   return (int)cudaGetLastError();
 }
@@ -221,12 +408,38 @@ int keccak_rate_bytes() { return kc::kRate; }
 
 #else  // host C++
 
+#include <vector>
+
 extern "C" {
 
-// The kernel's row function over every row, one row an iteration.
+// The kernel's grid, block after block: between two of the kernel's
+// barriers every thread of the block runs in turn, over a local copy of
+// the block's shared memory.
 int keccak_host(const uint8_t* data, uint8_t* out, int rows, int len) {
-  for (int row = 0; row < rows; ++row)
-    kc::hash_row(data + (size_t)row * len, len, out + (size_t)row * 32);
+  using namespace kc;
+  const Batch b = make_batch(data, rows, len);
+  std::vector<uint64_t> smem(smem_words(b.aligned));
+  std::vector<uint64_t> a(kRows * 25);
+  uint64_t* tile = smem.data();
+  uint64_t* raw = smem.data() + kTileWords;
+  for (int row0 = 0; row0 < rows; row0 += kRows) {
+    for (int t = 0; t < kRows; ++t) stage_copy(tile, raw, b, row0, 0, t);
+    for (int k = 0;; ++k) {
+      if (!b.aligned)
+        for (int t = 0; t < kRows; ++t) stage_shift(tile, raw, b, row0, k, t);
+      for (int t = 0; t < kRows; ++t) {
+        if (k == 0)
+          absorb_first(&a[25 * t], tile + t * kRateLanes);
+        else
+          absorb(&a[25 * t], tile + t * kRateLanes);
+        keccak_f(&a[25 * t]);
+      }
+      if (k + 1 == b.blocks) break;
+      for (int t = 0; t < kRows; ++t) stage_copy(tile, raw, b, row0, k + 1, t);
+    }
+    for (int t = 0; t < kRows && row0 + t < rows; ++t)
+      store_digest(&a[25 * t], out + (size_t)(row0 + t) * 32);
+  }
   return 0;
 }
 

@@ -9,8 +9,9 @@ re-entering the stack plane.  The host reference
 :func:`keccak256_batch` takes a uint8 ``[B, L]`` tensor and gives the
 uint8 ``[B, 32]`` digests.  On the card it is one launch of the
 hand-written sm_90a kernel ``csrc/keccak.cu`` (one thread a row, the
-state's 25 lanes in registers); for a tensor on the CPU it is the plain
-version, :func:`keccak256_batch_plain`.  The plain version carries each
+state's 25 lanes in registers, a block's tile of padded rows staged
+through shared memory); for a tensor on the CPU it is the plain version,
+:func:`keccak256_batch_plain`.  The plain version carries each
 64-bit lane as (hi, lo) halves, as the JAX package does, held in
 ``int64`` in [0, 2^32) and masked after every shift (``>>`` on int64
 is arithmetic, so a half never holds a bit above 31); the 25 lanes are
