@@ -128,7 +128,8 @@ failure):
    (``mythril.MythrilAnalyzer``, as ``python3 -m mythril_tpu_torch
    analyze`` runs it) over the runs of ``contracts.CHIP_RUNS`` (the
    ``bench.py`` scale contract at -t 1 and -t 2, two vendored fixtures,
-   killbilly, the constant-key mapping), first in the JAX default
+   killbilly, the constant-key mapping, the veritesting gauntlet),
+   first in the JAX default
    configuration of the dispatch
    rungs (profit gate, async prefetch, coalescer: what the CLI runs),
    then force-dispatched; per run, checks the SWC set against the JAX
@@ -163,7 +164,13 @@ failure):
    the keccak hashes and launches (every call held against the plain
    version), and fails where no segment ran, where hashes and launches
    disagree, or where the constant-key mapping made no keccak launch in
-   the default rungs;
+   the default rungs.  The veritesting tier is on, as the CLI runs it:
+   per run it prints the merges, the lanes merged away, the ite terms,
+   the aborted merges, the subsumption sweeps and the lanes they
+   retired, and ``merge_span_s``, and fails where a run's merges are not
+   the JAX package's recorded count (``ChipRun.merges``); the gauntlet
+   runs once more force-dispatched under ``MYTHRIL_TPU_VERITEST=0``,
+   which must give the same SWC set, no merge and more states stepped;
 10. keccak: the ``keccak`` kernel against ``keccak256_batch_plain`` on
    the card, every digest byte for byte, and a sample of rows against
    the native ``keccak256``: the analyses' own calls, then 65,536 seeded
@@ -3035,6 +3042,7 @@ def analyze_audited(run, card, label="", force=True):
     (launches, stats snapshot)."""
     from mythril_tpu_torch.laser.batch import prune_stats
     from mythril_tpu_torch.laser.ethereum.time_handler import time_handler
+    from mythril_tpu_torch.laser.ethereum.veritest import veritest_enabled
     from mythril_tpu_torch.ops import async_dispatch as AD
     from mythril_tpu_torch.ops import batched_sat as bs
     from mythril_tpu_torch.smt import SolverStatistics
@@ -3123,6 +3131,15 @@ def analyze_audited(run, card, label="", force=True):
         f"{stats.keccak_device_hashes} keccak hashes in "
         f"{launches['keccak']} launches "
         f"({audit['keccak'].summary() or 'none'})")
+    log(f"analyze {run.name}{label} veritest: {stats.merges} merges "
+        f"({stats.merged_lanes} lanes merged away, {stats.merge_ites} ite "
+        f"terms, {stats.merge_aborts} aborted), {stats.subsume_sweeps} "
+        f"subsumption sweeps retiring {stats.subsumed_lanes} lanes, "
+        f"merge_span_s {stats.merge_span_s:.3f} s")
+    merges = run.merges if veritest_enabled() else 0
+    check(stats.merges == merges,
+          f"{run.name}: {stats.merges} merges, the JAX package makes "
+          f"{merges}")
     check(None not in replays, f"{run.name}: an issue was not replayed")
     check(launches["lockstep"] > 0, f"{run.name}: no lockstep launch")
     check(stats.states_stepped > 0, f"{run.name}: no segment ran")
@@ -3141,18 +3158,22 @@ def analyze_audited(run, card, label="", force=True):
           f"abandoned")
     return launches, {"dispatches": stats.dispatches,
                       "resident": stats.resident_dispatches, "wall": wall,
-                      "keccak": audit["keccak"].captured}
+                      "keccak": audit["keccak"].captured,
+                      "states_stepped": stats.states_stepped}
 
 
 def analyze_phase(card):
     """The chip runs through the port's analyzer on ``cuda``: each in the
     JAX default configuration of the rungs (what ``myth analyze`` runs),
     then force-dispatched (every kernel launched on its main path); the
-    scale runs also CDCL-only.  Returns the launches of every kernel
-    over the batched runs in both configurations, and those of the
-    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` yardstick."""
+    scale runs also CDCL-only; then the ``MYTHRIL_TPU_RESIDENT_KERNEL=0``
+    yardstick and the veritesting run fork-only
+    (``MYTHRIL_TPU_VERITEST=0``).  Returns the launches of every kernel
+    over the batched runs in both configurations, those of the last two
+    runs, and the keccak calls the analyses captured."""
     from mythril_tpu_torch.contracts import (
         CHIP_RUNS,
+        VERITEST_RUN,
         YARDSTICK_RUN,
         constant_key_mapping,
     )
@@ -3172,8 +3193,10 @@ def analyze_phase(card):
             check(launches["keccak"] > 0,
                   f"{run.name}: no keccak launch in the default rungs")
     through_resident = False
+    stepped = {}
     for run in CHIP_RUNS:
         launches, stats = analyze_audited(run, card, " force-dispatched")
+        stepped[run.name] = stats["states_stepped"]
         walls[run.name].append(stats["wall"])
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
@@ -3207,6 +3230,14 @@ def analyze_phase(card):
     check(stats["resident"] == 0 and launches["dense_sweep"] > 0
           and launches["dpll_step"] > 0,
           "the RESIDENT_KERNEL=0 yardstick did not run the dense tier")
+    # the veritesting run fork-only: the same findings, more states
+    with env(MYTHRIL_TPU_VERITEST="0"):
+        forked, stats = analyze_audited(
+            VERITEST_RUN, card, " MYTHRIL_TPU_VERITEST=0")
+    check(stats["states_stepped"] > stepped[VERITEST_RUN.name],
+          f"{VERITEST_RUN.name}: {stats['states_stepped']} states stepped "
+          f"fork-only, {stepped[VERITEST_RUN.name]} merged")
+    _add(launches, forked)
     return total, launches, hashed
 
 
@@ -3297,8 +3328,8 @@ def _main(torch, frontiers, default_device, edge_pool,
     _add(totals, default)
     _add(kill_switch, yardstick)
     log(f"launches in the default configuration (the kernels line): "
-        f"{totals}; in the MYTHRIL_TPU_RESIDENT_KERNEL=0 runs (not in it): "
-        f"{kill_switch}")
+        f"{totals}; in the MYTHRIL_TPU_RESIDENT_KERNEL=0 runs and the "
+        f"MYTHRIL_TPU_VERITEST=0 run (not in it): {kill_switch}")
     log("dpll_step launches by (B, V, D) over every audited run, the most "
         "first: " + ", ".join(
             f"{shape}: {n}" for shape, n in sorted(

@@ -7,7 +7,9 @@ them with the JAX package's assembler; ``tests/test_torch_analyze.py``
 holds the two against each other.  :data:`CHIP_RUNS` are the analyses
 the chip check runs on the card, each with the SWC set the JAX package
 finds; :func:`constant_key_mapping` is the one whose SHA3 windows are
-concrete.  :func:`lockstep_gauntlet` and :func:`wide_dispatcher` are the
+concrete, :data:`VERITEST_RUN` the one in which the veritesting tier
+merges lanes, and :func:`diamond`, :func:`nested_diamond` and
+:func:`loop_exit` the branch shapes its tests merge on.  :func:`lockstep_gauntlet` and :func:`wide_dispatcher` are the
 lockstep interpreter's test programs.
 """
 
@@ -92,6 +94,74 @@ def veritest_gauntlet() -> str:
         STOP
         """
     )
+
+
+# The three branch shapes of the veritesting tier's merged-versus-forked
+# runs: each ends in a symbolic-add SSTORE tail, so that fork-only
+# exploration pays one world state per path and merging one per join.
+
+
+def diamond() -> str:
+    return asm("""
+        PUSH 4; CALLDATALOAD
+        PUSH 0
+        DUP2; PUSH 1; AND; PUSH @t; JUMPI
+        PUSH 17; ADD; PUSH @j; JUMP
+      t:
+        JUMPDEST; PUSH 35; ADD; PUSH @j; JUMP
+      j:
+        JUMPDEST
+        DUP2; ADD
+        PUSH 0; SSTORE
+        STOP
+    """)
+
+
+def nested_diamond() -> str:
+    return asm("""
+        PUSH 4; CALLDATALOAD
+        PUSH 0
+        DUP2; PUSH 1; AND; PUSH @outer_t; JUMPI
+        DUP2; PUSH 2; AND; PUSH @inner_t; JUMPI
+        PUSH 17; ADD; PUSH @inner_j; JUMP
+      inner_t:
+        JUMPDEST; PUSH 35; ADD; PUSH @inner_j; JUMP
+      inner_j:
+        JUMPDEST
+        PUSH @outer_j; JUMP
+      outer_t:
+        JUMPDEST; PUSH 70; ADD; PUSH @outer_j; JUMP
+      outer_j:
+        JUMPDEST
+        DUP2; ADD
+        PUSH 0; SSTORE
+        STOP
+    """)
+
+
+def loop_exit() -> str:
+    # stack: [x, acc, i]; three iterations, each with a branch diamond
+    # over a calldata bit re-converging at @j before the counter step
+    return asm("""
+        PUSH 4; CALLDATALOAD
+        PUSH 0
+        PUSH 0
+      loop:
+        JUMPDEST
+        DUP3; PUSH 1; AND; PUSH @t; JUMPI
+        SWAP1; PUSH 3; ADD; SWAP1; PUSH @j; JUMP
+      t:
+        JUMPDEST
+        SWAP1; PUSH 5; ADD; SWAP1; PUSH @j; JUMP
+      j:
+        JUMPDEST
+        PUSH 1; ADD
+        PUSH 3; DUP2; LT; PUSH @loop; JUMPI
+        POP
+        ADD
+        PUSH 0; SSTORE
+        STOP
+    """)
 
 
 def corpus() -> List[Tuple[str, str, int, set]]:
@@ -417,6 +487,10 @@ class ChipRun(NamedTuple):
     #: whether the dispatcher pre-split matches and seeds the run's
     #: transactions (re-derived by tests/test_torch_analyze.py)
     presplit: bool
+    #: the merges the veritesting tier makes in the run (the JAX
+    #: package's count on the CPU; re-derived by
+    #: tests/test_torch_analyze.py)
+    merges: int
 
 
 #: The chip check's analyses.  The two-transaction scale run is cut from
@@ -424,20 +498,26 @@ class ChipRun(NamedTuple):
 #: from every state the first one left open, so the work grows with the
 #: square of the leaf count, and at depth 6 (16 times depth 4's) it
 #: would not fit the chip check's time limit.
+#: The one chip run in which the veritesting tier merges lanes (four
+#: branch diamonds that re-converge); the chip check runs it once more
+#: fork-only (``MYTHRIL_TPU_VERITEST=0``).
+VERITEST_RUN = ChipRun("veritest_gauntlet -t 1", veritest_gauntlet, 1,
+                       {"101"}, False, False, 4)
 CHIP_RUNS: Tuple[ChipRun, ...] = (
     ChipRun("scale_mul d6 g16 -t 1", lambda: scale_contract(6, 16, "mul"),
-            1, {"106"}, True, False),
+            1, {"106"}, True, False, 0),
     ChipRun("scale_mul d4 g16 -t 2", lambda: scale_contract(4, 16, "mul"),
-            2, {"106"}, True, False),
+            2, {"106"}, True, False, 0),
     ChipRun("erc20_transfer -t 2", lambda: fixture("erc20_transfer"), 2,
-            {"101"}, False, True),
+            {"101"}, False, True, 0),
     ChipRun("vault_withdraw -t 2", lambda: fixture("vault_withdraw"), 2,
-            {"101", "104", "105", "107"}, False, True),
-    ChipRun("killbilly -t 1", killbilly, 1, {"106"}, False, True),
+            {"101", "104", "105", "107"}, False, True, 0),
+    ChipRun("killbilly -t 1", killbilly, 1, {"106"}, False, True, 0),
     # the one run whose SHA3 windows are concrete: the symbolic lockstep
     # tier hashes them with the keccak kernel
     ChipRun("constant_key_mapping -t 2", constant_key_mapping, 2, {"101"},
-            False, False),
+            False, False, 0),
+    VERITEST_RUN,
 )
 #: The chip check's yardstick of the resident solver: the scale run under
 #: ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` (the dense tier keeps the frontiers),
@@ -445,4 +525,4 @@ CHIP_RUNS: Tuple[ChipRun, ...] = (
 #: (at depth 6 it took 129-188 s of it).
 YARDSTICK_RUN = ChipRun("scale_mul d4 g16 -t 1",
                         lambda: scale_contract(4, 16, "mul"), 1, {"106"},
-                        True, False)
+                        True, False, 0)

@@ -12,7 +12,10 @@ Commands: ``analyze`` (``a``), ``disassemble`` (``d``),
 with the word tier and the host word probing on, as the JAX default
 (``MYTHRIL_TPU_WORD_TIER=0`` turns the tier off), the dispatcher
 pre-split and the concrete replay of exploit sequences on, as the JAX
-default (``--no-lockstep-dispatch`` turns the pre-split off), and puts
+default (``--no-lockstep-dispatch`` turns the pre-split off), with the
+veritesting tier on, as the JAX default (sibling lanes merged where
+they re-converge and subsumed lanes retired between scheduler rounds;
+``MYTHRIL_TPU_VERITEST=0`` pins the fork-only path), and puts
 the solver tiers and the lockstep interpreter on the card, behind the
 JAX funnel's default dispatch rungs (profit gate, async prefetch,
 coalescer; ``--device-force-dispatch`` and ``--no-async-dispatch`` as in

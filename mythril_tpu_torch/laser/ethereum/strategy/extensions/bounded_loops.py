@@ -34,6 +34,13 @@ CREATION_LOOP_FLOOR = 8
 class JumpdestCountAnnotation(StateAnnotation):
     """Per-path JUMPDEST trace, copied on fork."""
 
+    #: veritesting policy (laser/ethereum/veritest.py): the trace is
+    #: path-local search state (it bounds exploration and never feeds a
+    #: finding), so two lanes differing only here may still merge; the
+    #: joined lane keeps the longer trace (cycle counting over a
+    #: superset trace can only cut sooner, never later)
+    veritest_path_local = True
+
     def __init__(self) -> None:
         self._reached_count: Dict[int, int] = {}
         self.trace: List[int] = []
@@ -43,6 +50,11 @@ class JumpdestCountAnnotation(StateAnnotation):
         clone._reached_count = copy(self._reached_count)
         clone.trace = copy(self.trace)
         return clone
+
+    @staticmethod
+    def veritest_join(ann_a, ann_b):
+        """Pick the joined lane's annotation of a merged pair."""
+        return ann_a if len(ann_a.trace) >= len(ann_b.trace) else ann_b
 
 
 def trailing_cycle_count(trace: Sequence[int]) -> int:

@@ -1,7 +1,8 @@
 """LaserEVM: the symbolic-execution virtual machine (reference:
 laser/ethereum/svm.py; own copy of ``mythril_tpu/laser/ethereum/svm.py``
-without the checkpoint, governor, fleet and veritesting seams, which the
-port does not have).
+without the checkpoint, governor and fleet seams, which the port does
+not have).  The veritesting tier (``veritest.py``) merges and retires
+lanes of the work list between scheduler rounds, as in the JAX package.
 
 Architecture matches the reference's control contract — worklist +
 strategy, per-opcode pre/post hooks, laser-level hooks, transaction
@@ -228,6 +229,13 @@ class LaserEVM:
         if self.time is None:
             self.time = datetime.now()
         batch_width = max(1, getattr(args, "batch_width", 1))
+        # veritesting tier: one merge/subsumption driver per exec, None
+        # when the tier declines (statespace consumers, gas tracking,
+        # CREATE, or the MYTHRIL_TPU_VERITEST=0 kill switch pinning the
+        # fork-only path)
+        from mythril_tpu_torch.laser.ethereum import veritest
+
+        vt_engine = veritest.engine_for(self, create, track_gas)
         while True:
             batch = self.strategy.pop_batch(batch_width)
             if not batch:
@@ -241,6 +249,11 @@ class LaserEVM:
             if timed_out is not None:
                 self.timed_out = True
                 return final_states + [timed_out] if track_gas else None
+            if vt_engine is not None and self.work_list:
+                # between rounds, with no dispatch in flight: merge
+                # re-converged sibling lanes and retire subsumed ones in
+                # place (the strategy holds this same list object)
+                vt_engine.round_tick(self.work_list)
         return final_states if track_gas else None
 
     def _exec_round(self, batch, rounds, create, track_gas,

@@ -18,6 +18,14 @@ class MutationAnnotation(StateAnnotation):
 class DependencyAnnotation(StateAnnotation):
     """Tracks storage reads/writes along the current path."""
 
+    #: veritesting policy (laser/ethereum/veritest.py): two lanes
+    #: differing only in their dependency traces may merge; the join
+    #: below unions every field the pruner consults in the direction
+    #: that can only reduce pruning (more blocks, reads and writes on
+    #: record make wanna_execute say yes more often), so a merged lane
+    #: never skips a block either arm would have executed
+    veritest_path_local = True
+
     def __init__(self):
         self.storage_loaded: List = []
         self.storage_written: Dict[int, List] = {}
@@ -33,6 +41,26 @@ class DependencyAnnotation(StateAnnotation):
         result.path = copy(self.path)
         result.blocks_seen = copy(self.blocks_seen)
         return result
+
+    @staticmethod
+    def veritest_join(ann_a, ann_b):
+        """Union of the two arms' dependency records (see the class
+        comment for the soundness direction); ``blocks_seen`` takes the
+        intersection, so that the skip gate fires only for blocks both
+        arms had already visited."""
+        joined = copy(ann_a)
+        for location in ann_b.storage_loaded:
+            if location not in joined.storage_loaded:
+                joined.storage_loaded.append(location)
+        for iteration, cache in ann_b.storage_written.items():
+            for location in cache:
+                joined.extend_storage_write_cache(iteration, location)
+        for address in ann_b.path:
+            if address not in joined.path:
+                joined.path.append(address)
+        joined.has_call = ann_a.has_call or ann_b.has_call
+        joined.blocks_seen = ann_a.blocks_seen & ann_b.blocks_seen
+        return joined
 
     def get_storage_write_cache(self, iteration: int):
         return self.storage_written.setdefault(iteration, [])

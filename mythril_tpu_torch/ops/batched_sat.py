@@ -203,6 +203,20 @@ class DispatchStats:
         self.mem_plane_ops = 0
         self.storage_plane_ops = 0
         self.keccak_device_hashes = 0
+        # veritesting tier (laser/ethereum/veritest.py): re-converged
+        # sibling pairs collapsed to one lane (merges / merged_lanes),
+        # If terms those joins minted (merge_ites, bounded per join by
+        # MYTHRIL_TPU_MERGE_MAX_ITES), joins declined or degraded to
+        # plain forking (merge_aborts), the frontier-subsumption sweeps
+        # and the lanes they retired without reaching a solver, and the
+        # wall-clock of the merge and subsumption passes
+        self.merges = 0
+        self.merged_lanes = 0
+        self.merge_ites = 0
+        self.merge_aborts = 0
+        self.subsume_sweeps = 0
+        self.subsumed_lanes = 0
+        self.merge_span_s = 0.0
         # per-lane tier that decided each lane of the last
         # batch_check_states call: "structural", "memo", "word", "device",
         # "probe" (a host probe hit, or a zero assignment that verified
@@ -941,8 +955,12 @@ def reset_resident_pools() -> None:
     """Invalidate every process-global structure keyed on interned node
     ids or literal numbers: each backend's resident clause pool, the
     cross-dispatch cone memo and the word tier's programs and verdict
-    memos (a process that re-interns nodes and re-blasts literals must
-    never be served what an earlier pool or program described)."""
+    memos, and the veritesting tier's join-point memo (a process that
+    re-interns nodes and re-blasts literals must never be served what an
+    earlier pool or program described)."""
+    from mythril_tpu_torch.laser.ethereum.veritest import (
+        reset_veritest_memos,
+    )
     from mythril_tpu_torch.ops.incremental import reset_cone_memo
     from mythril_tpu_torch.smt.word_tier import reset_word_tier
 
@@ -951,6 +969,7 @@ def reset_resident_pools() -> None:
         backend.pool_generation = -1
     reset_cone_memo()
     reset_word_tier()
+    reset_veritest_memos()
 
 
 def get_backend(device=None) -> BatchedSatBackend:

@@ -22,8 +22,9 @@ iteration is three kernel launches with no host sync, and the host reads
 the device's ``halt`` flag every 16 iterations.
 
 ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` restores the multi-dispatch frontier
-ladder, as in the JAX package.  ``subset_matrix`` (veritesting) is not
-part of the port.
+ladder, as in the JAX package.  ``subset_matrix`` is the veritesting
+tier's subsumption test (``laser/ethereum/veritest.py``), a host pass
+in the JAX package too.
 """
 
 import numpy as np
@@ -68,6 +69,28 @@ def resident_watchdog_limit() -> int:
 
 def resident_extra_cap() -> int:
     return env_int("MYTHRIL_TPU_RESIDENT_EXTRA", DEFAULT_EXTRA, floor=1)
+
+
+def subset_matrix(id_sets):
+    """Pairwise subset test over lanes' constraint-id sets, packed as
+    uint64 bitset rows: the veritesting tier's frontier-subsumption
+    sweep asks "whose constraint set contains whose?" for every lane
+    pair at one site in one pass.  Returns bool[N, N] where ``out[x,
+    y]`` means ``id_sets[y] <= id_sets[x]`` (lane x is at least as
+    constrained as lane y).  The diagonal is True."""
+    n = len(id_sets)
+    universe = sorted(set().union(*id_sets)) if id_sets else []
+    if not universe:
+        return np.ones((n, n), dtype=bool)
+    position = {nid: i for i, nid in enumerate(universe)}
+    words = (len(universe) + 63) // 64
+    rows = np.zeros((n, words), dtype=np.uint64)
+    for lane, ids in enumerate(id_sets):
+        for nid in ids:
+            bit = position[nid]
+            rows[lane, bit >> 6] |= np.uint64(1 << (bit & 63))
+    # out[x, y]: every bit of y present in x  <=>  y & ~x == 0
+    return ~np.any(rows[None, :, :] & ~rows[:, None, :], axis=-1)
 
 
 def resident_shared0(extra_cap: int, width: int) -> dict:

@@ -48,6 +48,13 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_SEG_MEM_WORDS": ("int", 1, None),
     "MYTHRIL_TPU_SEG_STORAGE_SLOTS": ("int", 1, None),
     "MYTHRIL_TPU_SEG_KECCAK_MAX_BYTES": ("int", 0, None),
+    # veritesting tier (laser/ethereum/veritest.py): kill switch, the
+    # If-term budget one join may mint, the diverging-constraint
+    # window per side, and the subsumption sweep cadence in rounds
+    "MYTHRIL_TPU_VERITEST": ("flag", None, None),
+    "MYTHRIL_TPU_MERGE_MAX_ITES": ("int", 0, None),
+    "MYTHRIL_TPU_MERGE_WINDOW": ("int", 1, None),
+    "MYTHRIL_TPU_SUBSUME_PERIOD": ("int", 1, None),
 }
 
 #: raw values :func:`env_flag` understands; anything else on a "flag"

@@ -15,13 +15,13 @@ from mythril_tpu_torch.support.support_utils import Singleton
 #: ``MYTHRIL_TPU_RESIDENT_KERNEL`` both ways, as the JAX package does
 #: (0 = the multi-dispatch frontier ladder), ``MYTHRIL_TPU_FRONTIER``
 #: both ways (0 = the round-lane ladder), ``MYTHRIL_TPU_WORD_TIER``
-#: both ways (0 = no word tier) and ``MYTHRIL_TPU_SYM_LOCKSTEP`` both
-#: ways (0 = no symbolic lockstep tier).
+#: both ways (0 = no word tier), ``MYTHRIL_TPU_SYM_LOCKSTEP`` both
+#: ways (0 = no symbolic lockstep tier) and ``MYTHRIL_TPU_VERITEST`` both
+#: ways (0 = fork only, no merge or subsumption).
 #:
 #: Environment knobs of the JAX package:
 SLICE_PINS_ENV = {
     "MYTHRIL_TPU_AUTOPILOT": "0",
-    "MYTHRIL_TPU_VERITEST": "0",
     "MYTHRIL_TPU_FLEET": "0",
     "MYTHRIL_TPU_PERSIST": "0",
     "MYTHRIL_TPU_GOVERNOR": "0",

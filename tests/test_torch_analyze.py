@@ -14,6 +14,8 @@ side may time out.
 """
 
 import contextlib
+import importlib
+import itertools
 import json
 import os
 import subprocess
@@ -54,6 +56,13 @@ def one_device(monkeypatch):
 
 @pytest.fixture(autouse=True)
 def slice_pins(monkeypatch):
+    """:func:`analysis_pins` around every test of this file."""
+    with analysis_pins(monkeypatch):
+        yield
+
+
+@contextlib.contextmanager
+def analysis_pins(monkeypatch):
     """The slice pins on both sides, the force-dispatched rungs
     (:data:`FORCE_DISPATCH_ARGS`) on both sides, and what reads the wall
     clock set out of reach on both sides, so that the parity does not
@@ -61,7 +70,8 @@ def slice_pins(monkeypatch):
     dispatch watchdog (a cold jit of a resident solve takes seconds
     here).  The JAX side sees one device, as the port runs on one: the
     test process's eight forced CPU devices would send its gather tiers
-    to the sharded mesh."""
+    to the sharded mesh.  The overflow module's annotations iterate in
+    creation order on both sides (:func:`numbered_overflow_annotations`)."""
     from mythril_tpu.resilience import watchdog
 
     one_device(monkeypatch)
@@ -71,7 +81,9 @@ def slice_pins(monkeypatch):
     for name in ("MYTHRIL_TPU_RESIDENT_KERNEL", "MYTHRIL_TPU_RESIDENT_BUDGET",
                  "MYTHRIL_TPU_RESIDENT_WATCHDOG", "MYTHRIL_TPU_RESIDENT_EXTRA",
                  "MYTHRIL_TPU_FRONTIER_PERIOD", "MYTHRIL_TPU_FRONTIER_FAN",
-                 "MYTHRIL_TPU_FRONTIER_DEG"):
+                 "MYTHRIL_TPU_FRONTIER_DEG", "MYTHRIL_TPU_VERITEST",
+                 "MYTHRIL_TPU_MERGE_MAX_ITES", "MYTHRIL_TPU_MERGE_WINDOW",
+                 "MYTHRIL_TPU_SUBSUME_PERIOD"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(jax_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
     monkeypatch.setattr(port_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
@@ -87,8 +99,40 @@ def slice_pins(monkeypatch):
         if name != "device" and hasattr(jax_args, name):
             monkeypatch.setattr(jax_args, name, value)
     monkeypatch.setattr(port_args, "device", "cpu")
+    numbered_overflow_annotations(monkeypatch)
     with fresh_jax_ledger():
         yield
+
+
+#: the overflow module of each package, whose annotations the parity
+#: harness numbers (:func:`numbered_overflow_annotations`)
+OVERFLOW_MODULES = {
+    side: importlib.import_module(
+        f"{package}.analysis.module.modules.integer")
+    for side, package in (("jax", "mythril_tpu"),
+                          ("port", "mythril_tpu_torch"))
+}
+
+
+def numbered_overflow_annotations(monkeypatch):
+    """The overflow module keeps a path's overflow annotations in a set
+    and reports (and solves for) them in the set's order, which Python
+    takes from the objects' addresses: it changes from one process to
+    the next, and differs between the two packages in one process.  On
+    both sides each annotation gets the number of its creation within
+    the analysis (:func:`_run` restarts the count) as its hash, so that
+    both sets iterate in creation order."""
+    for module in OVERFLOW_MODULES.values():
+        cls = module.OverUnderflowAnnotation
+
+        def numbered(self, *args, _init=cls.__init__, _cls=cls, **kwargs):
+            _init(self, *args, **kwargs)
+            self.number = next(_cls.numbers)
+
+        monkeypatch.setattr(cls, "__init__", numbered)
+        monkeypatch.setattr(cls, "__hash__", lambda self: self.number)
+        monkeypatch.setattr(cls, "numbers", itertools.count(),
+                            raising=False)
 
 
 @contextlib.contextmanager
@@ -104,6 +148,28 @@ def fresh_jax_ledger():
         yield
     finally:
         ledger.reset_for_tests()
+
+
+@contextlib.contextmanager
+def kept_deadlines():
+    """Each package's execution deadline, a process-wide singleton that
+    ``sym_exec`` arms, put back as it was when the block ends: a
+    deadline left armed would expire under a later test in the same
+    process and make its ``get_model`` answer UNSAT."""
+    from mythril_tpu.laser.ethereum.time_handler import (
+        time_handler as jax_deadline,
+    )
+    from mythril_tpu_torch.laser.ethereum.time_handler import (
+        time_handler as port_deadline,
+    )
+
+    handlers = (jax_deadline, port_deadline)
+    saved = [handler._deadline_ms for handler in handlers]
+    try:
+        yield
+    finally:
+        for handler, value in zip(handlers, saved):
+            handler._deadline_ms = value
 
 
 def _reset_jax():
@@ -170,6 +236,9 @@ def _run(side, code, tx_count):
         svm, stats = port_svm, port_bs.dispatch_stats
         reset_analysis_state()
 
+    annotation = OVERFLOW_MODULES[side].OverUnderflowAnnotation
+    if "numbers" in vars(annotation):
+        annotation.numbers = itertools.count()
     prunes = []
     real_prune = svm.prune_infeasible
 
@@ -189,26 +258,28 @@ def _run(side, code, tx_count):
     svm.prune_infeasible = recording_prune
     svm.LaserEVM._exec_round = watched_round
     try:
-        time_handler.start_execution(EXEC_TIMEOUT)
-        contract = evmcontract.EVMContract(code=code, name="MAIN")
-        sym = symbolic.SymExecWrapper(
-            contract,
-            address=ADDRESS,
-            strategy="bfs",
-            max_depth=128,
-            execution_timeout=EXEC_TIMEOUT,
-            create_timeout=10,
-            transaction_count=tx_count,
-            compulsory_statespace=False,
-        )
-        issues = security.fire_lasers(sym)
-        # the analyzer's replay of each issue's exploit sequence
-        MythrilAnalyzer._confirm_by_replay(issues, contract)
+        with kept_deadlines():
+            time_handler.start_execution(EXEC_TIMEOUT)
+            contract = evmcontract.EVMContract(code=code, name="MAIN")
+            sym = symbolic.SymExecWrapper(
+                contract,
+                address=ADDRESS,
+                strategy="bfs",
+                max_depth=128,
+                execution_timeout=EXEC_TIMEOUT,
+                create_timeout=10,
+                transaction_count=tx_count,
+                compulsory_statespace=False,
+            )
+            issues = security.fire_lasers(sym)
+            # the analyzer's replay of each issue's exploit sequence
+            MythrilAnalyzer._confirm_by_replay(issues, contract)
+            remaining = time_handler.time_remaining()
     finally:
         svm.prune_infeasible = real_prune
         svm.LaserEVM._exec_round = real_round
     assert not any(cut), f"{side}: a round hit the execution deadline"
-    assert time_handler.time_remaining() > 0, f"{side}: timed out"
+    assert remaining > 0, f"{side}: timed out"
     return {
         "issues": sorted((_issue_fields(i) for i in issues),
                          key=lambda f: (f["address"], f["title"])),
@@ -240,6 +311,9 @@ COUNTERS = (
     "states_stepped", "needs_host_boundaries", "boundary_causes",
     "plane_known_bits", "plane_total_bits", "mem_plane_ops",
     "storage_plane_ops", "keccak_device_hashes",
+    # the veritesting tier, on by default on both sides
+    "merges", "merged_lanes", "merge_ites", "merge_aborts",
+    "subsume_sweeps", "subsumed_lanes",
 )
 
 
@@ -261,7 +335,7 @@ CORPUS = {name: (code, tx) for name, code, tx, _ in bench._corpus()}
 
 
 @pytest.mark.parametrize("name", ["killbilly", "overflow_token",
-                                  "origin_gate"])
+                                  "origin_gate", "veritest_gauntlet"])
 def test_corpus_findings_match_jax(name):
     code, tx_count = CORPUS[name]
     jax, _port = _parity(code, tx_count)
@@ -630,10 +704,11 @@ def test_recorded_swc_sets_match_jax():
     """The SWC sets the chip check holds the card's runs to
     (``contracts.CHIP_RUNS``) are the JAX package's, on the CPU, under
     the slice pins (the word tier, the host probe, the dispatcher
-    pre-split and the concrete replay on), and so are each run's
-    ``dense`` flag (force-dispatched, the JAX funnel engages a device
-    tier on exactly the runs so flagged) and ``presplit`` flag (the JAX
-    pre-split seeds exactly those runs); the port builds the same
+    pre-split, the concrete replay and the veritesting tier on), and so
+    are each run's ``dense`` flag (force-dispatched, the JAX funnel
+    engages a device tier on exactly the runs so flagged), ``presplit``
+    flag (the JAX pre-split seeds exactly those runs) and ``merges``
+    count (the JAX veritesting tier's merges); the port builds the same
     contracts."""
     for run in contracts.CHIP_RUNS:
         code = run.code()
@@ -644,3 +719,6 @@ def test_recorded_swc_sets_match_jax():
         assert {i["swc_id"] for i in jax["issues"]} == run.swc_ids, run.name
         assert (jax["dispatches"] >= 1) == run.dense, run.name
         assert (jax["presplit_states"] > 0) == run.presplit, run.name
+        assert jax["counters"]["merges"] == run.merges, run.name
+    assert contracts.VERITEST_RUN in contracts.CHIP_RUNS
+    assert contracts.VERITEST_RUN.merges > 0

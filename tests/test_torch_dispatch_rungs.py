@@ -35,7 +35,7 @@ from mythril_tpu_torch.support.support_args import (
     SLICE_PINS_ENV,
 )
 from mythril_tpu_torch.support.support_args import args as port_args
-from test_torch_analyze import fresh_jax_ledger
+from test_torch_analyze import fresh_jax_ledger, kept_deadlines
 
 #: the async counters both packages keep
 ASYNC_FIELDS = ("launches", "harvested", "unsat", "models", "dropped")
@@ -78,7 +78,8 @@ def _reset_rungs():
 
 @pytest.fixture(autouse=True)
 def rungs(monkeypatch):
-    """The JAX default rungs on both sides, their timing seams pinned."""
+    """The JAX default rungs on both sides, their timing seams pinned;
+    each package's execution deadline put back after the test."""
     import jax
 
     from mythril_tpu.resilience import watchdog
@@ -108,7 +109,7 @@ def rungs(monkeypatch):
         monkeypatch.setattr(ad.AsyncDispatcher, "launch",
                             _joined(ad.AsyncDispatcher.launch))
     _reset_rungs()
-    with fresh_jax_ledger():
+    with fresh_jax_ledger(), kept_deadlines():
         yield
     _reset_rungs()
 

@@ -21,7 +21,7 @@ from mythril_tpu.ops import resident as jax_resident
 from mythril_tpu.smt.solver import get_blast_context as jax_context
 from mythril_tpu.smt.solver import reset_blast_context as jax_reset
 from mythril_tpu.support import env as jax_env
-from mythril_tpu_torch import frontiers
+from mythril_tpu_torch import contracts, frontiers
 from mythril_tpu_torch.interfaces import cli as port_cli
 from mythril_tpu_torch.ops import batched_sat as port_bs
 from mythril_tpu_torch.ops import dense_prop as port_dense
@@ -47,7 +47,8 @@ KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "WARM_START", "PALLAS", "WORD_MAX_NODES", "WORD_ROUNDS", "WORD_TIER",
     "WORD_XP", "SYM_LOCKSTEP", "SEG_MIN_LANES", "SEG_MAX_OPS", "SEG_CEIL_MS",
     "SEG_PLANES", "SEG_PLANES_MEM", "SEG_MEM_WORDS", "SEG_STORAGE_SLOTS",
-    "SEG_KECCAK_MAX_BYTES"))
+    "SEG_KECCAK_MAX_BYTES", "VERITEST", "MERGE_MAX_ITES", "MERGE_WINDOW",
+    "SUBSUME_PERIOD"))
 
 
 @pytest.fixture(autouse=True)
@@ -60,7 +61,9 @@ def _knobs(monkeypatch):
 def _analyze(capsys):
     """The port's CLI on a one-byte contract on the CPU: (exit code,
     stderr)."""
-    with pytest.raises(SystemExit) as done:
+    from test_torch_analyze import kept_deadlines
+
+    with kept_deadlines(), pytest.raises(SystemExit) as done:
         port_cli.main(["analyze", "-c", "0x00", "--bin-runtime",
                        "--no-onchain-data", "--device", "cpu"])
     return done.value.code, capsys.readouterr().err
@@ -315,6 +318,17 @@ TABLE = [
     ("MYTHRIL_TPU_WORD_MAX_NODES", "64", False),
     ("MYTHRIL_TPU_WORD_MAX_NODES", "-5", True),
     ("MYTHRIL_TPU_WORD_MAX_NODES", "1e3", True),
+    ("MYTHRIL_TPU_VERITEST", "0", False),
+    ("MYTHRIL_TPU_VERITEST", "On", False),
+    ("MYTHRIL_TPU_VERITEST", "merge", True),
+    ("MYTHRIL_TPU_MERGE_MAX_ITES", "0", False),
+    ("MYTHRIL_TPU_MERGE_MAX_ITES", "-1", True),
+    ("MYTHRIL_TPU_MERGE_MAX_ITES", "sixteen", True),
+    ("MYTHRIL_TPU_MERGE_WINDOW", "1", False),
+    ("MYTHRIL_TPU_MERGE_WINDOW", "0", True),
+    ("MYTHRIL_TPU_SUBSUME_PERIOD", "4", False),
+    ("MYTHRIL_TPU_SUBSUME_PERIOD", "0", True),
+    ("MYTHRIL_TPU_SUBSUME_PERIOD", "2.0", True),
     # no entry in the JAX table: any value passes on both sides
     ("MYTHRIL_TPU_WORD_TIER", "bogus", False),
     ("MYTHRIL_TPU_WORD_XP", "gpu", False),
@@ -409,3 +423,34 @@ def test_sym_lockstep_pins_leave_the_jax_ledger_on(monkeypatch):
     led.count_transition("quarantined")
     assert led.transitions.get("quarantined", 0) == before + 1
     ledger.reset_for_tests()
+
+
+@pytest.mark.parametrize("before", ["unarmed", "armed"])
+def test_analysis_runs_leave_both_deadlines_as_they_were(monkeypatch,
+                                                         before):
+    """The execution deadline is a process-wide singleton in each
+    package, and an analysis arms it.  After ``test_torch_analyze._run``
+    on each side (killbilly, -t 1), both packages' deadlines are what
+    they were before the run: unarmed, or a far one set here.  (They used
+    to stay armed 600 s ahead, and a later test in the same process that
+    asked the JAX package for a model read the expired deadline and got
+    UNSAT.)"""
+    import time
+
+    import test_torch_analyze as tta
+    from mythril_tpu.laser.ethereum.time_handler import (
+        time_handler as jax_deadline,
+    )
+    from mythril_tpu_torch.laser.ethereum.time_handler import (
+        time_handler as port_deadline,
+    )
+
+    want = None if before == "unarmed" else time.time() * 1000 + 1e9
+    with tta.kept_deadlines(), tta.analysis_pins(monkeypatch):
+        for handler in (jax_deadline, port_deadline):
+            handler._deadline_ms = want
+        for side in ("jax", "port"):
+            found = tta._run(side, contracts.killbilly(), 1)
+            assert {i["swc_id"] for i in found["issues"]} == {"106"}
+        assert [jax_deadline._deadline_ms,
+                port_deadline._deadline_ms] == [want, want]

@@ -55,7 +55,7 @@ from mythril_tpu_torch.support.support_args import (
     SLICE_PINS_ENV,
 )
 from mythril_tpu_torch.support.support_args import args as port_args
-from test_torch_analyze import fresh_jax_ledger
+from test_torch_analyze import fresh_jax_ledger, kept_deadlines
 
 pytestmark = pytest.mark.lockstep
 
@@ -102,7 +102,8 @@ def slice_pins(monkeypatch):
     package's lane ledger, which reads ``MYTHRIL_TPU_LEDGER`` once when
     a segment group first asks for it, is made afresh inside the pins
     and forgotten when they go, so the disabled ledger they make never
-    outlives them."""
+    outlives them; so is each package's execution deadline, which the
+    hook-parity runs arm."""
     for name in SEGMENT_KNOBS:
         monkeypatch.delenv(name, raising=False)
     for name, value in {**SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV}.items():
@@ -110,7 +111,7 @@ def slice_pins(monkeypatch):
     monkeypatch.setattr(port_args, "device", "cpu")
     for side in SIDES.values():
         side.sl.reset_for_tests()
-    with fresh_jax_ledger():
+    with fresh_jax_ledger(), kept_deadlines():
         yield
 
 
