@@ -37,7 +37,12 @@ failure):
    on a shared row, learned rows in several lanes, equal rows from twin
    lanes, a shared row learned again, a pool overflow and cascades (the
    phase fails if one is missing); then two iterations at V1 = 16385
-   (the scan's planes split over a cluster of two blocks); then
+   (the scan's planes split over a cluster of two blocks); then the
+   three at the autopilot tuner's edge values (``fan`` 4, 24 and 64 at
+   ``period`` 8, ``period`` 2 and 32 at ``fan`` 16: ``autopilot/tuner.py``
+   steps the frontier solvers' knobs between 4 and 64 and 2 and 32),
+   iterations of the learning problem, every launch equal bit for bit
+   and the library's shared memory equal to ``smem_layout``'s; then
    ``lane_step`` at V1 in {2049, 8193, 16385} with B = 64 and at B = 8
    with V1 = 4097 (clusters of 2 and 8 blocks a lane), on the learning
    problem up to a launch in which 2+ lanes learn and on a case launch
@@ -71,8 +76,9 @@ failure):
    every transition of ``STEP_EVENTS`` showed (the phase fails if one
    is missing), with each shape's blocks a lane (the cluster size)
    printed; whole rounds of ``make_dense_rounds`` (64 steps) on a
-   planted CNF at C = 16384, V = 4096, B = 64, tiered and not, against
-   the same round with the plain step on the card; the profiler's count
+   planted CNF at C = 16384, V = 4096, B = 64, tiered and not (tier
+   periods 8 and the tuner's edges 2 and 32), against the same round
+   with the plain step on the card; the profiler's count
    of one round's device operations (two a step, plus the round's
    set-up and its live-marker reads); device ms (profiler), plain ms
    (CUDA events) and the bound at the check's shape and at the main
@@ -170,7 +176,24 @@ failure):
    retired, and ``merge_span_s``, and fails where a run's merges are not
    the JAX package's recorded count (``ChipRun.merges``); the gauntlet
    runs once more force-dispatched under ``MYTHRIL_TPU_VERITEST=0``,
-   which must give the same SWC set, no merge and more states stepped;
+   which must give the same SWC set, no merge and more states stepped.
+   The lane ledger and the autopilot are on, as the CLI runs them: per
+   run it prints the ledger's lanes, decided lanes by tier,
+   ``tier_decided_pct``, transitions and routes, the autopilot's
+   counters (lanes routed, word skips, tail routes, ladder rungs and
+   their outcomes, segments declined) and the tuner's overrides, steps
+   and reverts, and fails unless ``lanes_total`` equals the sum of the
+   decided lanes and every kept record's path is legal under the port's
+   ``LEGAL_NEXT``; a force-dispatched dense run whose dispatches the
+   autopilot routed away is audited again under an explicit
+   ``MYTHRIL_TPU_AUTOPILOT=0`` (and the log says so); the two scale runs
+   run once more with ``MYTHRIL_TPU_AUTOPILOT=0 MYTHRIL_TPU_LEDGER=0``
+   beside their default-rungs walls; and one
+   ``python3 -m mythril_tpu_torch analyze`` process on the card writes
+   ``--trace-out``, ``--metrics-out`` and ``--lane-ledger-out`` into a
+   temporary directory: the trace parses with ``traceEvents``, the
+   Prometheus text parses, the ledger holds conservation and legality,
+   the jsonv2 report has ``meta.observability``;
 10. keccak: the ``keccak`` kernel against ``keccak256_batch_plain`` on
    the card, every digest byte for byte, and a sample of rows against
    the native ``keccak256``: the analyses' own calls, then 65,536 seeded
@@ -790,7 +813,9 @@ def dpll_step_phase():
 
     # whole rounds at the check's sweep shape, kernel step against plain
     operands, state0 = planted_round_inputs(SWEEP_C, SWEEP_V, SWEEP_B)
-    for hot_c, period in ((0, 1), (HOT_ROWS, 8)):
+    # untiered, at the default tier period, and at the tuner's edges
+    for hot_c, period in ((0, 1), (HOT_ROWS, 8), (HOT_ROWS, 2),
+                          (HOT_ROWS, 32)):
         fn = dense_prop.make_dense_rounds(
             SWEEP_C, SWEEP_V, SWEEP_B, STEP_BUDGET, dense_prop.CUDA_TIER,
             dense_prop.MAX_DECISIONS, hot_c, period)
@@ -1004,21 +1029,23 @@ class FrontierAudit:
         return "; ".join(parts)
 
 
-def learning_loop(C, V1, B, E, prefill):
+def learning_loop(C, V1, B, E, prefill, fan=None, period=None):
     """``frontiers.learning_problem`` on the card as a resident loop at
-    the default knobs, its shared pool prefilled with ``prefill`` rows."""
+    the default knobs (or ``fan`` / ``period``), its shared pool
+    prefilled with ``prefill`` rows."""
     from mythril_tpu_torch import frontiers
     from mythril_tpu_torch.ops import resident as RK
 
     rows, assign, extra = frontiers.learning_problem(C, V1, B, E,
                                                      prefill=prefill)
     state = RK.resident_state0(assign, B, 256, extra_cap=E)
-    return resident_loop(rows, state, extra, prefill)
+    return resident_loop(rows, state, extra, prefill, fan, period)
 
 
-def resident_loop(rows, state, extra, ne):
-    """A resident loop at the default knobs on the card: pool ``rows``,
-    lane ``state`` (numpy), shared pool ``extra`` with ``ne`` live rows."""
+def resident_loop(rows, state, extra, ne, fan=None, period=None):
+    """A resident loop at the default knobs (or ``fan`` / ``period``) on
+    the card: pool ``rows``, lane ``state`` (numpy), shared pool
+    ``extra`` with ``ne`` live rows."""
     import torch
 
     from mythril_tpu_torch.ops import frontier as FR
@@ -1027,7 +1054,8 @@ def resident_loop(rows, state, extra, ne):
 
     dev = torch.device(DEVICE)
     V1 = state["assign"].shape[1]
-    cfg = FK.StepConfig(fan=FR.DEFAULT_FAN, period=FR.DEFAULT_PERIOD,
+    cfg = FK.StepConfig(fan=fan or FR.DEFAULT_FAN,
+                        period=period or FR.DEFAULT_PERIOD,
                         limit=RK.resident_budget(),
                         watchdog=RK.resident_watchdog_limit(),
                         extra_cap=extra.shape[0] - 1, learn_cap=FR.LEARN_CAP,
@@ -1182,6 +1210,48 @@ def frontier_kernel_phase():
         f"{layout}): a full and a gather iteration, every launch equal bit "
         f"for bit")
     return [entries[name] for name in FRONTIER_KERNELS]
+
+
+#: the frontier solvers' knobs at the autopilot tuner's edge values
+#: (``autopilot/tuner.py`` KNOBS: fan 4..64, period 2..32), and the
+#: iterations of the learning problem each is held for
+TUNER_EDGES = ((4, 8), (24, 8), (64, 8), (16, 2), (16, 32))
+TUNER_EDGE_ITERS = 8
+
+
+def tuner_edges_phase():
+    """The three frontier kernels vs their plain versions on the learning
+    problem at each (fan, period) of ``TUNER_EDGES``, iteration by
+    iteration, with the library's shared memory checked against
+    ``smem_layout`` at each fan."""
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+
+    held = []
+    for fan, period in TUNER_EDGES:
+        loop = learning_loop(FRONTIER_C, FRONTIER_V1, FRONTIER_B,
+                             FRONTIER_E, FRONTIER_PREFILL, fan, period)
+        views = {"full": 0, "gather": 0}
+        iterations = 0
+        for it in range(TUNER_EDGE_ITERS):
+            parity = it & 1
+            if int(loop.ctl[parity, FK.HALT]):
+                break
+            iterations += 1
+            views["full" if int(loop.ctl[parity, FK.FULL])
+                  else "gather"] += 1
+            for name in FRONTIER_KERNELS:
+                run_checked(name, loop, parity, getattr(FK, name))
+        layout = _smem_check(loop)
+        check(iterations > 1 and loop.cfg.fan == fan
+              and loop.cfg.period == period,
+              f"fan {fan} period {period}: {iterations} iterations, "
+              f"launched at fan {loop.cfg.fan} period {loop.cfg.period}")
+        held.append(f"fan {fan} period {period}: {iterations} iterations "
+                    f"({views['full']} full, {views['gather']} gather "
+                    f"views), scan block {layout['scan_rows']} B")
+    log("frontier kernels vs plain at the tuner's edges (C="
+        f"{FRONTIER_C} V1={FRONTIER_V1} B={FRONTIER_B}), every launch "
+        "equal bit for bit: " + "; ".join(held))
 
 
 #: the lane step's shapes on the learning problem: (V1, B) of the chip
@@ -3008,6 +3078,54 @@ def keccak_phase(card, captured):
 ANALYZE_TIMEOUT_S = 600
 
 
+def legal_path(path) -> bool:
+    """A ledger record's path under the port's state machine: it opens,
+    every move is in ``LEGAL_NEXT``, and it ends in a terminal tier."""
+    from mythril_tpu_torch.observability.ledger import (
+        LEGAL_NEXT, TERMINAL_TIERS,
+    )
+
+    return (len(path) >= 2 and path[0] == "opened"
+            and path[-1] in TERMINAL_TIERS
+            and all(b in LEGAL_NEXT.get(a, ()) for a, b in zip(path, path[1:])))
+
+
+def check_ledger(agg, records, what):
+    """Conservation and legality of a ledger's aggregates and records:
+    ``lanes_total`` equals the sum of the decided lanes, and every kept
+    record's path is legal."""
+    decided = sum(agg["decided"].values())
+    check(agg["lanes_total"] == decided,
+          f"{what}: ledger conservation: {agg['lanes_total']} lanes, "
+          f"{decided} decided")
+    bad = [r["path"] for r in records if not legal_path(r["path"])]
+    check(not bad, f"{what}: illegal ledger paths {bad[:3]}")
+    return agg
+
+
+def plane_line(name, label):
+    """The lane ledger's and the autopilot's line for the analysis just
+    run, with the ledger's checks; returns the autopilot's counters (with
+    the tuner's steps and reverts)."""
+    from mythril_tpu_torch import autopilot
+    from mythril_tpu_torch.observability.ledger import get_ledger
+
+    led = get_ledger()
+    agg = check_ledger(led.snapshot(), led.records, name + label)
+    counters = autopilot.counters_snapshot()
+    pilot = autopilot._autopilot
+    tuner = pilot.tuner.debug_state() if pilot is not None else {}
+    log(f"analyze {name}{label} ledger: {agg['lanes_total']} lanes in "
+        f"{agg['batches']} batches = decided {agg['decided']}, "
+        f"tier_decided_pct {led.tier_decided_pct()}, transitions "
+        f"{agg['transitions']}, routed {agg['routed']}, {len(led.records)} "
+        f"records, every path legal; autopilot "
+        f"{counters or 'never engaged'}, tuner overrides "
+        f"{tuner.get('overrides', {})} ({tuner.get('adjustments', 0)} "
+        f"steps, {tuner.get('reverts', 0)} reverts)")
+    return counters
+
+
 def analyze_once(run, batched_solving=True, force=True):
     """One chip run through the port's analyzer on ``cuda``, its rungs
     force-dispatched (``force``) or at the JAX defaults: (report,
@@ -3136,6 +3254,7 @@ def analyze_audited(run, card, label="", force=True):
         f"terms, {stats.merge_aborts} aborted), {stats.subsume_sweeps} "
         f"subsumption sweeps retiring {stats.subsumed_lanes} lanes, "
         f"merge_span_s {stats.merge_span_s:.3f} s")
+    pilot = plane_line(run.name, label)
     merges = run.merges if veritest_enabled() else 0
     check(stats.merges == merges,
           f"{run.name}: {stats.merges} merges, the JAX package makes "
@@ -3159,7 +3278,8 @@ def analyze_audited(run, card, label="", force=True):
     return launches, {"dispatches": stats.dispatches,
                       "resident": stats.resident_dispatches, "wall": wall,
                       "keccak": audit["keccak"].captured,
-                      "states_stepped": stats.states_stepped}
+                      "states_stepped": stats.states_stepped,
+                      "autopilot": pilot}
 
 
 def analyze_phase(card):
@@ -3196,6 +3316,18 @@ def analyze_phase(card):
     stepped = {}
     for run in CHIP_RUNS:
         launches, stats = analyze_audited(run, card, " force-dispatched")
+        if run.dense and not stats["dispatches"] and stats["autopilot"].get(
+                "tail_routes"):
+            # the autopilot routed the run's lanes to the CDCL tail (the
+            # JAX package routes them alike on the CPU): the kernel audit
+            # runs again with the routing off
+            log(f"analyze {run.name}: the autopilot routed "
+                f"{stats['autopilot']['tail_routes']} lanes to the tail and "
+                f"no dispatch ran; auditing the kernels again under "
+                f"MYTHRIL_TPU_AUTOPILOT=0")
+            with env(MYTHRIL_TPU_AUTOPILOT="0"):
+                launches, stats = analyze_audited(
+                    run, card, " force-dispatched, MYTHRIL_TPU_AUTOPILOT=0")
         stepped[run.name] = stats["states_stepped"]
         walls[run.name].append(stats["wall"])
         for k, v in launches.items():
@@ -3222,6 +3354,19 @@ def analyze_phase(card):
         log(f"analyze walls {name} [{card}]: default rungs {w[0]:.3f} s, "
             f"force-dispatched {w[1]:.3f} s"
             + (f", CDCL only {w[2]:.3f} s" if len(w) > 2 else ""))
+    # the cost of the ledger and the autopilot: the scale runs in the
+    # default rungs with both planes off, beside the default's walls
+    for run in CHIP_RUNS:
+        if not run.dense:
+            continue
+        with env(MYTHRIL_TPU_AUTOPILOT="0", MYTHRIL_TPU_LEDGER="0"):
+            _l, stats = analyze_audited(
+                run, card, " MYTHRIL_TPU_AUTOPILOT=0 MYTHRIL_TPU_LEDGER=0",
+                force=False)
+        log(f"analyze planes cost {run.name} [{card}]: default rungs "
+            f"{walls[run.name][0]:.3f} s with the ledger and the autopilot, "
+            f"{stats['wall']:.3f} s with both off")
+    cli_phase(card)
     # the yardstick of the resident solver, force-dispatched on the dense
     # tier (cut to depth 4 to keep the check within its time)
     with env(MYTHRIL_TPU_RESIDENT_KERNEL="0"):
@@ -3239,6 +3384,74 @@ def analyze_phase(card):
           f"fork-only, {stepped[VERITEST_RUN.name]} merged")
     _add(launches, forked)
     return total, launches, hashed
+
+
+def cli_phase(card):
+    """One ``python3 -m mythril_tpu_torch analyze`` process on the card
+    with the observability plane's three artifacts written into a
+    temporary directory: the trace parses with ``traceEvents``, the
+    Prometheus text parses, the ledger holds conservation and legality,
+    the jsonv2 report has ``meta.observability`` and the run's SWC set."""
+    import tempfile
+
+    from mythril_tpu_torch.contracts import killbilly
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, k) for k in ("code.hex", "trace.json",
+                                                   "metrics.prom",
+                                                   "ledger.json")}
+        with open(paths["code.hex"], "w") as fh:
+            fh.write(killbilly())
+        started = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
+             paths["code.hex"], "--bin-runtime", "-t", "1",
+             "--no-onchain-data", "-o", "jsonv2",
+             "--trace-out", paths["trace.json"],
+             "--metrics-out", paths["metrics.prom"],
+             "--lane-ledger-out", paths["ledger.json"]],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - started
+        check(run.returncode == 0,
+              f"CLI: exit {run.returncode}: {run.stderr[-2000:]}")
+        report = json.loads(run.stdout)[0]
+        meta = report["meta"].get("observability")
+        check(meta and meta["trace_out"] == paths["trace.json"],
+              f"CLI: meta.observability {meta}")
+        found = {i["swcID"] for i in report["issues"]}
+        with open(paths["trace.json"]) as fh:
+            trace = json.load(fh)
+        events = trace["traceEvents"]
+        check(events and all("ph" in e and "name" in e for e in events),
+              "CLI: the trace has no events")
+        samples = {}
+        with open(paths["metrics.prom"]) as fh:
+            for line in fh.read().splitlines():
+                if line.startswith("#"):
+                    check(line.startswith(("# HELP ", "# TYPE ")),
+                          f"CLI: metrics line {line!r}")
+                    continue
+                name, value = line.rsplit(" ", 1)
+                samples[name] = float(value)
+        with open(paths["ledger.json"]) as fh:
+            payload = json.load(fh)
+        agg = check_ledger(payload["aggregates"], payload["records"], "CLI")
+        check(payload["conservation"]["decided_total"]
+              == agg["lanes_total"], f"CLI: {payload['conservation']}")
+    check(found == {"SWC-106"} and agg["lanes_total"] == meta["ledger_lanes"]
+          == samples["mythril_tpu_ledger_lanes_total"],
+          f"CLI: SWC {found}, ledger {agg['lanes_total']} lanes, meta "
+          f"{meta['ledger_lanes']}, metrics "
+          f"{samples.get('mythril_tpu_ledger_lanes_total')}")
+    spans = sorted({e["name"] for e in events if e["ph"] == "X"})
+    log(f"CLI analyze killbilly -t 1 with --trace-out --metrics-out "
+        f"--lane-ledger-out [{card}]: exit 0 in {wall:.3f} s (process "
+        f"included), SWC {sorted(found)}, {len(events)} trace events "
+        f"({meta['span_events']} spans; names {spans}), {len(samples)} "
+        f"metric samples, ledger {agg['lanes_total']} lanes = decided "
+        f"{agg['decided']}, every path legal; meta.observability keys "
+        f"{sorted(meta)}")
 
 
 def _add(total, launches):
@@ -3292,6 +3505,8 @@ def _main(torch, frontiers, default_device, edge_pool,
     phase_done("lane step")
     frontier_geometry_phase()
     phase_done("frontier geometries")
+    tuner_edges_phase()
+    phase_done("tuner edges")
     round_entry = round_lane_phase()
     phase_done("round lane")
     # launches of the default configuration (the kernels line) and of

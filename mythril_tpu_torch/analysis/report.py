@@ -1,8 +1,9 @@
 """Issues and reports (reference: mythril/analysis/report.py).
 
 Own copy of ``mythril_tpu/analysis/report.py``; the jsonv2 meta block
-carries the exception log only (the port has no resilience, fleet,
-persistence or observability planes to report on).
+carries the exception log and the observability block
+(``meta.observability``; the port has no resilience, fleet or
+persistence planes to report on).
 
 Renders text / markdown / json / jsonv2 (SWC standard format).  Layout
 follows the reference's report shape (section per issue, SWC id,
@@ -249,6 +250,11 @@ class Report:
                 }
             )
         meta = self._get_exception_data()
+        # stable observability section: artifact paths and event counts,
+        # every key always present
+        from mythril_tpu_torch.observability import observability_meta
+
+        meta["observability"] = observability_meta()
         result = [
             {
                 "issues": issues,

@@ -20,11 +20,14 @@ the solver tiers and the lockstep interpreter on the card, behind the
 JAX funnel's default dispatch rungs (profit gate, async prefetch,
 coalescer; ``--device-force-dispatch`` and ``--no-async-dispatch`` as in
 the JAX CLI).  ``--device cpu`` is the only way to run it on the CPU;
-without a card the command exits 2 with a clear message.  Options that
-would need a part of the JAX package the port does not have (workers,
-checkpoints, traces, RPC, solc, ...) are refused, not ignored; a
-malformed ``MYTHRIL_TPU_*`` knob exits 2 at startup
-(``support/env.py:validate_env``).
+without a card the command exits 2 with a clear message.  The lane
+ledger and the autopilot are on, as the JAX default
+(``MYTHRIL_TPU_LEDGER=0`` / ``MYTHRIL_TPU_AUTOPILOT=0`` are their kill
+switches); ``--trace-out``, ``--metrics-out`` and ``--lane-ledger-out``
+write the observability plane's artifacts.  Options that would need a
+part of the JAX package the port does not have (workers, checkpoints,
+RPC, solc, ...) are refused, not ignored; a malformed ``MYTHRIL_TPU_*``
+knob exits 2 at startup (``support/env.py:validate_env``).
 """
 
 import argparse
@@ -50,8 +53,8 @@ DISASSEMBLE_LIST = ("disassemble", "d")
 #: does not have (``ROADMAP.md`` queues them); given one, the command
 #: exits 2 instead of running something else than asked
 REFUSED_OPTIONS = (
-    "--workers", "--checkpoint-dir", "--resume", "--trace-out",
-    "--metrics-out", "--lane-ledger-out", "--proof-log", "--persist-dir",
+    "--workers", "--checkpoint-dir", "--resume", "--proof-log",
+    "--persist-dir",
     "--rpc", "--rpctls", "-a", "--address", "--solv", "--solc-json",
     "-g", "--graph", "-j", "--statespace-json", "--enable-coverage-strategy",
     "--parallel-solving",
@@ -219,6 +222,29 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         metavar="CREATOR_ADDRESS",
     )
     options.add_argument(
+        "--trace-out",
+        help="Write a Chrome/Perfetto trace_event JSON timeline of the "
+        "analysis to FILE: hierarchical spans across CLI -> analyzer -> "
+        "svm transactions -> pruning -> the funnel's tiers -> solver "
+        "rounds -> H2D uploads -> the CDCL tail",
+        metavar="FILE",
+    )
+    options.add_argument(
+        "--metrics-out",
+        help="Dump the unified metrics registry (dispatch, async-prefetch, "
+        "lane-ledger, autopilot and trace counters) in Prometheus text "
+        "format to FILE when the analysis ends",
+        metavar="FILE",
+    )
+    options.add_argument(
+        "--lane-ledger-out",
+        help="Write the per-lane attribution ledger to FILE as JSON "
+        "(schema mythril-tpu-lane-ledger/2): every funnel lane's origin, "
+        "tier transitions, verdict, features and route, plus per-tier/"
+        "per-contract aggregates; check with scripts/trace_lint.py",
+        metavar="FILE",
+    )
+    options.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="Where the dense tier runs: the card (default; an error "
         "without one) or, only when asked for, the CPU",
@@ -332,21 +358,28 @@ def _analyze(disassembler, address, args) -> int:
         exit_with_error(
             args.outform, "input files do not contain any valid contracts"
         )
+    from mythril_tpu_torch.observability import finalize_outputs, span
+
     try:
-        report = analyzer.fire_lasers(
-            modules=[m.strip() for m in args.modules.strip().split(",")]
-            if args.modules else None,
-            transaction_count=args.transaction_count,
-        )
+        with span("cli.analyze", cat="cli"):
+            report = analyzer.fire_lasers(
+                modules=[m.strip() for m in args.modules.strip().split(",")]
+                if args.modules else None,
+                transaction_count=args.transaction_count,
+            )
+            renderers = {
+                "json": report.as_json,
+                "jsonv2": report.as_swc_standard_format,
+                "text": report.as_text,
+                "markdown": report.as_markdown,
+            }
+            rendered = renderers[args.outform]()
     except DetectorNotFoundError as e:
         exit_with_error(args.outform, format(e))
-    renderers = {
-        "json": report.as_json,
-        "jsonv2": report.as_swc_standard_format,
-        "text": report.as_text,
-        "markdown": report.as_markdown,
-    }
-    print(renderers[args.outform]())
+    # the artifacts land before the report reaches stdout: a reader that
+    # closes the pipe early must not cost the run its timeline
+    finalize_outputs()
+    print(rendered)
     if report.exceptions:
         # the analysis salvaged what it could, but a failure (the dense
         # tier or its kernel among them) must not read as a clean run
@@ -386,6 +419,15 @@ def main(argv=None) -> None:
     except EnvSpecError as e:
         print(f"bad environment knob: {e}", file=sys.stderr)
         sys.exit(2)
+
+    if args.command in ANALYZE_LIST:
+        # observability plane: --trace-out enables the span tracer, the
+        # other two request their dumps at the end; all three hook the
+        # flight recorder's crash dump
+        from mythril_tpu_torch.observability import configure_from_cli
+
+        configure_from_cli(args.trace_out, args.metrics_out,
+                           args.lane_ledger_out)
 
     if args.command == "list-detectors":
         modules = [

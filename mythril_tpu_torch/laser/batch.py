@@ -18,14 +18,21 @@ round and returns the feasible subset:
 4. CDCL tail: lanes still open go through ``Constraints.is_possible``
    (the memoized ``support.model`` funnel).
 
+The lane ledger (``observability/ledger.py``) counts every structurally
+false state, and every state of a round that did not go through the
+funnel, as a prune-level lane of its own (kind ``prune``); the funnel
+records its own lanes.
+
 Unlike the JAX package, a failure of the funnel (a solver tier, the
 word tier or a kernel) propagates to the caller: there is no fallback
 that hands the frontier to the CDCL and hides a broken kernel.  The
-lane ledger and the drain/budget hooks are not part of the port.
+drain/budget hooks are not part of the port.
 """
 
 from typing import List
 
+from mythril_tpu_torch.observability import spans as obs
+from mythril_tpu_torch.observability.ledger import get_ledger
 from mythril_tpu_torch.support.support_args import args
 
 
@@ -58,10 +65,17 @@ prune_stats = PruneStats()
 
 def prune_infeasible(states: List) -> List:
     """Return the subset of states whose path constraints are satisfiable."""
+    with obs.span("batch.prune", cat="batch", states=len(states)):
+        return _prune_infeasible(states)
+
+
+def _prune_infeasible(states: List) -> List:
+    ledger = get_ledger()
     undecided = []
     feasible = []
     for state in states:
         if _structurally_false(state.world_state.constraints):
+            ledger.single("prune", "structural", "unsat")
             continue
         undecided.append(state)
 
@@ -97,16 +111,30 @@ def prune_infeasible(states: List) -> List:
     # blast context, so lanes the funnel already consulted cost a dict
     # hit here)
     open_positions = [k for k, v in enumerate(verdicts) if v is None]
+    word_decided_here = set()
     if open_positions:
         verdicts = _consult_word_tier(undecided, verdicts, open_positions)
+        word_decided_here = {k for k in open_positions
+                             if verdicts[k] is not None}
 
-    for state, verdict in zip(undecided, verdicts):
+    for k, (state, verdict) in enumerate(zip(undecided, verdicts)):
+        # the funnel ledgered its own lanes (tail demotions included):
+        # only the decisions of a round without it are lanes here
         if verdict is True:
             feasible.append(state)
-        elif verdict is None:
+            if not use_batch and k in word_decided_here:
+                ledger.single("prune", "word", "sat")
+        elif verdict is False:
+            if not use_batch and k in word_decided_here:
+                ledger.single("prune", "word", "unsat")
+        else:
             # undecided by the funnel: authoritative CDCL check
             prune_stats.tail_states += 1
-            if state.world_state.constraints.is_possible:
+            possible = state.world_state.constraints.is_possible
+            if not use_batch:
+                ledger.single("prune", "tail",
+                              "sat" if possible else "unsat")
+            if possible:
                 feasible.append(state)
     prune_stats.calls += 1
     return feasible

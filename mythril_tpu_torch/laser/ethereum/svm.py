@@ -32,6 +32,8 @@ from mythril_tpu_torch.laser.ethereum.transaction.transaction_models import (
     TransactionStartSignal,
 )
 from mythril_tpu_torch.laser.plugin.signals import PluginSkipState, PluginSkipWorldState
+from mythril_tpu_torch.observability import spans as obs
+from mythril_tpu_torch.observability.ledger import set_origin
 from mythril_tpu_torch.support.opcodes import get_required_stack_elements
 from mythril_tpu_torch.support.support_args import args
 
@@ -191,14 +193,19 @@ class LaserEVM:
                 break
             # Frontier pruning across transactions: the reference issues
             # one solver call per open state (svm.py:201-204); here the
-            # whole frontier goes through one batched pass.
-            old_states = self.open_states
-            self.open_states = [
-                pseudo.world_state
-                for pseudo in prune_infeasible(
-                    [_WorldStateView(ws) for ws in old_states]
-                )
-            ]
+            # whole frontier goes through one batched pass.  The ledger's
+            # origin carries the transaction index (the autopilot's
+            # features read it as ``tx``)
+            set_origin(tx_index=i)
+            with obs.span("svm.transaction", cat="svm", tx=i,
+                          open_states=len(self.open_states)):
+                old_states = self.open_states
+                self.open_states = [
+                    pseudo.world_state
+                    for pseudo in prune_infeasible(
+                        [_WorldStateView(ws) for ws in old_states]
+                    )
+                ]
             self.iteration_states.append(len(self.open_states))
             log.info(
                 "Starting message call transaction, iteration: %d, "
@@ -243,9 +250,10 @@ class LaserEVM:
 
             # (executed state, op_code, successor states) per lane
             rounds: List[Tuple[GlobalState, Optional[str], List[GlobalState]]] = []
-            timed_out = self._exec_round(
-                batch, rounds, create, track_gas, final_states
-            )
+            with obs.span("svm.round", cat="svm", batch=len(batch)):
+                timed_out = self._exec_round(
+                    batch, rounds, create, track_gas, final_states
+                )
             if timed_out is not None:
                 self.timed_out = True
                 return final_states + [timed_out] if track_gas else None

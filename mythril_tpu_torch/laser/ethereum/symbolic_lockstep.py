@@ -73,11 +73,12 @@ failure inside it kills the shadow and never the segment, except a
 failure of the keccak kernel or of the card (:class:`KeccakKernelError`),
 which propagates.
 
-The autopilot's routing, the lane ledger and the resource governor are
-the port's inert seams (``autopilot/``, ``observability/ledger.py``,
-``resilience/governor.py``), which act as the JAX package's do with
-those planes off; the ``svm.segment`` span is a timer into
-``dispatch_stats.segment_s``.
+Each group that runs counts its lanes as ``lockstep`` transitions in the
+lane ledger (``observability/ledger.py``), and its per-lane wall feeds
+the autopilot's cost model under the ``lockstep`` tier key; the
+``svm.segment`` span times it into ``dispatch_stats.segment_s``.  The
+resource governor is the port's inert seam (``resilience/governor.py``),
+which acts as the JAX package's does with that plane off.
 
 Kill switch: ``MYTHRIL_TPU_SYM_LOCKSTEP=0`` restores the exact
 per-state path (``run_lockstep`` returns the batch untouched).  The
@@ -93,7 +94,6 @@ from datetime import datetime, timedelta
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from mythril_tpu_torch.laser.ethereum.evm_exceptions import (
     VmException,
@@ -105,6 +105,7 @@ from mythril_tpu_torch.laser.plugin.signals import (
     PluginSkipState,
     PluginSkipWorldState,
 )
+from mythril_tpu_torch.observability import spans as obs
 from mythril_tpu_torch.ops import default_device, u256
 from mythril_tpu_torch.ops import keccak as keccak_kernel
 from mythril_tpu_torch.ops import word_prop as W
@@ -1440,10 +1441,11 @@ def run_lockstep(svm, batch, rounds, create: bool, track_gas: bool):
             continue
         ledger.count_transition("lockstep", len(group.states))
         began = time.monotonic()
-        with record_function("svm.segment"):
+        with obs.span("svm.segment", cat="svm", profile=True,
+                      sink=(dispatch_stats, "segment_s"),
+                      lanes=len(group.states), pc=group.pc):
             stepped = _run_group(svm, group, rounds, max_ops,
                                  planes_on, keccak_max)
-        dispatch_stats.segment_s += time.monotonic() - began
         dispatch_stats.states_stepped += stepped
         autopilot.note_segment(features, len(group.states),
                                time.monotonic() - began)

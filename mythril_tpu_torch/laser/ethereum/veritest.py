@@ -41,19 +41,19 @@ CREATE-transactions, whose consumers need per-fork states.
 
 Telemetry: ``merges`` / ``merged_lanes`` / ``merge_ites`` /
 ``merge_aborts`` / ``subsume_sweeps`` / ``subsumed_lanes`` on
-DispatchStats, and the wall-clock of both passes in ``merge_span_s``.
-The lane ledger's ``merge`` / ``subsume`` transitions go to the port's
-ledger seam (``observability/ledger.py``, which keeps none yet), and the
-``merge_abort`` fault seam is ``resilience/faults.py``'s, which never
+DispatchStats, and the wall-clock of both passes (the ``svm.merge`` and
+``svm.subsume`` spans) in ``merge_span_s``.  Merged and retired lanes
+count as the lane ledger's ``merge`` / ``subsume`` transitions
+(``observability/ledger.py``), and the ``merge_abort`` fault seam is ``resilience/faults.py``'s, which never
 fires yet.
 """
 
 import logging
-import time
 from copy import copy
 from typing import Dict, List, Optional, Tuple
 
 from mythril_tpu_torch.laser.ethereum.state.constraints import Constraints
+from mythril_tpu_torch.observability import spans as obs
 from mythril_tpu_torch.smt import And, If, Or, symbol_factory
 from mythril_tpu_torch.support.env import env_flag, env_int
 
@@ -395,13 +395,15 @@ class VeritestEngine:
 
         self.rounds += 1
         if len(work_list) > 1:
-            started = time.perf_counter()
-            self._merge_pass(work_list)
-            dispatch_stats.merge_span_s += time.perf_counter() - started
+            with obs.span("svm.merge", cat="svm",
+                          sink=(dispatch_stats, "merge_span_s"),
+                          lanes=len(work_list)):
+                self._merge_pass(work_list)
         if len(work_list) > 1 and self.rounds % self.subsume_period == 0:
-            started = time.perf_counter()
-            self._subsume_pass(work_list)
-            dispatch_stats.merge_span_s += time.perf_counter() - started
+            with obs.span("svm.subsume", cat="svm",
+                          sink=(dispatch_stats, "merge_span_s"),
+                          lanes=len(work_list)):
+                self._subsume_pass(work_list)
 
     # -- merge ----------------------------------------------------------
 

@@ -30,6 +30,9 @@ from mythril_tpu_torch.analysis.security import (
 )
 from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
 from mythril_tpu_torch.exceptions import DetectorNotFoundError
+from mythril_tpu_torch.observability import ledger
+from mythril_tpu_torch.observability import spans as obs
+from mythril_tpu_torch.observability.ledger import set_origin
 from mythril_tpu_torch.ops.async_dispatch import get_async_dispatcher
 from mythril_tpu_torch.smt import SolverStatistics
 from mythril_tpu_torch.solidity.evmcontract import EVMContract
@@ -44,11 +47,12 @@ log = logging.getLogger(__name__)
 def reset_analysis_state() -> None:
     """Forget everything an earlier analysis in this process left
     behind (a fresh CLI process starts this way): the blast context with
-    its term interner and model cache, the detection modules' issues
-    and caches, the transaction-id counter, the keccak function
-    manager, the funnel's and prune's counters, the dispatcher
-    pre-split's plans, and the async prefetch (its worker joined, its
-    batch and statistics dropped)."""
+    its term interner, model cache and the autopilot (cost model, tuner,
+    counters), the detection modules' issues and caches, the
+    transaction-id counter, the keccak function manager, the funnel's
+    and prune's counters, the dispatcher pre-split's plans, the async
+    prefetch (its worker joined, its batch and statistics dropped), and
+    the lane ledger (records, aggregates, origin)."""
     from mythril_tpu_torch.laser.batch import prune_stats
     from mythril_tpu_torch.laser.ethereum import lockstep_dispatch
     from mythril_tpu_torch.laser.ethereum.keccak_function_manager import (
@@ -73,6 +77,7 @@ def reset_analysis_state() -> None:
     prune_stats.reset()
     lockstep_dispatch._plan_cache.clear()
     SolverStatistics().reset()
+    ledger.reset_for_tests()
 
 
 @dataclass
@@ -217,10 +222,19 @@ class MythrilAnalyzer:
         all_issues: List[Issue] = []
         exceptions: List[str] = []
         execution_info = None
-        for contract in self.contracts:
-            issues, info, failure = self._analyze_contract(
-                contract, modules, transaction_count
+        for index, contract in enumerate(self.contracts):
+            # lane-ledger origin: every lane record produced while this
+            # contract executes carries its name
+            set_origin(
+                contract=getattr(contract, "name", "") or "contract",
+                tx_index=None,
             )
+            with obs.span("analyzer.contract", cat="analyzer",
+                          contract=getattr(contract, "name", "") or "",
+                          index=index):
+                issues, info, failure = self._analyze_contract(
+                    contract, modules, transaction_count
+                )
             if info is not None:
                 execution_info = info
             if failure:

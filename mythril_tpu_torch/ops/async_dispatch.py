@@ -38,6 +38,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from mythril_tpu_torch.observability import spans as obs
+
 log = logging.getLogger(__name__)
 
 
@@ -106,7 +108,9 @@ class AsyncDispatcher:
             # two prefetches at once
             return False
         began = time.monotonic()
-        runner = backend.prepare_gather(ctx, rep_assumption_sets)
+        with obs.span("prefetch.prepare", cat="dispatch",
+                      lanes=len(rep_assumption_sets)):
+            runner = backend.prepare_gather(ctx, rep_assumption_sets)
         if runner is None:
             return False
         stream = side_stream(backend.device)
@@ -123,12 +127,15 @@ class AsyncDispatcher:
 
         def work():
             try:
-                if stream is None:
-                    handle = runner()
-                else:
-                    with torch.cuda.stream(stream):
+                # on the worker thread's own span stack
+                with obs.span("prefetch.solve", cat="dispatch",
+                              lanes=len(rep_assumption_sets)):
+                    if stream is None:
                         handle = runner()
-                        stream.synchronize()
+                    else:
+                        with torch.cuda.stream(stream):
+                            handle = runner()
+                            stream.synchronize()
                 status = handle["status"].cpu().numpy()
                 assign = handle["assign"].cpu().numpy()
                 if "cone_vars" in handle:
@@ -182,6 +189,8 @@ class AsyncDispatcher:
         )
 
         status, assign = pending["status"], pending["assign"]
+        obs.instant("prefetch.harvest", cat="dispatch",
+                    lanes=len(pending["node_sets"]))
         for lane, node_set in enumerate(pending["node_sets"]):
             if status[lane] == 2:
                 # sound UNSAT: permanent memo + pool nogood, so the CDCL

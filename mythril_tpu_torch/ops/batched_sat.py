@@ -4,11 +4,14 @@ slice).
 
 :func:`batch_check_states` takes a frontier of term-level path
 constraint sets and returns one verdict per set.  It is the JAX funnel
-under the slice's configuration (``MYTHRIL_TPU_AUTOPILOT=0``):
+under the slice's configuration:
 
 0. harvest: a finished async prefetch (``ops/async_dispatch.py``)
    lands its UNSAT memos, nogoods and models first;
-1. structural fold: constraints that folded to literal False;
+1. structural fold: constraints that folded to literal False; then the
+   autopilot (``autopilot/``) extracts each open lane's features and
+   routes it from its ledger-fed cost model: past the word tier
+   (``skip_word``) or straight to the CDCL tail (``skip_device``);
 2. the probe phase, lane by lane: the context's permanent UNSAT memo,
    the verdicts the per-query funnel (``support/model.py``) has cached,
    and (``word_probing``) the host word-level probe against recent
@@ -42,20 +45,27 @@ under the slice's configuration (``MYTHRIL_TPU_AUTOPILOT=0``):
 5. the native CDCL tail for everything still undecided (or None for
    the caller's own tail, ``tail=False``).
 
-Left out of this slice: the autopilot router, the lane ledger, the
-sharded mesh, and the ladder's resilience seams (watchdog, retry,
-bisection, quarantine, drain).  A failure in a tier, in the word tier's
-kernel, or in the prefetch's worker, reaches the caller.
+Every lane gets a lane-ledger record (``observability/ledger.py``): its
+tier transitions, the tier that decided it (the device tiers count as
+``frontier``, or ``sweep`` under ``MYTHRIL_TPU_FRONTIER=0``, as in the
+JAX package), per-tier walls, sweeps and learned clauses; whatever the
+funnel leaves open settles as ``tail`` when the batch closes, before the
+tail runs.  The tiers' walls are spans (``observability/spans.py``)
+with sinks in :data:`dispatch_stats` and ``record_function`` ranges of
+the same names.
+
+Left out of this slice: the sharded mesh, and the ladder's resilience
+seams (watchdog, retry, bisection, quarantine, drain).  A failure in a
+tier, in the word tier's kernel, or in the prefetch's worker, reaches
+the caller.
 """
 
-import contextlib
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from mythril_tpu_torch.observability import spans as obs
 from mythril_tpu_torch.ops import round_lane as RL
 
 #: clause rows of the gather tiers are at most this wide (wider clauses
@@ -125,7 +135,7 @@ class DispatchStats:
         self.lane_slots_total = 0
         self.device_s = 0.0        # wall-clock inside the solver tiers
         self.tail_s = 0.0          # wall-clock inside the CDCL tail
-        # wall-clock by tier (tier_clock): the dense tier (cone walk,
+        # wall-clock by tier (span sinks): the dense tier (cone walk,
         # rows, rounds) and the gather and cone tiers after it (pool
         # syncs, cone builds, their solves), which split device_s; of
         # the first its round ladders, of the second the resident
@@ -228,17 +238,12 @@ class DispatchStats:
 dispatch_stats = DispatchStats()
 
 
-@contextlib.contextmanager
-def tier_clock(tier: str, span: str):
-    """A ``record_function`` range ``span`` around the block, and its
-    wall-clock added to ``dispatch_stats.<tier>_s``."""
-    started = time.perf_counter()
-    try:
-        with record_function(span):
-            yield
-    finally:
-        setattr(dispatch_stats, f"{tier}_s", getattr(
-            dispatch_stats, f"{tier}_s") + time.perf_counter() - started)
+def tier_span(tier: str, name: str):
+    """The span ``name`` around a solver tier: its wall-clock adds to
+    ``dispatch_stats.<tier>_s``, inside a ``record_function`` range of
+    the same name."""
+    return obs.span(name, sink=(dispatch_stats, f"{tier}_s"), cat="tier",
+                    profile=True)
 
 
 class DispatchFuse:
@@ -385,7 +390,10 @@ class DevicePool:
         if len(rows):
             mat[: len(rows)] = rows
         self.lits_np = mat
-        self.lits = torch.from_numpy(mat).to(self.device)
+        with obs.span("upload.pool", cat="h2d", bytes=int(mat.nbytes),
+                      rows=real_rows):
+            self.lits = torch.from_numpy(mat).to(self.device)
+        obs.counter("pool.rows", resident=real_rows, bucket=target_c)
         dispatch_stats.pool_uploads += 1
         dispatch_stats.h2d_bytes += int(mat.nbytes)
         self._adj_np = None
@@ -415,11 +423,15 @@ class DevicePool:
         if len(rows):
             at = np.arange(self.filled, self.filled + len(rows))
             self.lits_np[at] = rows
-            self.lits.index_copy_(
-                0, torch.from_numpy(at).to(self.device),
-                torch.from_numpy(rows).to(self.device),
-            )
+            with obs.span("upload.delta", cat="h2d",
+                          bytes=int(rows.nbytes), rows=len(rows)):
+                self.lits.index_copy_(
+                    0, torch.from_numpy(at).to(self.device),
+                    torch.from_numpy(rows).to(self.device),
+                )
             self.filled += len(rows)
+            obs.counter("pool.rows", resident=self.filled,
+                        bucket=self.num_clauses)
             occurring = np.abs(rows).ravel()
             self.used[occurring[occurring <= self.num_vars]] = True
             dispatch_stats.delta_uploads += 1
@@ -440,7 +452,9 @@ class DevicePool:
             self._adj_np = build_adjacency(
                 self.lits_np[: self.filled], self.num_vars + 1
             )
-        self._adj_dev = torch.from_numpy(self._adj_np).to(self.device)
+        with obs.span("upload.adjacency", cat="h2d",
+                      bytes=int(self._adj_np.nbytes)):
+            self._adj_dev = torch.from_numpy(self._adj_np).to(self.device)
         dispatch_stats.h2d_bytes += int(self._adj_np.nbytes)
         return self._adj_dev
 
@@ -471,7 +485,7 @@ class BatchedSatBackend:
         self.device_engaged = False
         dense_backend = get_dense_backend(self.device)
         if dense_backend.available_for(ctx):
-            with tier_clock("dense", "tier.dense"):
+            with tier_span("dense", "tier.dense"):
                 dense = dense_backend.check_assumption_sets(ctx,
                                                             assumption_sets)
             if dense is not None:
@@ -479,7 +493,7 @@ class BatchedSatBackend:
                 self.last_assignments = assignments
                 self.device_engaged = True
                 return results
-        with tier_clock("gather", "tier.gather"):
+        with tier_span("gather", "tier.gather"):
             return self._gather_tiers(ctx, assumption_sets)
 
     def _gather_tiers(self, ctx, assumption_sets: List[List[int]]
@@ -593,7 +607,9 @@ class BatchedSatBackend:
                     getattr(dispatch_stats, counter) + 1)
             return out
 
-        with tier_clock("resident", "resident.solve"):
+        obs.counter("lanes.live", live=batch, bucket=B)
+        with obs.span("resident.solve", sink=(dispatch_stats, "resident_s"),
+                      cat="sweep", profile=True, lanes=batch):
             state = self._dispatch_round(step_fn, state)
         dispatch_stats.rounds += 1
         self._account_sweeps(state, batch, B)
@@ -659,15 +675,18 @@ class BatchedSatBackend:
                 break
             for k in round_keys:  # per-round counters
                 state[k][:] = 0
+            obs.counter("lanes.live", live=int(live.size), bucket=B)
             if frontier is not None:
-                with record_function("frontier.round"):
+                with obs.span("frontier.round", cat="sweep", profile=True,
+                              budget=budget, lanes=int(live.size)):
                     state = self._dispatch_round(
                         lambda st: FR.frontier_round(lits, frontier["adj"],
                                                      st, budget),
                         state,
                     )
             else:
-                with record_function("dispatch.round"):
+                with obs.span("dispatch.round", cat="sweep", profile=True,
+                              budget=budget, lanes=int(live.size)):
                     state = self._dispatch_round(
                         lambda st: _round_lane_np(lits, st, budget), state)
             dispatch_stats.rounds += 1
@@ -714,10 +733,11 @@ class BatchedSatBackend:
             return None
         from mythril_tpu_torch.ops.incremental import get_cone_memo
 
-        built = get_cone_memo().get_or_build(
-            ctx, ("cone_rows", roots),
-            lambda: self._build_cone_rows(ctx, roots),
-        )
+        with obs.span("cone.build", cat="cone", roots=len(roots)):
+            built = get_cone_memo().get_or_build(
+                ctx, ("cone_rows", roots),
+                lambda: self._build_cone_rows(ctx, roots),
+            )
         if built is None:
             return None
         rows, cone_vars, anchor = built
@@ -803,12 +823,16 @@ class BatchedSatBackend:
 
         def _upload_rows():
             dispatch_stats.h2d_bytes += int(rows.nbytes)
-            return torch.from_numpy(rows).to(self.device)
+            with obs.span("upload.cone_rows", cat="h2d",
+                          bytes=int(rows.nbytes)):
+                return torch.from_numpy(rows).to(self.device)
 
         def _upload_adj():
             adj = build_adjacency(rows, assign.shape[1])
             dispatch_stats.h2d_bytes += int(adj.nbytes)
-            return torch.from_numpy(adj).to(self.device)
+            with obs.span("upload.adjacency", cat="h2d",
+                          bytes=int(adj.nbytes)):
+                return torch.from_numpy(adj).to(self.device)
 
         rows_dev = memo.get_or_build(ctx, ("cone_dev", roots), _upload_rows)
         frontier = None
@@ -1011,22 +1035,46 @@ def batch_check_states(constraint_sets, device=None,
     answers every lane the funnel leaves open (None then means the CDCL
     answered UNKNOWN); ``tail=False`` returns them as None, for a caller
     that runs its own tail (``laser/batch.py``)."""
+    from mythril_tpu_torch.observability.ledger import get_ledger
     from mythril_tpu_torch.ops.async_dispatch import get_async_dispatcher
-    from mythril_tpu_torch.smt import SolverStatistics
-    from mythril_tpu_torch.smt import terms as T
     from mythril_tpu_torch.smt.solver import get_blast_context
-    from mythril_tpu_torch.support.model import peek_model_verdict
-    from mythril_tpu_torch.support.support_args import args
 
     backend = get_backend(device)
     ctx = get_blast_context()
     # 0. a finished async prefetch first: its UNSAT memos and models
     # decide lanes of THIS frontier below for free
     get_async_dispatcher().harvest(ctx)
-    node_sets: List[Optional[List]] = []
-    decided: List[Optional[bool]] = [None] * len(constraint_sets)
     tiers: List[Optional[str]] = [None] * len(constraint_sets)
     dispatch_stats.last_tiers = tiers
+    # every lane gets a ledger record; the try/finally keeps the ledger's
+    # conservation: whatever the funnel leaves open settles as
+    # tail-demoted when the batch closes (before the tail runs, as the
+    # JAX funnel's caller runs it)
+    lanes_led = get_ledger().begin_batch("batch_check",
+                                         len(constraint_sets))
+    try:
+        decided, node_sets = _funnel(ctx, backend, constraint_sets, tiers,
+                                     lanes_led, device)
+    finally:
+        lanes_led.close()
+    if tail:
+        # 5. CDCL tail
+        with obs.span("funnel.tail", sink=(dispatch_stats, "tail_s"),
+                      cat="tail", profile=True):
+            _tail(ctx, node_sets, decided, tiers)
+    return decided
+
+
+def _funnel(ctx, backend, constraint_sets, tiers, lanes_led, device):
+    """1.-4. of :func:`batch_check_states`: (verdicts, node sets)."""
+    from mythril_tpu_torch.autopilot import route_lanes
+    from mythril_tpu_torch.smt import SolverStatistics
+    from mythril_tpu_torch.smt import terms as T
+    from mythril_tpu_torch.support.model import peek_model_verdict
+    from mythril_tpu_torch.support.support_args import args
+
+    node_sets: List[Optional[List]] = []
+    decided: List[Optional[bool]] = [None] * len(constraint_sets)
 
     # 1. structural fold
     for i, constraints in enumerate(constraint_sets):
@@ -1049,8 +1097,15 @@ def batch_check_states(constraint_sets, device=None,
             decided[i] = False
             tiers[i] = "structural"
             node_sets.append(None)
+            lanes_led.decide(i, "structural", "unsat")
         else:
             node_sets.append(nodes)
+
+    # the autopilot: per-lane features (stamped on the ledger records)
+    # and routes from the ledger-fed cost model; a route only skips a
+    # tier whose work the CDCL tail redoes soundly.  All None under
+    # MYTHRIL_TPU_AUTOPILOT=0
+    routes = route_lanes(node_sets, lanes_led)
 
     # 2. the probe phase, lane by lane: a permanent UNSAT verdict of the
     # context, a verdict the per-query funnel (support/model.py) already
@@ -1058,65 +1113,71 @@ def batch_check_states(constraint_sets, device=None,
     # models (evaluation is a full verification: a sound SAT verdict;
     # memoized on the context and shared with the CDCL tail, so a model
     # found for one lane serves its siblings at once)
-    started = time.perf_counter()
-    for i, nodes in enumerate(node_sets):
-        if nodes is None:
-            continue
-        if ctx.unsat_memo_hit(tuple(sorted(n.id for n in nodes))):
-            decided[i] = False
-            tiers[i] = "memo"
-            continue
-        cached = peek_model_verdict(constraint_sets[i])
-        if cached is not None:
-            decided[i] = cached
-            tiers[i] = "memo"
-            continue
-        if not args.word_probing:
-            continue
-        if ctx.probe_with_memo(nodes) is not None:
-            decided[i] = True
-            tiers[i] = "probe"
-            dispatch_stats.host_probe_sat += 1
-    SolverStatistics().probe_s += time.perf_counter() - started
+    with obs.span("solver.probe", sink=(SolverStatistics(), "probe_s"),
+                  cat="solver", lanes=len(node_sets)) as probe_span:
+        for i, nodes in enumerate(node_sets):
+            if nodes is None:
+                continue
+            if ctx.unsat_memo_hit(tuple(sorted(n.id for n in nodes))):
+                decided[i] = False
+                tiers[i] = "memo"
+                lanes_led.decide(i, "probe", "unsat")
+                continue
+            cached = peek_model_verdict(constraint_sets[i])
+            if cached is not None:
+                decided[i] = cached
+                tiers[i] = "memo"
+                lanes_led.decide(i, "probe", "sat" if cached else "unsat")
+                continue
+            if not args.word_probing:
+                continue
+            if ctx.probe_with_memo(nodes) is not None:
+                decided[i] = True
+                tiers[i] = "probe"
+                dispatch_stats.host_probe_sat += 1
+                lanes_led.decide(i, "probe", "sat")
+    lanes_led.tier_wall("probe", probe_span.elapsed_s)
 
     # 3. the word tier over the open lanes: interval-UNSAT and
     # constant-fold lanes retire here; the others keep their known bits
-    word_hints = _word_rung(ctx, node_sets, decided, tiers, device)
+    word_hints = _word_rung(ctx, node_sets, decided, tiers, device,
+                            routes, lanes_led)
 
-    open_indices = [i for i, d in enumerate(decided) if d is None]
+    # lanes routed straight to the tail skip the device phase; they keep
+    # their routed_by stamp and settle as tail-demoted
+    open_indices = [i for i, d in enumerate(decided)
+                    if d is None and not (routes[i] is not None
+                                          and routes[i].skip_device)]
     if len(open_indices) >= effective_min_lanes():
         _device_phase(ctx, backend, constraint_sets, node_sets, decided,
-                      tiers, open_indices, word_hints)
-
-    if tail:
-        # 5. CDCL tail
-        started = time.perf_counter()
-        with record_function("funnel.tail"):
-            _tail(ctx, node_sets, decided, tiers)
-        dispatch_stats.tail_s += time.perf_counter() - started
-    return decided
+                      tiers, open_indices, word_hints, lanes_led)
+    return decided, node_sets
 
 
-def _word_rung(ctx, node_sets, decided, tiers, device):
-    """3.: one word-tier pass over the open lanes; folds its verdicts into
-    ``decided`` (a verified word model joins the recent models, as a CDCL
-    model would) and returns the open lanes' known-bits hints."""
+def _word_rung(ctx, node_sets, decided, tiers, device, routes, lanes_led):
+    """3.: one word-tier pass over the open lanes (less those the
+    autopilot routed past it); folds its verdicts into ``decided`` (a
+    verified word model joins the recent models, as a CDCL model would)
+    and returns the open lanes' known-bits hints."""
     from mythril_tpu_torch.smt.word_tier import (
         get_word_tier, word_tier_enabled,
     )
 
     if not word_tier_enabled():
         return [None] * len(node_sets)
-    open_sets = [nodes if decided[i] is None else None
-                 for i, nodes in enumerate(node_sets)]
-    with tier_clock("word", "funnel.word"):
+    open_sets = [nodes if decided[i] is None and not (
+        routes[i] is not None and routes[i].skip_word) else None
+        for i, nodes in enumerate(node_sets)]
+    with tier_span("word", "funnel.word") as word_span:
         verdicts, hints, envs = get_word_tier().decide(ctx, open_sets,
                                                        device=device)
+    lanes_led.tier_wall("word", word_span.elapsed_s)
     for i, verdict in enumerate(verdicts):
         if verdict is None or decided[i] is not None:
             continue
         decided[i] = verdict
         tiers[i] = "word"
+        lanes_led.decide(i, "word", "sat" if verdict else "unsat")
         if verdict and envs[i] is not None:
             ctx._remember_model(envs[i])
     return hints
@@ -1140,18 +1201,20 @@ def _tail(ctx, node_sets, decided, tiers):
 
 
 def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
-                  open_indices, word_hints):
+                  open_indices, word_hints, lanes_led):
     """4.: blast the open lanes (each with its word-tier known bits as
     unit literals), then the dispatch rungs over the deduped assumption
     sets (profit gate with async prefetch, fuse, coalescer), dispatch to
     the solver tiers, fold their verdicts into ``decided``."""
     from mythril_tpu_torch.ops.async_dispatch import get_async_dispatcher
     from mythril_tpu_torch.ops.coalesce import get_coalescer
+    from mythril_tpu_torch.ops.frontier import frontier_enabled
     from mythril_tpu_torch.smt.word_tier import hint_literals
     from mythril_tpu_torch.support.support_args import args
 
     assumption_sets: List[Optional[List[int]]] = [None] * len(node_sets)
-    with record_function("funnel.blast"):
+    with obs.span("funnel.blast", cat="solver", profile=True,
+                  lanes=len(open_indices)):
         for i in list(open_indices):
             try:
                 lits = [ctx.blast_lit(n) for n in node_sets[i]]
@@ -1161,8 +1224,10 @@ def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
                     lits.extend(hint_literals(ctx, word_hints[i]))
                 assumption_sets[i] = list(dict.fromkeys(lits))
             except NotImplementedError:
-                # a term outside the blaster's fragment: CDCL tail only
+                # a term outside the blaster's fragment: CDCL tail only,
+                # marked opaque on its way there
                 open_indices.remove(i)
+                lanes_led.transition(i, "opaque")
     if len(open_indices) < 2:
         return
 
@@ -1214,13 +1279,25 @@ def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
         # the coalescing window: this batch waits in the queue and its
         # lanes go to the tail this round; a later merged dispatch pays
         # them back through the memo and nogood channels
+        lanes_led.transition_open(open_indices, "deferred")
         return
     prefetch_inflight = get_async_dispatcher().pending is not None
-    started = time.perf_counter()
-    verdicts = backend.check_assumption_sets(
-        ctx, rep_sets + [q.lits for q in extras])
-    elapsed = time.perf_counter() - started
-    dispatch_stats.device_s += elapsed
+    # the lanes enter a device tier: its family follows the frontier
+    # kill switch, as the JAX ledger names it
+    device_tier = "frontier" if frontier_enabled() else "sweep"
+    lanes_led.transition_open(open_indices, "dispatched")
+    sweeps_before = dispatch_stats.device_sweeps
+    learned_before = dispatch_stats.learned_clauses
+    with obs.span("dispatch.batch_check", sink=(dispatch_stats, "device_s"),
+                  cat="dispatch",
+                  lanes=len(rep_sets) + len(extras)) as dispatch_span:
+        verdicts = backend.check_assumption_sets(
+            ctx, rep_sets + [q.lits for q in extras])
+    elapsed = dispatch_span.elapsed_s
+    lanes_led.tier_wall(device_tier, elapsed)
+    lanes_led.add_sweeps(device_tier,
+                         dispatch_stats.device_sweeps - sweeps_before)
+    lanes_led.add_learned(dispatch_stats.learned_clauses - learned_before)
     engaged = backend.device_engaged
     if engaged:
         dispatch_stats.dispatches += 1
@@ -1232,10 +1309,11 @@ def _device_phase(ctx, backend, constraint_sets, node_sets, decided, tiers,
         dispatch_fuse.refund()
 
     before = dispatch_stats.unsat + dispatch_stats.sat_verified
-    with record_function("funnel.verify"):
+    with obs.span("funnel.verify", cat="solver", profile=True):
         _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,
                        open_indices, assumption_sets, rep_indices, lane_of,
-                       verdicts, backend.last_assignments, engaged)
+                       verdicts, backend.last_assignments, engaged,
+                       lanes_led, device_tier)
         _fold_extras(ctx, extras, verdicts[len(rep_indices):],
                      backend.last_assignments[len(rep_indices):], engaged)
     if engaged:
@@ -1278,12 +1356,12 @@ def _fold_extras(ctx, extras, verdicts, assignments, engaged):
 
 def _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,
                    open_indices, assumption_sets, rep_indices, lane_of,
-                   verdicts, assignments, engaged):
+                   verdicts, assignments, engaged, lanes_led, device_tier):
     """3.: device UNSAT -> memo + nogood; SAT candidates -> verified by
     evaluating the terms under the decoded model, else left open.  When
     no tier took the frontier the assignment is all zeros, and a lane
     it satisfies is decided all the same (as the JAX funnel does), but
-    counts as no device verdict."""
+    counts as no device verdict (the ledger's ``probe``)."""
     counted = set()
     for pos, i in enumerate(open_indices):
         lane = lane_of[pos]
@@ -1292,6 +1370,7 @@ def _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,
         if verdicts[lane] is False:
             decided[i] = False
             tiers[i] = "device"
+            lanes_led.decide(i, device_tier, "unsat")
             # device UNSAT is permanent: memoize it and learn the
             # assumption nogood so the CDCL inherits the refutation
             ctx.note_unsat(node_sets[i])
@@ -1304,6 +1383,7 @@ def _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,
         decided[i] = True if ok else None
         if ok:
             tiers[i] = "device" if engaged else "probe"
+            lanes_led.decide(i, device_tier if engaged else "probe", "sat")
         if first:
             if ok:
                 ctx._remember_model(env, truth=assignments[lane])

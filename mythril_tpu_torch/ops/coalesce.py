@@ -55,6 +55,15 @@ def _enabled() -> bool:
 
 
 def _window() -> int:
+    if not os.environ.get("MYTHRIL_TPU_COALESCE_WINDOW", "").strip():
+        # the autopilot tuner may shrink the window when its queue-depth
+        # EWMA says lanes wait too long for a merged dispatch; an
+        # operator pin always wins (autopilot/tuner.py)
+        from mythril_tpu_torch.autopilot import knob_override
+
+        tuned = knob_override("coalesce_window")
+        if tuned is not None:
+            return max(0, tuned)
     from mythril_tpu_torch.support.env import env_int
 
     return env_int("MYTHRIL_TPU_COALESCE_WINDOW", COALESCE_WINDOW, floor=0)

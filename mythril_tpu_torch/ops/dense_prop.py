@@ -40,7 +40,8 @@ With the resident solver on (the default), a frontier whose union cone
 fits the cone-tier caps is delegated to the gather tiers
 (``ops/batched_sat.py``).  Dropped from this slice: the resilience
 hooks (fault injection, watchdog supervision, cancellation and drain
-checkpoints) and the observability spans.
+checkpoints).  The round ladder is the span ``dense.rounds``; each round
+keeps its own ``record_function`` range, ``dense.round``.
 """
 
 import logging
@@ -149,7 +150,14 @@ def _bucket(n: int, floor: int = 128) -> int:
 
 def _tier_period() -> int:
     """Cold-sweep period (``MYTHRIL_TPU_TIER_PERIOD``; <= 1 disables the
-    tier split)."""
+    tier split).  Without an operator pin the autopilot tuner may
+    publish a bounded override (autopilot/tuner.py)."""
+    if not os.environ.get("MYTHRIL_TPU_TIER_PERIOD", "").strip():
+        from mythril_tpu_torch.autopilot import knob_override
+
+        tuned = knob_override("tier_period")
+        if tuned is not None:
+            return max(1, tuned)
     return env_int("MYTHRIL_TPU_TIER_PERIOD", TIER_PERIOD, floor=1)
 
 
@@ -845,7 +853,7 @@ class DenseSatBackend:
         swept every step; the cold remainder joins every TIER_PERIOD-th
         sweep.  The first round always sweeps the full cone."""
         from mythril_tpu_torch.ops.batched_sat import (
-            dispatch_stats, tier_clock, warm_pref_row,
+            dispatch_stats, tier_span, warm_pref_row,
         )
         from mythril_tpu_torch.ops.frontier import (
             LitAdjacency, frontier_enabled,
@@ -980,7 +988,7 @@ class DenseSatBackend:
                 )
                 return pool.rows, new_hot_c
 
-            with tier_clock("dense_rounds", "dense.rounds"):
+            with tier_span("dense_rounds", "dense.rounds"):
                 st_out, A_host = _run_dense_ladder(
                     round_fn, pool.rows, A0,
                     n, decisions, tier.steps, tier, self.device,
@@ -1007,7 +1015,7 @@ class DenseSatBackend:
         driven through the round ladder (lane retirement compacts the
         per-lane planes too).  No tier split here."""
         from mythril_tpu_torch.ops.batched_sat import (
-            dispatch_stats, tier_clock, warm_pref_row,
+            dispatch_stats, tier_span, warm_pref_row,
         )
         from mythril_tpu_torch.ops.incremental import get_cone_memo
 
@@ -1093,7 +1101,7 @@ class DenseSatBackend:
                 return tuple(p.index_select(0, index) for p in planes)
 
             n = len(chunk)
-            with tier_clock("dense_rounds", "dense.rounds"):
+            with tier_span("dense_rounds", "dense.rounds"):
                 st_out, A_host = _run_dense_ladder(
                     round_fn, (P, N, W), A0, n, decisions, tier.steps, tier,
                     self.device, lane_floor=lane_floor,

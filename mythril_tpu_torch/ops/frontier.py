@@ -60,12 +60,27 @@ def frontier_enabled() -> bool:
     )
 
 
+def _tuned_int(name: str, knob: str, default: int,
+               floor: int = 1) -> int:
+    """Env pin wins; otherwise the autopilot tuner may publish a
+    bounded override (autopilot/tuner.py); otherwise the default."""
+    if not os.environ.get(name, "").strip():
+        from mythril_tpu_torch.autopilot import knob_override
+
+        tuned = knob_override(knob)
+        if tuned is not None:
+            return max(floor, tuned)
+    return env_int(name, default, floor=floor)
+
+
 def frontier_period() -> int:
-    return env_int("MYTHRIL_TPU_FRONTIER_PERIOD", DEFAULT_PERIOD, floor=1)
+    return _tuned_int("MYTHRIL_TPU_FRONTIER_PERIOD", "frontier_period",
+                      DEFAULT_PERIOD)
 
 
 def frontier_fan() -> int:
-    return env_int("MYTHRIL_TPU_FRONTIER_FAN", DEFAULT_FAN, floor=1)
+    return _tuned_int("MYTHRIL_TPU_FRONTIER_FAN", "frontier_fan",
+                      DEFAULT_FAN)
 
 
 def frontier_deg() -> int:

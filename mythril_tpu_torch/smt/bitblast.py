@@ -18,15 +18,14 @@ Bit order convention: bits[0] is the LSB.  Literal 1 is constant TRUE
 (anchored by a unit clause inside the native solver).
 
 Own copy of ``mythril_tpu/smt/bitblast.py`` for the PyTorch port, with
-autopilot routing, proof logging, observability spans and
-fault-injection hooks removed.  What stays behaves as the JAX package's
-context does under ``MYTHRIL_TPU_AUTOPILOT=0``: the same native calls in
-the same order (the word tier's rung in :meth:`BlastContext.check`
-included), so the same constraints give the same clause pool.
+proof logging and fault-injection hooks removed.  What stays behaves as
+the JAX package's context does: the same native calls in the same order
+(the word tier's rung, the autopilot's per-query routing and the tail's
+bounded first rung in :meth:`BlastContext.check` included), so the same
+constraints give the same clause pool.
 """
 
 import logging
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -631,13 +630,24 @@ class BlastContext:
         key = tuple(sorted(n.id for n in nodes))
         if self.unsat_memo_hit(key):
             return SatSolver.UNSAT, None
+        # autopilot routing (autopilot/): a per-query tier plan from the
+        # ledger-fed cost model — at most skip the word tier for shapes
+        # it never decides, and stage the tail solve as a
+        # bounded-then-unbounded ladder for predicted-easy shapes.  Both
+        # are verdict-neutral (the ladder's UNKNOWN rung falls through to
+        # the exact call); None on the static path and the kill switch
+        from mythril_tpu_torch.autopilot import note_ladder, route_query
+        from mythril_tpu_torch.observability import spans as obs
         from mythril_tpu_torch.support.support_args import args as _args
 
+        route = route_query(nodes)
         stats = _solver_stats()
+        # spans are the timing primitive: each feeds its SolverStatistics
+        # field, and lands on the --trace-out timeline when tracing is on
         if getattr(_args, "word_probing", True):
-            started = time.perf_counter()
-            env = self.probe_with_memo(nodes)
-            stats.probe_s += time.perf_counter() - started
+            with obs.span("solver.probe", sink=(stats, "probe_s"),
+                          cat="solver"):
+                env = self.probe_with_memo(nodes)
             if env is not None:
                 return SatSolver.SAT, env
         # word-level tier: interval + known-bits propagation decides
@@ -648,7 +658,7 @@ class BlastContext:
         )
 
         word_hints = None
-        if word_tier_enabled():
+        if word_tier_enabled() and not (route and route.skip_word):
             word_verdicts, hint_rows, word_envs = get_word_tier().decide(
                 self, [nodes], device=_args.device
             )
@@ -659,28 +669,38 @@ class BlastContext:
                 self._remember_model(env)
                 return SatSolver.SAT, env
             word_hints = hint_rows[0]
-        started = time.perf_counter()
-        assumptions = [self.blast_lit(c) for c in nodes]
-        if word_hints:
-            # implied unit literals: pinned bits propagate for free in
-            # the CDCL instead of being rediscovered by search
-            assumptions = list(dict.fromkeys(
-                assumptions + hint_literals(self, word_hints)
-            ))
-        stats.blast_s += time.perf_counter() - started
+        with obs.span("solver.blast", sink=(stats, "blast_s"),
+                      cat="solver"):
+            assumptions = [self.blast_lit(c) for c in nodes]
+            if word_hints:
+                # implied unit literals: pinned bits propagate for free
+                # in the CDCL instead of being rediscovered by search
+                assumptions = list(dict.fromkeys(
+                    assumptions + hint_literals(self, word_hints)
+                ))
         # restrict CDCL decisions to the query's cone: against a large
         # shared pool, VSIDS otherwise wanders into foreign gates and
         # pays full-pool propagation per irrelevant decision
-        started = time.perf_counter()
-        if getattr(_args, "cone_decisions", True):
-            self.pool.relevant_cone(assumptions)
-        else:
-            # a stale restriction from an earlier query would be unsound
-            self.solver.set_relevant([])
-        stats.cone_s += time.perf_counter() - started
-        started = time.perf_counter()
-        status = self.solver.solve(assumptions, conflict_budget, timeout_s)
-        stats.native_s += time.perf_counter() - started
+        with obs.span("solver.cone", sink=(stats, "cone_s"), cat="cone"):
+            if getattr(_args, "cone_decisions", True):
+                self.pool.relevant_cone(assumptions)
+            else:
+                # a stale restriction from an earlier query would be
+                # unsound
+                self.solver.set_relevant([])
+        with obs.span("cdcl.solve", sink=(stats, "native_s"), cat="tail",
+                      assumptions=len(assumptions)):
+            status = SatSolver.UNKNOWN
+            if route is not None and route.ladder and conflict_budget < 0:
+                # predicted-easy first rung: a decided bounded solve is
+                # the same sound verdict for a fraction of the conflicts;
+                # UNKNOWN falls through to the exact call
+                status = self.solver.solve(assumptions, route.ladder,
+                                           timeout_s)
+                note_ladder(status != SatSolver.UNKNOWN)
+            if status == SatSolver.UNKNOWN:
+                status = self.solver.solve(assumptions, conflict_budget,
+                                           timeout_s)
         stats.native_calls += 1
         if status != SatSolver.SAT:
             if status == SatSolver.UNSAT:

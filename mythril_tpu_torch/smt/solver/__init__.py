@@ -115,6 +115,12 @@ def reset_blast_context() -> None:
     from mythril_tpu_torch.support.model import clear_model_cache
 
     clear_model_cache()
+    # the autopilot's cost model is per-workload by contract: its
+    # feature memo and signature statistics are keyed by the term
+    # population this reset just discarded
+    from mythril_tpu_torch.autopilot import reset_for_tests as _reset_autopilot
+
+    _reset_autopilot()
 
 
 class BaseSolver:

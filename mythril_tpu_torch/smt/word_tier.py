@@ -45,14 +45,13 @@ interned node ids (``reset_word_tier``, which
 """
 
 import os
-import time
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from mythril_tpu_torch.observability import spans as obs
 from mythril_tpu_torch.ops import u256
 from mythril_tpu_torch.ops import word_prop as W
 from mythril_tpu_torch.smt import terms as T
@@ -315,24 +314,24 @@ class WordTier:
         lane_nodes = [
             filtered[indices[0]] for indices in fresh.values()
         ]
-        started = time.perf_counter()
-        with record_function("word.prop"):
+        with obs.span("word.prop", sink=(dispatch_stats, "word_prop_s"),
+                      cat="word", profile=True, lanes=len(lane_nodes)):
             outcomes = self._run(lane_nodes, device)
-        dispatch_stats.word_prop_s += time.perf_counter() - started
-        for (key, indices), outcome in zip(fresh.items(), outcomes):
-            kind, payload = outcome
-            self._memo_put(key, outcome)
-            for i in indices:
-                if kind == "unsat":
-                    verdicts[i] = False
-                    dispatch_stats.word_decided_unsat += 1
-                    ctx.note_unsat(filtered[i])
-                elif kind == "sat":
-                    verdicts[i] = True
-                    envs[i] = payload
-                    dispatch_stats.word_decided_sat += 1
-                else:
-                    hints[i] = payload or None
+        with obs.span("word.decide", cat="word", lanes=len(lane_nodes)):
+            for (key, indices), outcome in zip(fresh.items(), outcomes):
+                kind, payload = outcome
+                self._memo_put(key, outcome)
+                for i in indices:
+                    if kind == "unsat":
+                        verdicts[i] = False
+                        dispatch_stats.word_decided_unsat += 1
+                        ctx.note_unsat(filtered[i])
+                    elif kind == "sat":
+                        verdicts[i] = True
+                        envs[i] = payload
+                        dispatch_stats.word_decided_sat += 1
+                    else:
+                        hints[i] = payload or None
         return verdicts, hints, envs
 
     # -- execution -----------------------------------------------------

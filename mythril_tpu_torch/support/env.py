@@ -14,9 +14,11 @@ class EnvSpecError(RuntimeError):
     at CLI startup (exit code 2)."""
 
 
-#: name -> (kind, floor, ceil), kind "int", "float" or "flag": the JAX
-#: package's entries (``KNOWN_SPECS``) for the knobs this port reads.  The
-#: port
+#: name -> (kind, floor, ceil), kind "int", "float", "flag" or "policy"
+#: (a name :func:`autopilot.policy.make_policy` knows): the JAX package's
+#: entries (``KNOWN_SPECS``) for the knobs this port reads, and the
+#: tracer's, the ledger's and the autopilot's kill switches and policy
+#: name, which the JAX package reads without checking them.  The port
 #: also reads MYTHRIL_TPU_FRONTIER, MYTHRIL_TPU_PALLAS,
 #: MYTHRIL_TPU_ROUND_LADDER, MYTHRIL_TPU_WORD_TIER, MYTHRIL_TPU_WORD_XP,
 #: MYTHRIL_TPU_SYM_LOCKSTEP, MYTHRIL_TPU_SEG_PLANES and its own alias
@@ -55,6 +57,21 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_MERGE_MAX_ITES": ("int", 0, None),
     "MYTHRIL_TPU_MERGE_WINDOW": ("int", 1, None),
     "MYTHRIL_TPU_SUBSUME_PERIOD": ("int", 1, None),
+    # observability plane (observability/): the tracer's kill switch and
+    # event cap, the lane ledger's kill switch and record cap
+    "MYTHRIL_TPU_TRACE": ("flag", None, None),
+    "MYTHRIL_TPU_TRACE_CAP": ("int", 1, None),
+    "MYTHRIL_TPU_LEDGER": ("flag", None, None),
+    "MYTHRIL_TPU_LEDGER_CAP": ("int", 1, None),
+    # autopilot (autopilot/): kill switch, routing policy, the policy's
+    # sample floor, first-rung conflict budget and tail-share threshold,
+    # and the tuner's evaluation window in ledgered batches
+    "MYTHRIL_TPU_AUTOPILOT": ("flag", None, None),
+    "MYTHRIL_TPU_AUTOPILOT_POLICY": ("policy", None, None),
+    "MYTHRIL_TPU_AUTOPILOT_MIN_SAMPLES": ("int", 1, None),
+    "MYTHRIL_TPU_AUTOPILOT_LADDER": ("int", 1, None),
+    "MYTHRIL_TPU_AUTOPILOT_TAIL_SHARE": ("float", 0.0, 1.0),
+    "MYTHRIL_TPU_AUTOPILOT_EVAL_EVERY": ("int", 1, None),
 }
 
 #: raw values :func:`env_flag` understands; anything else on a "flag"
@@ -122,6 +139,14 @@ def validate_env(environ=None) -> None:
                 raise EnvSpecError(
                     f"{name}={raw!r}: not a flag "
                     f"(expected one of {'/'.join(FLAG_VALUES)})")
+            continue
+        if kind == "policy":
+            from mythril_tpu_torch.autopilot.policy import POLICIES
+
+            if raw not in POLICIES:
+                raise EnvSpecError(
+                    f"{name}={raw!r}: not a policy "
+                    f"(expected one of {'/'.join(sorted(POLICIES))})")
             continue
         try:
             value = int(raw) if kind == "int" else float(raw)

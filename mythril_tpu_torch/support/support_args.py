@@ -16,16 +16,17 @@ from mythril_tpu_torch.support.support_utils import Singleton
 #: (0 = the multi-dispatch frontier ladder), ``MYTHRIL_TPU_FRONTIER``
 #: both ways (0 = the round-lane ladder), ``MYTHRIL_TPU_WORD_TIER``
 #: both ways (0 = no word tier), ``MYTHRIL_TPU_SYM_LOCKSTEP`` both
-#: ways (0 = no symbolic lockstep tier) and ``MYTHRIL_TPU_VERITEST`` both
-#: ways (0 = fork only, no merge or subsumption).
+#: ways (0 = no symbolic lockstep tier), ``MYTHRIL_TPU_VERITEST`` both
+#: ways (0 = fork only, no merge or subsumption), and the lane ledger's
+#: and the autopilot's kill switches ``MYTHRIL_TPU_LEDGER`` and
+#: ``MYTHRIL_TPU_AUTOPILOT`` both ways (0 = no ledger; no routing, no
+#: tuning).
 #:
 #: Environment knobs of the JAX package:
 SLICE_PINS_ENV = {
-    "MYTHRIL_TPU_AUTOPILOT": "0",
     "MYTHRIL_TPU_FLEET": "0",
     "MYTHRIL_TPU_PERSIST": "0",
     "MYTHRIL_TPU_GOVERNOR": "0",
-    "MYTHRIL_TPU_LEDGER": "0",
 }
 #: ... plus, on a CPU, the Pallas tier in interpret mode (what the port's
 #: CPU tier is held against; it also keeps the JAX gather tiers on, which
@@ -84,6 +85,11 @@ class Args(object, metaclass=Singleton):
         # where the solver tiers and the lockstep interpreter run: None =
         # the card (an error without one), "cpu" only when asked for
         self.device = None
+        # the observability plane's artifact paths (--trace-out,
+        # --metrics-out, --lane-ledger-out; observability.configure_from_cli)
+        self.trace_out = None
+        self.metrics_out = None
+        self.lane_ledger_out = None
 
 
 args = Args()

@@ -3,14 +3,17 @@
 Each case runs the JAX package's ``SymExecWrapper`` + ``fire_lasers``
 and the port's, one after the other in this process, under the slice
 pins (``mythril_tpu_torch/support/support_args.py``; the symbolic
-lockstep tier, the word tier, the host probe, the dispatcher pre-split
-and the concrete replay on, on both sides), with the port's dense tier and lockstep interpreter on
+lockstep tier, the word tier, the host probe, the dispatcher pre-split,
+the concrete replay, the lane ledger and the autopilot on, on both
+sides), with the port's dense tier and lockstep interpreter on
 ``device="cpu"``.  The issue lists (field by field, with the exploit
 transactions' calldata, value and caller, and each issue's concrete
 replay status), the total state count, the pre-split's seeded states,
-the number of prune calls, every prune call's per-state verdicts and the
-solver, probe, word-tier and segment-tier counters must be exactly equal; neither
-side may time out.
+the number of prune calls, every prune call's per-state verdicts, the
+solver, probe, word-tier and segment-tier counters, the lane ledger
+(its aggregates and records, walls and ids aside) and the autopilot's
+counters and tuner overrides must be exactly equal; neither side may
+time out.
 """
 
 import contextlib
@@ -83,8 +86,10 @@ def analysis_pins(monkeypatch):
                  "MYTHRIL_TPU_FRONTIER_PERIOD", "MYTHRIL_TPU_FRONTIER_FAN",
                  "MYTHRIL_TPU_FRONTIER_DEG", "MYTHRIL_TPU_VERITEST",
                  "MYTHRIL_TPU_MERGE_MAX_ITES", "MYTHRIL_TPU_MERGE_WINDOW",
-                 "MYTHRIL_TPU_SUBSUME_PERIOD"):
+                 "MYTHRIL_TPU_SUBSUME_PERIOD", *PLANE_KNOBS):
         monkeypatch.delenv(name, raising=False)
+    for name, value in DETERMINISTIC_ENV.items():
+        monkeypatch.setenv(name, value)
     monkeypatch.setattr(jax_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
     monkeypatch.setattr(port_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
     monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
@@ -100,8 +105,57 @@ def analysis_pins(monkeypatch):
             monkeypatch.setattr(jax_args, name, value)
     monkeypatch.setattr(port_args, "device", "cpu")
     numbered_overflow_annotations(monkeypatch)
-    with fresh_jax_ledger():
+    with fresh_planes():
         yield
+
+
+#: the knobs of the lane ledger, the tracer and the autopilot, unset for
+#: the parity runs (both packages read them)
+PLANE_KNOBS = (
+    "MYTHRIL_TPU_LEDGER", "MYTHRIL_TPU_LEDGER_CAP", "MYTHRIL_TPU_TRACE",
+    "MYTHRIL_TPU_TRACE_CAP", "MYTHRIL_TPU_AUTOPILOT",
+    "MYTHRIL_TPU_AUTOPILOT_POLICY", "MYTHRIL_TPU_AUTOPILOT_MIN_SAMPLES",
+    "MYTHRIL_TPU_AUTOPILOT_LADDER", "MYTHRIL_TPU_AUTOPILOT_TAIL_SHARE",
+    "MYTHRIL_TPU_AUTOPILOT_EVAL_EVERY", "MYTHRIL_TPU_TIER_PERIOD",
+    "MYTHRIL_TPU_COALESCE_WINDOW",
+)
+#: The autopilot decides on counts, except for one rule: it declines a
+#: lockstep segment shape whose per-lane wall EWMA passes
+#: ``MYTHRIL_TPU_SEG_CEIL_MS`` (50 ms by default), a wall-clock reading
+#: that differs between the packages and between machines.  The parity
+#: runs set that ceiling out of reach on both sides, so that every route
+#: they compare is decided on counts.
+DETERMINISTIC_ENV = {"MYTHRIL_TPU_SEG_CEIL_MS": "1e9"}
+
+#: the process-wide singletons of the observability planes and the
+#: autopilot, in each package
+PLANE_MODULES = tuple(
+    f"{package}.{module}"
+    for package in ("mythril_tpu", "mythril_tpu_torch")
+    for module in ("autopilot", "observability.ledger",
+                   "observability.spans", "observability.metrics",
+                   "observability.flight"))
+
+
+def reset_planes():
+    """Drop both packages' autopilot, lane ledger, tracer, metrics
+    registry and flight recorder (each made afresh when next used)."""
+    for name in PLANE_MODULES:
+        importlib.import_module(name).reset_for_tests()
+
+
+@contextlib.contextmanager
+def fresh_planes():
+    """:func:`reset_planes` before and after the block: a singleton made
+    under a test's pins (a ledger made disabled, an autopilot's model,
+    a tracer left on) must not outlive them, nor one made before them
+    serve them; the JAX package's own ledger, autopilot and
+    observability tests must not see a port test's counts."""
+    reset_planes()
+    try:
+        yield
+    finally:
+        reset_planes()
 
 
 #: the overflow module of each package, whose annotations the parity
@@ -136,21 +190,6 @@ def numbered_overflow_annotations(monkeypatch):
 
 
 @contextlib.contextmanager
-def fresh_jax_ledger():
-    """The JAX package's lane ledger is a process-wide singleton that
-    reads ``MYTHRIL_TPU_LEDGER`` once, when first used: one made under
-    the pins (off) must not outlive them, nor one made before them
-    serve them."""
-    from mythril_tpu.observability import ledger
-
-    ledger.reset_for_tests()
-    try:
-        yield
-    finally:
-        ledger.reset_for_tests()
-
-
-@contextlib.contextmanager
 def kept_deadlines():
     """Each package's execution deadline, a process-wide singleton that
     ``sym_exec`` arms, put back as it was when the block ends: a
@@ -180,7 +219,10 @@ def _reset_jax():
     from mythril_tpu.laser.ethereum.transaction import reset_transaction_ids
     from mythril_tpu.smt.solver import reset_blast_context
 
-    reset_blast_context()  # also clears the model cache
+    reset_blast_context()  # also clears the model cache and the autopilot
+    from mythril_tpu.observability import ledger
+
+    ledger.reset_for_tests()  # a fresh process's ledger, as the port's
     for module in ModuleLoader().get_detection_modules():
         module.reset_module()
         module.cache.clear()
@@ -222,6 +264,9 @@ def _run(side, code, tx_count):
         from mythril_tpu.mythril.mythril_analyzer import MythrilAnalyzer
 
         svm, stats = jax_svm, jax_bs.dispatch_stats
+        from mythril_tpu import autopilot
+        from mythril_tpu.observability import ledger
+
         _reset_jax()
     else:
         import mythril_tpu_torch.analysis.security as security
@@ -234,6 +279,9 @@ def _run(side, code, tx_count):
         )
 
         svm, stats = port_svm, port_bs.dispatch_stats
+        from mythril_tpu_torch import autopilot
+        from mythril_tpu_torch.observability import ledger
+
         reset_analysis_state()
 
     annotation = OVERFLOW_MODULES[side].OverUnderflowAnnotation
@@ -289,7 +337,30 @@ def _run(side, code, tx_count):
         "dispatches": stats.dispatches,
         "sweeps": (stats.rounds, stats.device_sweeps),
         "counters": {name: _copy(getattr(stats, name)) for name in COUNTERS},
+        "ledger": ledger_view(ledger.get_ledger()),
+        "autopilot": autopilot_view(autopilot),
     }
+
+
+def ledger_view(led):
+    """What the parity compares of a lane ledger: its aggregates and its
+    records, without the walls (``tier_wall_s``) and the record ids."""
+    snap = led.snapshot()
+    snap.pop("tier_wall_s")
+    records = [{k: v for k, v in r.items() if k != "id"}
+               for r in led.records]
+    return {"aggregates": snap, "records": records}
+
+
+def autopilot_view(package):
+    """What the parity compares of an autopilot: its counters (lanes
+    routed, word skips, tail routes, ladder rungs, segments declined,
+    tuner steps and reverts) and the tuner's overrides."""
+    pilot = package._autopilot
+    tuner = pilot.tuner.debug_state() if pilot is not None else {}
+    return {"counters": package.counters_snapshot(),
+            "overrides": tuner.get("overrides"),
+            "tuner_batches": tuner.get("batches")}
 
 
 def _copy(value):
@@ -328,6 +399,8 @@ def _parity(code, tx_count):
     assert port["dispatches"] == jax["dispatches"]
     assert port["sweeps"] == jax["sweeps"]
     assert port["counters"] == jax["counters"]
+    assert port["ledger"] == jax["ledger"]
+    assert port["autopilot"] == jax["autopilot"]
     return jax, port
 
 
@@ -598,38 +671,94 @@ def _jsonv2_issues(stdout):
 
 def _cli_issues(extra=()):
     """The jsonv2 issues of ``python -m mythril_tpu_torch analyze --device
-    cpu`` and of the JAX package's ``myth analyze``, each in its own
+    cpu`` and of the JAX package's ``myth analyze``, each in a fresh
     process under the slice pins and force-dispatched
     (``--device-force-dispatch --no-async-dispatch``,
     ``MYTHRIL_TPU_COALESCE=0``), with ``extra`` options on both."""
+    jax, port = _cli_reports(extra, extra)
+    return _jsonv2_issues(jax), _jsonv2_issues(port)
+
+
+def _cli_reports(jax_extra, port_extra):
+    """The jsonv2 reports (stdout) of the two CLIs of
+    :func:`_cli_issues`, with options of each side's own."""
     hexfile = os.path.join(FIXTURES, "suicide_anyone.hex")
     common = ["-f", hexfile, "--bin-runtime", "-t", "1",
               "--no-onchain-data", "-o", "jsonv2",
-              "--device-force-dispatch", "--no-async-dispatch", *extra]
+              "--device-force-dispatch", "--no-async-dispatch"]
     env = dict(os.environ, JAX_PLATFORMS="cpu", MYTHRIL_TPU_COALESCE="0",
-               **SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV)
+               **SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV, **DETERMINISTIC_ENV)
     pins = json.dumps({"args": {**SLICE_PINS_ARGS, **FORCE_DISPATCH_ARGS}})
     jax = subprocess.run(
         [sys.executable, "-c", JAX_MYTH, pins, "analyze", *common,
-         "--workers", "0"],
+         *jax_extra, "--workers", "0"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert jax.returncode == 0, jax.stderr[-2000:]
     port = subprocess.run(
         [sys.executable, "-m", "mythril_tpu_torch", "analyze", *common,
-         "--device", "cpu"],
+         *port_extra, "--device", "cpu"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert port.returncode == 0, port.stderr[-2000:]
-    return _jsonv2_issues(jax.stdout), _jsonv2_issues(port.stdout)
+    return jax.stdout, port.stdout
 
 
-def test_cli_report_matches_jax_cli():
-    """Both CLIs at their defaults (the dispatcher pre-split and the
-    concrete replay on) report the same issues."""
-    want, got = _cli_issues()
+def test_cli_report_matches_jax_cli(tmp_path):
+    """Both CLIs at their defaults (the dispatcher pre-split, the
+    concrete replay, the lane ledger and the autopilot on) report the
+    same issues, with ``--trace-out``, ``--metrics-out`` and
+    ``--lane-ledger-out`` on both: the port writes all three files; its
+    trace has ``traceEvents`` and passes ``scripts/trace_lint.py``'s
+    checks, as does its ledger (schema, legal transitions, lane
+    conservation); its Prometheus text parses; its ledger's aggregates
+    (walls aside) are the JAX package's; the jsonv2
+    ``meta.observability`` blocks have the same keys."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import trace_lint
+
+    def flags(side):
+        return ["--trace-out", str(tmp_path / f"{side}.trace.json"),
+                "--metrics-out", str(tmp_path / f"{side}.prom"),
+                "--lane-ledger-out", str(tmp_path / f"{side}.ledger.json")]
+
+    jax, port = _cli_reports(flags("jax"), flags("port"))
+    want = _jsonv2_issues(jax)
     assert want and [i["swcID"] for i in want] == ["SWC-106"]
-    assert got == want
+    assert _jsonv2_issues(port) == want
+    metas = {side: json.loads(out)[0]["meta"]["observability"]
+             for side, out in (("jax", jax), ("port", port))}
+    assert sorted(metas["port"]) == sorted(metas["jax"])
+    assert metas["port"]["enabled"] and metas["port"]["trace_id"]
+    assert metas["port"]["ledger_lanes"] == metas["jax"]["ledger_lanes"] > 0
+    trace = json.loads((tmp_path / "port.trace.json").read_text())
+    assert trace["traceEvents"] and not trace_lint.lint_trace(trace)
+    names = {e["name"] for e in trace["traceEvents"]}
+    assert {"cli.analyze", "analyzer.contract", "svm.transaction",
+            "batch.prune"} <= names
+    ledgers = {side: json.loads((tmp_path / f"{side}.ledger.json")
+                                .read_text()) for side in ("jax", "port")}
+    assert not trace_lint.lint_ledger(ledgers["port"])
+    for payload in ledgers.values():
+        payload["aggregates"].pop("tier_wall_s")
+    assert ledgers["port"]["aggregates"] == ledgers["jax"]["aggregates"]
+    samples = parse_prometheus((tmp_path / "port.prom").read_text())
+    assert samples["mythril_tpu_ledger_lanes_total"] == (
+        metas["port"]["ledger_lanes"])
+    assert "mythril_tpu_dispatch_resident_s" in samples
+
+
+def parse_prometheus(text):
+    """Prometheus text exposition -> {sample name with labels: value};
+    fails on a line that is neither a comment nor ``name value``."""
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            assert line.startswith(("# HELP ", "# TYPE ")) or not line
+            continue
+        name, value = line.rsplit(" ", 1)
+        samples[name] = float(value)
+    return samples
 
 
 def test_cli_report_matches_jax_cli_without_presplit():
@@ -657,6 +786,16 @@ def test_cli_refuses_missing_card_and_unported_options():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert run.returncode == 2 and "--workers" in run.stderr
+    # the observability plane's flags are taken: the command gets as far
+    # as the card check
+    run = subprocess.run(
+        [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
+         hexfile, "--bin-runtime", "--trace-out", os.devnull,
+         "--metrics-out", os.devnull, "--lane-ledger-out", os.devnull],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert "not supported by this build" not in run.stderr
+    assert run.returncode == 2 and "CUDA" in run.stderr
 
 
 @pytest.mark.parametrize("flag", ["--lockstep-dispatch",

@@ -35,7 +35,7 @@ from mythril_tpu_torch.support.support_args import (
     SLICE_PINS_ENV,
 )
 from mythril_tpu_torch.support.support_args import args as port_args
-from test_torch_analyze import fresh_jax_ledger, kept_deadlines
+from test_torch_analyze import DETERMINISTIC_ENV, fresh_planes, kept_deadlines
 
 #: the async counters both packages keep
 ASYNC_FIELDS = ("launches", "harvested", "unsat", "models", "dropped")
@@ -94,6 +94,8 @@ def rungs(monkeypatch):
                  "MYTHRIL_TPU_FRONTIER", "MYTHRIL_TPU_RESIDENT_KERNEL"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("MYTHRIL_TPU_COALESCE_WINDOW", "2")
+    for name, value in DETERMINISTIC_ENV.items():
+        monkeypatch.setenv(name, value)
     for name, value in SLICE_PINS_ARGS.items():
         monkeypatch.setattr(jax_args, name, value)
     for args in (jax_args, port_args):
@@ -109,7 +111,7 @@ def rungs(monkeypatch):
         monkeypatch.setattr(ad.AsyncDispatcher, "launch",
                             _joined(ad.AsyncDispatcher.launch))
     _reset_rungs()
-    with fresh_jax_ledger(), kept_deadlines():
+    with fresh_planes(), kept_deadlines():
         yield
     _reset_rungs()
 

@@ -48,7 +48,22 @@ KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "WORD_XP", "SYM_LOCKSTEP", "SEG_MIN_LANES", "SEG_MAX_OPS", "SEG_CEIL_MS",
     "SEG_PLANES", "SEG_PLANES_MEM", "SEG_MEM_WORDS", "SEG_STORAGE_SLOTS",
     "SEG_KECCAK_MAX_BYTES", "VERITEST", "MERGE_MAX_ITES", "MERGE_WINDOW",
-    "SUBSUME_PERIOD"))
+    "SUBSUME_PERIOD", "TRACE", "TRACE_CAP", "LEDGER", "LEDGER_CAP",
+    "AUTOPILOT", "AUTOPILOT_POLICY", "AUTOPILOT_MIN_SAMPLES",
+    "AUTOPILOT_LADDER", "AUTOPILOT_TAIL_SHARE", "AUTOPILOT_EVAL_EVERY"))
+#: the port's entries for knobs the JAX package reads without a static
+#: entry (it checks none of them at startup but the tail share, which its
+#: policy registers when first read): the kill switches of the tracer,
+#: the ledger and the autopilot, the tracer's cap, the policy's name and
+#: its tail-share threshold
+PORT_ONLY_SPECS = {
+    "MYTHRIL_TPU_TRACE": ("flag", None, None),
+    "MYTHRIL_TPU_TRACE_CAP": ("int", 1, None),
+    "MYTHRIL_TPU_LEDGER": ("flag", None, None),
+    "MYTHRIL_TPU_AUTOPILOT": ("flag", None, None),
+    "MYTHRIL_TPU_AUTOPILOT_POLICY": ("policy", None, None),
+    "MYTHRIL_TPU_AUTOPILOT_TAIL_SHARE": ("float", 0.0, 1.0),
+}
 
 
 @pytest.fixture(autouse=True)
@@ -106,9 +121,9 @@ FUNNEL_COUNTERS = ("dispatches", "lanes", "unsat", "sat_verified",
 
 @pytest.fixture
 def fresh_ledger():
-    from test_torch_analyze import fresh_jax_ledger
+    from test_torch_analyze import fresh_planes
 
-    with fresh_jax_ledger():
+    with fresh_planes():
         yield
 
 
@@ -357,7 +372,8 @@ def test_validator_matches_jax(knob, value, rejected):
 
 def test_port_table_is_the_jax_table_for_its_knobs():
     want = {k: v for k, v in jax_env.KNOWN_SPECS.items() if k in KNOBS}
-    assert port_env.KNOWN_SPECS == want
+    assert not set(want) & set(PORT_ONLY_SPECS)
+    assert port_env.KNOWN_SPECS == {**want, **PORT_ONLY_SPECS}
     assert port_env.FLAG_VALUES == jax_env.FLAG_VALUES
 
 
@@ -367,6 +383,35 @@ def test_malformed_knob_exits_2_from_the_cli(monkeypatch, capsys):
     code, err = _analyze(capsys)
     assert code == 2
     assert err.startswith("bad environment knob: MYTHRIL_TPU_RESIDENT_BUDGET")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("MYTHRIL_TPU_TRACE", "verbose"), ("MYTHRIL_TPU_TRACE_CAP", "lots"),
+    ("MYTHRIL_TPU_LEDGER", "maybe"), ("MYTHRIL_TPU_LEDGER_CAP", "0"),
+    ("MYTHRIL_TPU_AUTOPILOT", "auto"),
+    ("MYTHRIL_TPU_AUTOPILOT_POLICY", "ledger-v9"),
+    ("MYTHRIL_TPU_AUTOPILOT_MIN_SAMPLES", "0"),
+    ("MYTHRIL_TPU_AUTOPILOT_LADDER", "2k"),
+    ("MYTHRIL_TPU_AUTOPILOT_TAIL_SHARE", "1.5"),
+    ("MYTHRIL_TPU_AUTOPILOT_EVAL_EVERY", "-8"),
+    ("MYTHRIL_TPU_SEG_CEIL_MS", "-1")])
+def test_malformed_plane_knob_exits_2_from_the_cli(monkeypatch, capsys,
+                                                   knob, value):
+    """The knobs of the tracer, the ledger and the autopilot go through
+    the CLI's knob gate: a malformed value exits 2 before any
+    analysis."""
+    monkeypatch.setenv(knob, value)
+    code, err = _analyze(capsys)
+    assert code == 2
+    assert err.startswith(f"bad environment knob: {knob}")
+
+
+def test_policy_knob_names_a_policy(monkeypatch, capsys):
+    """``MYTHRIL_TPU_AUTOPILOT_POLICY=static`` passes the gate and the
+    analysis runs."""
+    monkeypatch.setenv("MYTHRIL_TPU_AUTOPILOT_POLICY", "static")
+    code, err = _analyze(capsys)
+    assert code == 0, err
 
 
 @pytest.mark.parametrize("knob", ["MYTHRIL_TPU_WORD_ROUNDS",
@@ -396,33 +441,41 @@ def test_word_tier_kill_switch_matches_jax(monkeypatch, value, enabled):
 
 
 def test_sym_lockstep_pins_leave_the_jax_ledger_on(monkeypatch):
-    """The symbolic-lockstep tests' pins (``MYTHRIL_TPU_LEDGER=0`` among
-    them) around one JAX segment group make the JAX package's lane
-    ledger, a process-wide singleton that reads the switch once, off.
-    Once the pins are gone and the switch is unset, the ledger the next
-    caller gets is on and counts a transition: the disabled one did not
-    outlive the pins (it used to, and the JAX package's ledger tests
-    that ran later in the same process read zeros)."""
+    """The symbolic-lockstep tests' pins around one segment group on
+    each package: both lane ledgers are on under them (the ledger is no
+    slice pin) and count the group's lanes as the same ``lockstep``
+    transitions.  Once the pins are gone, the ledger the next caller
+    gets in each package is a fresh one, on and empty: the ledgers the
+    pins made did not outlive them (a ledger made disabled under the
+    old pins used to, and the JAX package's ledger tests that ran later
+    in the same process read zeros)."""
     import test_torch_sym_lockstep as tsl
-    from mythril_tpu.observability import ledger
+    from mythril_tpu.observability import ledger as jax_ledger
+    from mythril_tpu_torch.observability import ledger as port_ledger
 
     monkeypatch.delenv("MYTHRIL_TPU_LEDGER", raising=False)
-    ledger.reset_for_tests()
+    counted = {}
     with pytest.MonkeyPatch.context() as pinned:
         with tsl.slice_pins(pinned):
-            side = tsl.SIDES["jax"]
-            tsl.lockstep_pass(side, [
-                tsl.make_state(side, "6001600201600055", stack)
-                for stack in ([("s", "a")], [("s", "b"), 5], [0xFFFF])])
-            made = ledger._ledger
-            assert made is not None and not made.enabled
+            for name, module in (("jax", jax_ledger),
+                                 ("port", port_ledger)):
+                side = tsl.SIDES[name]
+                tsl.lockstep_pass(side, [
+                    tsl.make_state(side, "6001600201600055", stack)
+                    for stack in ([("s", "a")], [("s", "b"), 5],
+                                  [0xFFFF])])
+                made = module._ledger
+                assert made is not None and made.enabled
+                counted[name] = dict(made.transitions)
+    assert counted["port"] == counted["jax"]
+    assert counted["jax"].get("lockstep", 0) > 0
     assert "MYTHRIL_TPU_LEDGER" not in os.environ
-    led = ledger.get_ledger()
-    assert led.enabled
-    before = led.transitions.get("quarantined", 0)
-    led.count_transition("quarantined")
-    assert led.transitions.get("quarantined", 0) == before + 1
-    ledger.reset_for_tests()
+    for module in (jax_ledger, port_ledger):
+        led = module.get_ledger()
+        assert led.enabled and not led.transitions
+        led.count_transition("quarantined")
+        assert led.transitions == {"quarantined": 1}
+        module.reset_for_tests()
 
 
 @pytest.mark.parametrize("before", ["unarmed", "armed"])

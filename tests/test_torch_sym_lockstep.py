@@ -55,7 +55,7 @@ from mythril_tpu_torch.support.support_args import (
     SLICE_PINS_ENV,
 )
 from mythril_tpu_torch.support.support_args import args as port_args
-from test_torch_analyze import fresh_jax_ledger, kept_deadlines
+from test_torch_analyze import DETERMINISTIC_ENV, fresh_planes, kept_deadlines
 
 pytestmark = pytest.mark.lockstep
 
@@ -98,20 +98,21 @@ SEGMENT_KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
 @contextlib.contextmanager
 def slice_pins(monkeypatch):
     """The slice pins on both sides (the tier itself on), the port's
-    solver tiers and keccak on the CPU, fresh plan caches.  The JAX
-    package's lane ledger, which reads ``MYTHRIL_TPU_LEDGER`` once when
-    a segment group first asks for it, is made afresh inside the pins
-    and forgotten when they go, so the disabled ledger they make never
-    outlives them; so is each package's execution deadline, which the
-    hook-parity runs arm."""
+    solver tiers and keccak on the CPU, fresh plan caches, the segment
+    ceiling of the autopilot out of reach (``DETERMINISTIC_ENV``).  Each
+    package's lane ledger and autopilot, which a segment group asks for,
+    are made afresh inside the pins and forgotten when they go
+    (``fresh_planes``); so is each package's execution deadline, which
+    the hook-parity runs arm."""
     for name in SEGMENT_KNOBS:
         monkeypatch.delenv(name, raising=False)
-    for name, value in {**SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV}.items():
+    for name, value in {**SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV,
+                        **DETERMINISTIC_ENV}.items():
         monkeypatch.setenv(name, value)
     monkeypatch.setattr(port_args, "device", "cpu")
     for side in SIDES.values():
         side.sl.reset_for_tests()
-    with fresh_jax_ledger(), kept_deadlines():
+    with fresh_planes(), kept_deadlines():
         yield
 
 

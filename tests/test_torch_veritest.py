@@ -33,7 +33,7 @@ import torch
 
 from mythril_tpu_torch import contracts
 from mythril_tpu_torch.support.support_args import args as port_args
-from test_torch_analyze import _parity, analysis_pins
+from test_torch_analyze import _parity, analysis_pins, fresh_planes
 
 pytestmark = pytest.mark.veritest
 
@@ -67,6 +67,7 @@ def _side(package):
         lockstep=mod("laser.ethereum.symbolic_lockstep"),
         resident=mod("ops.resident"),
         stats=mod("ops.batched_sat").dispatch_stats,
+        ledger=mod("observability.ledger"),
         smt=mod("smt"),
         get_model=mod("support.model").get_model,
         time_handler=mod("laser.ethereum.time_handler").time_handler,
@@ -343,14 +344,19 @@ def test_prefix_shaped_constraints_never_merge():
 
 
 def subsume_outcome(S, work_list):
-    """One sweep over ``work_list``: the indices of the lanes left, and
-    the counters."""
+    """One sweep over ``work_list``: the indices of the lanes left, the
+    counters, and the lane ledger's transitions and conservation (a
+    fresh ledger)."""
     engine = make_engine(S)
     lanes = list(work_list)
     S.stats.reset()
-    engine._subsume_pass(work_list)
+    with fresh_planes():
+        engine._subsume_pass(work_list)
+        snap = S.ledger.get_ledger().snapshot()
     return {"left": [lanes.index(s) for s in work_list],
-            "counters": counters(S)}, None
+            "counters": counters(S), "transitions": snap["transitions"],
+            "conserved": sum(snap["decided"].values())
+            == snap["lanes_total"]}, None
 
 
 def test_subsume_retires_superset_constraint_lane():
@@ -369,6 +375,8 @@ def test_subsume_retires_superset_constraint_lane():
         assert want["left"] == [0 if weak_first else 1]
         assert want["counters"]["subsumed_lanes"] == 1
         assert want["counters"]["subsume_sweeps"] == 1
+        # the ledger's aggregate-only transition, conservation intact
+        assert want["transitions"] == {"subsume": 1} and want["conserved"]
 
 
 def test_subsume_interval_implication_direction():
@@ -657,12 +665,19 @@ SHAPES = {
 @pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("shape", SHAPES)
 def test_analysis_merges_like_jax(monkeypatch, shape):
-    """Issues, states, prune verdicts and every counter (the tier's
-    among them) equal, with the tier on and merging on both sides."""
+    """Issues, states, prune verdicts, every counter (the tier's among
+    them), the lane ledger and the autopilot equal, with the tier on and
+    merging on both sides; every merge counts as a ``merge`` transition
+    of the ledger."""
     with analysis_pins(monkeypatch):
         jax, port = _parity(SHAPES[shape](), 1)
     assert jax["counters"]["merges"] > 0
     assert port["counters"]["merges"] > 0
+    # each merge is a ledger transition on both sides (``_parity`` holds
+    # the ledgers equal), and the solver lanes stay conserved
+    ledger = port["ledger"]["aggregates"]
+    assert ledger["transitions"]["merge"] == port["counters"]["merges"]
+    assert sum(ledger["decided"].values()) == ledger["lanes_total"]
 
 
 @pytest.mark.usefixtures("one_torch_thread")
