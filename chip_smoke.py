@@ -203,7 +203,31 @@ failure):
    ``chip_tools/lockstep_times.py``, built with the kernels: the
    device's time alone), plain ms, the bound (its 32-bit integer
    operations at the integer issue rate) and the share;
-11. the launches of the main path's configurations and, apart, of the
+11. resilience: the force-dispatched ``scale_mul d6 -t 1`` once
+   fault-free (its dispatch seam's hits recorded) and once with each
+   fault armed through ``MYTHRIL_TPU_FAULT`` with a skip that lands it
+   mid-analysis: ``dispatch_error`` once (the retry recovers; SWC set,
+   states and tail lanes equal), ``lane_poison`` on a lane of a
+   dispatch of two or more (exactly it quarantined, the ledger's
+   ``quarantined`` transitions equal), ``dispatch_hang`` under a 2 s
+   deadline and a 5 s hang (the watchdog trips, the flight ring is
+   dumped on each trip and the demotion, the re-probe subprocess
+   answers, the context goes to the CDCL), ``dispatch_garbage`` (no
+   forged SAT verified), ``prefetch_error`` in the default rungs (a
+   batch dropped) and ``governor_breach`` four times (the four rungs in
+   order in ``meta.resilience.governor``), every faulted run with the
+   fault-free SWC set and states; then the CLI killed by
+   ``MYTHRIL_TPU_KILL_AT`` at a dispatch seam with ``--checkpoint-dir``
+   and resumed with ``--resume`` (the uninterrupted SWC set,
+   ``resumes`` 1), and ``scale_mul d4 -t 2`` drained by SIGTERM (a
+   partial report) and resumed; and, in a process of its own, a resident
+   dispatch whose round epilogue the card refuses (its shared memory
+   past the block's limit, the port's own check lifted): the launch
+   error leaves the ladder as a ``RuntimeError``, with no retry, no
+   demotion and no ``DeviceLost``.  The analyze phase prints each run's
+   supervised dispatch attempts and the host time of their worker
+   threads' start and join;
+12. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; the histogram of the (B, V,
    D) shapes at which every audited run launched ``dpll_step``; the
    dense tier's rounds by step budget and their hot-view steps over
@@ -2210,6 +2234,70 @@ def dense_rounds(stats):
             f"{stats.hot_view_steps} hot-view steps")
 
 
+def reset_launches():
+    """Every kernel wrapper's launch count set to 0."""
+    from mythril_tpu_torch.ops import dense_sweep as ds
+    from mythril_tpu_torch.ops import dpll_step as DSTEP
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+    from mythril_tpu_torch.ops import keccak as KC
+    from mythril_tpu_torch.ops import lockstep as LS
+    from mythril_tpu_torch.ops import round_lane as RL
+    from mythril_tpu_torch.ops import word_fixpoint as WF
+
+    ds.reset_launch_count()
+    DSTEP.reset_launch_count()
+    FK.reset_launch_counts()
+    RL.reset_launch_count()
+    WF.reset_launch_count()
+    LS.reset_launch_count()
+    KC.reset_launch_count()
+
+
+def read_launches():
+    """Every kernel's launch count since :func:`reset_launches`."""
+    from mythril_tpu_torch.ops import dense_sweep as ds
+    from mythril_tpu_torch.ops import dpll_step as DSTEP
+    from mythril_tpu_torch.ops import frontier_kernels as FK
+    from mythril_tpu_torch.ops import keccak as KC
+    from mythril_tpu_torch.ops import lockstep as LS
+    from mythril_tpu_torch.ops import round_lane as RL
+    from mythril_tpu_torch.ops import word_fixpoint as WF
+
+    return {"dense_sweep": ds.launch_count,
+            "dpll_step": DSTEP.launch_count,
+            **FK.launch_counts,
+            "round_lane": RL.launch_count,
+            "word_prop": WF.launch_count,
+            "lockstep": LS.launch_count,
+            "keccak": KC.launch_count}
+
+
+#: the dispatch watchdog's deadline floor while kernels are audited: an
+#: audit holds a kernel against its plain version inside the supervised
+#: dispatch, which is not the dispatch's own latency
+AUDITED_DEADLINE_FLOOR_S = 3600.0
+
+
+@contextlib.contextmanager
+def audit_deadlines():
+    """The watchdog's deadline floor raised for the block, where the
+    tree has a watchdog (``chip_tools/analyze_times.py`` times older
+    trees with this file)."""
+    if importlib.util.find_spec("mythril_tpu_torch.resilience.watchdog") \
+            is None:
+        yield
+        return
+    from mythril_tpu_torch.resilience import watchdog
+
+    floor = watchdog.DEADLINE_FLOOR_S
+    watchdog.DEADLINE_FLOOR_S = AUDITED_DEADLINE_FLOOR_S
+    try:
+        with env(MYTHRIL_TPU_DISPATCH_TIMEOUT=str(AUDITED_DEADLINE_FLOOR_S)):
+            yield
+    finally:
+        watchdog.DEADLINE_FLOOR_S = floor
+
+
 @contextlib.contextmanager
 def audited_kernels(round_lane="sample", word="first", lockstep="every",
                     keccak="every"):
@@ -2220,9 +2308,7 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every",
     "every" or "count"); the launch counts zeroed just before and read
     into the yielded dict just after."""
     from mythril_tpu_torch.ops import dense_prop
-    from mythril_tpu_torch.ops import dense_sweep as ds
     from mythril_tpu_torch.ops import dpll_step as DSTEP
-    from mythril_tpu_torch.ops import frontier_kernels as FK
     from mythril_tpu_torch.ops import keccak as KC
     from mythril_tpu_torch.ops import lockstep as LS
     from mythril_tpu_torch.ops import round_lane as RL
@@ -2243,26 +2329,14 @@ def audited_kernels(round_lane="sample", word="first", lockstep="every",
     out = {"sweep": sweep, "step": dpll, "round_lane": lanes, "word": word,
            "lockstep": steps, "keccak": hashes}
     try:
-        with FrontierAudit() as frontier:
+        with FrontierAudit() as frontier, audit_deadlines():
             out["frontier"] = frontier
-            ds.reset_launch_count()
-            DSTEP.reset_launch_count()
-            FK.reset_launch_counts()
-            RL.reset_launch_count()
-            WF.reset_launch_count()
-            LS.reset_launch_count()
-            KC.reset_launch_count()
+            reset_launches()
             yield out
             for shape, n in DSTEP.launch_shapes.items():
                 STEP_SHAPE_LAUNCHES[shape] = (
                     STEP_SHAPE_LAUNCHES.get(shape, 0) + n)
-            out["launches"] = {"dense_sweep": ds.launch_count,
-                               "dpll_step": DSTEP.launch_count,
-                               **FK.launch_counts,
-                               "round_lane": RL.launch_count,
-                               "word_prop": WF.launch_count,
-                               "lockstep": LS.launch_count,
-                               "keccak": KC.launch_count}
+            out["launches"] = read_launches()
     finally:
         dense_prop.dense_sweep = sweep.sweep
         dense_prop.dpll_step = dpll.step
@@ -3154,6 +3228,39 @@ def analyze_once(run, batched_solving=True, force=True):
     return report, analyzer, time.perf_counter() - started
 
 
+def supervision():
+    """(supervised dispatch attempts, host seconds of their worker
+    threads' start and join) so far, where the tree has a watchdog."""
+    if importlib.util.find_spec("mythril_tpu_torch.resilience.watchdog") \
+            is None:
+        return (0, 0.0)
+    from mythril_tpu_torch.resilience.watchdog import get_watchdog
+
+    dog = get_watchdog()
+    return (dog.runs, dog.thread_s)
+
+
+def ladder_quiet(what, force=True):
+    """Checks that the analysis just run, under the watchdog's real
+    deadlines on a healthy card, tripped no deadline, retried no dispatch
+    and demoted nothing, where the tree has a watchdog; force-dispatched,
+    also that its adaptive fuse is armed (in the default rungs a futile
+    context may blow it, which is no demotion).  Returns the line to log."""
+    if importlib.util.find_spec("mythril_tpu_torch.resilience.telemetry") \
+            is None:
+        return "no resilience plane"
+    from mythril_tpu_torch.ops import batched_sat as bs
+    from mythril_tpu_torch.resilience.telemetry import resilience_stats
+
+    counters = {k: getattr(resilience_stats, k) for k in LADDER_COUNTERS}
+    fused = bs.dispatch_stats.fused
+    check(not any(counters.values()) and not (force and fused),
+          f"{what}: the ladder acted on a healthy card: {counters}, "
+          f"adaptive fuse {'blown' if fused else 'armed'}")
+    return (", ".join(f"{k} {v}" for k, v in counters.items())
+            + f", adaptive fuse {'blown' if fused else 'armed'}")
+
+
 def analyze_audited(run, card, label="", force=True):
     """One audited batched analysis, force-dispatched or (``force``
     False) at the JAX defaults of the rungs; logs its line and returns
@@ -3166,10 +3273,12 @@ def analyze_audited(run, card, label="", force=True):
     from mythril_tpu_torch.smt import SolverStatistics
     from mythril_tpu_torch.smt.solver import get_blast_context
 
+    supervised = supervision()
     with audited_kernels("sample" if force else "count",
                          "first" if force else "count",
                          "count" if force else "every") as audit:
         report, analyzer, wall = analyze_once(run, force=force)
+    supervised = [b - a for a, b in zip(supervised, supervision())]
     fused = bs.dispatch_fuse.fused_generation == get_blast_context().generation
     wall -= audit["seconds"]
     launches = audit["launches"]
@@ -3205,6 +3314,10 @@ def analyze_audited(run, card, label="", force=True):
         f"{stats.gather_s:.3f} s (of them resident {stats.resident_s:.3f} "
         f"s), of device_s {stats.device_s:.3f} s; word rung "
         f"{stats.word_s:.3f} s")
+    log(f"analyze {run.name}{label} supervision: {supervised[0]} "
+        f"supervised dispatch attempts, their worker threads' start and "
+        f"join {supervised[1] * 1e3:.3f} ms of host time; "
+        f"{ladder_quiet(run.name + label, force)}")
     log(f"analyze {run.name}{label} rungs: {stats.profit_skips} profit "
         f"skips, async {a.launches} launches, {a.harvested} harvested, "
         f"{a.unsat} UNSAT lanes, {a.models} models, {a.dropped} dropped, "
@@ -3416,6 +3529,9 @@ def cli_phase(card):
         check(run.returncode == 0,
               f"CLI: exit {run.returncode}: {run.stderr[-2000:]}")
         report = json.loads(run.stdout)[0]
+        check("resilience" not in report["meta"],
+              f"CLI: the ladder acted on a healthy card: meta.resilience "
+              f"{report['meta'].get('resilience')}")
         meta = report["meta"].get("observability")
         check(meta and meta["trace_out"] == paths["trace.json"],
               f"CLI: meta.observability {meta}")
@@ -3452,6 +3568,398 @@ def cli_phase(card):
         f"metric samples, ledger {agg['lanes_total']} lanes = decided "
         f"{agg['decided']}, every path legal; meta.observability keys "
         f"{sorted(meta)}")
+
+
+# ---------------------------------------------------------------------------
+# the resilience plane: injected faults on the card, kill and resume, the
+# drain, a real launch failure, the cost of supervision
+# ---------------------------------------------------------------------------
+
+#: the resilience phase's run (``contracts.CHIP_RUNS``), force-dispatched
+RESILIENCE_RUN = "scale_mul d6 g16 -t 1"
+#: the drain's run: long enough that a SIGTERM lands mid-analysis
+DRAIN_RUN = "scale_mul d4 g16 -t 2"
+#: the hang's deadline and sleep (a few seconds apart)
+HANG_TIMEOUT_S = "2"
+HANG_S = "5"
+#: retries of the ladder (its default): attempts a dispatch gets
+LADDER_ATTEMPTS = 3
+#: the ladder's counters that a healthy card leaves at 0 under the
+#: watchdog's real deadlines
+LADDER_COUNTERS = ("watchdog_trips", "dispatch_retries", "demotions")
+#: the phase's runs route on counts only (the segment ceiling is the one
+#: wall-clock rule of the routing), so a fault lands where it was aimed
+DETERMINISTIC = {"MYTHRIL_TPU_SEG_CEIL_MS": "1e9"}
+
+
+def bisect_calls(n, position):
+    """Sub-dispatches of the ladder's bisection over ``n`` lanes that
+    carry the lane at ``position`` (``BatchedSatBackend._dispatch_round``
+    splits at ``len // 2`` down to single lanes)."""
+    lo, hi, calls = 0, n, 0
+    while hi - lo > 1:
+        half = (hi - lo) // 2
+        lo, hi = (lo, lo + half) if position < lo + half else (lo + half, hi)
+        calls += 1
+    return calls
+
+
+def resilience_run(run, fault="", force=True, record=None, **knobs):
+    """One analysis of ``run`` with the fault plane armed from
+    ``MYTHRIL_TPU_FAULT=fault`` (and ``knobs`` in the environment), the
+    planes and counters fresh, its kernel launches counted; ``record``
+    (a list) collects the lane ids of every dispatch-seam hit.  Returns
+    what the phase checks."""
+    from mythril_tpu_torch.laser.batch import prune_stats
+    from mythril_tpu_torch.observability.ledger import get_ledger
+    from mythril_tpu_torch.ops import async_dispatch as AD
+    from mythril_tpu_torch.ops import batched_sat as bs
+    from mythril_tpu_torch.resilience import checkpoint, faults, watchdog
+    from mythril_tpu_torch.resilience.telemetry import resilience_stats
+
+    with env(MYTHRIL_TPU_FAULT=fault or None, **DETERMINISTIC, **knobs):
+        faults.reset_for_tests()
+        watchdog.reset_for_tests()
+        checkpoint.reset_for_tests()
+        real = faults.maybe_fault_dispatch
+        if record is not None:
+            def recording(lane_ids=None):
+                record.append(None if lane_ids is None else list(lane_ids))
+                return real(lane_ids=lane_ids)
+
+            faults.maybe_fault_dispatch = recording
+        reset_launches()
+        try:
+            report, analyzer, wall = analyze_once(run_by_name(run),
+                                                  force=force)
+        finally:
+            faults.maybe_fault_dispatch = real
+        launches = read_launches()
+        out = {
+            "swc": {i.swc_id for i in report.issues.values()},
+            "states": analyzer.last_sym.laser.total_states,
+            "tail": prune_stats.tail_states,
+            "dispatches": bs.dispatch_stats.dispatches,
+            "sat_verified": bs.dispatch_stats.sat_verified,
+            "fused": bs.dispatch_stats.fused,
+            "resilience": resilience_stats.as_dict(),
+            "transitions": dict(get_ledger().snapshot()["transitions"]),
+            "dropped": AD.async_stats.dropped,
+            "launches": launches, "wall": wall, "report": report,
+            "fired": dict(faults.get_fault_plane().fired),
+            "supervised": watchdog.get_watchdog().runs,
+        }
+        faults.reset_for_tests()
+    check(not report.exceptions, f"resilience {fault or 'fault-free'}: "
+          f"the analysis failed:\n" + "\n".join(report.exceptions))
+    return out
+
+
+def run_by_name(name):
+    from mythril_tpu_torch.contracts import CHIP_RUNS
+
+    return next(r for r in CHIP_RUNS if r.name == name)
+
+
+def same_findings(what, got, base, tail=False):
+    """The faulted run's SWC set and states are the fault-free run's
+    (and its tail lanes, where the device still decides alike)."""
+    check(got["swc"] == base["swc"] and got["states"] == base["states"],
+          f"{what}: SWC {sorted(got['swc'])}, {got['states']} states; the "
+          f"fault-free run {sorted(base['swc'])}, {base['states']}")
+    if tail:
+        check(got["tail"] == base["tail"],
+              f"{what}: {got['tail']} tail lanes, fault-free {base['tail']}")
+
+
+def resilience_line(what, card, got):
+    counters = {k: v for k, v in got["resilience"].items() if v}
+    log(f"resilience {what} [{card}]: wall {got['wall']:.3f} s, SWC "
+        f"{sorted(got['swc'])}, {got['states']} states, {got['tail']} tail "
+        f"lanes, {got['dispatches']} dispatches, {got['supervised']} "
+        f"supervised attempts, faults fired {got['fired']}, counters "
+        f"{counters}, ledger transitions {got['transitions']}, launches "
+        f"{got['launches']}")
+
+
+def resilience_phase(card):
+    """The resilience plane on the card: the force-dispatched
+    ``scale_mul d6 -t 1`` with one fault a run, each armed through
+    ``MYTHRIL_TPU_FAULT`` with a skip that lands it mid-analysis (the
+    fault-free run records the dispatch seam's hits to aim them), then
+    kill and resume and a SIGTERM drain through the CLI, and a real
+    launch failure.  Returns the launches of its runs."""
+    from mythril_tpu_torch.observability import flight, spans
+    from mythril_tpu_torch.ops import device_health
+    from mythril_tpu_torch.resilience import checkpoint, governor
+
+    total = {}
+    hits = []
+    base = resilience_run(RESILIENCE_RUN, record=hits)
+    resilience_line("fault-free", card, base)
+    _add(total, base["launches"])
+    check(base["dispatches"] > 0 and len(hits) > 1,
+          f"resilience: {base['dispatches']} dispatches, {len(hits)} "
+          f"dispatch-seam hits")
+    check(not any(base["resilience"].values()) and not base["fused"],
+          f"resilience fault-free: counters {base['resilience']}, fuse "
+          f"{'blown' if base['fused'] else 'armed'}")
+    mid = len(hits) // 2
+
+    # one injected error mid-analysis: the retry recovers it
+    got = resilience_run(RESILIENCE_RUN, f"dispatch_error:1:{mid}")
+    resilience_line(f"dispatch_error:1:{mid}", card, got)
+    _add(total, got["launches"])
+    same_findings("dispatch_error", got, base, tail=True)
+    check(got["resilience"]["dispatch_retries"] >= 1
+          and got["resilience"]["demotions"] == 0 and not got["fused"],
+          f"dispatch_error: {got['resilience']}")
+
+    # a poisoned lane of a dispatch that carries two or more: exactly it
+    # is quarantined (3 attempts, then each bisection call it rides)
+    k = next(i for i in list(range(mid, len(hits))) + list(range(mid))
+             if hits[i] and len(hits[i]) >= 2)
+    lane = hits[k][0]
+    skip = sum(1 for h in hits[:k] if h and lane in h)
+    shots = LADDER_ATTEMPTS + bisect_calls(len(hits[k]), 0)
+    spec = f"lane_poison:{shots}:{skip}:{lane}"
+    got = resilience_run(RESILIENCE_RUN, spec)
+    resilience_line(spec, card, got)
+    _add(total, got["launches"])
+    same_findings("lane_poison", got, base)
+    r = got["resilience"]
+    check(r["quarantined_lanes"] == 1 and r["bisect_dispatches"] > 0
+          and r["demotions"] == 0
+          and got["transitions"].get("quarantined") == r["quarantined_lanes"],
+          f"lane_poison: {r}, ledger {got['transitions']}")
+
+    # a hang mid-analysis: the watchdog trips once on the card's stream
+    # (terminal there: no retry, no bisection), the flight ring is
+    # dumped, the re-probe answers and the context goes to the CDCL
+    spec = f"dispatch_hang:1:{mid}"
+    probes = []
+    real_probe = device_health.subprocess_probe_ok
+
+    def probe(timeout_s=None):
+        probes.append(real_probe(timeout_s))
+        return probes[-1]
+
+    import tempfile
+
+    tracer = spans.get_tracer()
+    recorder = flight.get_flight_recorder()
+    with tempfile.TemporaryDirectory() as tmp:
+        recorder.configure(tmp)
+        tracer.enable(record_events=True)
+        device_health.subprocess_probe_ok = probe
+        try:
+            got = resilience_run(
+                RESILIENCE_RUN, spec,
+                MYTHRIL_TPU_DISPATCH_TIMEOUT=HANG_TIMEOUT_S,
+                MYTHRIL_TPU_FAULT_HANG_S=HANG_S)
+        finally:
+            device_health.subprocess_probe_ok = real_probe
+            tracer.disable()
+            recorder.configure(None)
+        dumps = sorted(os.listdir(tmp))
+    resilience_line(f"{spec} (deadline {HANG_TIMEOUT_S} s, hang {HANG_S} s)",
+                    card, got)
+    log(f"resilience dispatch_hang: flight dumps {dumps}, re-probes "
+        f"{probes}")
+    _add(total, got["launches"])
+    same_findings("dispatch_hang", got, base)
+    r = got["resilience"]
+    check(r["watchdog_trips"] == 1 and r["dispatch_retries"] == 0
+          and r["bisect_dispatches"] == 0 and r["demotions"] == 1
+          and got["fused"] and probes == [True]
+          and any("watchdog_trip" in d for d in dumps)
+          and any("demotion" in d for d in dumps),
+          f"dispatch_hang: {r}, re-probes {probes}, dumps {dumps}")
+
+    # garbage: host verification rejects every forged SAT
+    got = resilience_run(RESILIENCE_RUN, "dispatch_garbage:1000000")
+    resilience_line("dispatch_garbage:1000000", card, got)
+    _add(total, got["launches"])
+    same_findings("dispatch_garbage", got, base)
+    check(got["sat_verified"] == 0 and got["fired"].get("dispatch_garbage"),
+          f"dispatch_garbage: {got['sat_verified']} SAT verified, fired "
+          f"{got['fired']}")
+
+    # the prefetch in the default rungs: an injected failure drops a batch
+    got = resilience_run(RESILIENCE_RUN, "prefetch_error:1", force=False)
+    resilience_line("prefetch_error:1 (default rungs)", card, got)
+    _add(total, got["launches"])
+    same_findings("prefetch_error", got, base)
+    check(got["dropped"] >= 1 and not any(
+              got["resilience"][k] for k in LADDER_COUNTERS),
+          f"prefetch_error: {got['dropped']} dropped, {got['resilience']}")
+
+    # the governor's four rungs, in order, named in the report
+    got = resilience_run(RESILIENCE_RUN, "governor_breach:4")
+    meta = json.loads(got["report"].as_swc_standard_format())[0]["meta"]
+    block = meta.get("resilience", {})
+    resilience_line("governor_breach:4", card, got)
+    log(f"resilience governor_breach:4 meta.resilience: {block}")
+    _add(total, got["launches"])
+    check(block.get("partial") is True
+          and block.get("governor", {}).get("rungs") == list(governor.RUNGS)
+          and got["swc"] <= base["swc"],
+          f"governor_breach: meta.resilience {block}")
+    checkpoint.reset_for_tests()
+
+    cli_resilience(card, len(hits))
+    launch_failure(card)
+    return total
+
+
+def cli_analyze(hexfile, *extra, env_extra=None, popen=False):
+    argv = [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
+            hexfile, "--bin-runtime", "--no-onchain-data", "-o", "jsonv2",
+            *extra]
+    environ = dict(os.environ, **DETERMINISTIC, **(env_extra or {}))
+    root = os.path.dirname(os.path.abspath(__file__))
+    if popen:
+        return subprocess.Popen(argv, cwd=root, env=environ, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+    return subprocess.run(argv, cwd=root, env=environ, capture_output=True,
+                          text=True, timeout=600)
+
+
+def cli_report(what, done):
+    check(done.returncode == 0,
+          f"{what}: exit {done.returncode}: {done.stderr[-2000:]}")
+    report = json.loads(done.stdout)[0]
+    return ({i["swcID"].replace("SWC-", "") for i in report["issues"]},
+            report["meta"].get("resilience", {}))
+
+
+def cli_resilience(card, dispatch_hits):
+    """Kill and resume, and a SIGTERM drain and resume, through the CLI
+    on the card."""
+    import signal
+    import tempfile
+
+    from mythril_tpu_torch.resilience.checkpoint import _generations
+
+    kill = run_by_name(RESILIENCE_RUN)
+    drain = run_by_name(DRAIN_RUN)
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in (kill, drain):
+            path = os.path.join(tmp, run.name.split()[1] + ".hex")
+            with open(path, "w") as fh:
+                fh.write(run.code())
+        hexkill = os.path.join(tmp, kill.name.split()[1] + ".hex")
+        hexdrain = os.path.join(tmp, drain.name.split()[1] + ".hex")
+        # SIGKILL at a dispatch seam mid-analysis, then --resume
+        journal = os.path.join(tmp, "kill")
+        at = f"dispatch_error:{dispatch_hits // 2}"
+        started = time.perf_counter()
+        done = cli_analyze(hexkill, "-t", str(kill.transaction_count),
+                           "--device-force-dispatch", "--no-async-dispatch",
+                           "--checkpoint-dir", journal,
+                           env_extra={"MYTHRIL_TPU_KILL_AT": at,
+                                      "MYTHRIL_TPU_COALESCE": "0"})
+        killed = time.perf_counter() - started
+        generations = _generations(journal)
+        check(done.returncode == -signal.SIGKILL and generations,
+              f"CLI kill at {at}: exit {done.returncode}, journal "
+              f"{generations}: {done.stderr[-2000:]}")
+        started = time.perf_counter()
+        found, block = cli_report("CLI --resume", cli_analyze(
+            hexkill, "-t", str(kill.transaction_count),
+            "--device-force-dispatch", "--no-async-dispatch",
+            "--resume", journal, env_extra={"MYTHRIL_TPU_COALESCE": "0"}))
+        resumed = time.perf_counter() - started
+        check(found == kill.swc_ids and block.get("resumes") == 1,
+              f"CLI resume after the kill: SWC {found}, meta.resilience "
+              f"{block}")
+        log(f"resilience CLI {kill.name} killed at {at} [{card}]: exit "
+            f"{done.returncode} after {killed:.3f} s with {len(generations)} "
+            f"journal generations kept; --resume exit 0 in {resumed:.3f} s, "
+            f"SWC {sorted(found)}, meta.resilience {block}")
+        # SIGTERM mid-analysis: a partial report, then --resume
+        journal = os.path.join(tmp, "drain")
+        args = ("-t", str(drain.transaction_count), "--checkpoint-dir",
+                journal)
+        started = time.perf_counter()
+        proc = cli_analyze(hexdrain, *args, popen=True,
+                           env_extra={"MYTHRIL_TPU_CHECKPOINT_PERIOD": "0"})
+        while proc.poll() is None and not any(
+                g >= 3 for g, _ in _generations(journal)):
+            time.sleep(0.05)
+        signalled = time.perf_counter() - started
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=600)
+        drained = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                              out, err)
+        partial, block = cli_report("CLI SIGTERM", drained)
+        check(block.get("partial") is True,
+              f"CLI SIGTERM after {signalled:.3f} s: meta.resilience {block}")
+        started = time.perf_counter()
+        found, resumed_block = cli_report(
+            "CLI --resume after the drain",
+            cli_analyze(hexdrain, "-t", str(drain.transaction_count),
+                        "--resume", journal))
+        resumed = time.perf_counter() - started
+        check(found == drain.swc_ids and resumed_block.get("resumes") == 1
+              and not resumed_block.get("partial"),
+              f"CLI resume after the drain: SWC {found}, meta.resilience "
+              f"{resumed_block}")
+        log(f"resilience CLI {drain.name} SIGTERM after {signalled:.3f} s "
+            f"[{card}]: exit 0, partial SWC {sorted(partial)}, "
+            f"meta.resilience {block}; --resume exit 0 in {resumed:.3f} s, "
+            f"SWC {sorted(found)}, meta.resilience {resumed_block}")
+
+
+#: the real launch failure, in a process of its own: the resident pool
+#: sized past what the round epilogue's block can stage, with the port's
+#: own shared-memory check lifted, so that the card refuses the launch
+LAUNCH_FAILURE = r"""
+import json, sys
+import numpy as np
+from mythril_tpu_torch import frontiers
+from mythril_tpu_torch.ops import frontier_kernels as FK
+from mythril_tpu_torch.ops import batched_sat as bs
+from mythril_tpu_torch.ops.device_health import DeviceLost
+from mythril_tpu_torch.resilience.telemetry import resilience_stats as rs
+from mythril_tpu_torch.support.support_args import FORCE_DISPATCH_ARGS, args
+for name, value in FORCE_DISPATCH_ARGS.items():
+    setattr(args, name, value)
+FK.MAX_DYNAMIC_SMEM = 1 << 30
+lanes, _ = frontiers.guard_chain_frontier(64, 32)
+out = {"error": None}
+try:
+    bs.batch_check_states(lanes, device="cuda")
+except DeviceLost as exc:
+    out["error"] = "DeviceLost: " + str(exc)
+except Exception as exc:
+    out["error"] = type(exc).__name__ + ": " + str(exc)
+out.update(retries=rs.dispatch_retries, demotions=rs.demotions,
+           trips=rs.watchdog_trips, resident=bs.dispatch_stats.resident_dispatches,
+           launches=dict(FK.launch_counts))
+print(json.dumps(out))
+"""
+
+
+def launch_failure(card):
+    """A supervised dispatch of a real kernel that the card refuses
+    raises out of the ladder: no retry, no demotion, no ``DeviceLost``."""
+    started = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-c", LAUNCH_FAILURE],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, MYTHRIL_TPU_RESIDENT_EXTRA="8192"),
+        capture_output=True, text=True, timeout=600)
+    check(done.returncode == 0,
+          f"launch failure: exit {done.returncode}: {done.stderr[-2000:]}")
+    out = json.loads(done.stdout.strip().splitlines()[-1])
+    log(f"resilience real launch failure [{card}]: {out} in "
+        f"{time.perf_counter() - started:.3f} s (process included)")
+    check(out["error"] and out["error"].startswith("RuntimeError")
+          and "cudaError" in out["error"] and out["retries"] == 0
+          and out["demotions"] == 0 and out["trips"] == 0,
+          f"launch failure: {out}")
 
 
 def _add(total, launches):
@@ -3540,11 +4048,14 @@ def _main(torch, frontiers, default_device, edge_pool,
     phase_done("analyze")
     keccak_entry = keccak_phase(card, hashed)
     phase_done("keccak")
+    faulted = resilience_phase(card)
+    phase_done("resilience")
     _add(totals, default)
     _add(kill_switch, yardstick)
     log(f"launches in the default configuration (the kernels line): "
         f"{totals}; in the MYTHRIL_TPU_RESIDENT_KERNEL=0 runs and the "
-        f"MYTHRIL_TPU_VERITEST=0 run (not in it): {kill_switch}")
+        f"MYTHRIL_TPU_VERITEST=0 run (not in it): {kill_switch}; in the "
+        f"resilience phase's runs (not in it): {faulted}")
     log("dpll_step launches by (B, V, D) over every audited run, the most "
         "first: " + ", ".join(
             f"{shape}: {n}" for shape, n in sorted(

@@ -100,6 +100,9 @@ def replay_issue(issue, runtime_code: bytes) -> Optional[str]:
 
 def replay_issues(issues: List, runtime_code_hex: str) -> None:
     """Annotate each issue with its replay status."""
+    from mythril_tpu_torch.ops.device_health import check_device
+
+    check_device()
     try:
         code = bytes.fromhex(runtime_code_hex.removeprefix("0x"))
     except ValueError:

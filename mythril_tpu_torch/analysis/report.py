@@ -1,9 +1,11 @@
 """Issues and reports (reference: mythril/analysis/report.py).
 
 Own copy of ``mythril_tpu/analysis/report.py``; the jsonv2 meta block
-carries the exception log and the observability block
-(``meta.observability``; the port has no resilience, fleet or
-persistence planes to report on).
+carries the exception log, the resilience block (``meta.resilience``:
+every nonzero degradation counter, ``partial`` after a drain or a
+governor-capped run, and ``governor`` when a budget tripped; absent when
+all are empty) and the observability block (``meta.observability``).
+The port has no fleet or persistence planes to report on.
 
 Renders text / markdown / json / jsonv2 (SWC standard format).  Layout
 follows the reference's report shape (section per issue, SWC id,
@@ -250,6 +252,9 @@ class Report:
                 }
             )
         meta = self._get_exception_data()
+        resilience = resilience_meta()
+        if resilience:
+            meta["resilience"] = resilience
         # stable observability section: artifact paths and event counts,
         # every key always present
         from mythril_tpu_torch.observability import observability_meta
@@ -303,3 +308,24 @@ class Report:
             header += f"value: {step.get('value')}"
             lines.append(header)
         return "\n".join(lines)
+
+
+def resilience_meta() -> dict:
+    """The jsonv2 ``meta.resilience`` block: the nonzero degradation
+    counters (a demoted run's findings are the same, but its wall-clock
+    lost the card's speed-up), ``partial`` when a drain stopped the run
+    or the governor capped it, and the governor's budgets and rungs when
+    one tripped.  Empty when there is nothing to say."""
+    from mythril_tpu_torch.resilience.checkpoint import (
+        drain_requested, get_checkpoint_plane,
+    )
+    from mythril_tpu_torch.resilience.governor import governor_meta
+    from mythril_tpu_torch.resilience.telemetry import resilience_stats
+
+    degraded = {k: v for k, v in resilience_stats.as_dict().items() if v}
+    if drain_requested() or get_checkpoint_plane().partial:
+        degraded["partial"] = True
+    governor_block = governor_meta()
+    if governor_block is not None:
+        degraded["governor"] = governor_block
+    return degraded

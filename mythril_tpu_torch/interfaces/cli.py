@@ -24,15 +24,22 @@ without a card the command exits 2 with a clear message.  The lane
 ledger and the autopilot are on, as the JAX default
 (``MYTHRIL_TPU_LEDGER=0`` / ``MYTHRIL_TPU_AUTOPILOT=0`` are their kill
 switches); ``--trace-out``, ``--metrics-out`` and ``--lane-ledger-out``
-write the observability plane's artifacts.  Options that would need a
-part of the JAX package the port does not have (workers, checkpoints,
-RPC, solc, ...) are refused, not ignored; a malformed ``MYTHRIL_TPU_*``
-knob exits 2 at startup (``support/env.py:validate_env``).
+write the observability plane's artifacts.  The resilience plane is
+on, as the JAX default: ``--checkpoint-dir DIR`` journals the analysis
+and ``--resume DIR`` continues a killed one; SIGTERM/SIGINT drain it to
+a partial report (``meta.resilience.partial``); ``MYTHRIL_TPU_FAULT``
+and ``MYTHRIL_TPU_KILL_AT`` arm the fault plane, and a malformed spec
+exits 2.  A lost card (``ops/device_health.DeviceLost``) is printed and
+exits 1.  Options that would need a part of the JAX package the port
+does not have (workers, RPC, solc, ...) are refused, not ignored; a
+malformed ``MYTHRIL_TPU_*`` knob exits 2 at startup
+(``support/env.py:validate_env``).
 """
 
 import argparse
 import json
 import logging
+import os
 import sys
 
 import mythril_tpu_torch
@@ -53,8 +60,7 @@ DISASSEMBLE_LIST = ("disassemble", "d")
 #: does not have (``ROADMAP.md`` queues them); given one, the command
 #: exits 2 instead of running something else than asked
 REFUSED_OPTIONS = (
-    "--workers", "--checkpoint-dir", "--resume", "--proof-log",
-    "--persist-dir",
+    "--workers", "--proof-log", "--persist-dir",
     "--rpc", "--rpctls", "-a", "--address", "--solv", "--solc-json",
     "-g", "--graph", "-j", "--statespace-json", "--enable-coverage-strategy",
     "--parallel-solving",
@@ -245,6 +251,21 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         metavar="FILE",
     )
     options.add_argument(
+        "--checkpoint-dir",
+        help="Journal the analysis (frontier, findings, solver memo "
+        "channels) into this directory so a killed run can be resumed; "
+        "cadence via MYTHRIL_TPU_CHECKPOINT_PERIOD (seconds, default 30)",
+        metavar="DIR",
+    )
+    options.add_argument(
+        "--resume",
+        dest="resume_dir",
+        help="Resume a killed or drained analysis from the journal in DIR "
+        "(implies --checkpoint-dir DIR); findings are those of an "
+        "uninterrupted run",
+        metavar="DIR",
+    )
+    options.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="Where the dense tier runs: the card (default; an error "
         "without one) or, only when asked for, the CPU",
@@ -353,12 +374,15 @@ def _analyze(disassembler, address, args) -> int:
         async_dispatch=not args.no_async_dispatch,
         lockstep_dispatch=not args.no_lockstep_dispatch,
         device=args.device,
+        checkpoint_dir=args.checkpoint_dir,
+        resume_from=args.resume_dir,
     )
     if not disassembler.contracts:
         exit_with_error(
             args.outform, "input files do not contain any valid contracts"
         )
     from mythril_tpu_torch.observability import finalize_outputs, span
+    from mythril_tpu_torch.ops.device_health import DeviceLost
 
     try:
         with span("cli.analyze", cat="cli"):
@@ -376,6 +400,9 @@ def _analyze(disassembler, address, args) -> int:
             rendered = renderers[args.outform]()
     except DetectorNotFoundError as e:
         exit_with_error(args.outform, format(e))
+    except DeviceLost as e:
+        finalize_outputs()
+        exit_with_error(args.outform, f"device lost: {e}")
     # the artifacts land before the report reaches stdout: a reader that
     # closes the pipe early must not cost the run its timeline
     finalize_outputs()
@@ -420,7 +447,27 @@ def main(argv=None) -> None:
         print(f"bad environment knob: {e}", file=sys.stderr)
         sys.exit(2)
 
+    if os.environ.get("MYTHRIL_TPU_FAULT") or os.environ.get(
+            "MYTHRIL_TPU_KILL_AT"):
+        # a chaos schedule that would inject nothing dies here
+        from mythril_tpu_torch.resilience.faults import (
+            FaultSpecError, get_fault_plane,
+        )
+
+        try:
+            get_fault_plane()
+        except FaultSpecError as e:
+            print(f"bad fault spec: {e}", file=sys.stderr)
+            sys.exit(2)
+
     if args.command in ANALYZE_LIST:
+        # graceful drain: SIGTERM/SIGINT walk the cooperative boundaries,
+        # land a final journal generation and ship a partial report
+        from mythril_tpu_torch.resilience.checkpoint import (
+            install_signal_handlers,
+        )
+
+        install_signal_handlers()
         # observability plane: --trace-out enables the span tracer, the
         # other two request their dumps at the end; all three hook the
         # flight recorder's crash dump

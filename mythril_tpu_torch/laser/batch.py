@@ -26,7 +26,11 @@ records its own lanes.
 Unlike the JAX package, a failure of the funnel (a solver tier, the
 word tier or a kernel) propagates to the caller: there is no fallback
 that hands the frontier to the CDCL and hides a broken kernel.  The
-drain/budget hooks are not part of the port.
+resilience plane's seams are the JAX package's: while a drain is
+requested (``resilience/checkpoint.drain_requested``) no new device
+dispatch starts, and once a request's wall-clock budget expired
+(``resilience/budget.py``) undecided states are dropped instead of
+solved (the ledger's ``dropped`` transition; the report is partial).
 """
 
 from typing import List
@@ -80,9 +84,15 @@ def _prune_infeasible(states: List) -> List:
         undecided.append(state)
 
     from mythril_tpu_torch.ops.batched_sat import effective_min_lanes
+    from mythril_tpu_torch.resilience.budget import budget_expired
+    from mythril_tpu_torch.resilience.checkpoint import drain_requested
 
     min_lanes = effective_min_lanes()
     use_batch = args.batched_solving and len(undecided) >= min_lanes
+    if drain_requested():
+        # a drain starts no device dispatch: the memo-backed CDCL tail
+        # below decides (verdicts unchanged) while the svm winds down
+        use_batch = False
     if use_batch:
         # gate on the number of *unique* constraint sets: sibling forks
         # often share identical constraints (terms are interned, so node
@@ -128,7 +138,15 @@ def _prune_infeasible(states: List) -> List:
             if not use_batch and k in word_decided_here:
                 ledger.single("prune", "word", "unsat")
         else:
-            # undecided by the funnel: authoritative CDCL check
+            # undecided by the funnel: authoritative CDCL check, unless
+            # the request's budget is spent (never the signal drain,
+            # whose resume needs the tail): dropping an undecided state
+            # can only narrow the partial report, never add a finding
+            if budget_expired():
+                if not use_batch:
+                    ledger.count_transition("dropped")
+                    ledger.single("prune", "tail", "undecided")
+                continue
             prune_stats.tail_states += 1
             possible = state.world_state.constraints.is_possible
             if not use_batch:

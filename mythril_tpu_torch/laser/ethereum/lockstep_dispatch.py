@@ -118,8 +118,10 @@ def _validate_on_lockstep(code: bytes, plan: DispatcherPlan) -> bool:
     the analysis's device; True when every lane's mapped entry has its
     visited-pc bit set."""
     from mythril_tpu_torch.ops import lockstep
+    from mythril_tpu_torch.ops.device_health import check_device
     from mythril_tpu_torch.support.support_args import args
 
+    check_device()
     selectors = sorted(plan.branches)
     batch = len(selectors)
     calldata = np.zeros((batch, 36), np.uint8)

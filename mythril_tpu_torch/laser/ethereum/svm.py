@@ -1,8 +1,12 @@
 """LaserEVM: the symbolic-execution virtual machine (reference:
 laser/ethereum/svm.py; own copy of ``mythril_tpu/laser/ethereum/svm.py``
-without the checkpoint, governor and fleet seams, which the port does
-not have).  The veritesting tier (``veritest.py``) merges and retires
-lanes of the work list between scheduler rounds, as in the JAX package.
+without the fleet seam, which the port does not have).  The veritesting
+tier (``veritest.py``) merges and retires lanes of the work list between
+scheduler rounds, as in the JAX package.  The transaction loop is the
+checkpoint spine (``resilience/checkpoint.py``: a journal at every
+transaction boundary, a resume re-entering at the journal's
+transaction), and both loops poll the drain flag and the resource
+governor (``resilience/governor.py``).
 
 Architecture matches the reference's control contract — worklist +
 strategy, per-opcode pre/post hooks, laser-level hooks, transaction
@@ -85,6 +89,10 @@ class LaserEVM:
         self.edges: List[Edge] = []
 
         self.executed_transactions = False
+        # transaction index a drain (signal, expired request budget or
+        # the governor's last rung) stopped at; None when the run
+        # completed
+        self.aborted_at_tx: Optional[int] = None
         # True once a round hit the execution or create deadline: the
         # explored prefix then depends on speed
         self.timed_out = False
@@ -182,14 +190,40 @@ class LaserEVM:
 
     def _execute_transactions(self, address: int) -> None:
         """Run ``transaction_count`` message calls against every open
-        world state (reference svm.py:189)."""
+        world state (reference svm.py:189).
+
+        The checkpoint spine: a boundary snapshot (pruned frontier and
+        findings so far) is journaled before every transaction, a
+        resumed analysis re-enters at the journal's transaction, and a
+        drain stops the loop at the next boundary with a final
+        checkpoint.  The governor is polled at every transaction start,
+        where its ``cap_tx_depth`` rung lands."""
         from mythril_tpu_torch.laser.ethereum.transaction import (
             execute_message_call,
         )
+        from mythril_tpu_torch.resilience import governor
+        from mythril_tpu_torch.resilience.checkpoint import (
+            drain_requested, get_checkpoint_plane,
+        )
 
+        plane = get_checkpoint_plane()
+        start_index = plane.restore_transactions(self, address)
         self._execute_hooks(self._start_exec_trans_hooks)
-        for i in range(self.transaction_count):
+        for i in range(start_index, self.transaction_count):
             if len(self.open_states) == 0:
+                break
+            governor.poll(self)
+            if governor.tx_depth_capped() and i > start_index:
+                # the last transaction finished whole; none more starts
+                self.aborted_at_tx = i
+                obs.instant("svm.governor_tx_cap", cat="svm", tx=i)
+                plane.partial = True
+                break
+            if drain_requested():
+                # this transaction's start boundary is what a resume
+                # continues from
+                self.aborted_at_tx = i
+                obs.instant("svm.drain_boundary", cat="svm", tx=i)
                 break
             # Frontier pruning across transactions: the reference issues
             # one solver call per open state (svm.py:201-204); here the
@@ -206,16 +240,27 @@ class LaserEVM:
                         [_WorldStateView(ws) for ws in old_states]
                     )
                 ]
-            self.iteration_states.append(len(self.open_states))
-            log.info(
-                "Starting message call transaction, iteration: %d, "
-                "%d initial states",
-                i,
-                len(self.open_states),
-            )
-            self._execute_hooks(self._start_exec_hooks)
-            execute_message_call(self, address)
-            self._execute_hooks(self._stop_exec_hooks)
+                self.iteration_states.append(len(self.open_states))
+                plane.transaction_boundary(self, address, i)
+                log.info(
+                    "Starting message call transaction, iteration: %d, "
+                    "%d initial states",
+                    i,
+                    len(self.open_states),
+                )
+                self._execute_hooks(self._start_exec_hooks)
+                execute_message_call(self, address)
+                self._execute_hooks(self._stop_exec_hooks)
+        else:
+            if not drain_requested():
+                # every transaction done: journal the final frontier, so
+                # a kill during detection or reporting resumes to a no-op
+                plane.transaction_boundary(self, address,
+                                           self.transaction_count)
+        if drain_requested():
+            # a drain inside a transaction leaves the journal at that
+            # transaction's start boundary, so --resume re-executes it
+            plane.finalize(partial=True)
         self._execute_hooks(self._stop_exec_trans_hooks)
 
     # ------------------------------------------------------------------
@@ -243,7 +288,22 @@ class LaserEVM:
         from mythril_tpu_torch.laser.ethereum import veritest
 
         vt_engine = veritest.engine_for(self, create, track_gas)
+        from mythril_tpu_torch.resilience import governor
+        from mythril_tpu_torch.resilience.checkpoint import (
+            drain_requested, get_checkpoint_plane,
+        )
+
+        plane = get_checkpoint_plane()
         while True:
+            if drain_requested():
+                # stop drawing work: the boundary checkpoint survives and
+                # the caller emits the partial report
+                break
+            # the round boundary, where no dispatch is in flight: the
+            # journal's cadence (and demotion-triggered writes), and the
+            # governor's poll
+            plane.tick()
+            governor.poll(self)
             batch = self.strategy.pop_batch(batch_width)
             if not batch:
                 break

@@ -77,8 +77,8 @@ Each group that runs counts its lanes as ``lockstep`` transitions in the
 lane ledger (``observability/ledger.py``), and its per-lane wall feeds
 the autopilot's cost model under the ``lockstep`` tier key; the
 ``svm.segment`` span times it into ``dispatch_stats.segment_s``.  The
-resource governor is the port's inert seam (``resilience/governor.py``),
-which acts as the JAX package's does with that plane off.
+resource governor's ``disable_planes`` rung (``resilience/governor.py``)
+turns the tier and its planes off for the rest of an analysis.
 
 Kill switch: ``MYTHRIL_TPU_SYM_LOCKSTEP=0`` restores the exact
 per-state path (``run_lockstep`` returns the batch untouched).  The

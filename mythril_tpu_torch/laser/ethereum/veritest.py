@@ -44,8 +44,9 @@ Telemetry: ``merges`` / ``merged_lanes`` / ``merge_ites`` /
 DispatchStats, and the wall-clock of both passes (the ``svm.merge`` and
 ``svm.subsume`` spans) in ``merge_span_s``.  Merged and retired lanes
 count as the lane ledger's ``merge`` / ``subsume`` transitions
-(``observability/ledger.py``), and the ``merge_abort`` fault seam is ``resilience/faults.py``'s, which never
-fires yet.
+(``observability/ledger.py``).  Fault seam: an armed ``merge_abort``
+shot (``resilience/faults.py``) aborts one merge mid-join, and the pair
+forks on.
 """
 
 import logging

@@ -5,10 +5,16 @@ Builds a symbolic executor per contract, harvests detection issues
 (salvaging partial results on interrupt or crash) and assembles the
 final :class:`Report`.  The port runs the JAX package's analyzer under
 the slice pins (``support/support_args.py``): no corpus sharding over
-devices, no governor, no checkpoints, no fleet, no statespace or graph
-dumps.  As in the JAX package, the dispatcher pre-split
-(``lockstep_dispatch``) and the lockstep replay of each issue's exploit
-sequence (``_confirm_by_replay``, on by default) run.  The funnel's
+devices, no fleet, no statespace or graph dumps.  As in the JAX
+package, a resource governor is installed for each contract and cleared
+after it (``resilience/governor.py``; its budgets are unlimited unless
+the ``MYTHRIL_TPU_GOVERNOR_*`` knobs set them), and ``checkpoint_dir`` /
+``resume_from`` journal the analysis and resume it
+(``resilience/checkpoint.py``).  A lost card
+(``ops/device_health.DeviceLost``) ends the analysis with that error.
+As in the JAX package, the dispatcher pre-split (``lockstep_dispatch``)
+and the lockstep replay of each issue's exploit sequence
+(``_confirm_by_replay``, on by default) run.  The funnel's
 dispatch rungs take the JAX package's arguments (``device_force_dispatch``,
 ``async_dispatch``); the port's one new knob is ``device``: the solver
 tiers and the lockstep interpreter run on the card unless
@@ -34,6 +40,7 @@ from mythril_tpu_torch.observability import ledger
 from mythril_tpu_torch.observability import spans as obs
 from mythril_tpu_torch.observability.ledger import set_origin
 from mythril_tpu_torch.ops.async_dispatch import get_async_dispatcher
+from mythril_tpu_torch.ops.device_health import DeviceLost
 from mythril_tpu_torch.smt import SolverStatistics
 from mythril_tpu_torch.solidity.evmcontract import EVMContract
 from mythril_tpu_torch.support.loader import DynLoader
@@ -117,6 +124,8 @@ class MythrilAnalyzer:
         async_dispatch: bool = True,
         lockstep_dispatch: bool = True,
         device: Optional[str] = None,
+        checkpoint_dir: Optional[str] = None,
+        resume_from: Optional[str] = None,
     ):
         self.contracts: List[EVMContract] = disassembler.contracts or []
         self.campaign = _Campaign(
@@ -140,6 +149,10 @@ class MythrilAnalyzer:
         args.async_dispatch = async_dispatch
         args.lockstep_dispatch = lockstep_dispatch
         args.device = device
+        # the checkpoint plane reads these at the first transaction
+        # boundary; --resume journals into the directory it resumes from
+        args.checkpoint_dir = checkpoint_dir or resume_from
+        args.resume_from = resume_from
         #: the last contract's executor (its LaserEVM carries the run's
         #: state count and whether a deadline cut it)
         self.last_sym: Optional[SymExecWrapper] = None
@@ -171,9 +184,17 @@ class MythrilAnalyzer:
         """Symbolically execute one contract and return (issues,
         execution_info, traceback-or-None).  Interrupts and crashes
         salvage whatever the callback modules had already found."""
+        from mythril_tpu_torch.resilience.governor import (
+            clear_governor, install_governor,
+        )
+
         StartTime()  # per-contract wall-clock epoch for report timestamps
         failure = None
         execution_info = None
+        # the resource governor, armed per contract: a state explosion
+        # degrades to a partial verdict, and the next contract starts
+        # clean
+        install_governor(label=getattr(contract, "name", "") or "contract")
         try:
             sym = self._symbolize(
                 contract,
@@ -188,7 +209,7 @@ class MythrilAnalyzer:
             # a prefetch still in flight: waited for, and its failure
             # raised here (no later funnel call would harvest it)
             get_async_dispatcher().finish()
-        except DetectorNotFoundError:
+        except (DetectorNotFoundError, DeviceLost):
             raise
         except KeyboardInterrupt:
             log.critical("Keyboard Interrupt")
@@ -199,6 +220,10 @@ class MythrilAnalyzer:
                 "Exception occurred, aborting analysis:\n" + failure
             )
             issues = retrieve_callback_issues(modules)
+        finally:
+            # restores the batch width; the governor's meta block
+            # survives the clear, so the report still carries it
+            clear_governor()
         return issues, execution_info, failure
 
     @staticmethod

@@ -17,7 +17,8 @@ tracer, ``MYTHRIL_TPU_LEDGER=0`` for the ledger):
 - :mod:`.ledger` — the per-lane attribution ledger, exported via
   ``--lane-ledger-out``;
 - :mod:`.flight` — a bounded ring of the most recent events, dumped on
-  an unhandled exception.
+  a watchdog trip, a ladder demotion, a drain or an unhandled
+  exception.
 """
 
 from mythril_tpu_torch.observability.flight import (  # noqa: F401

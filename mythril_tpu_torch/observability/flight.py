@@ -7,10 +7,12 @@ run; the flight recorder answers "what was happening just before it
 broke".  It keeps the last ``MYTHRIL_TPU_FLIGHT_EVENTS`` (default 512)
 events the tracer produced — independent of the trace buffer's cap and
 of whether a ``--trace-out`` file was requested — and writes them as a
-small Perfetto-loadable JSON file on an unhandled exception
+small Perfetto-loadable JSON file when something goes wrong: a watchdog
+trip (``watchdog_trip``, ``resilience/watchdog.py``), a ladder demotion
+(``demotion``), a graceful drain (``drain``,
+``resilience/checkpoint.request_drain``), and an unhandled exception
 (:func:`install_excepthook`, hooked by the CLI when observability is
-configured).  The JAX package also dumps on a watchdog trip, a ladder
-demotion and a graceful drain; the port has none of those yet.
+configured), as the JAX package's does.
 
 Dump destination: :meth:`FlightRecorder.configure` >
 ``MYTHRIL_TPU_FLIGHT_DIR`` > the ``--trace-out`` directory > the system

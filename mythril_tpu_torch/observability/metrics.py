@@ -9,6 +9,10 @@ every named counter/gauge/histogram, dumpable in Prometheus text format
   every numeric field, the tiers' seconds among them) as
   ``mythril_tpu_dispatch_*`` and ``AsyncStats``
   (``ops/async_dispatch.py``) as ``mythril_tpu_async_*``;
+- the resilience counters live here as registry counters
+  (``mythril_tpu_resilience_*``; ``resilience/telemetry.py`` is the
+  attribute API over them), one source of truth for the dump, the
+  dispatch stats and the report;
 - the lane ledger and the autopilot mirror their aggregates as
   ``mythril_tpu_ledger_*`` / ``mythril_tpu_autopilot_*``;
 - the tracer and the flight recorder report their own meta-counters

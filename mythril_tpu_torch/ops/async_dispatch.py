@@ -20,13 +20,15 @@ after that stream is synchronized; the results come back as host
 arrays.  The clause pool is solved from a snapshot taken on the calling
 thread (``DevicePool.append`` writes the pool in place).
 
-Where the JAX package drops a failed batch, this port keeps the
-exception and raises it at the next harvest, or at the end of the
-analysis (:meth:`AsyncDispatcher.finish`) for a batch no harvest
+A batch whose worker hit an injected fault (the fault plane's
+``prefetch_error``) is dropped, as the JAX package drops a failed batch.
+Any other failure is kept and raised at the next harvest, or at the end
+of the analysis (:meth:`AsyncDispatcher.finish`) for a batch no harvest
 reaches: a kernel build or launch failure is never hidden.  A batch in
 flight past the dispatch deadline (``MYTHRIL_TPU_DISPATCH_TIMEOUT``,
-default 120 s) is abandoned, and the worker is joined, bounded, at exit
-(``MYTHRIL_TPU_SHUTDOWN_JOIN_S``).
+default 120 s) is abandoned at harvest, which counts a watchdog trip and
+a demotion of the prefetch channel, as in the JAX package; the worker is
+joined, bounded, at exit (``MYTHRIL_TPU_SHUTDOWN_JOIN_S``).
 """
 
 import logging
@@ -126,7 +128,10 @@ class AsyncDispatcher:
         }
 
         def work():
+            from mythril_tpu_torch.resilience import faults
+
             try:
+                faults.maybe_fault_prefetch()
                 # on the worker thread's own span stack
                 with obs.span("prefetch.solve", cat="dispatch",
                               lanes=len(rep_assumption_sets)):
@@ -148,6 +153,9 @@ class AsyncDispatcher:
                     assign = full
                 pending["status"] = status
                 pending["assign"] = assign
+            except faults.FaultInjected as exc:
+                log.debug("async prefetch dropped: %s", exc)
+                pending["failed"] = True
             except Exception as exc:  # noqa: BLE001 — raised at harvest
                 pending["error"] = exc
             pending["done"] = True
@@ -169,15 +177,27 @@ class AsyncDispatcher:
         if self.pending is None:
             return
         self._raise_failure()
-        if self.pending["generation"] != ctx.generation:
+        if self.pending["generation"] != ctx.generation or (
+                self.pending.get("failed")):
             self.pending = None
             async_stats.dropped += 1
             return
         if not self.pending["done"]:
             if time.monotonic() - self.pending["began"] > _deadline():
+                # the prefetch watchdog: the worker stays parked (it
+                # blocks later launches through _live_thread: the
+                # prefetch channel goes dark, the synchronous tiers are
+                # untouched) and its lanes are never memoized
+                from mythril_tpu_torch.resilience.telemetry import (
+                    resilience_stats,
+                )
+
+                resilience_stats.watchdog_trips += 1
+                resilience_stats.demotions += 1
                 log.warning(
                     "async prefetch exceeded the %.0fs dispatch deadline; "
-                    "abandoning the batch", _deadline())
+                    "abandoning the batch (prefetch channel demoted)",
+                    _deadline())
                 self.pending = None
                 async_stats.dropped += 1
                 async_stats.abandoned += 1

@@ -54,12 +54,24 @@ tail runs.  The tiers' walls are spans (``observability/spans.py``)
 with sinks in :data:`dispatch_stats` and ``record_function`` ranges of
 the same names.
 
-Left out of this slice: the sharded mesh, and the ladder's resilience
-seams (watchdog, retry, bisection, quarantine, drain).  A failure in a
-tier, in the word tier's kernel, or in the prefetch's worker, reaches
-the caller.
+Every device dispatch of the tiers runs under the resilience plane's
+watchdog (``resilience/watchdog.py``): the dense tier as one ``pallas``
+dispatch, the resident solver as one ``resident:{bucket}`` dispatch, and
+each round of the multi-dispatch ladders as ``frontier:{budget}``,
+``gather:{budget}`` or ``cone:{budget}``.  An injected fault or a
+tripped deadline is retried (a deadline tripped on the card's CUDA
+stream is not: the ladder gives up at once, see ``watchdog.py``); a round that keeps failing is bisected over
+lane buckets and the lanes that fail alone are quarantined to the CDCL
+tail (the ledger's ``quarantined`` transitions); when every lane fails
+alone, the re-probe of the card decides between demoting the context to
+the CDCL (:meth:`BatchedSatBackend._abandon`) and
+``ops/device_health.DeviceLost``.  A drain request stops the ladders at
+their next round boundary.  Any other failure (a kernel's build or
+launch, the word tier's kernel, the prefetch's worker) reaches the
+caller unchanged.  Left out: the sharded mesh.
 """
 
+import logging
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -67,6 +79,8 @@ import torch
 
 from mythril_tpu_torch.observability import spans as obs
 from mythril_tpu_torch.ops import round_lane as RL
+
+log = logging.getLogger(__name__)
 
 #: clause rows of the gather tiers are at most this wide (wider clauses
 #: stay with the CDCL: BCP is weaker, verdicts stay sound)
@@ -111,12 +125,24 @@ class DispatchStats:
         self._reset_own()
 
     def reset(self):
-        """Zero the counters, and the coalescer's admission window with
-        them (it is generation-scoped, as the JAX package resets it)."""
+        """Zero the counters, the resilience counters and the
+        coalescer's admission window with them (per-contract, as the JAX
+        package resets them)."""
         from mythril_tpu_torch.ops.coalesce import reset_coalescer
+        from mythril_tpu_torch.resilience.telemetry import resilience_stats
 
         self._reset_own()
+        resilience_stats.reset()
         reset_coalescer()
+
+    def as_dict(self):
+        """The fields with the resilience counters merged in, as the JAX
+        package's ``DispatchStats.as_dict``."""
+        from mythril_tpu_torch.resilience.telemetry import resilience_stats
+
+        d = dict(self.__dict__)
+        d.update(resilience_stats.as_dict())
+        return d
 
     def _reset_own(self):
         self.dispatches = 0        # dispatches that engaged a device tier
@@ -130,6 +156,8 @@ class DispatchStats:
         self.lane_sweeps_active = 0
         self.lane_sweeps_total = 0
         self.rounds = 0            # budgeted solve rounds executed
+        self.fused = False         # the adaptive fuse is blown (or the
+        #                            ladder demoted the context)
         self.repacks = 0           # survivor re-packs into smaller buckets
         self.lane_slots_filled = 0
         self.lane_slots_total = 0
@@ -267,6 +295,16 @@ class DispatchFuse:
         self.retries = 0
         self.was_slow = False
         self.retrying = False
+        dispatch_stats.fused = False
+
+    def demote(self, ctx):
+        """The ladder gave up on a dispatch of this context: fuse it for
+        good (a slow fuse takes no retries; each could wedge again)."""
+        if self.generation != ctx.generation:
+            self.arm(ctx.generation)
+        self.fused_generation = ctx.generation
+        self.was_slow = True
+        dispatch_stats.fused = True
 
     def admit(self, ctx) -> bool:
         """Whether this frontier may dispatch."""
@@ -299,6 +337,7 @@ class DispatchFuse:
                 self.fused_generation = -1
                 self.skips = 0
                 self.retries = 0
+                dispatch_stats.fused = False
             return
         self.futile += 1
         if elapsed_s > SLOW_DISPATCH_FUSE_S and not prefetch_inflight:
@@ -306,6 +345,7 @@ class DispatchFuse:
             self.was_slow = True
         if self.futile >= FUTILE_DISPATCH_FUSE:
             self.fused_generation = ctx.generation
+            dispatch_stats.fused = True
 
 
 dispatch_fuse = DispatchFuse()
@@ -481,13 +521,27 @@ class BatchedSatBackend:
         Routes dense tier -> full-pool gather tier -> union-cone tier
         (``batched_sat.py:799-944`` of the JAX package)."""
         from mythril_tpu_torch.ops.dense_prop import get_dense_backend
+        from mythril_tpu_torch.resilience.watchdog import (
+            DispatchAbandoned, get_watchdog,
+        )
 
         self.device_engaged = False
         dense_backend = get_dense_backend(self.device)
         if dense_backend.available_for(ctx):
-            with tier_span("dense", "tier.dense"):
-                dense = dense_backend.check_assumption_sets(ctx,
-                                                            assumption_sets)
+            # the whole dense tier is one supervised dispatch: its round
+            # ladder checks raise_if_cancelled() before touching the
+            # context again, so an abandoned worker never races the host
+            load_kernels(self.device, "dense")
+            try:
+                with tier_span("dense", "tier.dense"):
+                    dense = get_watchdog().supervised(
+                        "pallas",
+                        lambda: dense_backend.check_assumption_sets(
+                            ctx, assumption_sets),
+                        device=self.device,
+                    )
+            except DispatchAbandoned as exc:
+                return self._abandon(ctx, exc, len(assumption_sets))
             if dense is not None:
                 results, assignments = dense
                 self.last_assignments = assignments
@@ -515,6 +569,8 @@ class BatchedSatBackend:
             return [None] * len(assumption_sets)
 
         from mythril_tpu_torch.ops.frontier import frontier_enabled
+        from mythril_tpu_torch.resilience import faults
+        from mythril_tpu_torch.resilience.watchdog import DispatchAbandoned
 
         assign = self._sync_pool_and_assign(ctx, assumption_sets, num_vars)
         batch = len(assumption_sets)
@@ -525,11 +581,16 @@ class BatchedSatBackend:
         if frontier_enabled():
             frontier = {"adj": self.pool.adjacency_dev(), "ctx": ctx,
                         "col_to_var": None}
-        status, final_assign = self._solve_gather_ladder(
-            self.pool.lits, assign,
-            pref=warm_pref_row(ctx, assign.shape[1], lanes=batch),
-            frontier=frontier,
-        )
+        try:
+            status, final_assign = self._solve_gather_ladder(
+                "gather", self.pool.lits, assign,
+                pref=warm_pref_row(ctx, assign.shape[1], lanes=batch),
+                frontier=frontier,
+            )
+        except DispatchAbandoned as exc:
+            return self._abandon(ctx, exc, batch)
+        status, final_assign = faults.maybe_corrupt_lanes(status,
+                                                          final_assign)
         self.last_assignments = final_assign
         return [False if status[lane] == 2 else None
                 for lane in range(batch)]
@@ -550,11 +611,109 @@ class BatchedSatBackend:
             frontier["ctx"], rows, frontier.get("col_to_var")
         )
 
-    def _dispatch_round(self, step_fn, state: dict) -> dict:
-        """One device round: the JAX supervisor's happy path (its retry,
-        bisection, quarantine and drain seams are not ported)."""
-        dispatch_stats.device_dispatch_calls += 1
-        return step_fn(state)
+    def _abandon(self, ctx, exc, batch: int):
+        """Terminal rung of the ladder, context scope: the watchdog gave
+        up on this dispatch and the card still answers, so this context
+        goes to the native CDCL tail for good (the adaptive fuse, blown
+        with no retries).  Every in-flight lane returns undecided and the
+        tail re-solves it: findings are unchanged, only the card's
+        speed-up is lost."""
+        self.device_engaged = False
+        dispatch_fuse.demote(ctx)
+        log.warning("%s; context demoted to the native CDCL tail "
+                    "(results unchanged, device speed-up lost)", exc)
+        self.last_assignments = np.zeros(
+            (batch, ctx.solver.num_vars + 1), np.int8)
+        return [None] * batch
+
+    def _dispatch_round(self, key: str, step_fn, state: dict, order,
+                        live: np.ndarray, frontier: bool = False):
+        """One supervised ladder round over ``state`` (bucket-sized host
+        arrays, rows below ``live.size`` live) with poisoned-lane
+        bisection (the JAX package's ``_dispatch_round``).
+
+        The happy path is the retry rung.  When it is exhausted, the live
+        lanes are bisected: each half re-dispatches once (in the
+        smallest lane bucket, pads inert at status 3), failing halves
+        split again, and a lane that fails alone is quarantined
+        (returned for the caller to retire to the CDCL tail).  When every
+        lane fails alone the failure is no lane's, and the ladder gives
+        up (re-probe, then :class:`DispatchAbandoned` or ``DeviceLost``).
+        A trip on the card's stream gives up at once, unbisected: every
+        sub-dispatch would queue behind the stuck launch.
+        Returns (state', quarantined local positions)."""
+        from mythril_tpu_torch.resilience import faults
+        from mythril_tpu_torch.resilience.telemetry import resilience_stats
+        from mythril_tpu_torch.resilience.watchdog import (
+            DispatchFailed, get_watchdog,
+        )
+
+        dog = get_watchdog()
+
+        def attempt(sub_state, sub_ids, retries=None):
+            def _thunk():
+                faults.maybe_fault_dispatch(lane_ids=sub_ids)
+                if frontier:
+                    faults.maybe_fault_frontier()
+                dispatch_stats.device_dispatch_calls += 1
+                out = step_fn(sub_state)
+                # host copies: the ladder writes the state between rounds
+                return {k: np.array(out[k]) for k in order}
+
+            return dog.run_attempts(key, _thunk, retries=retries)
+
+        batch_ids = [int(i) for i in live]
+        try:
+            return attempt(state, batch_ids), []
+        except DispatchFailed as exc:
+            last = exc.last
+            if exc.terminal:
+                dog.give_up(key, last, device=self.device)
+        n = int(live.size)
+        if n == 1:
+            # one lane cannot be bisected: lane poison and a failing
+            # device look alike
+            dog.give_up(key, last, device=self.device)
+        quarantined: List[int] = []
+
+        def bisect(positions):
+            resilience_stats.bisect_dispatches += 1
+            B_sub = lane_bucket(len(positions))
+            idx = np.concatenate(
+                [positions, np.repeat(positions[:1], B_sub - len(positions))]
+            )
+            sub = {k: np.ascontiguousarray(state[k][idx]) for k in order}
+            sub["status"][len(positions):] = 3  # pads stay inert
+            try:
+                out = attempt(sub, [int(live[p]) for p in positions],
+                              retries=0)
+            except DispatchFailed as exc:
+                if exc.terminal:
+                    raise
+                if len(positions) == 1:
+                    quarantined.append(int(positions[0]))
+                    return
+                half = len(positions) // 2
+                bisect(positions[:half])
+                bisect(positions[half:])
+                return
+            for j, p in enumerate(positions):
+                for k in order:
+                    state[k][p] = out[k][j]
+
+        half = n // 2
+        try:
+            bisect(np.arange(half))
+            bisect(np.arange(half, n))
+        except DispatchFailed as exc:  # a trip on the card's stream
+            dog.give_up(key, exc.last, device=self.device)
+        if len(quarantined) == n:
+            dog.give_up(key, last, device=self.device)
+        resilience_stats.quarantined_lanes += len(quarantined)
+        log.warning("poisoned-lane bisection on %s: quarantined %d/%d "
+                    "lanes to the CDCL tail; context stays on the card",
+                    key, len(quarantined), n)
+        return state, quarantined
 
     @staticmethod
     def _pref_row(pref, V1: int):
@@ -579,26 +738,41 @@ class BatchedSatBackend:
 
     def _solve_resident(self, lits, assign, pref=None, frontier=None):
         """One resident dispatch (ops/resident.py) over the
-        assumption-seeded ``assign [batch, V1]``.  Returns (status[batch]
-        with bails mapped to undecided, final assign[batch, V1])."""
+        assumption-seeded ``assign [batch, V1]``, supervised under the
+        ``resident:{bucket}`` key through :meth:`_dispatch_round` (only
+        the per-lane fields ride a bisection; the shared learned-row
+        pool and counters start empty on every attempt, always a sound
+        start).  A drain requested before the launch returns every lane
+        undecided.  Returns (status[batch] with bails mapped to
+        undecided, final assign[batch, V1])."""
+        from mythril_tpu_torch.observability.ledger import get_ledger
         from mythril_tpu_torch.ops import resident as RK
+        from mythril_tpu_torch.resilience.checkpoint import drain_requested
 
         assign = np.asarray(assign, dtype=np.int8)
         batch, V1 = assign.shape
         B = lane_bucket(batch)
         dispatch_stats.lane_slots_filled += batch
         dispatch_stats.lane_slots_total += B
+        if drain_requested():
+            # one indivisible dispatch: the drain seam is its boundary
+            obs.instant("dispatch.drain", cat="sweep", lanes=batch,
+                        bucket=B)
+            return np.zeros(batch, np.int32), np.array(assign, copy=True)
         seed = np.ones((B, V1), np.int8)
         seed[:batch] = assign
         state = RK.resident_state0(
             seed, batch, GATHER_DECISIONS, width=MAX_CLAUSE_WIDTH,
             pref_row=self._pref_row(pref, V1),
         )
+        extra_cap = state["extra"].shape[0] - 1
         budget = RK.resident_budget()
         watchdog = RK.resident_watchdog_limit()
 
-        def step_fn(st):
-            out = RK.resident_solve(lits, frontier["adj"], st)
+        def step_fn(lane_state):
+            full = dict(lane_state)
+            full.update(RK.resident_shared0(extra_cap, MAX_CLAUSE_WIDTH))
+            out = RK.resident_solve(lits, frontier["adj"], full)
             reason = RK.exit_reason(out["status"], int(out["stall"][0]),
                                     int(out["itc"][0]), watchdog, budget)
             dispatch_stats.resident_dispatches += 1
@@ -607,27 +781,44 @@ class BatchedSatBackend:
                     getattr(dispatch_stats, counter) + 1)
             return out
 
+        live = np.arange(batch)
+        lane_state = {k: state[k] for k in RK.RESIDENT_LANE_FIELDS}
         obs.counter("lanes.live", live=batch, bucket=B)
+        load_kernels(self.device, "frontier")
         with obs.span("resident.solve", sink=(dispatch_stats, "resident_s"),
                       cat="sweep", profile=True, lanes=batch):
-            state = self._dispatch_round(step_fn, state)
+            lane_state, quarantined = self._dispatch_round(
+                f"resident:{B}", step_fn, lane_state,
+                RK.RESIDENT_LANE_FIELDS, live, frontier=True,
+            )
+        for local in quarantined:
+            lane_state["status"][local] = 3  # undecided -> CDCL tail
+        if quarantined:
+            get_ledger().count_transition("quarantined", len(quarantined))
         dispatch_stats.rounds += 1
-        self._account_sweeps(state, batch, B)
-        self._harvest_round_learnts(state, np.arange(batch), frontier)
-        statuses_out = state["status"][:batch].astype(np.int32)
-        assign_out = state["assign"][:batch].astype(np.int8)
+        self._account_sweeps(lane_state, batch, B)
+        self._harvest_round_learnts(lane_state, live, frontier)
+        statuses_out = lane_state["status"][:batch].astype(np.int32)
+        assign_out = lane_state["assign"][:batch].astype(np.int8)
         return (np.where(statuses_out == 3, 0, statuses_out), assign_out)
 
-    def _solve_gather_ladder(self, lits, assign, pref=None, frontier=None):
+    def _solve_gather_ladder(self, key_base: str, lits, assign, pref=None,
+                             frontier=None):
         """The solve of a gather tier: the resident solver, or with
         ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` the multi-dispatch frontier
         ladder, or with no ``frontier`` (``MYTHRIL_TPU_FRONTIER=0``) the
         round-lane ladder (budgeted rounds, decided lanes retired
         between rounds, survivors re-packed into the smallest lane
-        bucket, their state riding the re-pack).  Returns (status[batch]
-        with bails mapped to undecided, final assign[batch, V1] int8)."""
+        bucket, their state riding the re-pack).  Each round is one
+        supervised dispatch under ``{key_base}:{budget}`` (``frontier``
+        for the frontier ladder) through :meth:`_dispatch_round`, and a
+        drain request is honored between rounds: survivors retire
+        undecided.  Returns (status[batch] with bails mapped to
+        undecided, final assign[batch, V1] int8)."""
+        from mythril_tpu_torch.observability.ledger import get_ledger
         from mythril_tpu_torch.ops import frontier as FR
         from mythril_tpu_torch.ops.resident import resident_kernel_enabled
+        from mythril_tpu_torch.resilience.checkpoint import drain_requested
 
         if frontier is not None and resident_kernel_enabled():
             return self._solve_resident(lits, assign, pref=pref,
@@ -647,6 +838,8 @@ class BatchedSatBackend:
             )
             order = FR.FRONTIER_STATE_FIELDS
             round_keys = ("fullsw", "fsteps", "nlearn")
+            key_base = "frontier"
+            load_kernels(self.device, "frontier")
         else:
             # pads preassigned and retired at step 0, as the JAX ladder's
             seed = np.ones((B, V1), np.int8)
@@ -658,6 +851,7 @@ class BatchedSatBackend:
             state["status"][batch:] = 3
             order = RL.ROUND_STATE_FIELDS
             round_keys = ("step",)
+            load_kernels(self.device, "round_lane")
         statuses_out = np.zeros(batch, np.int32)
         assign_out = np.array(assign, copy=True)
         live = np.arange(batch)
@@ -673,22 +867,41 @@ class BatchedSatBackend:
         for budget in budgets:
             if live.size == 0:
                 break
+            obs.counter("lanes.live", live=int(live.size), bucket=B)
+            if drain_requested():
+                # survivors retire undecided (the CDCL tail or the
+                # resumed run finishes them)
+                obs.instant("dispatch.drain", cat="sweep",
+                            lanes=int(live.size), bucket=B)
+                break
             for k in round_keys:  # per-round counters
                 state[k][:] = 0
-            obs.counter("lanes.live", live=int(live.size), bucket=B)
+            key = f"{key_base}:{budget}"
             if frontier is not None:
                 with obs.span("frontier.round", cat="sweep", profile=True,
-                              budget=budget, lanes=int(live.size)):
-                    state = self._dispatch_round(
-                        lambda st: FR.frontier_round(lits, frontier["adj"],
-                                                     st, budget),
-                        state,
+                              key=key, budget=budget, lanes=int(live.size)):
+                    state, quarantined = self._dispatch_round(
+                        key,
+                        lambda st, b=budget: FR.frontier_round(
+                            lits, frontier["adj"], st, b),
+                        state, order, live, frontier=True,
                     )
             else:
                 with obs.span("dispatch.round", cat="sweep", profile=True,
-                              budget=budget, lanes=int(live.size)):
-                    state = self._dispatch_round(
-                        lambda st: _round_lane_np(lits, st, budget), state)
+                              key=key, budget=budget, lanes=int(live.size)):
+                    state, quarantined = self._dispatch_round(
+                        key,
+                        lambda st, b=budget: _round_lane_np(lits, st, b),
+                        state, order, live,
+                    )
+            for local in quarantined:
+                state["status"][local] = 3  # undecided -> CDCL tail
+            if quarantined:
+                # bisection cannot name the batch's lane records from
+                # here: an aggregate transition (the lanes settle as
+                # tail-demoted when the batch closes)
+                get_ledger().count_transition("quarantined",
+                                              len(quarantined))
             dispatch_stats.rounds += 1
             self._account_sweeps(state, live.size, B)
             if frontier is not None:
@@ -804,6 +1017,8 @@ class BatchedSatBackend:
             build_adjacency, frontier_enabled,
         )
         from mythril_tpu_torch.ops.incremental import get_cone_memo
+        from mythril_tpu_torch.resilience import faults
+        from mythril_tpu_torch.resilience.watchdog import DispatchAbandoned
 
         built = self._build_cone_batch(ctx, assumption_sets)
         if built is None:
@@ -843,12 +1058,18 @@ class BatchedSatBackend:
             col_to_var[1:] = cone_vars
             frontier = {"adj": adj_dev, "ctx": ctx,
                         "col_to_var": col_to_var}
-        status, final_assign = self._solve_gather_ladder(
-            rows_dev, assign,
-            pref=warm_pref_row(ctx, assign.shape[1], cone_vars=cone_vars,
-                               offset=1, lanes=len(assumption_sets)),
-            frontier=frontier,
-        )
+        try:
+            status, final_assign = self._solve_gather_ladder(
+                "cone", rows_dev, assign,
+                pref=warm_pref_row(ctx, assign.shape[1],
+                                   cone_vars=cone_vars, offset=1,
+                                   lanes=len(assumption_sets)),
+                frontier=frontier,
+            )
+        except DispatchAbandoned as exc:
+            return self._abandon(ctx, exc, len(assumption_sets))
+        status, final_assign = faults.maybe_corrupt_lanes(status,
+                                                          final_assign)
         # back to the full var space for the caller's model extraction
         full = np.zeros((len(assumption_sets), ctx.solver.num_vars + 1),
                         np.int8)
@@ -862,7 +1083,10 @@ class BatchedSatBackend:
         tier takes the frontier.  CDCL learnts are absorbed into the
         pool BEFORE the size check (the JAX order: it grows the pool and
         its version), with a bounded exemption from the clause cap."""
+        from mythril_tpu_torch.ops.device_health import check_device
+
         num_vars = ctx.solver.num_vars
+        check_device()
         if num_vars > MAX_GATHER_VARS:
             return "size_bailouts", num_vars
         ctx.absorb_learnts(max_width=MAX_CLAUSE_WIDTH)
@@ -919,6 +1143,7 @@ class BatchedSatBackend:
             return None
         verdict, num_vars = self._gather_eligibility(ctx)
         device = self.device
+        load_kernels(device, "round_lane")
         if verdict is not None:
             # the prefetch channel must not go dark where the pool is
             # past the caps (deep analyses live there): the cone tier
@@ -960,6 +1185,28 @@ class BatchedSatBackend:
             return {"status": status, "assign": final}
 
         return run
+
+
+#: the kernel libraries each supervised dispatch family launches
+_KERNEL_FAMILIES = {
+    "dense": ("dense_sweep", "dpll_step"),
+    "frontier": ("frontier_kernels",),
+    "round_lane": ("round_lane",),
+}
+
+
+def load_kernels(device, family: str) -> None:
+    """Build and load the CUDA libraries of a dispatch family on the
+    calling thread, before its first supervised dispatch: ``nvcc`` at
+    first use is a build, not a wedge, and must not run against a
+    dispatch deadline.  A no-op on the CPU and once loaded."""
+    if torch.device(device).type != "cuda":
+        return
+    import importlib
+
+    for name in _KERNEL_FAMILIES[family]:
+        importlib.import_module(
+            f"mythril_tpu_torch.ops.{name}").load_library()
 
 
 def _round_lane_np(lits, state: dict, budget: int) -> dict:

@@ -38,10 +38,14 @@ budgets and caps, so the CPU tests compare like with like against
 re-derives the size caps for an 80 GB card (see :data:`CUDA_TIER`).
 With the resident solver on (the default), a frontier whose union cone
 fits the cone-tier caps is delegated to the gather tiers
-(``ops/batched_sat.py``).  Dropped from this slice: the resilience
-hooks (fault injection, watchdog supervision, cancellation and drain
-checkpoints).  The round ladder is the span ``dense.rounds``; each round
-keeps its own ``record_function`` range, ``dense.round``.
+(``ops/batched_sat.py``).  The funnel runs the whole tier as one
+supervised ``pallas`` dispatch (``resilience/watchdog.py``); between
+budget rungs the round ladder checks the watchdog's cancellation
+(``raise_if_cancelled``), stops on a drain request (the ``pallas.drain``
+instant; survivors retire undecided) and passes the fault plane's
+dispatch seam, and the tier's verdicts pass its garbage-lane seam.  The
+round ladder is the span ``dense.rounds``; each round keeps its own
+``record_function`` range, ``dense.round``.
 """
 
 import logging
@@ -666,7 +670,11 @@ def _run_dense_ladder(
     Returns (status[n_real] int32 with bails mapped to 0, final
     A[n_real, V] float32).
     """
+    from mythril_tpu_torch.observability import spans as obs
     from mythril_tpu_torch.ops.batched_sat import dispatch_stats
+    from mythril_tpu_torch.resilience import faults
+    from mythril_tpu_torch.resilience.checkpoint import drain_requested
+    from mythril_tpu_torch.resilience.watchdog import raise_if_cancelled
 
     B, V = A0.shape
     D = max(1, min(max_decisions, V))
@@ -687,6 +695,15 @@ def _run_dense_ladder(
     for budget in _ladder_budgets(steps_total, tier):
         if live.size == 0:
             break
+        # cooperative checkpoints: the ladder runs inside one supervised
+        # dispatch, so an abandoned worker stops here before touching
+        # shared state again, and a drain retires the survivors
+        raise_if_cancelled()
+        if drain_requested():
+            obs.instant("pallas.drain", cat="sweep",
+                        lanes=int(live.size), bucket=B)
+            break
+        faults.maybe_fault_dispatch()
         fn = round_fn(B, budget, hot_c)
         dispatch_stats.device_dispatch_calls += 1
         dispatch_stats.dense_round_budgets[budget] = (
@@ -773,6 +790,9 @@ class DenseSatBackend:
         [B, C_max, V_max] — mostly disjoint cones).  Cones past the
         tier's decision-stack budget run BCP-only (sound UNSAT detection
         still on)."""
+        from mythril_tpu_torch.ops.device_health import check_device
+
+        check_device()
         if not assumption_sets:
             return [], np.zeros((0, ctx.solver.num_vars + 1), np.int8)
         from mythril_tpu_torch.ops.incremental import get_cone_memo
@@ -839,6 +859,10 @@ class DenseSatBackend:
             statuses, assignments = self._solve_union(
                 ctx, assumption_sets, union_ci, union_cv,
             )
+        from mythril_tpu_torch.resilience import faults
+
+        statuses, assignments = faults.maybe_corrupt_lanes(statuses,
+                                                           assignments)
         results: List[Optional[bool]] = [
             False if statuses[i] == 2 else None for i in range(batch)
         ]

@@ -695,12 +695,12 @@ class BlastContext:
                 # predicted-easy first rung: a decided bounded solve is
                 # the same sound verdict for a fraction of the conflicts;
                 # UNKNOWN falls through to the exact call
-                status = self.solver.solve(assumptions, route.ladder,
-                                           timeout_s)
+                status = self._solve_native(assumptions, route.ladder,
+                                            timeout_s)
                 note_ladder(status != SatSolver.UNKNOWN)
             if status == SatSolver.UNKNOWN:
-                status = self.solver.solve(assumptions, conflict_budget,
-                                           timeout_s)
+                status = self._solve_native(assumptions, conflict_budget,
+                                            timeout_s)
         stats.native_calls += 1
         if status != SatSolver.SAT:
             if status == SatSolver.UNSAT:
@@ -713,6 +713,33 @@ class BlastContext:
         # primary warm-start seed for sibling device lanes
         self._remember_model(env, truth=self._model_arr)
         return status, env
+
+    def _solve_native(self, assumptions, conflict_budget, timeout_s) -> int:
+        """One native CDCL solve with the tail's own retry rung (the
+        JAX package's): an injected ``cdcl_error`` gets one retry, and a
+        second one answers UNKNOWN for this query (callers
+        over-approximate: the state stays feasible).  Any other failure
+        of the native solver propagates."""
+        from mythril_tpu_torch.resilience import faults
+
+        try:
+            faults.maybe_fault_cdcl()
+            return self.solver.solve(assumptions, conflict_budget, timeout_s)
+        except faults.FaultInjected as exc:
+            from mythril_tpu_torch.resilience.telemetry import (
+                resilience_stats,
+            )
+
+            resilience_stats.dispatch_retries += 1
+            log.warning("native CDCL solve raised (%s); retrying once", exc)
+            try:
+                faults.maybe_fault_cdcl()
+                return self.solver.solve(assumptions, conflict_budget,
+                                         timeout_s)
+            except faults.FaultInjected as exc2:
+                log.error("native CDCL solve failed twice (%s); answering "
+                          "UNKNOWN for this query", exc2)
+                return SatSolver.UNKNOWN
 
     # ------------------------------------------------------------------
     # word-level candidate probing (pre-CDCL fast path)

@@ -72,6 +72,13 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_AUTOPILOT_LADDER": ("int", 1, None),
     "MYTHRIL_TPU_AUTOPILOT_TAIL_SHARE": ("float", 0.0, 1.0),
     "MYTHRIL_TPU_AUTOPILOT_EVAL_EVERY": ("int", 1, None),
+    # resource governor (resilience/governor.py): kill switch and the
+    # per-analysis budgets (0 = that budget unlimited)
+    "MYTHRIL_TPU_GOVERNOR": ("flag", None, None),
+    "MYTHRIL_TPU_GOVERNOR_STATES": ("int", 0, None),
+    "MYTHRIL_TPU_GOVERNOR_TERMS": ("int", 0, None),
+    "MYTHRIL_TPU_GOVERNOR_LANES": ("int", 0, None),
+    "MYTHRIL_TPU_GOVERNOR_RSS_MB": ("int", 0, None),
 }
 
 #: raw values :func:`env_flag` understands; anything else on a "flag"

@@ -20,13 +20,13 @@ from mythril_tpu_torch.support.support_utils import Singleton
 #: ways (0 = fork only, no merge or subsumption), and the lane ledger's
 #: and the autopilot's kill switches ``MYTHRIL_TPU_LEDGER`` and
 #: ``MYTHRIL_TPU_AUTOPILOT`` both ways (0 = no ledger; no routing, no
-#: tuning).
+#: tuning), and the resource governor's ``MYTHRIL_TPU_GOVERNOR`` both
+#: ways (0 = no governor; its budgets are unlimited by default).
 #:
 #: Environment knobs of the JAX package:
 SLICE_PINS_ENV = {
     "MYTHRIL_TPU_FLEET": "0",
     "MYTHRIL_TPU_PERSIST": "0",
-    "MYTHRIL_TPU_GOVERNOR": "0",
 }
 #: ... plus, on a CPU, the Pallas tier in interpret mode (what the port's
 #: CPU tier is held against; it also keeps the JAX gather tiers on, which
@@ -90,6 +90,10 @@ class Args(object, metaclass=Singleton):
         self.trace_out = None
         self.metrics_out = None
         self.lane_ledger_out = None
+        # the checkpoint plane (resilience/checkpoint.py): the journal
+        # directory (None = off) and the one a run resumes from
+        self.checkpoint_dir = None
+        self.resume_from = None
 
 
 args = Args()

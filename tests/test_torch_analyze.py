@@ -69,13 +69,15 @@ def analysis_pins(monkeypatch):
     """The slice pins on both sides, the force-dispatched rungs
     (:data:`FORCE_DISPATCH_ARGS`) on both sides, and what reads the wall
     clock set out of reach on both sides, so that the parity does not
-    depend on the machine: the slow-dispatch fuse, and the JAX package's
-    dispatch watchdog (a cold jit of a resident solve takes seconds
-    here).  The JAX side sees one device, as the port runs on one: the
+    depend on the machine: the slow-dispatch fuse, and both packages'
+    dispatch watchdogs (a cold jit of a JAX resident solve takes
+    seconds here, and so can the port's plain resident solve on a
+    loaded machine).  The JAX side sees one device, as the port runs on one: the
     test process's eight forced CPU devices would send its gather tiers
     to the sharded mesh.  The overflow module's annotations iterate in
     creation order on both sides (:func:`numbered_overflow_annotations`)."""
     from mythril_tpu.resilience import watchdog
+    from mythril_tpu_torch.resilience import watchdog as port_watchdog
 
     one_device(monkeypatch)
 
@@ -93,6 +95,7 @@ def analysis_pins(monkeypatch):
     monkeypatch.setattr(jax_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
     monkeypatch.setattr(port_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
     monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setattr(port_watchdog, "DEADLINE_FLOOR_S", 3600.0)
     monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
     for name, value in SLICE_PINS_ARGS.items():
         monkeypatch.setattr(jax_args, name, value)

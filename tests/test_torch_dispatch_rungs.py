@@ -83,10 +83,12 @@ def rungs(monkeypatch):
     import jax
 
     from mythril_tpu.resilience import watchdog
+    from mythril_tpu_torch.resilience import watchdog as port_watchdog
 
     devices = jax.devices
     monkeypatch.setattr(jax, "devices", lambda *a, **k: devices(*a, **k)[:1])
     monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setattr(port_watchdog, "DEADLINE_FLOOR_S", 3600.0)
     monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
     for name, value in {**SLICE_PINS_ENV, **SLICE_PINS_CPU_ENV}.items():
         monkeypatch.setenv(name, value)

@@ -50,7 +50,9 @@ KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "SEG_KECCAK_MAX_BYTES", "VERITEST", "MERGE_MAX_ITES", "MERGE_WINDOW",
     "SUBSUME_PERIOD", "TRACE", "TRACE_CAP", "LEDGER", "LEDGER_CAP",
     "AUTOPILOT", "AUTOPILOT_POLICY", "AUTOPILOT_MIN_SAMPLES",
-    "AUTOPILOT_LADDER", "AUTOPILOT_TAIL_SHARE", "AUTOPILOT_EVAL_EVERY"))
+    "AUTOPILOT_LADDER", "AUTOPILOT_TAIL_SHARE", "AUTOPILOT_EVAL_EVERY",
+    "GOVERNOR", "GOVERNOR_STATES", "GOVERNOR_TERMS", "GOVERNOR_LANES",
+    "GOVERNOR_RSS_MB"))
 #: the port's entries for knobs the JAX package reads without a static
 #: entry (it checks none of them at startup but the tail share, which its
 #: policy registers when first read): the kill switches of the tracer,
@@ -104,10 +106,12 @@ def _one_jax_device(monkeypatch):
     import jax
 
     from mythril_tpu.resilience import watchdog
+    from mythril_tpu_torch.resilience import watchdog as port_watchdog
 
     devices = jax.devices
     monkeypatch.setattr(jax, "devices", lambda *a, **k: devices(*a, **k)[:1])
     monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setattr(port_watchdog, "DEADLINE_FLOOR_S", 3600.0)
     monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
 
 
@@ -253,10 +257,12 @@ def test_pallas_off_routes_no_frontier_to_a_dense_tier(monkeypatch):
     import jax
 
     from mythril_tpu.resilience import watchdog
+    from mythril_tpu_torch.resilience import watchdog as port_watchdog
 
     devices = jax.devices  # one device, as the port (no sharded mesh)
     monkeypatch.setattr(jax, "devices", lambda *a, **k: devices(*a, **k)[:1])
     monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setattr(port_watchdog, "DEADLINE_FLOOR_S", 3600.0)
     monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
     monkeypatch.setenv("MYTHRIL_TPU_PALLAS", "0")
     asked = []

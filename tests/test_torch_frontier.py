@@ -433,11 +433,13 @@ def test_gather_tiers_match_jax(monkeypatch, tier, resident):
     pool after the learned-clause harvest are equal."""
     import jax
     from mythril_tpu.resilience import watchdog
+    from mythril_tpu_torch.resilience import watchdog as port_watchdog
 
     devices = jax.devices  # one device, as the port (no sharded mesh)
     monkeypatch.setattr(jax, "devices", lambda *a, **k: devices(*a, **k)[:1])
-    # the JAX dispatch watchdog out of reach (a cold jit takes seconds)
+    # both dispatch watchdogs out of reach (a cold jit takes seconds)
     monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setattr(port_watchdog, "DEADLINE_FLOOR_S", 3600.0)
     monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
     monkeypatch.setenv("MYTHRIL_TPU_PALLAS", "0")
     monkeypatch.setenv("MYTHRIL_TPU_DENSE", "0")

@@ -43,8 +43,10 @@ def slice_config(monkeypatch):
     # parity tests set it): the JAX dispatch watchdog would re-run a
     # round that a loaded test host makes slow, the fuse would blow
     from mythril_tpu.resilience import watchdog
+    from mythril_tpu_torch.resilience import watchdog as port_watchdog
 
     monkeypatch.setattr(watchdog, "DEADLINE_FLOOR_S", 3600.0)
+    monkeypatch.setattr(port_watchdog, "DEADLINE_FLOOR_S", 3600.0)
     monkeypatch.setenv("MYTHRIL_TPU_DISPATCH_TIMEOUT", "3600")
     monkeypatch.setattr(jax_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))
     monkeypatch.setattr(port_bs, "SLOW_DISPATCH_FUSE_S", float("inf"))

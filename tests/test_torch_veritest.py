@@ -16,10 +16,9 @@ prune verdicts and every counter equal) with ``merges > 0`` on both
 sides, and under the ``MYTHRIL_TPU_VERITEST=0`` kill switch.  Nothing is
 compared with a tolerance: everything is exact.
 
-Not here yet: the lane ledger's ``merge`` / ``subsume`` conservation and
-the ``merge_abort`` fault seam, which wait for the port's ledger and
-fault plane (both are inert seams in the port: ``observability/
-ledger.py``, ``resilience/faults.py``).
+Each merge is a ``merge`` transition of both lane ledgers, and an armed
+``merge_abort`` fault (``resilience/faults.py``, on both fault planes)
+degrades every join to plain forking on both sides alike.
 """
 
 import importlib
@@ -696,3 +695,35 @@ def test_kill_switch_forks_like_jax(monkeypatch, shape):
             == {i["swc_id"] for i in on["issues"]})
     assert off["counters"]["states_stepped"] >= on["counters"][
         "states_stepped"]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_merge_abort_fault_seam_degrades_to_fork(monkeypatch):
+    """The port's counterpart of the JAX package's test of the same
+    name: an armed ``merge_abort`` fault kills every join mid-commit on
+    both sides; the degraded path is plain forking (no merge, the abort
+    counter moving, the same faults fired) with the unfaulted run's
+    findings, equal to the JAX package under the same schedule."""
+    from mythril_tpu.resilience import faults as jax_faults
+    from mythril_tpu.resilience.telemetry import resilience_stats as jax_rs
+    from mythril_tpu_torch.resilience import faults as port_faults
+    from mythril_tpu_torch.resilience.telemetry import (
+        resilience_stats as port_rs,
+    )
+    from test_torch_resilience import fresh_resilience
+
+    code = SHAPES["diamond"]()
+    with analysis_pins(monkeypatch), fresh_resilience():
+        _jax, clean = _parity(code, 1)
+        # aborted pairs stay in the work list and retry every round, so
+        # the seam needs enough shots to outlast the analysis
+        for faults in (jax_faults, port_faults):
+            faults.get_fault_plane().arm("merge_abort", times=10**6)
+        _jax, faulted = _parity(code, 1)
+        fired = (jax_rs.faults_fired, port_rs.faults_fired)
+    assert clean["counters"]["merges"] > 0
+    assert faulted["counters"]["merges"] == 0
+    assert faulted["counters"]["merge_aborts"] > 0
+    assert fired[0] == fired[1] > 0
+    assert ({i["swc_id"] for i in faulted["issues"]}
+            == {i["swc_id"] for i in clean["issues"]})
