@@ -3150,6 +3150,10 @@ def keccak_phase(card, captured):
 
 #: wall-clock limit of one chip-check analysis (no run comes close)
 ANALYZE_TIMEOUT_S = 600
+#: the analyze phase's walls of each chip run (default rungs,
+#: force-dispatched, CDCL-only), which the proof phase prints its
+#: proof-logged walls beside
+ANALYZE_WALLS = {}
 
 
 def legal_path(path) -> bool:
@@ -3200,10 +3204,21 @@ def plane_line(name, label):
     return counters
 
 
-def analyze_once(run, batched_solving=True, force=True):
+def segments_declined():
+    """Segment shapes the autopilot declined on the wall clock in the
+    analysis just run (``MYTHRIL_TPU_SEG_CEIL_MS``): a run that declined
+    some steps other states than one that declined none, so its wall is
+    compared only with walls at equal states."""
+    from mythril_tpu_torch import autopilot
+
+    return autopilot.counters_snapshot().get("segments_declined", 0)
+
+
+def analyze_once(run, batched_solving=True, force=True, proof_log=False):
     """One chip run through the port's analyzer on ``cuda``, its rungs
-    force-dispatched (``force``) or at the JAX defaults: (report,
-    analyzer, wall seconds)."""
+    force-dispatched (``force``) or at the JAX defaults, with the proof
+    log on a fresh blast context (``proof_log``): (report, analyzer,
+    wall seconds)."""
     import torch
 
     from mythril_tpu_torch.mythril import MythrilAnalyzer, MythrilDisassembler
@@ -3219,6 +3234,9 @@ def analyze_once(run, batched_solving=True, force=True):
         execution_timeout=ANALYZE_TIMEOUT_S, create_timeout=10,
         loop_bound=3, batched_solving=batched_solving,
         device_force_dispatch=force, async_dispatch=not force, device=DEVICE,
+        # only when asked: chip_tools/analyze_times.py drives trees from
+        # before the proof log with this function
+        **({"proof_log": True} if proof_log else {}),
     )
     started = time.perf_counter()
     with rung_args(device_coalesce=not force):
@@ -3287,8 +3305,10 @@ def analyze_audited(run, card, label="", force=True):
     stats = bs.dispatch_stats
     laser = analyzer.last_sym.laser
     found = {issue.swc_id for issue in report.issues.values()}
+    declined = segments_declined()
     log(f"analyze {run.name}{label} [{card}]: wall {wall:.3f} s without the "
-        f"audits' {audit['seconds']:.3f} s, {laser.total_states} states, "
+        f"audits' {audit['seconds']:.3f} s (segments_declined {declined}), "
+        f"{laser.total_states} states, "
         f"{prune_stats.calls} prune calls ({prune_stats.batched_calls} "
         f"through the funnel), {stats.dispatches} dispatches ({stats.lanes} "
         f"lanes; {stats.dense_declines} past the dense caps "
@@ -3390,6 +3410,7 @@ def analyze_audited(run, card, label="", force=True):
           f"abandoned")
     return launches, {"dispatches": stats.dispatches,
                       "resident": stats.resident_dispatches, "wall": wall,
+                      "declined": declined, "states": laser.total_states,
                       "keccak": audit["keccak"].captured,
                       "states_stepped": stats.states_stepped,
                       "autopilot": pilot}
@@ -3418,7 +3439,8 @@ def analyze_phase(card):
     for run in CHIP_RUNS:
         launches, stats = analyze_audited(run, card, " default rungs",
                                           force=False)
-        walls[run.name] = [stats["wall"]]
+        walls[run.name] = [(stats["wall"], stats["states"],
+                            stats["declined"])]
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         hashed += stats["keccak"]
@@ -3442,7 +3464,8 @@ def analyze_phase(card):
                 launches, stats = analyze_audited(
                     run, card, " force-dispatched, MYTHRIL_TPU_AUTOPILOT=0")
         stepped[run.name] = stats["states_stepped"]
-        walls[run.name].append(stats["wall"])
+        walls[run.name].append((stats["wall"], stats["states"],
+                                stats["declined"]))
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         if stats["resident"] and all(launches[k] for k in FRONTIER_KERNELS):
@@ -3453,10 +3476,12 @@ def analyze_phase(card):
             check(sum(launches.values()) > 0,
                   f"{run.name}: no kernel launched")
             report, analyzer, wall = analyze_once(run, batched_solving=False)
-            walls[run.name].append(wall)
+            states = analyzer.last_sym.laser.total_states
+            walls[run.name].append((wall, states, segments_declined()))
             found = {issue.swc_id for issue in report.issues.values()}
-            log(f"analyze {run.name} CDCL only [{card}]: wall {wall:.3f} s, "
-                f"{analyzer.last_sym.laser.total_states} states, native "
+            log(f"analyze {run.name} CDCL only [{card}]: wall {wall:.3f} s "
+                f"(segments_declined {walls[run.name][-1][2]}), "
+                f"{states} states, native "
                 f"CDCL {SolverStatistics().native_s:.3f} s, "
                 f"SWC {sorted(found)}")
             check(not report.exceptions and found == run.swc_ids,
@@ -3464,9 +3489,13 @@ def analyze_phase(card):
     check(through_resident, "no analysis went through the resident solver "
           "with all three frontier kernels")
     for name, w in walls.items():
-        log(f"analyze walls {name} [{card}]: default rungs {w[0]:.3f} s, "
-            f"force-dispatched {w[1]:.3f} s"
-            + (f", CDCL only {w[2]:.3f} s" if len(w) > 2 else ""))
+        ANALYZE_WALLS[name] = [wall for wall, _states, _declined in w]
+        log(f"analyze walls {name} [{card}] (wall, states, "
+            f"segments_declined): " + ", ".join(
+                f"{label} {wall:.3f} s, {states}, {declined}"
+                for label, (wall, states, declined) in zip(
+                    ("default rungs", "force-dispatched", "CDCL only"), w))
+            + "; compare walls only at equal states")
     # the cost of the ledger and the autopilot: the scale runs in the
     # default rungs with both planes off, beside the default's walls
     for run in CHIP_RUNS:
@@ -3476,9 +3505,12 @@ def analyze_phase(card):
             _l, stats = analyze_audited(
                 run, card, " MYTHRIL_TPU_AUTOPILOT=0 MYTHRIL_TPU_LEDGER=0",
                 force=False)
+        wall, states, declined = walls[run.name][0]
         log(f"analyze planes cost {run.name} [{card}]: default rungs "
-            f"{walls[run.name][0]:.3f} s with the ledger and the autopilot, "
-            f"{stats['wall']:.3f} s with both off")
+            f"{wall:.3f} s ({states} states, segments_declined "
+            f"{declined}) with the ledger and the autopilot, "
+            f"{stats['wall']:.3f} s ({stats['states']} states, "
+            f"segments_declined {stats['declined']}) with both off")
     cli_phase(card)
     # the yardstick of the resident solver, force-dispatched on the dense
     # tier (cut to depth 4 to keep the check within its time)
@@ -3962,6 +3994,319 @@ def launch_failure(card):
           f"launch failure: {out}")
 
 
+#: the knowledge plane's and the proof log's run (the resilience phase's)
+PERSIST_RUN = RESILIENCE_RUN
+PROOF_RUN = RESILIENCE_RUN
+
+
+def thaw_recorder():
+    """The knowledge plane's ``apply_knowledge`` wrapped (in this
+    script, not the package) to record what each warm start thawed:
+    returns the list it appends to and the function that unwraps it."""
+    from mythril_tpu_torch.parallel import gossip
+
+    real, thawed = gossip.apply_knowledge, []
+
+    def recording(ctx, body):
+        applied = real(ctx, body)
+        thawed.append(applied)
+        return applied
+
+    gossip.apply_knowledge = recording
+
+    def restore():
+        gossip.apply_knowledge = real
+
+    return thawed, restore
+
+
+def persist_run(run, force, what, card, thawed):
+    """One analysis of ``run`` with the knowledge plane on (the caller
+    sets its directory): what the phase checks, logged."""
+    from mythril_tpu_torch.laser.batch import prune_stats
+    from mythril_tpu_torch.ops import batched_sat as bs
+    from mythril_tpu_torch.persist.plane import get_knowledge_plane
+    from mythril_tpu_torch.resilience.telemetry import resilience_stats
+
+    seen = len(thawed)
+    reset_launches()
+    report, analyzer, wall = analyze_once(run, force=force)
+    launches = read_launches()
+    check(not report.exceptions, f"persist {what}: the analysis failed:\n"
+          + "\n".join(report.exceptions))
+    stats = bs.dispatch_stats
+    store = get_knowledge_plane().store
+    got = {"swc": {i.swc_id for i in report.issues.values()},
+           "states": analyzer.last_sym.laser.total_states,
+           "tail": prune_stats.tail_states,
+           "hits": stats.persist_warm_hits,
+           "misses": stats.persist_warm_misses,
+           "thawed": thawed[seen:],
+           "flushes": resilience_stats.persist_flushes,
+           "corrupt": resilience_stats.persist_corrupt_segments,
+           "quarantined": sum(name.endswith(".quarantined")
+                              for name in os.listdir(store.directory)),
+           "dispatches": stats.dispatches, "launches": launches,
+           "wall": wall, "declined": segments_declined()}
+    thaws = ", ".join(f"+{t['unsat']} unsat, +{t['probe_sat']} probe, "
+                      f"+{t['models']} models" for t in got["thawed"])
+    log(f"persist {run.name} {what} [{card}]: wall {wall:.3f} s "
+        f"(segments_declined {got['declined']}), SWC {sorted(got['swc'])}, "
+        f"{got['states']} states, {got['tail']} tail lanes, "
+        f"persist_warm_hits {got['hits']}, persist_warm_misses "
+        f"{got['misses']}, thawed {thaws or 'nothing'}, persist_flushes "
+        f"{got['flushes']}, persist_corrupt_segments {got['corrupt']} "
+        f"({got['quarantined']} .quarantined files), {store.loaded_records} "
+        f"records loaded, {got['dispatches']} dispatches, launches "
+        f"{launches}")
+    check(got["swc"] == run.swc_ids,
+          f"persist {what}: SWC {sorted(got['swc'])} != "
+          f"{sorted(run.swc_ids)}")
+    return got
+
+
+def persist_phase(card):
+    """The knowledge plane on the card: ``scale_mul d6 -t 1`` in the
+    default rungs and force-dispatched, each a cold run with the store
+    in a fresh directory, a restart (``reset_for_tests``) warm from it,
+    and a restart after every segment was bit-flipped (a cold run with
+    the segments quarantined); then two CLI processes sharing a
+    ``--persist-dir`` and one under ``MYTHRIL_TPU_PERSIST=0``.  Returns
+    the launches of its analyses."""
+    import tempfile
+
+    from mythril_tpu_torch.contracts import killbilly
+    from mythril_tpu_torch.persist import plane
+
+    run = run_by_name(PERSIST_RUN)
+    total = {}
+    thawed, restore = thaw_recorder()
+    try:
+        for force in (False, True):
+            label = "force-dispatched" if force else "default rungs"
+            with tempfile.TemporaryDirectory() as tmp, env(
+                    MYTHRIL_TPU_PERSIST_DIR=tmp,
+                    MYTHRIL_TPU_PERSIST_FLUSH_S="0", **DETERMINISTIC):
+                got = {}
+                for what in ("cold", "warm", "corrupted"):
+                    plane.reset_for_tests()  # a process restart
+                    if what == "corrupted":
+                        for name in os.listdir(tmp):
+                            if name.startswith("seg-"):
+                                path = os.path.join(tmp, name)
+                                with open(path, "r+b") as fh:
+                                    raw = bytearray(fh.read())
+                                    raw[len(raw) // 2] ^= 0xFF
+                                    fh.seek(0)
+                                    fh.write(raw)
+                    got[what] = persist_run(run, force, f"{label} {what}",
+                                            card, thawed)
+                    _add(total, got[what]["launches"])
+                plane.reset_for_tests()
+            states = {what: g["states"] for what, g in got.items()}
+            check(len(set(states.values())) == 1,
+                  f"persist {label}: states {states}")
+            check(got["cold"]["misses"] == 1 and got["cold"]["flushes"] >= 1,
+                  f"persist {label} cold: {got['cold']['misses']} misses, "
+                  f"{got['cold']['flushes']} flushes")
+            check(got["warm"]["hits"] >= 1 and got["warm"]["thawed"],
+                  f"persist {label} warm: {got['warm']['hits']} hits")
+            check(got["corrupted"]["hits"] == 0
+                  and got["corrupted"]["corrupt"] >= 1
+                  and got["corrupted"]["quarantined"] >= 1,
+                  f"persist {label} corrupted: {got['corrupted']['hits']} "
+                  f"hits, {got['corrupted']['corrupt']} corrupt segments")
+            log(f"persist walls {run.name} {label} [{card}] (equal states "
+                f"{states['cold']}): cold {got['cold']['wall']:.3f} s, warm "
+                f"{got['warm']['wall']:.3f} s, corrupted "
+                f"{got['corrupted']['wall']:.3f} s")
+    finally:
+        restore()
+        plane.reset_for_tests()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hexfile = os.path.join(tmp, "killbilly.hex")
+        with open(hexfile, "w") as fh:
+            fh.write(killbilly())
+        store = os.path.join(tmp, "store")
+        blocks, walls = [], []
+        for n in (1, 2):
+            started = time.perf_counter()
+            found, block = cli_report(f"persist CLI run {n}", cli_analyze(
+                hexfile, "-t", "1", "--persist-dir", store))
+            walls.append(time.perf_counter() - started)
+            check(found == {"106"}, f"persist CLI run {n}: SWC {found}")
+            blocks.append(block.get("persist", {}))
+        check(blocks[0].get("warm_misses") == 1
+              and blocks[1].get("warm_hits") == 1,
+              f"persist CLI: meta.resilience.persist {blocks}")
+        killed = os.path.join(tmp, "killed")
+        found, block = cli_report("persist CLI, MYTHRIL_TPU_PERSIST=0",
+                                  cli_analyze(hexfile, "-t", "1",
+                                              "--persist-dir", killed,
+                                              env_extra={
+                                                  "MYTHRIL_TPU_PERSIST": "0"}))
+        left = os.listdir(killed) if os.path.exists(killed) else []
+        check(found == {"106"} and "persist" not in block and not left,
+              f"persist CLI under MYTHRIL_TPU_PERSIST=0: SWC {found}, "
+              f"meta.resilience {block}, files {left}")
+        log(f"persist CLI [{card}]: two processes on one --persist-dir, "
+            f"walls {walls[0]:.3f} s and {walls[1]:.3f} s, "
+            f"meta.resilience.persist {blocks[0]} then {blocks[1]}; "
+            f"MYTHRIL_TPU_PERSIST=0 left the directory empty")
+    return total
+
+
+def proof_run(run, force, card):
+    """One analysis of ``run`` under ``proof_log`` on a fresh blast
+    context, each host confirmation of a device refutation tallied by
+    its answer (a wrapper of ``BlastContext.confirm_unsat`` that lives
+    in this script): what the phase checks, logged."""
+    from mythril_tpu_torch.native import SatSolver
+    from mythril_tpu_torch.ops import async_dispatch as AD
+    from mythril_tpu_torch.ops import batched_sat as bs
+    from mythril_tpu_torch.smt.bitblast import BlastContext
+    from mythril_tpu_torch.smt.solver import get_blast_context
+
+    label = "force-dispatched" if force else "default rungs"
+    answers = {SatSolver.UNSAT: "unsat", SatSolver.SAT: "sat"}
+    tally = {"unsat": 0, "sat": 0, "budget": 0}
+    real = BlastContext.confirm_unsat
+
+    def tallied(self, lits, conflict_budget=4000):
+        solve, statuses = self.solver.solve, []
+
+        def recording(*args, **kwargs):
+            statuses.append(solve(*args, **kwargs))
+            return statuses[-1]
+
+        self.solver.solve = recording
+        try:
+            return real(self, lits, conflict_budget=conflict_budget)
+        finally:
+            del self.solver.solve
+            if statuses:
+                tally[answers.get(statuses[-1], "budget")] += 1
+
+    BlastContext.confirm_unsat = tallied
+    supervised = supervision()[0]
+    reset_launches()
+    try:
+        with env(**DETERMINISTIC):
+            report, analyzer, wall = analyze_once(run, force=force,
+                                                  proof_log=True)
+    finally:
+        BlastContext.confirm_unsat = real
+    launches = read_launches()
+    supervised = supervision()[0] - supervised
+    check(not report.exceptions, f"proof {label}: the analysis failed "
+          f"(a ProofError among them?):\n" + "\n".join(report.exceptions))
+    ctx = get_blast_context()
+    stats = bs.dispatch_stats
+    got = {"swc": {i.swc_id for i in report.issues.values()},
+           "states": analyzer.last_sym.laser.total_states,
+           "tally": tally, "wall": wall, "supervised": supervised,
+           "dispatches": stats.dispatches, "unsat": stats.unsat,
+           "async_unsat": AD.async_stats.unsat,
+           "harvested": ctx.device_learned, "learned": stats.learned_clauses,
+           "launches": launches, "solver": ctx.solver,
+           "declined": segments_declined()}
+    log(f"proof {run.name} {label} [{card}]: wall {wall:.3f} s "
+        f"(segments_declined {got['declined']}), SWC {sorted(got['swc'])}, "
+        f"{got['states']} states, {supervised} supervised dispatch "
+        f"attempts, {got['dispatches']} dispatches, device UNSAT lanes "
+        f"{got['unsat']} (prefetch {got['async_unsat']}), host "
+        f"confirmations by answer {tally}, device clauses harvested "
+        f"{got['harvested']} (learned_clauses {got['learned']}), stream "
+        f"{ctx.solver.fetch_proof().size} int32s, overflowed "
+        f"{ctx.solver.proof_overflowed}, launches {launches}")
+    check(ctx.solver.proof_enabled and not ctx.solver.proof_overflowed,
+          f"proof {label}: stream recorded "
+          f"{ctx.solver.proof_enabled}, overflowed "
+          f"{ctx.solver.proof_overflowed} (buffer 2^24 int32s)")
+    check(got["swc"] == run.swc_ids,
+          f"proof {label}: SWC {sorted(got['swc'])} != {sorted(run.swc_ids)}")
+    check(tally["sat"] == 0,
+          f"proof {label}: the host answered SAT for {tally['sat']} "
+          f"device-refuted cubes (a kernel soundness fault)")
+    check(got["harvested"] == 0 and got["learned"] == 0,
+          f"proof {label}: {got['harvested']} device clauses harvested")
+    return got
+
+
+def proof_phase(card):
+    """The proof log on the card: ``scale_mul d6 -t 1`` force-dispatched
+    and in the default rungs under ``proof_log``; the force-dispatched
+    stream replayed by the checker (and once with a tampered ``LEARN``
+    event, which it must refuse); then ``--proof-log`` through the CLI.
+    Returns the launches of its analyses."""
+    import tempfile
+
+    import numpy as np
+
+    from mythril_tpu_torch.contracts import killbilly
+    from mythril_tpu_torch.smt import drat
+    from mythril_tpu_torch.smt.solver import reset_blast_context
+
+    run = run_by_name(PROOF_RUN)
+    total = {}
+    for force in (True, False):
+        got = proof_run(run, force, card)
+        _add(total, got["launches"])
+        label = "force-dispatched" if force else "default rungs"
+        if force:
+            check(got["supervised"] > 0 and got["dispatches"] > 0,
+                  f"proof {label}: {got['supervised']} supervised "
+                  f"attempts, {got['dispatches']} dispatches")
+            stream = got["solver"].fetch_proof()
+            started = time.perf_counter()
+            counts = drat.check_proof(stream)
+            checker_s = time.perf_counter() - started
+            check(counts["unsat_verdicts"] >= 1,
+                  f"proof {label}: checker counts {counts}")
+            events = drat.parse_events(stream)
+            learned = [i for i, (marker, lits) in enumerate(events)
+                       if marker == drat.LEARN]
+            check(learned, f"proof {label}: no LEARN event to tamper")
+            fresh = int(np.abs(stream).max()) + 1
+            tampered = []
+            for i, (marker, lits) in enumerate(events):
+                if i == learned[len(learned) // 2]:
+                    lits = (fresh,)  # a unit claim nothing implies
+                tampered.extend([marker, *lits, 0])
+            try:
+                drat.check_proof(np.asarray(tampered, dtype=np.int32))
+                refused = False
+            except drat.ProofError:
+                refused = True
+            check(refused, f"proof {label}: a tampered LEARN event passed")
+            log(f"proof {run.name} {label} [{card}]: check_proof "
+                f"{checker_s:.3f} s over {stream.size} int32s: {counts}; "
+                f"a tampered LEARN event (event {learned[len(learned) // 2]} "
+                f"of {len(events)}) raised ProofError")
+        unlogged = ANALYZE_WALLS.get(run.name, [None, None])[
+            1 if force else 0]
+        log(f"proof walls {run.name} {label} [{card}]: {got['wall']:.3f} s "
+            f"with the proof log ({got['states']} states, "
+            f"segments_declined {got['declined']}), "
+            + (f"{unlogged:.3f} s without it (the analyze phase's, with "
+               f"its kernel audits taken out)" if unlogged is not None
+               else "no analyze-phase wall"))
+        del got["solver"]
+    reset_blast_context()
+    with tempfile.TemporaryDirectory() as tmp:
+        hexfile = os.path.join(tmp, "killbilly.hex")
+        with open(hexfile, "w") as fh:
+            fh.write(killbilly())
+        started = time.perf_counter()
+        found, _block = cli_report("proof CLI --proof-log", cli_analyze(
+            hexfile, "-t", "1", "--proof-log"))
+        check(found == {"106"}, f"proof CLI --proof-log: SWC {found}")
+        log(f"proof CLI --proof-log [{card}]: exit 0, SWC {sorted(found)}, "
+            f"wall {time.perf_counter() - started:.3f} s")
+    return total
+
+
 def _add(total, launches):
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
@@ -4050,6 +4395,10 @@ def _main(torch, frontiers, default_device, edge_pool,
     phase_done("keccak")
     faulted = resilience_phase(card)
     phase_done("resilience")
+    _add(totals, persist_phase(card))
+    phase_done("persist")
+    _add(totals, proof_phase(card))
+    phase_done("proof")
     _add(totals, default)
     _add(kill_switch, yardstick)
     log(f"launches in the default configuration (the kernels line): "

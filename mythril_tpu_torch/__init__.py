@@ -21,4 +21,4 @@ Entry points: ``python3 -m mythril_tpu_torch analyze`` and
 ``device="cpu"``).
 """
 
-__version__ = "0.1.0"
+from mythril_tpu_torch.__version__ import __version__  # noqa: F401

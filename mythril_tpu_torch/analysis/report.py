@@ -3,9 +3,10 @@
 Own copy of ``mythril_tpu/analysis/report.py``; the jsonv2 meta block
 carries the exception log, the resilience block (``meta.resilience``:
 every nonzero degradation counter, ``partial`` after a drain or a
-governor-capped run, and ``governor`` when a budget tripped; absent when
-all are empty) and the observability block (``meta.observability``).
-The port has no fleet or persistence planes to report on.
+governor-capped run, ``governor`` when a budget tripped and ``persist``
+when the knowledge plane is on; absent when all are empty) and the
+observability block (``meta.observability``).  The port has no fleet
+plane to report on.
 
 Renders text / markdown / json / jsonv2 (SWC standard format).  Layout
 follows the reference's report shape (section per issue, SWC id,
@@ -314,8 +315,10 @@ def resilience_meta() -> dict:
     """The jsonv2 ``meta.resilience`` block: the nonzero degradation
     counters (a demoted run's findings are the same, but its wall-clock
     lost the card's speed-up), ``partial`` when a drain stopped the run
-    or the governor capped it, and the governor's budgets and rungs when
-    one tripped.  Empty when there is nothing to say."""
+    or the governor capped it, the governor's budgets and rungs when one
+    tripped, and the knowledge plane's block when it is on.  Empty when
+    there is nothing to say."""
+    from mythril_tpu_torch.persist.plane import get_knowledge_plane
     from mythril_tpu_torch.resilience.checkpoint import (
         drain_requested, get_checkpoint_plane,
     )
@@ -328,4 +331,9 @@ def resilience_meta() -> dict:
     governor_block = governor_meta()
     if governor_block is not None:
         degraded["governor"] = governor_block
+    # the knowledge plane's warm/cold provenance of this run (absent
+    # when persistence is off)
+    persist_block = get_knowledge_plane().persist_meta()
+    if persist_block is not None:
+        degraded["persist"] = persist_block
     return degraded

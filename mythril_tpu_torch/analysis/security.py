@@ -1,6 +1,6 @@
 """Fire detection modules at an analyzed statespace (reference:
-mythril/analysis/security.py; own copy of the JAX package's, without
-the proof-log certification)."""
+mythril/analysis/security.py; own copy of the JAX package's, with its
+proof-log certification)."""
 
 import logging
 from typing import List, Optional
@@ -37,4 +37,46 @@ def fire_lasers(statespace, white_list: Optional[List[str]] = None) -> List[Issu
         log.info("Executing %s", module.name)
         issues += module.execute(statespace)
     issues += retrieve_callback_issues(white_list)
+    _certify_unsat_verdicts()
     return issues
+
+
+def _certify_unsat_verdicts() -> None:
+    """Under ``--proof-log``, replay the solver's recorded proof stream
+    through the independent checker (smt/drat.py) before the report
+    ships: a wrong UNSAT erases findings silently, so it must fail
+    loudly instead (``ProofError``)."""
+    from mythril_tpu_torch.support.support_args import args
+
+    if not args.proof_log:
+        return
+    from mythril_tpu_torch.smt.drat import IncrementalChecker
+    from mythril_tpu_torch.smt.solver import get_blast_context
+
+    ctx = get_blast_context()
+    solver = ctx.solver
+    if not solver.proof_enabled:
+        # proof_log was set after the solver was created: nothing was
+        # recorded, so a "passed" line here would be a rubber stamp
+        log.warning(
+            "proof_log is set but the active solver never recorded a "
+            "stream (the flag was enabled after the blast context was "
+            "created) — UNSAT verdicts of this run are NOT certified; "
+            "call reset_blast_context() after setting the flag"
+        )
+        return
+    if solver.proof_overflowed:
+        log.warning(
+            "proof stream overflowed its buffer; UNSAT verdicts of this "
+            "run are NOT certified"
+        )
+        return
+    checker = getattr(ctx, "_proof_checker", None)
+    if checker is None:
+        checker = ctx._proof_checker = IncrementalChecker()
+    stats = checker.feed(solver.fetch_proof())
+    log.info(
+        "proof check passed: %d original clauses, %d learned, "
+        "%d UNSAT verdicts certified",
+        stats["orig"], stats["learned"], stats["unsat_verdicts"],
+    )

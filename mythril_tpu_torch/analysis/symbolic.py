@@ -2,8 +2,11 @@
 VM — scheduler policy, actor world state, pruning plugins, detection
 hooks — then runs it and harvests the statespace.
 
-Own copy of ``mythril_tpu/analysis/symbolic.py`` without the
-persistent-knowledge seam and the coverage search strategy.
+Own copy of ``mythril_tpu/analysis/symbolic.py`` without the coverage
+search strategy.  The persistent knowledge plane's seam
+(``persist/plane.py``) warms the blast context before ``sym_exec`` and
+stages what it learned after; it is inert unless a store directory is
+configured.
 
 Capability parity target: reference mythril/analysis/symbolic.py
 (same constructor surface and post-pass Call extraction for
@@ -115,6 +118,11 @@ class SymExecWrapper:
         for account in self.accounts.values():
             world_state.put_account(account)
 
+        # persistent knowledge plane: every entry path builds a
+        # SymExecWrapper, so the warm/absorb seam lives here
+        persist_digest = self._persist_digest(contract, is_creation)
+        self._persist_warm_start(persist_digest)
+
         if is_creation:
             self.laser.sym_exec(
                 creation_code=contract.creation_code,
@@ -129,10 +137,44 @@ class SymExecWrapper:
                 world_state=world_state, target_address=address.value
             )
 
+        self._persist_absorb(persist_digest)
+
         if requires_statespace:
             self.nodes = self.laser.nodes
             self.edges = self.laser.edges
             self.calls = self._harvest_calls()
+
+    # -- persistence seam -----------------------------------------------
+
+    @staticmethod
+    def _persist_digest(contract, is_creation: bool) -> Optional[str]:
+        from mythril_tpu_torch.persist.plane import (
+            code_digest, get_knowledge_plane,
+        )
+
+        if not get_knowledge_plane().active:
+            return None
+        code = (contract.creation_code if is_creation
+                else getattr(contract, "code", None))
+        return code_digest(code if isinstance(code, str) else None)
+
+    @staticmethod
+    def _persist_warm_start(digest: Optional[str]) -> None:
+        if digest is None:
+            return
+        from mythril_tpu_torch.persist.plane import get_knowledge_plane
+        from mythril_tpu_torch.smt.solver import get_blast_context
+
+        get_knowledge_plane().warm_start(digest, get_blast_context())
+
+    @staticmethod
+    def _persist_absorb(digest: Optional[str]) -> None:
+        if digest is None:
+            return
+        from mythril_tpu_torch.persist.plane import get_knowledge_plane
+        from mythril_tpu_torch.smt.solver import get_blast_context
+
+        get_knowledge_plane().absorb(digest, get_blast_context())
 
     # -- assembly steps -------------------------------------------------
 

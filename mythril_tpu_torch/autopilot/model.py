@@ -134,6 +134,60 @@ class CostModel:
             stats = bucket.get(tier) if bucket else None
             return stats.wall_ewma if stats and stats.n else None
 
+    # -- persistence (persist/plane.py) -------------------------------
+
+    def export_cells(self) -> dict:
+        """Plain-data dump of every (signature, tier) cell for the
+        knowledge store: ``{sig: {tier: (n, decided_n, decide_ewma,
+        wall_ewma)}}`` — no class instances, so a pickle of it never
+        version-skews with this module."""
+        with self._lock:
+            return {
+                sig: {
+                    tier: (st.n, st.decided_n, st.decide_ewma,
+                           st.wall_ewma)
+                    for tier, st in cells.items()
+                }
+                for sig, cells in self._buckets.items()
+            }
+
+    def merge_cells(self, cells: dict) -> int:
+        """Merge an exported cell table into the live model; returns
+        how many cells were taken.  Per cell the larger sample count
+        wins — a restarted process adopts the store's richer history,
+        while a store refreshed from a long-lived process keeps the
+        live EWMAs.  Malformed entries are skipped (the payload may be
+        a version-skewed store record), and the MAX_SIGNATURES bound
+        holds throughout."""
+        taken = 0
+        with self._lock:
+            for sig, tiers in cells.items():
+                if not isinstance(tiers, dict):
+                    continue
+                bucket = self._buckets.get(sig)
+                if bucket is None:
+                    if len(self._buckets) >= MAX_SIGNATURES:
+                        self._evict_locked()
+                    bucket = self._buckets[sig] = {}
+                for tier, cell in tiers.items():
+                    try:
+                        n, decided_n, decide_ewma, wall_ewma = cell
+                        n, decided_n = int(n), int(decided_n)
+                        decide_ewma = float(decide_ewma)
+                        wall_ewma = float(wall_ewma)
+                    except (TypeError, ValueError):
+                        continue
+                    live = bucket.get(tier)
+                    if live is not None and live.n >= n:
+                        continue
+                    stats = TierStats()
+                    stats.n, stats.decided_n = n, decided_n
+                    stats.decide_ewma = decide_ewma
+                    stats.wall_ewma = wall_ewma
+                    bucket[tier] = stats
+                    taken += 1
+        return taken
+
     # -- introspection ------------------------------------------------
 
     def snapshot(self, top: int = 12) -> dict:

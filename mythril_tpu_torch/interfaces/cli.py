@@ -30,8 +30,15 @@ and ``--resume DIR`` continues a killed one; SIGTERM/SIGINT drain it to
 a partial report (``meta.resilience.partial``); ``MYTHRIL_TPU_FAULT``
 and ``MYTHRIL_TPU_KILL_AT`` arm the fault plane, and a malformed spec
 exits 2.  A lost card (``ops/device_health.DeviceLost``) is printed and
-exits 1.  Options that would need a part of the JAX package the port
-does not have (workers, RPC, solc, ...) are refused, not ignored; a
+exits 1.  ``--persist-dir DIR`` keeps the knowledge plane's store in
+DIR (solver memos and autopilot cells warm a later analysis of the same
+bytecode; ``MYTHRIL_TPU_PERSIST=0`` is its kill switch), and
+``--proof-log`` records the native solver's proof stream and certifies
+every UNSAT verdict (the card's refutations among them, each confirmed
+by a bounded host solve) with the independent checker of
+``smt/drat.py`` before the report ships.  Options that would need a
+part of the JAX package the port does not have (workers, RPC, solc,
+...) are refused, not ignored; a
 malformed ``MYTHRIL_TPU_*`` knob exits 2 at startup
 (``support/env.py:validate_env``).
 """
@@ -60,7 +67,7 @@ DISASSEMBLE_LIST = ("disassemble", "d")
 #: does not have (``ROADMAP.md`` queues them); given one, the command
 #: exits 2 instead of running something else than asked
 REFUSED_OPTIONS = (
-    "--workers", "--proof-log", "--persist-dir",
+    "--workers",
     "--rpc", "--rpctls", "-a", "--address", "--solv", "--solc-json",
     "-g", "--graph", "-j", "--statespace-json", "--enable-coverage-strategy",
     "--parallel-solving",
@@ -266,6 +273,20 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         metavar="DIR",
     )
     options.add_argument(
+        "--persist-dir",
+        help="directory for the persistent knowledge store: solver "
+        "memos and autopilot EWMAs survive the process and warm-start "
+        "later analyses of the same bytecode (env: "
+        "MYTHRIL_TPU_PERSIST_DIR; kill switch MYTHRIL_TPU_PERSIST=0)",
+        metavar="DIR",
+    )
+    options.add_argument(
+        "--proof-log", action="store_true",
+        help="Record a DRAT-style proof stream on the native solver and "
+        "certify every UNSAT verdict with the independent checker "
+        "before reporting (wrong-UNSAT defense; adds memory and time)",
+    )
+    options.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="Where the dense tier runs: the card (default; an error "
         "without one) or, only when asked for, the CPU",
@@ -373,6 +394,7 @@ def _analyze(disassembler, address, args) -> int:
         device_force_dispatch=args.device_force_dispatch,
         async_dispatch=not args.no_async_dispatch,
         lockstep_dispatch=not args.no_lockstep_dispatch,
+        proof_log=args.proof_log,
         device=args.device,
         checkpoint_dir=args.checkpoint_dir,
         resume_from=args.resume_dir,
@@ -446,6 +468,11 @@ def main(argv=None) -> None:
     except EnvSpecError as e:
         print(f"bad environment knob: {e}", file=sys.stderr)
         sys.exit(2)
+
+    if getattr(args, "persist_dir", None):
+        # --persist-dir wins over the env knob (the knowledge plane reads
+        # the directory from the environment)
+        os.environ["MYTHRIL_TPU_PERSIST_DIR"] = args.persist_dir
 
     if os.environ.get("MYTHRIL_TPU_FAULT") or os.environ.get(
             "MYTHRIL_TPU_KILL_AT"):

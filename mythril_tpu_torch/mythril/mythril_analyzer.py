@@ -16,7 +16,9 @@ As in the JAX package, the dispatcher pre-split (``lockstep_dispatch``)
 and the lockstep replay of each issue's exploit sequence
 (``_confirm_by_replay``, on by default) run.  The funnel's
 dispatch rungs take the JAX package's arguments (``device_force_dispatch``,
-``async_dispatch``); the port's one new knob is ``device``: the solver
+``async_dispatch``), and ``proof_log`` records and certifies the
+solver's proof stream as in the JAX package (``analysis/security.py``);
+the port's one new knob is ``device``: the solver
 tiers and the lockstep interpreter run on the card unless
 ``device="cpu"`` is passed.
 
@@ -123,6 +125,7 @@ class MythrilAnalyzer:
         device_force_dispatch: bool = False,
         async_dispatch: bool = True,
         lockstep_dispatch: bool = True,
+        proof_log: bool = False,
         device: Optional[str] = None,
         checkpoint_dir: Optional[str] = None,
         resume_from: Optional[str] = None,
@@ -148,6 +151,10 @@ class MythrilAnalyzer:
         args.device_force_dispatch = device_force_dispatch
         args.async_dispatch = async_dispatch
         args.lockstep_dispatch = lockstep_dispatch
+        # the blast context reads it when it is created: a context made
+        # before this analyzer records no proof stream
+        # (reset_blast_context() after setting it)
+        args.proof_log = proof_log
         args.device = device
         # the checkpoint plane reads these at the first transaction
         # boundary; --resume journals into the directory it resumes from

@@ -84,6 +84,16 @@ def load() -> ctypes.CDLL:
         lib.cdcl_set_relevant.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int64]
         lib.cdcl_num_vars.argtypes = [ctypes.c_void_p]
         lib.cdcl_num_vars.restype = ctypes.c_int32
+        lib.cdcl_proof_enable.argtypes = [ctypes.c_void_p]
+        lib.cdcl_proof_enabled.argtypes = [ctypes.c_void_p]
+        lib.cdcl_proof_enabled.restype = ctypes.c_int32
+        lib.cdcl_proof_overflowed.argtypes = [ctypes.c_void_p]
+        lib.cdcl_proof_overflowed.restype = ctypes.c_int32
+        lib.cdcl_proof_size.argtypes = [ctypes.c_void_p]
+        lib.cdcl_proof_size.restype = ctypes.c_int64
+        lib.cdcl_proof_fetch.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int64]
+        lib.cdcl_proof_fetch.restype = ctypes.c_int64
+        lib.cdcl_proof_clear.argtypes = [ctypes.c_void_p]
         lib.pool_new.argtypes = [ctypes.c_void_p]
         lib.pool_new.restype = ctypes.c_void_p
         lib.pool_free.argtypes = [ctypes.c_void_p]
@@ -240,6 +250,38 @@ class SatSolver:
             buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             buf.size,
         )
+
+    # ---- proof logging (wrong-UNSAT defense; checker in smt/drat.py) ----
+
+    def enable_proof(self) -> None:
+        """Start recording the DRAT-style event stream (original
+        clauses, learned clauses, deletions, UNSAT verdicts)."""
+        self._lib.cdcl_proof_enable(self._handle)
+
+    @property
+    def proof_enabled(self) -> bool:
+        return bool(self._lib.cdcl_proof_enabled(self._handle))
+
+    @property
+    def proof_overflowed(self) -> bool:
+        return bool(self._lib.cdcl_proof_overflowed(self._handle))
+
+    def fetch_proof(self):
+        """The recorded event stream as an int32 numpy array."""
+        import numpy as np
+
+        n = int(self._lib.cdcl_proof_size(self._handle))
+        out = np.empty(n, dtype=np.int32)
+        if n:
+            self._lib.cdcl_proof_fetch(
+                self._handle,
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                n,
+            )
+        return out
+
+    def clear_proof(self) -> None:
+        self._lib.cdcl_proof_clear(self._handle)
 
 
 def _i32arr(xs):

@@ -211,12 +211,24 @@ class AsyncDispatcher:
         status, assign = pending["status"], pending["assign"]
         obs.instant("prefetch.harvest", cat="dispatch",
                     lanes=len(pending["node_sets"]))
+        from mythril_tpu_torch.support.support_args import args
+
+        proof_log = args.proof_log
         for lane, node_set in enumerate(pending["node_sets"]):
             if status[lane] == 2:
+                if proof_log and not ctx.confirm_unsat(
+                        pending["assumption_sets"][lane],
+                        conflict_budget=1000):
+                    # later queries consume the memo without a fresh
+                    # solve, so a refutation needs its certificate
+                    # first; an unconfirmed prefetched lane is dropped,
+                    # never decided
+                    continue
                 # sound UNSAT: permanent memo + pool nogood, so the CDCL
                 # and later dispatches inherit the refutation
                 ctx.note_unsat(node_set)
-                ctx.learn_nogood(pending["assumption_sets"][lane])
+                ctx.learn_nogood(pending["assumption_sets"][lane],
+                                 certified=proof_log)
                 async_stats.unsat += 1
             elif status[lane] == 1:
                 env = _env_from_assignment(ctx, assign[lane])

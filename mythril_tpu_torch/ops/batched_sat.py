@@ -177,6 +177,11 @@ class DispatchStats:
         self.device_dispatch_calls = 0
         self.warm_start_hits = 0
         self.cone_memo_hits = 0
+        # persistent knowledge plane (persist/plane.py): analyses that
+        # warm-started from a stored channel snapshot vs ones the store
+        # had never seen (per-contract mirrors of the plane's counters)
+        self.persist_warm_hits = 0
+        self.persist_warm_misses = 0
         self.dense_declines = 0    # dispatches no dense layout could fit
         # of them, by the caps each layout passed ("union C+cells;
         # per-lane cells")
@@ -1587,12 +1592,18 @@ def _profit_gate_declines(n_lanes: int) -> bool:
 def _fold_extras(ctx, extras, verdicts, assignments, engaged):
     """The coalesced lanes' verdicts: the CDCL tail already answered
     them in their own (deferred) round, so they land only in the memo,
-    nogood and remembered-model channels."""
+    nogood and remembered-model channels; under ``--proof-log`` a
+    refutation lands only once a bounded host solve confirmed it."""
+    from mythril_tpu_torch.support.support_args import args
+
+    proof_log = args.proof_log
     for pos, q in enumerate(extras):
         if verdicts[pos] is False:
+            if proof_log and not ctx.confirm_unsat(q.lits):
+                continue
             ctx.note_unsat(q.nodes)
             if engaged:
-                ctx.learn_nogood(q.lits)
+                ctx.learn_nogood(q.lits, certified=proof_log)
                 dispatch_stats.unsat += 1
         elif engaged:
             env = _env_from_assignment(ctx, assignments[pos])
@@ -1608,13 +1619,29 @@ def _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,
     evaluating the terms under the decoded model, else left open.  When
     no tier took the frontier the assignment is all zeros, and a lane
     it satisfies is decided all the same (as the JAX funnel does), but
-    counts as no device verdict (the ledger's ``probe``)."""
+    counts as no device verdict (the ledger's ``probe``).  Under
+    ``--proof-log`` a device UNSAT decides a state only after a bounded
+    host solve of its cube confirmed it (one a deduped lane; the
+    confirming solve records the proof event the checker replays); an
+    unconfirmed lane is left to the CDCL tail."""
+    from mythril_tpu_torch.support.support_args import args
+
+    proof_log = args.proof_log
+    confirmations = {}  # proof log: lane -> confirmed
     counted = set()
     for pos, i in enumerate(open_indices):
         lane = lane_of[pos]
         first = engaged and lane not in counted
         counted.add(lane)
         if verdicts[lane] is False:
+            if proof_log:
+                confirmed = confirmations.get(lane)
+                if confirmed is None:
+                    confirmed = confirmations[lane] = ctx.confirm_unsat(
+                        assumption_sets[rep_indices[lane]])
+                if not confirmed:
+                    decided[i] = None  # the tail re-solves it in full
+                    continue
             decided[i] = False
             tiers[i] = "device"
             lanes_led.decide(i, device_tier, "unsat")
@@ -1622,7 +1649,8 @@ def _fold_verdicts(ctx, constraint_sets, node_sets, decided, tiers,
             # assumption nogood so the CDCL inherits the refutation
             ctx.note_unsat(node_sets[i])
             if first:
-                ctx.learn_nogood(assumption_sets[rep_indices[lane]])
+                ctx.learn_nogood(assumption_sets[rep_indices[lane]],
+                                 certified=proof_log)
                 dispatch_stats.unsat += 1
             continue
         env = _env_from_assignment(ctx, assignments[lane])

@@ -29,12 +29,14 @@ the planes it has:
 ``frontier_stall``   a frontier-solver dispatch raises before launching
 ``governor_breach``  one governor poll observes a budget breach
 ``merge_abort``      one veritesting merge aborts mid-join
+``persist_flush``    one knowledge-store flush fails before it writes
+                     (its records stay staged for the next flush)
 ==================  =====================================================
 
 The other points (``rpc_*``, ``serve_crash``, ``worker_kill``,
 ``gossip_drop``, ``lease_partition``, ``remote_auth_fail``,
-``frame_corrupt``, ``persist_flush``) parse and count hits, but no seam
-of the port reaches them yet.
+``frame_corrupt``) parse and count hits, but no seam of the port
+reaches them yet.
 
 Faults are armed through the API (:meth:`FaultPlane.arm`) or the
 environment::

@@ -11,8 +11,9 @@ and no counter is counted twice.  They reset per analyzed contract with
 
 The port keeps the counters whose seams it has: the dispatch ladder
 (watchdog, retry, bisection and quarantine, demotion), the fault plane,
-the checkpoint plane, the request budget and the governor.  The JAX
-package's ``rpc_*`` and ``persist_*`` counters come with those planes.
+the checkpoint plane, the request budget, the knowledge store
+(``persist/store.py``) and the governor.  The JAX package's ``rpc_*``
+counters come with the RPC plane.
 """
 
 from mythril_tpu_torch.observability.metrics import get_registry
@@ -42,6 +43,11 @@ _FIELDS = {
     "checkpoint_corrupt_fallbacks": (
         "corrupt journal generations skipped at load"
     ),
+    # knowledge store (persist/store.py): segments failing validation
+    # are set aside and the process starts colder, never crashes
+    "persist_corrupt_segments": "knowledge-store segments quarantined",
+    "persist_flushes": "knowledge-store segments flushed",
+    "persist_report_hits": "admission-edge report cache hits",
     # resource governor (resilience/governor.py): breach observations
     # and one counter per degradation rung
     "governor_breaches": "resource-budget breaches observed",

@@ -18,8 +18,13 @@ Bit order convention: bits[0] is the LSB.  Literal 1 is constant TRUE
 (anchored by a unit clause inside the native solver).
 
 Own copy of ``mythril_tpu/smt/bitblast.py`` for the PyTorch port, with
-proof logging and fault-injection hooks removed.  What stays behaves as
-the JAX package's context does: the same native calls in the same order
+the fault-injection hooks removed.  Under ``args.proof_log`` the context
+records the native solver's proof stream from its creation, refuses an
+unconfirmed device refutation and every device-learned clause, and
+confirms a device refutation by a bounded host solve
+(:meth:`BlastContext.confirm_unsat`), as the JAX package's does.  What
+stays behaves as the JAX package's context does: the same native calls
+in the same order
 (the word tier's rung, the autopilot's per-query routing and the tail's
 bounded first rung in :meth:`BlastContext.check` included), so the same
 constraints give the same clause pool.
@@ -143,6 +148,13 @@ class BlastContext:
         # profiling: the Python mirror + per-gate dict traffic cost 3x
         # the CDCL search itself on the corpus).
         self.pool = NativePool(self.solver)
+        from mythril_tpu_torch.support.support_args import args as _args
+
+        if _args.proof_log:
+            # wrong-UNSAT defense: record the DRAT-style event stream so
+            # every UNSAT verdict can be certified by the independent
+            # checker (smt/drat.py)
+            self.solver.enable_proof()
         self.bits_cache: Dict[int, List[int]] = {}
         self.lit_cache: Dict[int, int] = {}
         self.var_bits: Dict[int, List[int]] = {}       # bv var node id -> bits
@@ -244,6 +256,15 @@ class BlastContext:
                 del self.unsat_memo[stale]
         self.unsat_memo[key] = True
 
+    def knowledge_signature(self) -> tuple:
+        """Cheap change-detection fingerprint of the globally valid
+        knowledge channels (what ``freeze_channels`` would capture): the
+        knowledge plane sends a heartbeat delta only when it changed.
+        Every component only grows or bumps, so an unchanged signature
+        means an identical freeze."""
+        return (len(self.unsat_memo), len(self.probe_memo),
+                self.model_version, len(self.recent_models))
+
     def unsat_memo_hit(self, key) -> bool:
         """Memo lookup that REFRESHES recency on a hit (dict preserves
         insertion order, so re-inserting moves the key to the evict-last
@@ -255,7 +276,9 @@ class BlastContext:
             return True
         return False
 
-    def learn_nogood(self, assumption_lits: Sequence[int]) -> None:
+    def learn_nogood(
+        self, assumption_lits: Sequence[int], certified: bool = False
+    ) -> None:
         """Record a device-refuted assumption set as a pool clause.
 
         If ``pool ∧ a1 ∧ … ∧ ak`` is UNSAT (proved by the device DPLL),
@@ -264,7 +287,15 @@ class BlastContext:
         later device dispatches refute related queries without
         re-searching.  The native side dedupes, rejects tautologies and
         wide nogoods, and registers the clause for the cone
-        subset-append."""
+        subset-append.  Under ``--proof-log`` only a ``certified`` cube
+        is learned: one the caller confirmed by :meth:`confirm_unsat`
+        first, so the stream carries the ASSUMPTION_CONFLICT event that
+        makes the nogood checkable (an unconfirmed one would plant an
+        unverifiable axiom under later certified verdicts)."""
+        from mythril_tpu_torch.support.support_args import args as _args
+
+        if _args.proof_log and not certified:
+            return
         self.pool.nogood(list(assumption_lits))
 
     def harvest_device_clauses(
@@ -275,7 +306,13 @@ class BlastContext:
         rows, so it is implied by the pool and valid for every lane.
         The native side dedupes, drops tautologies and enforces the
         width cap.  Returns the accepted count and bumps
-        ``device_learned_generation`` so the cone memo re-scopes."""
+        ``device_learned_generation`` so the cone memo re-scopes.  Under
+        ``--proof-log`` nothing is harvested: a resolution done in the
+        kernel is not replayable by the proof checker."""
+        from mythril_tpu_torch.support.support_args import args as _args
+
+        if _args.proof_log:
+            return 0
         added = 0
         for clause in clauses:
             lits = [int(lit) for lit in clause if lit]
@@ -289,6 +326,22 @@ class BlastContext:
             self.device_learned += added
             self.device_learned_generation += 1
         return added
+
+    def confirm_unsat(
+        self, assumption_lits: Sequence[int], conflict_budget: int = 4000
+    ) -> bool:
+        """Host-confirm a device refutation under ``--proof-log``: a
+        bounded native CDCL solve of the same assumption cube.  On UNSAT
+        the solver records its own ASSUMPTION_CONFLICT proof event,
+        which gives the device verdict an independently checkable
+        certificate (smt/drat.py replays it); anything else (SAT, which
+        would mean a device soundness fault, or the budget out) returns
+        False, and the caller leaves the lane undecided."""
+        self.pool.relevant_cone(list(assumption_lits))
+        status = self.solver.solve(
+            list(assumption_lits), conflict_budget=conflict_budget
+        )
+        return status == SatSolver.UNSAT
 
     def new_lit(self) -> int:
         return self.pool.new_var()

@@ -14,8 +14,10 @@ class EnvSpecError(RuntimeError):
     at CLI startup (exit code 2)."""
 
 
-#: name -> (kind, floor, ceil), kind "int", "float", "flag" or "policy"
-#: (a name :func:`autopilot.policy.make_policy` knows): the JAX package's
+#: name -> (kind, floor, ceil), kind "int", "float", "flag", "dir" (a
+#: usable directory path: created on demand by its owner, so it only has
+#: not to be an existing non-directory) or "policy" (a name
+#: :func:`autopilot.policy.make_policy` knows): the JAX package's
 #: entries (``KNOWN_SPECS``) for the knobs this port reads, and the
 #: tracer's, the ledger's and the autopilot's kill switches and policy
 #: name, which the JAX package reads without checking them.  The port
@@ -79,6 +81,13 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_GOVERNOR_TERMS": ("int", 0, None),
     "MYTHRIL_TPU_GOVERNOR_LANES": ("int", 0, None),
     "MYTHRIL_TPU_GOVERNOR_RSS_MB": ("int", 0, None),
+    # persistent knowledge plane (persist/): kill switch, store
+    # directory, flush cadence, compaction cap, heartbeat gossip
+    "MYTHRIL_TPU_PERSIST": ("flag", None, None),
+    "MYTHRIL_TPU_PERSIST_DIR": ("dir", None, None),
+    "MYTHRIL_TPU_PERSIST_FLUSH_S": ("float", 0.0, None),
+    "MYTHRIL_TPU_PERSIST_CAP_MB": ("float", 1.0, None),
+    "MYTHRIL_TPU_PERSIST_GOSSIP": ("flag", None, None),
 }
 
 #: raw values :func:`env_flag` understands; anything else on a "flag"
@@ -146,6 +155,11 @@ def validate_env(environ=None) -> None:
                 raise EnvSpecError(
                     f"{name}={raw!r}: not a flag "
                     f"(expected one of {'/'.join(FLAG_VALUES)})")
+            continue
+        if kind == "dir":
+            if os.path.exists(raw) and not os.path.isdir(raw):
+                raise EnvSpecError(
+                    f"{name}={raw!r}: exists and is not a directory")
             continue
         if kind == "policy":
             from mythril_tpu_torch.autopilot.policy import POLICIES

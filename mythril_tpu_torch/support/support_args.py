@@ -20,13 +20,16 @@ from mythril_tpu_torch.support.support_utils import Singleton
 #: ways (0 = fork only, no merge or subsumption), and the lane ledger's
 #: and the autopilot's kill switches ``MYTHRIL_TPU_LEDGER`` and
 #: ``MYTHRIL_TPU_AUTOPILOT`` both ways (0 = no ledger; no routing, no
-#: tuning), and the resource governor's ``MYTHRIL_TPU_GOVERNOR`` both
-#: ways (0 = no governor; its budgets are unlimited by default).
+#: tuning), the resource governor's ``MYTHRIL_TPU_GOVERNOR`` both ways
+#: (0 = no governor; its budgets are unlimited by default), and the
+#: knowledge plane's ``MYTHRIL_TPU_PERSIST`` both ways (0 = no store even
+#: with a directory named; without one the plane is off anyway), and
+#: takes ``proof_log`` as the JAX package does.  What is left pinned is
+#: the fleet.
 #:
 #: Environment knobs of the JAX package:
 SLICE_PINS_ENV = {
     "MYTHRIL_TPU_FLEET": "0",
-    "MYTHRIL_TPU_PERSIST": "0",
 }
 #: ... plus, on a CPU, the Pallas tier in interpret mode (what the port's
 #: CPU tier is held against; it also keeps the JAX gather tiers on, which
@@ -34,7 +37,6 @@ SLICE_PINS_ENV = {
 SLICE_PINS_CPU_ENV = {"MYTHRIL_TPU_PALLAS": "force"}
 #: Analysis flags of the JAX package:
 SLICE_PINS_ARGS = {
-    "proof_log": False,
     "fleet_workers": 0,
 }
 
@@ -94,6 +96,10 @@ class Args(object, metaclass=Singleton):
         # directory (None = off) and the one a run resumes from
         self.checkpoint_dir = None
         self.resume_from = None
+        # record a DRAT-style proof stream on the CDCL and certify every
+        # UNSAT verdict before the report ships (smt/drat.py; the blast
+        # context reads it when it is created)
+        self.proof_log = False
 
 
 args = Args()

@@ -52,7 +52,8 @@ KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "AUTOPILOT", "AUTOPILOT_POLICY", "AUTOPILOT_MIN_SAMPLES",
     "AUTOPILOT_LADDER", "AUTOPILOT_TAIL_SHARE", "AUTOPILOT_EVAL_EVERY",
     "GOVERNOR", "GOVERNOR_STATES", "GOVERNOR_TERMS", "GOVERNOR_LANES",
-    "GOVERNOR_RSS_MB"))
+    "GOVERNOR_RSS_MB", "PERSIST", "PERSIST_DIR", "PERSIST_FLUSH_S",
+    "PERSIST_CAP_MB", "PERSIST_GOSSIP"))
 #: the port's entries for knobs the JAX package reads without a static
 #: entry (it checks none of them at startup but the tail share, which its
 #: policy registers when first read): the kill switches of the tracer,
@@ -75,14 +76,14 @@ def _knobs(monkeypatch):
     yield
 
 
-def _analyze(capsys):
-    """The port's CLI on a one-byte contract on the CPU: (exit code,
-    stderr)."""
+def _analyze(capsys, extra=()):
+    """The port's CLI on a one-byte contract on the CPU, with ``extra``
+    options: (exit code, stderr)."""
     from test_torch_analyze import kept_deadlines
 
     with kept_deadlines(), pytest.raises(SystemExit) as done:
         port_cli.main(["analyze", "-c", "0x00", "--bin-runtime",
-                       "--no-onchain-data", "--device", "cpu"])
+                       "--no-onchain-data", "--device", "cpu", *extra])
     return done.value.code, capsys.readouterr().err
 
 
@@ -350,6 +351,15 @@ TABLE = [
     ("MYTHRIL_TPU_SUBSUME_PERIOD", "4", False),
     ("MYTHRIL_TPU_SUBSUME_PERIOD", "0", True),
     ("MYTHRIL_TPU_SUBSUME_PERIOD", "2.0", True),
+    ("MYTHRIL_TPU_PERSIST", "off", False),
+    ("MYTHRIL_TPU_PERSIST", "never", True),
+    ("MYTHRIL_TPU_PERSIST_DIR", os.devnull, True),
+    ("MYTHRIL_TPU_PERSIST_DIR", os.path.join(ROOT, "no-such-store"), False),
+    ("MYTHRIL_TPU_PERSIST_FLUSH_S", "0", False),
+    ("MYTHRIL_TPU_PERSIST_FLUSH_S", "-2", True),
+    ("MYTHRIL_TPU_PERSIST_CAP_MB", "1", False),
+    ("MYTHRIL_TPU_PERSIST_CAP_MB", "big", True),
+    ("MYTHRIL_TPU_PERSIST_GOSSIP", "1", False),
     # no entry in the JAX table: any value passes on both sides
     ("MYTHRIL_TPU_WORD_TIER", "bogus", False),
     ("MYTHRIL_TPU_WORD_XP", "gpu", False),
@@ -410,6 +420,48 @@ def test_malformed_plane_knob_exits_2_from_the_cli(monkeypatch, capsys,
     code, err = _analyze(capsys)
     assert code == 2
     assert err.startswith(f"bad environment knob: {knob}")
+
+
+@pytest.mark.parametrize("option", ["--persist-dir", "--proof-log"])
+def test_persist_dir_and_proof_log_run_from_the_cli(tmp_path, monkeypatch,
+                                                     capsys, option):
+    """``--persist-dir`` and ``--proof-log`` are no longer refused: the
+    analysis runs to exit 0, with its knowledge in the store or its
+    UNSAT verdicts certified.  ``--workers`` still exits 2."""
+    from mythril_tpu_torch.persist import plane
+    from mythril_tpu_torch.smt.drat import check_proof
+    from mythril_tpu_torch.smt.solver import (
+        get_blast_context, reset_blast_context,
+    )
+
+    # what the CLI sets for the analysis, put back after the test; the
+    # blast context made afresh, as a CLI process makes it
+    monkeypatch.setattr(port_args, "proof_log", False)
+    monkeypatch.setenv("MYTHRIL_TPU_PERSIST_DIR", str(tmp_path / "unused"))
+    plane.reset_for_tests()
+    reset_blast_context()
+    extra = ([option, str(tmp_path / "store")] if option == "--persist-dir"
+             else [option])
+    try:
+        code, err = _analyze(capsys, extra)
+        assert code == 0, err
+        if option == "--persist-dir":
+            assert plane.get_knowledge_plane().warm_misses == 1
+            assert plane.get_knowledge_plane().flush()
+            assert any(n.startswith("seg-")
+                       for n in os.listdir(tmp_path / "store"))
+        else:
+            solver = get_blast_context().solver
+            assert solver.proof_enabled
+            assert check_proof(solver.fetch_proof())["orig"] > 0
+    finally:
+        plane.reset_for_tests()
+        reset_blast_context()
+    with pytest.raises(SystemExit) as done:
+        port_cli.main(["analyze", "-c", "0x00", "--bin-runtime",
+                       "--workers", "2"])
+    assert done.value.code == 2
+    assert "--workers" in capsys.readouterr().err
 
 
 def test_policy_knob_names_a_policy(monkeypatch, capsys):
