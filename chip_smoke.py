@@ -155,8 +155,11 @@ failure):
    held against its plain version when force-dispatched); the word tier
    and the host probe are on, as the CLI runs them; checks that some run
    went through the resident solver with all three frontier kernels;
-   repeats each scale contract with the batched path off (per-state
-   CDCL only) and prints the three walls side by side; then the
+   runs each scale contract (d6 -t 1, d4 -t 2) in the default rungs and
+   with the batched path off (per-state CDCL only) in turns (default,
+   CDCL only, CDCL only, default; no audits) and prints those four walls
+   with their states and the card's name and power limit, and the
+   audited walls side by side; then the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` yardstick at d4 -t 1.  The
    dispatcher pre-split and the concrete replay are on, as the CLI runs
    them: per run it prints the pre-split's seeded states, the lockstep
@@ -226,8 +229,30 @@ failure):
    error leaves the ladder as a ``RuntimeError``, with no retry, no
    demotion and no ``DeviceLost``.  The analyze phase prints each run's
    supervised dispatch attempts and the host time of their worker
-   threads' start and join;
-12. the launches of the main path's configurations and, apart, of the
+   threads' start and join; then the persist and proof phases;
+12. fleet: ``python3 -m mythril_tpu_torch analyze`` (its ``main`` in
+   this process, which is the coordinator) on ``scale_mul d4 -t 2`` with
+   ``--workers 2`` under ``DETERMINISTIC``: the single-process SWC set,
+   two leases or more, no worker death, no lease finished in-process,
+   and two worker processes of their own (pids other than this
+   script's) that ran their leases on the card (each result names the
+   card and its allocator's peak bytes); ``nvidia-smi
+   --query-compute-apps`` polled while the fleet runs (printed: where the
+   machine's processes share one container it lists them as one entry,
+   pid 1, so per-process memory comes from the workers' reports); walls single, fleet, fleet, single
+   with states, ``segments_declined``, leases and rebalances; once more
+   force-dispatched with ``--lane-ledger-out``: the merged ledger holds
+   device-tier lanes under the leases' scopes, from the workers'
+   snapshots; then on ``erc20_transfer -t 2`` (the cheapest chip run
+   whose frontier at transaction 1 holds two states)
+   ``MYTHRIL_TPU_FAULT=worker_kill:1`` recovering with its SWC set, and a
+   ``worker --connect`` seat with a secret file attached over loopback
+   to a ``--workers 1`` coordinator whose own seat never dials; and full
+   offload of killbilly -t 1 (``MYTHRIL_TPU_FLEET_MIN_STATES=1``: the
+   coordinator steps no state, SWC-106 comes through the merge).  The
+   workers' kernel launches are in their processes, not in the kernels
+   line;
+13. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; the histogram of the (B, V,
    D) shapes at which every audited run launched ``dpll_step``; the
    dense tier's rounds by step budget and their hot-view steps over
@@ -3416,6 +3441,34 @@ def analyze_audited(run, card, label="", force=True):
                       "autopilot": pilot}
 
 
+def alternated_walls(run, card):
+    """``run`` in the default rungs and CDCL only (the batched path off)
+    in turns, default, CDCL only, CDCL only, default, without audits:
+    [(wall, states, segments_declined, batched)], logged with the card's
+    name and power limit."""
+    from mythril_tpu_torch.smt import SolverStatistics
+
+    got = []
+    for batched in (True, False, False, True):
+        if batched:
+            report, analyzer, wall = analyze_once(run, force=False)
+        else:
+            report, analyzer, wall = analyze_once(run, batched_solving=False)
+        found = {issue.swc_id for issue in report.issues.values()}
+        label = "default rungs" if batched else "CDCL only"
+        check(not report.exceptions and found == run.swc_ids,
+              f"{run.name} {label}: SWC {sorted(found)}")
+        got.append((wall, analyzer.last_sym.laser.total_states,
+                    segments_declined(), batched,
+                    SolverStatistics().native_s))
+    log(f"analyze walls {run.name} alternated [{card}] (wall, states, "
+        f"segments_declined, native CDCL): " + ", ".join(
+            f"{'default rungs' if batched else 'CDCL only'} {wall:.3f} s, "
+            f"{states}, {declined}, {native:.3f} s"
+            for wall, states, declined, batched, native in got))
+    return got
+
+
 def analyze_phase(card):
     """The chip runs through the port's analyzer on ``cuda``: each in the
     JAX default configuration of the rungs (what ``myth analyze`` runs),
@@ -3431,7 +3484,6 @@ def analyze_phase(card):
         YARDSTICK_RUN,
         constant_key_mapping,
     )
-    from mythril_tpu_torch.smt import SolverStatistics
 
     total = {}
     walls = {}
@@ -3475,17 +3527,9 @@ def analyze_phase(card):
                   f"{run.name}: no device dispatch")
             check(sum(launches.values()) > 0,
                   f"{run.name}: no kernel launched")
-            report, analyzer, wall = analyze_once(run, batched_solving=False)
-            states = analyzer.last_sym.laser.total_states
-            walls[run.name].append((wall, states, segments_declined()))
-            found = {issue.swc_id for issue in report.issues.values()}
-            log(f"analyze {run.name} CDCL only [{card}]: wall {wall:.3f} s "
-                f"(segments_declined {walls[run.name][-1][2]}), "
-                f"{states} states, native "
-                f"CDCL {SolverStatistics().native_s:.3f} s, "
-                f"SWC {sorted(found)}")
-            check(not report.exceptions and found == run.swc_ids,
-                  f"{run.name} CDCL only: SWC {sorted(found)}")
+            alternated = alternated_walls(run, card)
+            walls[run.name].append(next(w[:3] for w in alternated
+                                        if not w[3]))
     check(through_resident, "no analysis went through the resident solver "
           "with all three frontier kernels")
     for name, w in walls.items():
@@ -4307,6 +4351,308 @@ def proof_phase(card):
     return total
 
 
+#: the fleet phase's runs: the full-size one, the cheapest chip run
+#: whose frontier at transaction 1 holds two states, and full offload
+FLEET_RUN = "scale_mul d4 g16 -t 2"
+FLEET_SMALL_RUN = "erc20_transfer -t 2"
+FLEET_OFFLOAD_RUN = "killbilly -t 1"
+#: every fleet run: the JAX defaults (a 12 s heartbeat TTL among them),
+#: but no straggler split, which drains a worker (a death) after 20 s of
+#: a lease on a slower card and would make the deaths differ by run
+FLEET_ENV = {"MYTHRIL_TPU_FLEET_SPLIT_AFTER_S": "0"}
+#: the spawned seat of the remote-attach run: it never dials, so the
+#: lease can only go to the remote seat
+NEVER_DIALS = "#!/bin/sh\nexec sleep 600\n"
+
+
+class ComputeApps(threading.Thread):
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` polled every
+    0.25 s until :meth:`stop`: the most memory seen per pid."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.seen = {}
+        self._halt = threading.Event()
+
+    def run(self):
+        while not self._halt.is_set():
+            try:
+                rows = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                     "--format=csv,noheader"],
+                    capture_output=True, text=True, timeout=30).stdout
+            except (OSError, subprocess.TimeoutExpired) as exc:
+                self.seen["error"] = str(exc)
+                return
+            for row in rows.strip().splitlines():
+                pid, _, mib = row.partition(",")
+                mib = mib.strip().split()[0] if mib.strip() else "0"
+                self.seen[pid.strip()] = max(self.seen.get(pid.strip(), 0),
+                                             int(mib))
+            self._halt.wait(0.25)
+
+    def stop(self):
+        self._halt.set()
+        self.join()
+        return self.seen
+
+
+def fleet_cli(what, hexfile, *extra, env_extra=None):
+    """One ``python3 -m mythril_tpu_torch analyze`` through the CLI's
+    ``main`` in this process (the coordinator), the report captured,
+    under ``DETERMINISTIC`` and :data:`FLEET_ENV`: its SWC set,
+    ``meta.resilience``, wall, the coordinator's states and the fleet's
+    coordinator (its leases' result headers)."""
+    import io
+
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.mythril import mythril_analyzer as MA
+    from mythril_tpu_torch.parallel import coordinator as C
+    from mythril_tpu_torch.resilience.checkpoint import (
+        restore_signal_handlers,
+    )
+    from mythril_tpu_torch.support.support_args import args
+
+    caught = {"coordinators": []}
+    real_fire, real_shutdown = MA.MythrilAnalyzer.fire_lasers, \
+        C.Coordinator.shutdown
+
+    def firing(self, *a, **k):
+        caught["analyzer"] = self
+        return real_fire(self, *a, **k)
+
+    def shutting(self):
+        caught["coordinators"].append(self)
+        return real_shutdown(self)
+
+    MA.MythrilAnalyzer.fire_lasers = firing
+    C.Coordinator.shutdown = shutting
+    out, err = io.StringIO(), io.StringIO()
+    MA.reset_analysis_state()
+    started = time.perf_counter()
+    try:
+        with env(**DETERMINISTIC, **FLEET_ENV, **(env_extra or {})), \
+                contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            try:
+                cli.main(["analyze", "-f", hexfile, "--bin-runtime",
+                          "--no-onchain-data", "-o", "jsonv2", *extra])
+                code = 0
+            except SystemExit as done:
+                code = done.code or 0
+    finally:
+        wall = time.perf_counter() - started
+        MA.MythrilAnalyzer.fire_lasers = real_fire
+        C.Coordinator.shutdown = real_shutdown
+        restore_signal_handlers()
+        args.fleet_workers = None
+        args.lane_ledger_out = None
+    check(code == 0, f"fleet {what}: exit {code}: {err.getvalue()[-3000:]}")
+    report = json.loads(out.getvalue())[0]
+    coordinators = caught["coordinators"]
+    return {
+        "swc": {i["swcID"].replace("SWC-", "") for i in report["issues"]},
+        "block": report["meta"].get("resilience", {}),
+        "wall": wall,
+        "states": caught["analyzer"].last_sym.laser.total_states,
+        "coordinator": coordinators[-1] if coordinators else None,
+        "declined": segments_declined(),
+    }
+
+
+def fleet_results(got):
+    """The result headers of the fleet's finished leases."""
+    coordinator = got["coordinator"]
+    if coordinator is None:
+        return []
+    return [lease.result for lease in coordinator.finished()]
+
+
+def fleet_line(what, card, got):
+    block = got["block"]
+    results = fleet_results(got)
+    worker_states = sum(r.get("states", 0) for r in results)
+    log(f"fleet {what} [{card}]: wall {got['wall']:.3f} s, SWC "
+        f"{sorted(got['swc'])}, states {got['states']} in this process + "
+        f"{worker_states} in the workers, segments_declined "
+        f"{got['declined']} (this process), leases "
+        f"{block.get('fleet_leases', 0)}, rebalances "
+        f"{block.get('fleet_rebalances', 0)}, worker deaths "
+        f"{block.get('fleet_worker_deaths', 0)}, in-process "
+        f"{block.get('fleet_inprocess_leases', 0)}, remote attaches "
+        f"{block.get('fleet_remote_attaches', 0)}; leases by worker: "
+        + (", ".join(f"{r.get('worker_id')} pid {r.get('pid')} "
+                     f"{r.get('states')} states {r.get('wall_s')} s on "
+                     f"{r.get('device')}" for r in results) or "none"))
+    return worker_states
+
+
+def fleet_phase(card, kind):
+    """The fleet on the card, through the CLI (see the module
+    docstring)."""
+    import socket
+    import tempfile
+
+    from mythril_tpu_torch.contracts import killbilly
+
+    run, small = run_by_name(FLEET_RUN), run_by_name(FLEET_SMALL_RUN)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, code in ((run.name, run.code), (small.name, small.code),
+                           (FLEET_OFFLOAD_RUN, killbilly)):
+            paths[name] = os.path.join(tmp, name.split()[0] + ".hex")
+            with open(paths[name], "w") as fh:
+                fh.write(code())
+        tx = ("-t", str(run.transaction_count))
+
+        # single, fleet, fleet, single; the first fleet run is checked
+        walls = []
+        for n, workers in enumerate((0, 2, 2, 0)):
+            what = f"{run.name} --workers {workers}"
+            apps = ComputeApps() if n == 1 else None
+            if apps is not None:
+                apps.start()
+            try:
+                got = fleet_cli(what, paths[run.name], *tx, "--workers",
+                                str(workers))
+            finally:
+                seen = apps.stop() if apps is not None else None
+            check(got["swc"] == run.swc_ids,
+                  f"fleet {what}: SWC {sorted(got['swc'])}")
+            worker_states = fleet_line(what, card, got)
+            walls.append((workers, got, worker_states))
+            if not workers:
+                check(not any(k.startswith("fleet_") for k in got["block"]),
+                      f"fleet {what}: meta.resilience {got['block']}")
+                continue
+            block = got["block"]
+            check(block.get("fleet_leases", 0) >= 2
+                  and not block.get("fleet_worker_deaths")
+                  and not block.get("fleet_inprocess_leases"),
+                  f"fleet {what}: meta.resilience {block}")
+            if seen is None:
+                continue
+            results = fleet_results(got)
+            pids = {r.get("pid") for r in results}
+            on_card = [r for r in results
+                       if (r.get("device") or {}).get("type") == "cuda"
+                       and r["device"].get("name") == kind
+                       and r["device"].get("peak_bytes", 0) > 0]
+            log(f"fleet {what} nvidia-smi --query-compute-apps while the "
+                f"fleet ran [{card}]: " + ", ".join(
+                    f"pid {pid}: {mib} MiB" for pid, mib in seen.items())
+                + f" (this script's pid {os.getpid()}); the workers' own "
+                f"reports: " + ", ".join(
+                    f"pid {r['pid']}: {r['device']['peak_bytes'] / 2**20:.1f}"
+                    f" MiB allocator peak on {r['device']['name']}"
+                    for r in on_card))
+            check(len(pids) >= 2 and os.getpid() not in pids
+                  and len(on_card) == len(results),
+                  f"fleet {what}: leases ran in pids {pids} (this script "
+                  f"{os.getpid()}), on the card: {len(on_card)} of "
+                  f"{len(results)}")
+        log(f"fleet walls {run.name} [{card}] (single, fleet, fleet, "
+            f"single; wall, states, segments_declined, leases, "
+            f"rebalances): " + ", ".join(
+                f"{'--workers ' + str(w) if w else 'single'} "
+                f"{got['wall']:.3f} s, {got['states'] + ws}, "
+                f"{got['declined']}, {got['block'].get('fleet_leases', 0)}, "
+                f"{got['block'].get('fleet_rebalances', 0)}"
+                for w, got, ws in walls)
+            + "; measurements, not a claim")
+
+        # force-dispatched: the merged ledger holds the workers' lanes
+        ledger_path = os.path.join(tmp, "ledger.json")
+        what = f"{run.name} --workers 2 force-dispatched"
+        got = fleet_cli(what, paths[run.name], *tx, "--workers", "2",
+                        "--device-force-dispatch", "--no-async-dispatch",
+                        "--lane-ledger-out", ledger_path,
+                        env_extra={"MYTHRIL_TPU_COALESCE": "0"})
+        check(got["swc"] == run.swc_ids,
+              f"fleet {what}: SWC {sorted(got['swc'])}")
+        fleet_line(what, card, got)
+        with open(ledger_path) as fh:
+            ledger = json.load(fh)
+        agg = check_ledger(ledger["aggregates"], ledger["records"], what)
+        leases = {lease.lease_id for lease in got["coordinator"].finished()}
+        scoped = {scope: tiers for scope, tiers in agg["by_scope"].items()
+                  if scope in leases}
+        device = sum(tiers.get(t, 0) for tiers in scoped.values()
+                     for t in ("frontier", "sweep"))
+        log(f"fleet {what} merged ledger [{card}]: {agg['lanes_total']} "
+            f"lanes, decided {agg['decided']}, {agg['records_dropped']} "
+            f"records left in the workers; by lease {scoped}")
+        check(len(scoped) >= 2 and device > 0,
+              f"fleet {what}: lanes decided on the card in the workers' "
+              f"scopes {scoped}")
+
+        # an injected preemption on the cheapest sharding run
+        what = f"{small.name} --workers 2 worker_kill:1"
+        got = fleet_cli(what, paths[small.name], "-t",
+                        str(small.transaction_count), "--workers", "2",
+                        env_extra={"MYTHRIL_TPU_FAULT": "worker_kill:1"})
+        fleet_line(what, card, got)
+        block = got["block"]
+        check(got["swc"] == small.swc_ids
+              and block.get("fleet_worker_deaths", 0) >= 1
+              and block["fleet_leases"] > block["fleet_worker_deaths"]
+              and not block.get("fleet_inprocess_leases"),
+              f"fleet {what}: SWC {sorted(got['swc'])}, {block}")
+
+        # a remote seat with a secret file
+        secret = os.path.join(tmp, "secret")
+        with open(secret, "w") as fh:
+            fh.write(os.urandom(16).hex() + "\n")
+        never = os.path.join(tmp, "never.sh")
+        with open(never, "w") as fh:
+            fh.write(NEVER_DIALS)
+        os.chmod(never, 0o755)
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            listen = f"127.0.0.1:{probe.getsockname()[1]}"
+        root = os.path.dirname(os.path.abspath(__file__))
+        with open(os.path.join(tmp, "remote.err"), "w") as remote_err:
+            remote = subprocess.Popen(
+                [sys.executable, "-m", "mythril_tpu_torch", "worker",
+                 "--connect", listen, "--secret-file", secret, "--id",
+                 "remote-1", "--reconnect", "40"],
+                cwd=root, env=dict(os.environ, **DETERMINISTIC, **FLEET_ENV),
+                stdout=subprocess.DEVNULL, stderr=remote_err)
+            what = f"{small.name} --workers 1 and a remote seat"
+            try:
+                got = fleet_cli(what, paths[small.name], "-t",
+                                str(small.transaction_count), "--workers",
+                                "1", env_extra={
+                                    "MYTHRIL_TPU_FLEET_LISTEN": listen,
+                                    "MYTHRIL_TPU_FLEET_SECRET_FILE": secret,
+                                    "MYTHRIL_TPU_FLEET_PYTHON": never})
+            finally:
+                remote.terminate()
+                remote.wait(timeout=60)
+        fleet_line(what, card, got)
+        block = got["block"]
+        ran = [r.get("worker_id") for r in fleet_results(got)]
+        check(got["swc"] == small.swc_ids
+              and block.get("fleet_remote_attaches") == 1
+              and ran == ["remote-1"] and remote.returncode == 0
+              and not block.get("fleet_inprocess_leases"),
+              f"fleet {what}: SWC {sorted(got['swc'])}, {block}, leases "
+              f"run by {ran}, the remote seat's exit {remote.returncode}")
+
+        # full offload: the coordinator steps no state
+        what = f"{FLEET_OFFLOAD_RUN} --workers 1, MYTHRIL_TPU_FLEET_MIN_STATES=1"
+        got = fleet_cli(what, paths[FLEET_OFFLOAD_RUN], "-t", "1",
+                        "--workers", "1",
+                        env_extra={"MYTHRIL_TPU_FLEET_MIN_STATES": "1"})
+        fleet_line(what, card, got)
+        results = fleet_results(got)
+        check(got["swc"] == {"106"} and got["states"] == 0
+              and [r.get("found_swcs") for r in results] == [["106"]]
+              and got["block"].get("fleet_leases") == 1,
+              f"fleet {what}: SWC {sorted(got['swc'])}, {got['states']} "
+              f"states here, results {results}")
+
+
 def _add(total, launches):
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
@@ -4399,6 +4745,8 @@ def _main(torch, frontiers, default_device, edge_pool,
     phase_done("persist")
     _add(totals, proof_phase(card))
     phase_done("proof")
+    fleet_phase(card, kind)
+    phase_done("fleet")
     _add(totals, default)
     _add(kill_switch, yardstick)
     log(f"launches in the default configuration (the kernels line): "

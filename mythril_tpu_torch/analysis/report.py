@@ -4,9 +4,9 @@ Own copy of ``mythril_tpu/analysis/report.py``; the jsonv2 meta block
 carries the exception log, the resilience block (``meta.resilience``:
 every nonzero degradation counter, ``partial`` after a drain or a
 governor-capped run, ``governor`` when a budget tripped and ``persist``
-when the knowledge plane is on; absent when all are empty) and the
-observability block (``meta.observability``).  The port has no fleet
-plane to report on.
+when the knowledge plane is on, and the nonzero fleet counters as
+``fleet_<field>``; absent when all are empty) and the observability
+block (``meta.observability``).
 
 Renders text / markdown / json / jsonv2 (SWC standard format).  Layout
 follows the reference's report shape (section per issue, SWC id,
@@ -314,10 +314,11 @@ class Report:
 def resilience_meta() -> dict:
     """The jsonv2 ``meta.resilience`` block: the nonzero degradation
     counters (a demoted run's findings are the same, but its wall-clock
-    lost the card's speed-up), ``partial`` when a drain stopped the run
-    or the governor capped it, the governor's budgets and rungs when one
-    tripped, and the knowledge plane's block when it is on.  Empty when
-    there is nothing to say."""
+    lost the card's speed-up) and fleet counters, ``partial`` when a
+    drain stopped the run or the governor capped it, the governor's
+    budgets and rungs when one tripped, and the knowledge plane's block
+    when it is on.  Empty when there is nothing to say."""
+    from mythril_tpu_torch.parallel.fleet import fleet_stats
     from mythril_tpu_torch.persist.plane import get_knowledge_plane
     from mythril_tpu_torch.resilience.checkpoint import (
         drain_requested, get_checkpoint_plane,
@@ -326,6 +327,10 @@ def resilience_meta() -> dict:
     from mythril_tpu_torch.resilience.telemetry import resilience_stats
 
     degraded = {k: v for k, v in resilience_stats.as_dict().items() if v}
+    # a sharded run says so: worker deaths and rebalances explain its
+    # wall, a stale-gossip drop records the epoch fence firing
+    degraded.update({f"fleet_{k}": v
+                     for k, v in fleet_stats.as_dict().items() if v})
     if drain_requested() or get_checkpoint_plane().partial:
         degraded["partial"] = True
     governor_block = governor_meta()

@@ -1,15 +1,16 @@
 """The command-line interface of the PyTorch port (own copy of
 ``mythril_tpu/interfaces/cli.py``, trimmed to bytecode analysis).
 
-Commands: ``analyze`` (``a``), ``disassemble`` (``d``),
+Commands: ``analyze`` (``a``), ``disassemble`` (``d``), ``worker``,
 ``list-detectors`` and ``version``.  Run it as::
 
     python3 -m mythril_tpu_torch analyze -f CODE.hex --bin-runtime -t 2 \\
-        --no-onchain-data
+        --no-onchain-data [--workers 2]
+    python3 -m mythril_tpu_torch worker --connect HOST:PORT \\
+        --secret-file FILE
 
-``analyze`` runs the JAX package's analysis under the slice pins
-(``support/support_args.py``: ``SLICE_PINS_ENV``/``SLICE_PINS_ARGS``),
-with the word tier and the host word probing on, as the JAX default
+``analyze`` runs the JAX package's analysis (no slice pin is left:
+``support/support_args.py``), with the word tier and the host word probing on, as the JAX default
 (``MYTHRIL_TPU_WORD_TIER=0`` turns the tier off), the dispatcher
 pre-split and the concrete replay of exploit sequences on, as the JAX
 default (``--no-lockstep-dispatch`` turns the pre-split off), with the
@@ -36,9 +37,15 @@ bytecode; ``MYTHRIL_TPU_PERSIST=0`` is its kill switch), and
 ``--proof-log`` records the native solver's proof stream and certifies
 every UNSAT verdict (the card's refutations among them, each confirmed
 by a bounded host solve) with the independent checker of
-``smt/drat.py`` before the report ships.  Options that would need a
-part of the JAX package the port does not have (workers, RPC, solc,
-...) are refused, not ignored; a
+``smt/drat.py`` before the report ships.  ``--workers N`` shards the
+frontier across N worker processes at the first transaction boundary
+with at least ``MYTHRIL_TPU_FLEET_MIN_STATES`` (default 2) open states
+(``parallel/fleet.py``; ``MYTHRIL_TPU_FLEET=0`` is its kill switch), and
+``worker`` runs a seat that attaches to such a coordinator from
+elsewhere (``MYTHRIL_TPU_FLEET_LISTEN`` and
+``MYTHRIL_TPU_FLEET_SECRET_FILE`` on the coordinator's side).  Options
+that would need a part of the JAX package the port does not have (RPC,
+solc, ...) are refused, not ignored; a
 malformed ``MYTHRIL_TPU_*`` knob exits 2 at startup
 (``support/env.py:validate_env``).
 """
@@ -67,7 +74,6 @@ DISASSEMBLE_LIST = ("disassemble", "d")
 #: does not have (``ROADMAP.md`` queues them); given one, the command
 #: exits 2 instead of running something else than asked
 REFUSED_OPTIONS = (
-    "--workers",
     "--rpc", "--rpctls", "-a", "--address", "--solv", "--solc-json",
     "-g", "--graph", "-j", "--statespace-json", "--enable-coverage-strategy",
     "--parallel-solving",
@@ -258,6 +264,15 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         metavar="FILE",
     )
     options.add_argument(
+        "--workers", type=int, default=None, metavar="N",
+        help="Shard the transaction-boundary frontier across N fleet "
+        "worker processes (coordinator/worker leases with heartbeat "
+        "failure detection, journal re-lease, and epoch-fenced "
+        "knowledge gossip).  0 forces the single-process path; default "
+        "defers to MYTHRIL_TPU_FLEET_WORKERS (kill switch "
+        "MYTHRIL_TPU_FLEET=0)",
+    )
+    options.add_argument(
         "--checkpoint-dir",
         help="Journal the analysis (frontier, findings, solver memo "
         "channels) into this directory so a killed run can be resumed; "
@@ -293,6 +308,59 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
     )
 
 
+def create_worker_parser(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--connect", required=True, metavar="HOST:PORT",
+        help="HOST:PORT of a --workers N coordinator's fleet listener "
+        "(MYTHRIL_TPU_FLEET_LISTEN on its side)",
+    )
+    parser.add_argument(
+        "--secret-file", metavar="FILE",
+        help="shared-secret file for the fabric handshake (env: "
+        "MYTHRIL_TPU_FLEET_SECRET_FILE; required when the coordinator "
+        "listens on a routable interface)",
+    )
+    parser.add_argument(
+        "--id", metavar="ID",
+        help="worker id announced in the hello (default HOSTNAME-PID)",
+    )
+    parser.add_argument(
+        "--persist-dir", metavar="DIR",
+        help="directory for the persistent knowledge store of this seat "
+        "(env: MYTHRIL_TPU_PERSIST_DIR)",
+    )
+    parser.add_argument(
+        "--reconnect", type=int, default=None, metavar="N",
+        help="redial attempts after a lost coordinator connection "
+        "(default MYTHRIL_TPU_FLEET_RECONNECT or 5; 0 = exit on the "
+        "first disconnect)",
+    )
+    parser.add_argument(
+        "-v", type=int, help="log level (0-5)", metavar="LOG_LEVEL",
+        default=2, dest="verbosity",
+    )
+
+
+def run_worker(args: argparse.Namespace) -> int:
+    """A worker seat attached to a coordinator (``parallel/fleet.py``);
+    the caller has set ``MYTHRIL_TPU_FLEET_ROLE=worker``."""
+    import socket
+
+    from mythril_tpu_torch.parallel.fleet import worker_main
+
+    worker_id = args.id or f"{socket.gethostname()}-{os.getpid()}"
+    argv = ["--worker", "--connect", args.connect, "--id", worker_id]
+    if args.secret_file:
+        argv += ["--secret-file", args.secret_file]
+    reconnect = args.reconnect
+    if reconnect is None and not os.environ.get(
+            "MYTHRIL_TPU_FLEET_RECONNECT"):
+        reconnect = 5  # a coordinator restart is a pause, not a death
+    if reconnect is not None:
+        argv += ["--reconnect", str(reconnect)]
+    return worker_main(argv)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python3 -m mythril_tpu_torch",
@@ -313,6 +381,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="Disassembles the smart contract",
     )
     _add_input_args(disassemble_parser)
+    worker_parser = subparsers.add_parser(
+        "worker",
+        help="Runs a fleet worker seat attached to a --workers N "
+        "coordinator",
+    )
+    create_worker_parser(worker_parser)
     list_parser = subparsers.add_parser(
         "list-detectors", help="Lists available detection modules",
     )
@@ -398,6 +472,7 @@ def _analyze(disassembler, address, args) -> int:
         device=args.device,
         checkpoint_dir=args.checkpoint_dir,
         resume_from=args.resume_dir,
+        fleet_workers=args.workers,
     )
     if not disassembler.contracts:
         exit_with_error(
@@ -450,6 +525,9 @@ def main(argv=None) -> None:
     if args.command is None:
         parser.print_help()
         sys.exit(2)
+    if args.command == "worker":
+        # before anything of the fleet loads: a seat never shards again
+        os.environ["MYTHRIL_TPU_FLEET_ROLE"] = "worker"
 
     if args.command == "version":
         version = mythril_tpu_torch.__version__
@@ -524,6 +602,9 @@ def main(argv=None) -> None:
         level=level, format="%(name)s [%(levelname)s]: %(message)s"
     )
     logging.getLogger("mythril_tpu_torch").setLevel(level)
+
+    if args.command == "worker":
+        sys.exit(run_worker(args))
 
     outform = getattr(args, "outform", "text")
     try:

@@ -1,6 +1,6 @@
 """LaserEVM: the symbolic-execution virtual machine (reference:
-laser/ethereum/svm.py; own copy of ``mythril_tpu/laser/ethereum/svm.py``
-without the fleet seam, which the port does not have).  The veritesting
+laser/ethereum/svm.py; own copy of ``mythril_tpu/laser/ethereum/svm.py``,
+the fleet seam at each transaction boundary included).  The veritesting
 tier (``veritest.py``) merges and retires lanes of the work list between
 scheduler rounds, as in the JAX package.  The transaction loop is the
 checkpoint spine (``resilience/checkpoint.py``: a journal at every
@@ -224,6 +224,18 @@ class LaserEVM:
                 # continues from
                 self.aborted_at_tx = i
                 obs.instant("svm.drain_boundary", cat="svm", tx=i)
+                break
+            # the fleet seam (parallel/fleet.py): in a fleet worker the
+            # gossip and fault boundary; in the coordinating process a
+            # wide enough frontier is sharded into leases here and the
+            # workers run the remaining transactions (True: they, and
+            # any in-process finish, completed them).  With the fleet
+            # off (--workers 0, MYTHRIL_TPU_FLEET=0) seam_enabled() is
+            # False: the single-process path
+            from mythril_tpu_torch.parallel import fleet
+
+            if fleet.seam_enabled() and fleet.svm_boundary(self, address,
+                                                           i):
                 break
             # Frontier pruning across transactions: the reference issues
             # one solver call per open state (svm.py:201-204); here the

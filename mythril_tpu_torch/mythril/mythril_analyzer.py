@@ -4,10 +4,11 @@
 Builds a symbolic executor per contract, harvests detection issues
 (salvaging partial results on interrupt or crash) and assembles the
 final :class:`Report`.  The port runs the JAX package's analyzer under
-the slice pins (``support/support_args.py``): no corpus sharding over
-devices, no fleet, no statespace or graph dumps.  As in the JAX
-package, a resource governor is installed for each contract and cleared
-after it (``resilience/governor.py``; its budgets are unlimited unless
+the JAX defaults, without corpus sharding over devices and statespace
+or graph dumps; ``fleet_workers`` shards an analysis's frontier across
+worker processes (``parallel/fleet.py``) as in the JAX package.  As in
+the JAX package, a resource governor is installed for each contract and
+cleared after it (``resilience/governor.py``; its budgets are unlimited unless
 the ``MYTHRIL_TPU_GOVERNOR_*`` knobs set them), and ``checkpoint_dir`` /
 ``resume_from`` journal the analysis and resume it
 (``resilience/checkpoint.py``).  A lost card
@@ -129,6 +130,7 @@ class MythrilAnalyzer:
         device: Optional[str] = None,
         checkpoint_dir: Optional[str] = None,
         resume_from: Optional[str] = None,
+        fleet_workers: Optional[int] = None,
     ):
         self.contracts: List[EVMContract] = disassembler.contracts or []
         self.campaign = _Campaign(
@@ -160,6 +162,10 @@ class MythrilAnalyzer:
         # boundary; --resume journals into the directory it resumes from
         args.checkpoint_dir = checkpoint_dir or resume_from
         args.resume_from = resume_from
+        # the fleet: N worker processes take the frontier at the first
+        # wide enough transaction boundary (parallel/fleet.py); None
+        # defers to MYTHRIL_TPU_FLEET_WORKERS, 0 is one process
+        args.fleet_workers = fleet_workers
         #: the last contract's executor (its LaserEVM carries the run's
         #: state count and whether a deadline cut it)
         self.last_sym: Optional[SymExecWrapper] = None

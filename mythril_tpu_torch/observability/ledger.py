@@ -416,6 +416,42 @@ class LaneLedger:
                 "records_dropped": self.records_dropped,
             }
 
+    def merge_snapshot(self, snap: Optional[dict]) -> int:
+        """Fold another process's aggregate snapshot into this ledger (a
+        fleet worker's lanes, riding its result).  The records stay in
+        the worker (counted as dropped here), every aggregate comes, so
+        that conservation still sums over the fleet.  Returns the lanes
+        absorbed."""
+        if not self.enabled or not isinstance(snap, dict):
+            return 0
+        lanes = int(snap.get("lanes_total", 0))
+        if not lanes:
+            return 0
+        with self._lock:
+            self.lanes_total += lanes
+            self.batches += int(snap.get("batches", 0))
+            self.records_dropped += lanes
+            self.learned_clauses += int(snap.get("learned_clauses", 0))
+            for field, cast in (("by_kind", int), ("decided", int),
+                                ("verdicts", int), ("transitions", int),
+                                ("routed", int), ("tier_sweeps", int),
+                                ("tier_wall_s", float)):
+                ours = getattr(self, field)
+                for key, value in (snap.get(field) or {}).items():
+                    ours[key] = ours.get(key, cast(0)) + cast(value)
+            for outer, cap in (("by_contract", MAX_CONTRACTS),
+                               ("by_scope", MAX_SCOPES)):
+                ours = getattr(self, outer)
+                for key, tiers in (snap.get(outer) or {}).items():
+                    slot = ours.get(key)
+                    if slot is None:
+                        if len(ours) >= cap:
+                            continue
+                        slot = ours[key] = {}
+                    for tier, count in tiers.items():
+                        slot[tier] = slot.get(tier, 0) + int(count)
+        return lanes
+
     def tier_decided_pct(self) -> Optional[dict]:
         """The word/frontier/full/tail split: percent
         of all ledgered lanes decided at each tier (None when nothing

@@ -182,8 +182,13 @@ class Tracer:
         self._cap = _env_cap()
         self._totals: Dict[str, float] = {}  # name -> cumulative seconds
         self._counts: Dict[str, int] = {}    # name -> completed spans
-        # the run's trace identity, minted at the CLI edge
+        # the run's trace identity, minted at the CLI edge and carried
+        # to the fleet's workers in the lease payload
         self.trace_id: Optional[str] = None
+        # the synthetic pids of absorbed worker streams, by worker name:
+        # a respawned worker reusing an earlier one's OS pid must not
+        # merge into its track
+        self._absorbed_pids: Dict[str, int] = {}
         self.span_count = 0
         self.instant_count = 0
         self.dropped = 0
@@ -298,6 +303,64 @@ class Tracer:
                     self.dropped += 1
 
     # -- export / aggregation ------------------------------------------
+
+    def absorb_events(self, events: list, worker: Optional[str] = None,
+                      trace_id: Optional[str] = None) -> int:
+        """Merge trace events made in another process (a fleet worker's
+        span stream) into the buffer, so that ``--trace-out`` renders one
+        timeline.  The per-name totals are not updated: they describe
+        this process's wall, which spent the worker's time waiting.
+
+        ``worker`` names the stream: its events move to a synthetic pid
+        of that worker's (1,000,001 up), labelled by a ``process_name``
+        metadata event; ``trace_id`` re-parents the stream under the
+        run's trace (every absorbed event gains ``args.trace_id``).
+        Returns the number absorbed."""
+        absorbed = 0
+        remap_pid = None
+        with self._lock:
+            if worker is not None:
+                remap_pid = self._absorbed_pids.get(worker)
+                if remap_pid is None:
+                    remap_pid = 1_000_000 + len(self._absorbed_pids) + 1
+                    self._absorbed_pids[worker] = remap_pid
+                    if self.record_events and len(self._events) < self._cap:
+                        label = f"fleet-worker {worker}"
+                        if trace_id:
+                            label += f" [trace {trace_id}]"
+                        self._events.append({
+                            "name": "process_name", "ph": "M",
+                            "pid": remap_pid, "tid": 0,
+                            "args": {"name": label},
+                        })
+            for event in events:
+                if not isinstance(event, dict) or "ph" not in event:
+                    continue
+                if remap_pid is not None or trace_id is not None:
+                    event = dict(event)
+                    if remap_pid is not None:
+                        event["pid"] = remap_pid
+                    if trace_id is not None:
+                        args = dict(event.get("args") or {})
+                        args["trace_id"] = trace_id
+                        event["args"] = args
+                if len(self._events) < self._cap:
+                    if self.record_events:
+                        self._events.append(event)
+                    self.span_count += int(event.get("ph") == "X")
+                    self.instant_count += int(event.get("ph") == "i")
+                    absorbed += 1
+                else:
+                    self.dropped += 1
+        return absorbed
+
+    def add_external_total(self, name: str, seconds: float) -> None:
+        """Count wall time measured outside this process (a fleet
+        worker's lease wall) under a span name, in the totals and counts
+        only."""
+        with self._lock:
+            self._totals[name] = self._totals.get(name, 0.0) + seconds
+            self._counts[name] = self._counts.get(name, 0) + 1
 
     def events(self) -> list:
         with self._lock:

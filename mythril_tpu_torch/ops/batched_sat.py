@@ -125,23 +125,29 @@ class DispatchStats:
         self._reset_own()
 
     def reset(self):
-        """Zero the counters, the resilience counters and the
+        """Zero the counters, the resilience and fleet counters and the
         coalescer's admission window with them (per-contract, as the JAX
         package resets them)."""
         from mythril_tpu_torch.ops.coalesce import reset_coalescer
+        from mythril_tpu_torch.parallel.fleet import fleet_stats
         from mythril_tpu_torch.resilience.telemetry import resilience_stats
 
         self._reset_own()
         resilience_stats.reset()
         reset_coalescer()
+        fleet_stats.reset()
 
     def as_dict(self):
-        """The fields with the resilience counters merged in, as the JAX
-        package's ``DispatchStats.as_dict``."""
+        """The fields with the resilience counters and the fleet's
+        (``fleet_<field>``) merged in, as the JAX package's
+        ``DispatchStats.as_dict``."""
+        from mythril_tpu_torch.parallel.fleet import fleet_stats
         from mythril_tpu_torch.resilience.telemetry import resilience_stats
 
         d = dict(self.__dict__)
         d.update(resilience_stats.as_dict())
+        d.update({f"fleet_{key}": value
+                  for key, value in fleet_stats.as_dict().items()})
         return d
 
     def _reset_own(self):

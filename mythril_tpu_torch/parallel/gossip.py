@@ -1,31 +1,160 @@
-"""Knowledge freeze and monotone apply (own copy of the knowledge half of
-``mythril_tpu/parallel/gossip.py``; the frames and epoch stamps come
-with the fleet).
+"""Frames, epoch stamps and knowledge for the fleet (own copy of
+``mythril_tpu/parallel/gossip.py``).
 
-The globally valid solver channels of a blast context (the permanent
-UNSAT memo, the SAT half of the probe memo, the recent models) cross
-processes in the checkpoint plane's journal form
-(``resilience/checkpoint.py``: :func:`freeze_channels` with node objects
-for node ids, pickled by :func:`dumps`, re-interned on load), and are
-applied MONOTONICALLY: an apply only adds memo entries and models, so a
-knowledge body can widen what a context knows but never invalidate it.
-Literal-level state (CNF pool rows, device nogoods, a model's truth row)
-never crosses: literal numbering is an artifact of each process's blast
-order.
+1. **Framing**: one socket message is a length-prefixed JSON header and
+   a length-prefixed binary body (a pickle, or empty), byte for byte the
+   JAX package's frame.  Both length prefixes are checked against the
+   ``MYTHRIL_TPU_FLEET_MAX_FRAME`` cap before anything is allocated; an
+   oversized or malformed frame raises :class:`FrameError` at the
+   boundary it arrived on.
+2. **Stamps**: every knowledge and result message carries the sender's
+   ``(generation, pool_version, lease_epoch)``.  The coordinator bumps
+   ``lease_epoch`` on every re-lease, so a zombie worker's late messages
+   carry a stale epoch and are dropped (``coordinator.py``).
+3. **Knowledge freeze and monotone apply**: the globally valid solver
+   channels of a blast context (the permanent UNSAT memo, the SAT half
+   of the probe memo, the recent models) cross processes in the
+   checkpoint plane's journal form (``resilience/checkpoint.py``:
+   :func:`freeze_channels` with node objects for node ids, pickled by
+   :func:`dumps`, re-interned on load), and are applied MONOTONICALLY:
+   an apply only adds memo entries and models, so a knowledge body can
+   widen what a context knows but never invalidate it.  Literal-level
+   state (CNF pool rows, device nogoods, a model's truth row) never
+   crosses: literal numbering is an artifact of each process's blast
+   order.
 
-A body is unpickled by :class:`KnowledgeUnpickler`, which resolves only
-the globals the port's own freeze writes.  A body written by the JAX
-package (whose reducers name ``mythril_tpu`` functions), by another
-format, or anything else is refused with :class:`ForeignKnowledge`
-before any of it is built; the knowledge plane counts that as a thaw
-error and starts cold.  A tensor in a body (the journal reducers store
-one as host numpy with its device type) is rebuilt only on the device
-type of the run that reads it: a body written on the card never moves
-its tensors to the CPU, nor the reverse.
+A knowledge body is unpickled by :class:`KnowledgeUnpickler`, which
+resolves only the globals the port's own freeze writes.  A body written
+by the JAX package (whose reducers name ``mythril_tpu`` functions), by
+another format, or anything else is refused with
+:class:`ForeignKnowledge` before any of it is built; the knowledge plane
+counts that as a thaw error and starts cold.  A tensor in a body (the
+journal reducers store one as host numpy with its device type) is
+rebuilt only on the device type of the run that reads it: a body written
+on the card never moves its tensors to the CPU, nor the reverse.
 """
 
 import io
+import json
 import pickle
+import struct
+from dataclasses import dataclass
+
+#: frame caps: a header is routing metadata, a body at most a frontier
+#: snapshot or a channel freeze; past these the peer is garbage or
+#: hostile
+MAX_HEADER_BYTES = 1 << 20
+MAX_BODY_BYTES = 1 << 30
+
+#: default of ``MYTHRIL_TPU_FLEET_MAX_FRAME``: the cap a receiver holds
+#: a length prefix to before it allocates or unpickles anything (the
+#: prefix comes from a peer that may not have authenticated)
+DEFAULT_MAX_FRAME = 1 << 27
+
+_HEADER_LEN = struct.Struct("!I")
+_BODY_LEN = struct.Struct("!Q")
+
+
+def max_frame_bytes() -> int:
+    """The receive cap (``MYTHRIL_TPU_FLEET_MAX_FRAME``, floor 4096 so
+    that the knob cannot refuse the control frames)."""
+    from mythril_tpu_torch.support.env import env_int
+
+    return env_int("MYTHRIL_TPU_FLEET_MAX_FRAME", DEFAULT_MAX_FRAME,
+                   floor=4096)
+
+
+class FrameError(RuntimeError):
+    """A malformed or oversized frame, or a peer that hung up mid-frame;
+    the connection is unusable after it."""
+
+
+@dataclass(frozen=True)
+class Stamp:
+    """The epoch fence every gossip and result message carries."""
+
+    generation: int = 0
+    pool_version: int = 0
+    lease_epoch: int = 0
+
+    def as_dict(self) -> dict:
+        return {
+            "generation": int(self.generation),
+            "pool_version": int(self.pool_version),
+            "lease_epoch": int(self.lease_epoch),
+        }
+
+    @classmethod
+    def from_header(cls, header: dict) -> "Stamp":
+        stamp = header.get("stamp") or {}
+        return cls(
+            generation=int(stamp.get("generation", 0)),
+            pool_version=int(stamp.get("pool_version", 0)),
+            lease_epoch=int(stamp.get("lease_epoch", 0)),
+        )
+
+
+def stamp_for(ctx, lease_epoch: int) -> Stamp:
+    """The current stamp of a blast context under a lease."""
+    return Stamp(
+        generation=getattr(ctx, "generation", 0),
+        pool_version=getattr(ctx, "pool_version", 0),
+        lease_epoch=lease_epoch,
+    )
+
+
+def send_frame(sock, header: dict, body: bytes = b"") -> None:
+    """Write one frame (the caller serialises concurrent senders).  The
+    sender holds the receiver's cap too, so an oversized body fails here
+    and names the knob."""
+    cap = min(MAX_BODY_BYTES, max_frame_bytes())
+    head = json.dumps(header).encode("utf-8")
+    if len(head) > MAX_HEADER_BYTES:
+        raise FrameError(f"header too large ({len(head)} bytes)")
+    if len(body) > cap:
+        raise FrameError(
+            f"body too large ({len(body)} bytes; "
+            f"MYTHRIL_TPU_FLEET_MAX_FRAME is {cap})")
+    sock.sendall(_HEADER_LEN.pack(len(head)) + head
+                 + _BODY_LEN.pack(len(body)) + body)
+
+
+def _recv_exact(sock, n: int) -> bytes:
+    chunks = []
+    remaining = n
+    while remaining:
+        chunk = sock.recv(min(remaining, 1 << 20))
+        if not chunk:
+            raise FrameError("peer closed mid-frame")
+        chunks.append(chunk)
+        remaining -= len(chunk)
+    return b"".join(chunks)
+
+
+def recv_frame(sock, max_frame: int = None):
+    """Read one frame: ``(header dict, body bytes)``.  Raises
+    :class:`FrameError` on a truncation, a length past the cap (checked
+    before any allocation) or a header that is not a JSON object with a
+    ``type``."""
+    cap = max_frame_bytes() if max_frame is None else max_frame
+    (head_len,) = _HEADER_LEN.unpack(_recv_exact(sock, _HEADER_LEN.size))
+    if head_len > min(MAX_HEADER_BYTES, cap):
+        raise FrameError(f"header length {head_len} exceeds cap")
+    head = _recv_exact(sock, head_len)
+    try:
+        header = json.loads(head.decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as exc:
+        raise FrameError(f"bad frame header: {exc}") from exc
+    if not isinstance(header, dict) or "type" not in header:
+        raise FrameError("frame header must be an object with a 'type'")
+    (body_len,) = _BODY_LEN.unpack(_recv_exact(sock, _BODY_LEN.size))
+    if body_len > min(MAX_BODY_BYTES, cap):
+        raise FrameError(
+            f"body length {body_len} exceeds cap "
+            f"(MYTHRIL_TPU_FLEET_MAX_FRAME={cap})")
+    body = _recv_exact(sock, body_len) if body_len else b""
+    return header, body
+
 
 #: the tag of this package's knowledge bodies
 KNOWLEDGE_FORMAT = "mythril_tpu_torch.knowledge/1"

@@ -27,8 +27,11 @@ store (:mod:`mythril_tpu_torch.persist.store`) and the live solver state:
   flush one atomic segment.
 - **Gossip** — :meth:`encode_heartbeat_delta` /
   :meth:`absorb_gossip` let fleet heartbeats carry knowledge deltas
-  between seats (``MYTHRIL_TPU_PERSIST_GOSSIP``); the port has no fleet
-  yet, so nothing calls them but the tests.
+  between seats (``MYTHRIL_TPU_PERSIST_GOSSIP``): a worker's heartbeat
+  carries a delta when its channels changed (``fleet_persist_deltas_sent``),
+  and the coordinator applies it, routes it to the other seats and
+  absorbs it under :attr:`KnowledgePlane.last_digest`
+  (``fleet_persist_deltas_applied``; ``parallel/coordinator.py``).
 
 A channel body is this package's own (``parallel/gossip.py``): a body
 written by the JAX package, or one that would rebuild a tensor on
@@ -127,6 +130,9 @@ class KnowledgePlane:
         self.report_misses = 0
         self.gossip_sent = 0
         self.gossip_applied = 0
+        # the digest of the analysis this process last touched: the
+        # fleet's coordinator absorbs routed knowledge under it
+        self.last_digest: Optional[str] = None
 
     # -- configuration --------------------------------------------------
 
@@ -179,6 +185,7 @@ class KnowledgePlane:
         store = self.store
         if store is None or digest is None:
             return False
+        self.last_digest = digest
         from mythril_tpu_torch.ops.batched_sat import dispatch_stats
 
         hit = False
@@ -222,6 +229,7 @@ class KnowledgePlane:
         store = self.store
         if store is None or digest is None:
             return
+        self.last_digest = digest
         try:
             from mythril_tpu_torch.parallel.gossip import freeze_knowledge
 

@@ -31,12 +31,21 @@ the planes it has:
 ``merge_abort``      one veritesting merge aborts mid-join
 ``persist_flush``    one knowledge-store flush fails before it writes
                      (its records stay staged for the next flush)
+``worker_kill``      a fleet worker SIGKILLs itself at a transaction
+                     boundary (preemption mid-lease: the coordinator must
+                     see the death and lease the subtree again from the
+                     worker's last journal boundary)
+``gossip_drop``      the coordinator drops one knowledge message (a lossy
+                     channel: findings must not change)
+``lease_partition``  the coordinator ignores one worker heartbeat (a
+                     partition: enough shots expire the lease, and the
+                     worker becomes the zombie the epoch fence drops)
+``remote_auth_fail`` one authenticated attach is refused at the handshake
+``frame_corrupt``    the coordinator strikes one frame as corrupt
 ==================  =====================================================
 
-The other points (``rpc_*``, ``serve_crash``, ``worker_kill``,
-``gossip_drop``, ``lease_partition``, ``remote_auth_fail``,
-``frame_corrupt``) parse and count hits, but no seam of the port
-reaches them yet.
+The other points (``rpc_*``, ``serve_crash``) parse and count hits, but
+no seam of the port reaches them yet.
 
 Faults are armed through the API (:meth:`FaultPlane.arm`) or the
 environment::
@@ -309,6 +318,16 @@ def maybe_fault_prefetch() -> None:
     """Async-prefetch seam (``ops/async_dispatch.py`` worker)."""
     if get_fault_plane().fire("prefetch_error") is not None:
         raise FaultInjected("injected prefetch worker failure")
+
+
+def maybe_fault_worker_kill() -> None:
+    """Fleet-worker seam (``parallel/fleet.py``, at each transaction
+    boundary of a lease): SIGKILL this process when armed, with no
+    cleanup, as a preempted machine gets none."""
+    if get_fault_plane().fire("worker_kill") is not None:
+        log.warning("fault plane: fleet worker self-SIGKILL (worker_kill)")
+        logging.shutdown()
+        os.kill(os.getpid(), 9)
 
 
 def maybe_fault_governor() -> bool:

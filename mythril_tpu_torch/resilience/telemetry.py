@@ -13,7 +13,10 @@ The port keeps the counters whose seams it has: the dispatch ladder
 (watchdog, retry, bisection and quarantine, demotion), the fault plane,
 the checkpoint plane, the request budget, the knowledge store
 (``persist/store.py``) and the governor.  The JAX package's ``rpc_*``
-counters come with the RPC plane.
+counters come with the RPC plane.  The fleet's counters are kept beside
+these, in ``parallel/fleet.py`` (``fleet_stats``,
+``mythril_tpu_fleet_*``), and join ``DispatchStats.as_dict`` and the
+jsonv2 ``meta.resilience`` block as ``fleet_<field>``.
 """
 
 from mythril_tpu_torch.observability.metrics import get_registry

@@ -16,7 +16,8 @@ class EnvSpecError(RuntimeError):
 
 #: name -> (kind, floor, ceil), kind "int", "float", "flag", "dir" (a
 #: usable directory path: created on demand by its owner, so it only has
-#: not to be an existing non-directory) or "policy" (a name
+#: not to be an existing non-directory), "listen" (a ``HOST:PORT``),
+#: "file" (an existing non-empty file) or "policy" (a name
 #: :func:`autopilot.policy.make_policy` knows): the JAX package's
 #: entries (``KNOWN_SPECS``) for the knobs this port reads, and the
 #: tracer's, the ledger's and the autopilot's kill switches and policy
@@ -88,6 +89,20 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_PERSIST_FLUSH_S": ("float", 0.0, None),
     "MYTHRIL_TPU_PERSIST_CAP_MB": ("float", 1.0, None),
     "MYTHRIL_TPU_PERSIST_GOSSIP": ("flag", None, None),
+    # the fleet (parallel/): heartbeat cadence, lease TTL, straggler
+    # threshold, retry and spawn budgets, timeouts, the frame cap, a
+    # remote seat's redial budget, the listener and the shared secret
+    "MYTHRIL_TPU_FLEET_HEARTBEAT_S": ("float", 0.05, None),
+    "MYTHRIL_TPU_FLEET_LEASE_TTL_S": ("float", 0.1, None),
+    "MYTHRIL_TPU_FLEET_SPLIT_AFTER_S": ("float", 0.0, None),
+    "MYTHRIL_TPU_FLEET_LEASE_RETRIES": ("int", 0, None),
+    "MYTHRIL_TPU_FLEET_SPAWN_RETRIES": ("int", 0, None),
+    "MYTHRIL_TPU_FLEET_CONNECT_TIMEOUT_S": ("float", 0.1, None),
+    "MYTHRIL_TPU_FLEET_HARD_CAP_S": ("float", 0.1, None),
+    "MYTHRIL_TPU_FLEET_MAX_FRAME": ("int", 4096, None),
+    "MYTHRIL_TPU_FLEET_RECONNECT": ("int", 0, None),
+    "MYTHRIL_TPU_FLEET_LISTEN": ("listen", None, None),
+    "MYTHRIL_TPU_FLEET_SECRET_FILE": ("file", None, None),
 }
 
 #: raw values :func:`env_flag` understands; anything else on a "flag"
@@ -150,6 +165,20 @@ def validate_env(environ=None) -> None:
         if raw is None or raw.strip() == "":
             continue
         kind, floor, ceil = KNOWN_SPECS[name]
+        if kind == "listen":
+            from mythril_tpu_torch.parallel.fabric import parse_listen
+
+            try:
+                parse_listen(raw)
+            except ValueError as exc:
+                raise EnvSpecError(f"{name}={raw!r}: {exc}") from None
+            continue
+        if kind == "file":
+            if not os.path.isfile(raw):
+                raise EnvSpecError(f"{name}={raw!r}: file does not exist")
+            if os.path.getsize(raw) == 0:
+                raise EnvSpecError(f"{name}={raw!r}: file is empty")
+            continue
         if kind == "flag":
             if raw.strip().lower() not in FLAG_VALUES:
                 raise EnvSpecError(

@@ -9,36 +9,20 @@ funnel read them from anywhere.
 from mythril_tpu_torch.support.support_utils import Singleton
 
 #: The configuration of the JAX package that this port implements (the
-#: "slice pins").  The port has none of the features these switch off,
-#: so it runs this configuration whatever the environment says; the
-#: parity tests apply the same pins to the JAX package.  The port honors
-#: ``MYTHRIL_TPU_RESIDENT_KERNEL`` both ways, as the JAX package does
-#: (0 = the multi-dispatch frontier ladder), ``MYTHRIL_TPU_FRONTIER``
-#: both ways (0 = the round-lane ladder), ``MYTHRIL_TPU_WORD_TIER``
-#: both ways (0 = no word tier), ``MYTHRIL_TPU_SYM_LOCKSTEP`` both
-#: ways (0 = no symbolic lockstep tier), ``MYTHRIL_TPU_VERITEST`` both
-#: ways (0 = fork only, no merge or subsumption), and the lane ledger's
-#: and the autopilot's kill switches ``MYTHRIL_TPU_LEDGER`` and
-#: ``MYTHRIL_TPU_AUTOPILOT`` both ways (0 = no ledger; no routing, no
-#: tuning), the resource governor's ``MYTHRIL_TPU_GOVERNOR`` both ways
-#: (0 = no governor; its budgets are unlimited by default), and the
-#: knowledge plane's ``MYTHRIL_TPU_PERSIST`` both ways (0 = no store even
-#: with a directory named; without one the plane is off anyway), and
-#: takes ``proof_log`` as the JAX package does.  What is left pinned is
-#: the fleet.
+#: "slice pins").  The port now has every plane of ``myth analyze``, the
+#: fleet's among them (``--workers``, ``MYTHRIL_TPU_FLEET``), so no
+#: environment knob or analysis flag of the JAX package is pinned any
+#: more; the two tables stay, empty, for the parity tests that apply
+#: them to both packages.
 #:
 #: Environment knobs of the JAX package:
-SLICE_PINS_ENV = {
-    "MYTHRIL_TPU_FLEET": "0",
-}
+SLICE_PINS_ENV = {}
 #: ... plus, on a CPU, the Pallas tier in interpret mode (what the port's
 #: CPU tier is held against; it also keeps the JAX gather tiers on, which
 #: a CPU-only JAX host skips by default):
 SLICE_PINS_CPU_ENV = {"MYTHRIL_TPU_PALLAS": "force"}
 #: Analysis flags of the JAX package:
-SLICE_PINS_ARGS = {
-    "fleet_workers": 0,
-}
+SLICE_PINS_ARGS = {}
 
 #: The force-dispatched configuration of the funnel's rungs (JAX's
 #: ``--device-force-dispatch --no-async-dispatch`` with
@@ -100,6 +84,10 @@ class Args(object, metaclass=Singleton):
         # UNSAT verdict before the report ships (smt/drat.py; the blast
         # context reads it when it is created)
         self.proof_log = False
+        # the fleet (parallel/fleet.py): --workers N shards the frontier
+        # across N worker processes; None defers to
+        # MYTHRIL_TPU_FLEET_WORKERS, 0 is the single-process path
+        self.fleet_workers = None
 
 
 args = Args()

@@ -785,10 +785,30 @@ def test_cli_refuses_missing_card_and_unported_options():
     assert "SWC" not in run.stdout
     run = subprocess.run(
         [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
-         hexfile, "--bin-runtime", "--workers", "2"],
+         hexfile, "--bin-runtime", "-g", "graph.html"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
-    assert run.returncode == 2 and "--workers" in run.stderr
+    assert run.returncode == 2 and "-g" in run.stderr
+    assert "not supported by this build" in run.stderr
+    # --workers is taken: without a card the command gets as far as the
+    # card check, and on the CPU the analysis runs
+    run = subprocess.run(
+        [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
+         hexfile, "--bin-runtime", "-t", "1", "--no-onchain-data",
+         "--workers", "2"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert run.returncode == 2
+    assert "CUDA" in run.stderr and "--device cpu" in run.stderr
+    assert "not supported by this build" not in run.stderr
+    run = subprocess.run(
+        [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
+         hexfile, "--bin-runtime", "-t", "1", "--no-onchain-data",
+         "--workers", "2", "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert "SWC ID: 106" in run.stdout
     # the observability plane's flags are taken: the command gets as far
     # as the card check
     run = subprocess.run(

@@ -53,7 +53,11 @@ KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "AUTOPILOT_LADDER", "AUTOPILOT_TAIL_SHARE", "AUTOPILOT_EVAL_EVERY",
     "GOVERNOR", "GOVERNOR_STATES", "GOVERNOR_TERMS", "GOVERNOR_LANES",
     "GOVERNOR_RSS_MB", "PERSIST", "PERSIST_DIR", "PERSIST_FLUSH_S",
-    "PERSIST_CAP_MB", "PERSIST_GOSSIP"))
+    "PERSIST_CAP_MB", "PERSIST_GOSSIP", "FLEET_HEARTBEAT_S",
+    "FLEET_LEASE_TTL_S", "FLEET_SPLIT_AFTER_S", "FLEET_LEASE_RETRIES",
+    "FLEET_SPAWN_RETRIES", "FLEET_CONNECT_TIMEOUT_S", "FLEET_HARD_CAP_S",
+    "FLEET_MAX_FRAME", "FLEET_RECONNECT", "FLEET_LISTEN",
+    "FLEET_SECRET_FILE"))
 #: the port's entries for knobs the JAX package reads without a static
 #: entry (it checks none of them at startup but the tail share, which its
 #: policy registers when first read): the kill switches of the tracer,
@@ -360,6 +364,29 @@ TABLE = [
     ("MYTHRIL_TPU_PERSIST_CAP_MB", "1", False),
     ("MYTHRIL_TPU_PERSIST_CAP_MB", "big", True),
     ("MYTHRIL_TPU_PERSIST_GOSSIP", "1", False),
+    ("MYTHRIL_TPU_FLEET_HEARTBEAT_S", "0.25", False),
+    ("MYTHRIL_TPU_FLEET_HEARTBEAT_S", "0.01", True),
+    ("MYTHRIL_TPU_FLEET_LEASE_TTL_S", "120", False),
+    ("MYTHRIL_TPU_FLEET_LEASE_TTL_S", "soon", True),
+    ("MYTHRIL_TPU_FLEET_SPLIT_AFTER_S", "0", False),
+    ("MYTHRIL_TPU_FLEET_SPLIT_AFTER_S", "-1", True),
+    ("MYTHRIL_TPU_FLEET_LEASE_RETRIES", "0", False),
+    ("MYTHRIL_TPU_FLEET_LEASE_RETRIES", "1.5", True),
+    ("MYTHRIL_TPU_FLEET_SPAWN_RETRIES", "-1", True),
+    ("MYTHRIL_TPU_FLEET_CONNECT_TIMEOUT_S", "300", False),
+    ("MYTHRIL_TPU_FLEET_CONNECT_TIMEOUT_S", "0", True),
+    ("MYTHRIL_TPU_FLEET_HARD_CAP_S", "900", False),
+    ("MYTHRIL_TPU_FLEET_MAX_FRAME", "4096", False),
+    ("MYTHRIL_TPU_FLEET_MAX_FRAME", "1024", True),
+    ("MYTHRIL_TPU_FLEET_RECONNECT", "5", False),
+    ("MYTHRIL_TPU_FLEET_RECONNECT", "always", True),
+    ("MYTHRIL_TPU_FLEET_LISTEN", "127.0.0.1:4900", False),
+    ("MYTHRIL_TPU_FLEET_LISTEN", "nocolon", True),
+    ("MYTHRIL_TPU_FLEET_LISTEN", "h:70000", True),
+    ("MYTHRIL_TPU_FLEET_SECRET_FILE", os.path.join(ROOT, "pyproject.toml"),
+     False),
+    ("MYTHRIL_TPU_FLEET_SECRET_FILE", os.path.join(ROOT, "no-such-secret"),
+     True),
     # no entry in the JAX table: any value passes on both sides
     ("MYTHRIL_TPU_WORD_TIER", "bogus", False),
     ("MYTHRIL_TPU_WORD_XP", "gpu", False),
@@ -427,7 +454,7 @@ def test_persist_dir_and_proof_log_run_from_the_cli(tmp_path, monkeypatch,
                                                      capsys, option):
     """``--persist-dir`` and ``--proof-log`` are no longer refused: the
     analysis runs to exit 0, with its knowledge in the store or its
-    UNSAT verdicts certified.  ``--workers`` still exits 2."""
+    UNSAT verdicts certified.  ``--rpc`` still exits 2."""
     from mythril_tpu_torch.persist import plane
     from mythril_tpu_torch.smt.drat import check_proof
     from mythril_tpu_torch.smt.solver import (
@@ -459,9 +486,32 @@ def test_persist_dir_and_proof_log_run_from_the_cli(tmp_path, monkeypatch,
         reset_blast_context()
     with pytest.raises(SystemExit) as done:
         port_cli.main(["analyze", "-c", "0x00", "--bin-runtime",
-                       "--workers", "2"])
+                       "--rpc", "localhost:8545"])
     assert done.value.code == 2
-    assert "--workers" in capsys.readouterr().err
+    assert "--rpc" in capsys.readouterr().err
+
+
+def test_workers_runs_from_the_cli(monkeypatch, capsys):
+    """``--workers 2`` is taken: a one-byte contract leaves no frontier
+    to shard, and the analysis exits 0 on the CPU (the flag it sets put
+    back after)."""
+    monkeypatch.setattr(port_args, "fleet_workers", None)
+    code, err = _analyze(capsys, ["--workers", "2"])
+    assert port_args.fleet_workers == 2
+    assert code == 0, err
+    assert "not supported" not in err
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("MYTHRIL_TPU_FLEET_LEASE_TTL_S", "soon"),
+    ("MYTHRIL_TPU_FLEET_LISTEN", "nocolon"),
+    ("MYTHRIL_TPU_FLEET_SECRET_FILE", "/no/such/secret")])
+def test_malformed_fleet_knob_exits_2_from_the_cli(monkeypatch, capsys,
+                                                   knob, value):
+    monkeypatch.setenv(knob, value)
+    code, err = _analyze(capsys, ["--workers", "2"])
+    assert code == 2
+    assert err.startswith(f"bad environment knob: {knob}")
 
 
 def test_policy_knob_names_a_policy(monkeypatch, capsys):
