@@ -252,7 +252,37 @@ failure):
    coordinator steps no state, SWC-106 comes through the merge).  The
    workers' kernel launches are in their processes, not in the kernels
    line;
-13. the launches of the main path's configurations and, apart, of the
+13. serve (PR 23), under ``DETERMINISTIC``: an in-process
+   ``AnalysisServer`` on the card on port 0 (its launches, counted from
+   0 just before its requests and read just after, go into the kernels
+   line): ``scale_mul d6 -t 1`` cold, killbilly -t 1 (SWC-106), d6 warm
+   four times (each SWC set the analyze phase's; each request's wall,
+   states, ``segments_declined`` and ``torch.cuda.memory_allocated()``
+   printed; the fourth warm request holds no more memory than the
+   second), d6 force-dispatched on a cold context (the serve engine's
+   ``MYTHRIL_TPU_SERVE_COLD`` path for that request: a warm context
+   answers a repeated contract from its memos without a dispatch; its
+   request scope in ``/debug/lanes`` holds lanes the device tiers
+   decided), ``scale_mul d4 -t 2`` with a
+   deadline too short (``partial: true``) and a whole request after it,
+   an injected ``serve_crash`` failing one request alone (the next one's
+   findings equal, the allocator back at or below its level before the
+   crash) and, with a persist directory, a re-submission answered from
+   the report cache with the same body; then ``python3 -m
+   mythril_tpu_torch serve`` as a process (``/readyz`` with mode
+   ``device``, one request, ``top --once`` against it, SIGTERM: exit 0
+   and its ``--trace-out`` / ``--metrics-out`` files), and a server with
+   ``fleet_listen`` on loopback and a secret file answering one request
+   through an attached ``worker --connect`` seat (``mode: fabric``, the
+   in-process server's findings);
+14. statespace (PR 23): ``-g`` on ``scale_mul d6 -t 1`` and ``-j`` on
+   ``vault_withdraw`` (``-j`` runs two transactions whatever ``-t`` says,
+   as in the JAX CLI; on d6 that dump is 15 min of CPU and 244 MB) through
+   the CLI on the card and with ``--device cpu``, each pair equal after
+   the node uids are renumbered by first appearance, and
+   ``--enable-coverage-strategy`` on d6 -t 1 with the default run's SWC
+   set; the five processes run side by side;
+15. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; the histogram of the (B, V,
    D) shapes at which every audited run launched ``dpll_step``; the
    dense tier's rounds by step budget and their hot-view steps over
@@ -4653,6 +4683,414 @@ def fleet_phase(card, kind):
               f"states here, results {results}")
 
 
+#: the serve phase's requests (PR 23)
+SERVE_RUN = "scale_mul d6 g16 -t 1"
+SERVE_DEADLINE_RUN = "scale_mul d4 g16 -t 2"
+SERVE_SMALL_RUN = "killbilly -t 1"
+#: the serve phase's deadline for the d4 -t 2 request: far below its
+#: ~28 s wall (PERF.md section 5), so that it drains at a boundary
+SERVE_SHORT_DEADLINE_S = 1.0
+
+
+def free_listen() -> str:
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{probe.getsockname()[1]}"
+
+
+def http_json(url, payload=None, timeout=900):
+    """(status, JSON body) of a GET, or of a POST of ``payload``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as rsp:
+            return rsp.status, json.loads(rsp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+class ServeRecorder:
+    """The states of each analysis the serve engine runs (its
+    ``SymExecWrapper`` wrapped for the block)."""
+
+    def __init__(self):
+        from mythril_tpu_torch.analysis import symbolic
+
+        self.module, self.real = symbolic, symbolic.SymExecWrapper
+        self.states = []
+        recorder, real = self, self.real
+
+        class Recording(real):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                recorder.states.append(self.laser.total_states)
+
+        self.recording = Recording
+
+    def __enter__(self):
+        self.module.SymExecWrapper = self.recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.SymExecWrapper = self.real
+
+
+def serve_request(srv, what, run, card, recorder, **body):
+    """One POST of ``run`` to the in-process server ``srv``: its status,
+    body, wall, states, ``segments_declined`` and allocated bytes after
+    it, logged."""
+    import torch
+
+    seen, declined = len(recorder.states), segments_declined()
+    started = time.perf_counter()
+    status, got = http_json(f"http://127.0.0.1:{srv.port}/analyze", {
+        "code": run.code(), "name": run.name.split()[0],
+        "tx_count": run.transaction_count, "source": "chip", **body})
+    wall = time.perf_counter() - started
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    states = recorder.states[seen:]
+    log(f"serve {what} [{card}]: status {status}, wall {wall:.3f} s, "
+        f"states {states}, segments_declined "
+        f"{segments_declined() - declined}, SWC "
+        f"{got.get('findings_swc')}, partial {got.get('partial')}, "
+        f"cached {got.get('cached', False)}, error "
+        f"{(got.get('error') or {}).get('code')}, memory_allocated "
+        f"{allocated} B")
+    return {"status": status, "body": got, "wall": wall, "states": states,
+            "allocated": allocated}
+
+
+def serve_phase(card):
+    """The serve plane on the card (see the module docstring).  Returns
+    the launches of the in-process server's requests."""
+    import tempfile
+
+    from mythril_tpu_torch.persist import plane
+    from mythril_tpu_torch.resilience import faults
+    from mythril_tpu_torch.serve import AnalysisServer, ServeConfig
+
+    run, small = run_by_name(SERVE_RUN), run_by_name(SERVE_SMALL_RUN)
+    deadline_run = run_by_name(SERVE_DEADLINE_RUN)
+    with env(**DETERMINISTIC), ServeRecorder() as recorder:
+        srv = AnalysisServer(ServeConfig.from_env(port=0, device=DEVICE))
+        srv.start()
+        try:
+            check(http_json(f"http://127.0.0.1:{srv.port}/readyz")[1]
+                  ["mode"] == "device", "serve: /readyz mode")
+            reset_launches()
+            got = {"cold": serve_request(srv, f"{run.name} cold", run, card,
+                                         recorder)}
+            got["killbilly"] = serve_request(srv, small.name, small, card,
+                                             recorder)
+            for n in range(1, 5):
+                got[n] = serve_request(srv, f"{run.name} warm {n}", run,
+                                       card, recorder)
+            # the warm context answers a repeated contract from its memo
+            # channels without a dispatch: the forced request starts cold
+            # (the engine's MYTHRIL_TPU_SERVE_COLD path for this request)
+            srv.config.cold_per_request = True
+            try:
+                with rung_args(device_force_dispatch=True,
+                               device_coalesce=False, async_dispatch=False):
+                    got["forced"] = serve_request(
+                        srv, f"{run.name} force-dispatched, cold", run, card,
+                        recorder)
+            finally:
+                srv.config.cold_per_request = False
+            got["short"] = serve_request(
+                srv, f"{deadline_run.name} deadline "
+                f"{SERVE_SHORT_DEADLINE_S} s", deadline_run, card, recorder,
+                deadline_s=SERVE_SHORT_DEADLINE_S)
+            got["after"] = serve_request(srv, f"{small.name} after it",
+                                         small, card, recorder)
+            faults.get_fault_plane().arm("serve_crash", times=1)
+            try:
+                got["crash"] = serve_request(
+                    srv, f"{small.name} serve_crash:1", small, card,
+                    recorder, source="crash")
+            finally:
+                faults.reset_for_tests()
+            got["healed"] = serve_request(srv, f"{small.name} after the "
+                                          "crash", small, card, recorder,
+                                          source="crash")
+            with tempfile.TemporaryDirectory() as tmp, env(
+                    MYTHRIL_TPU_PERSIST_DIR=tmp,
+                    MYTHRIL_TPU_PERSIST_FLUSH_S="0"):
+                plane.reset_for_tests()
+                try:
+                    got["stored"] = serve_request(
+                        srv, f"{small.name} persist", small, card, recorder)
+                    got["cached"] = serve_request(
+                        srv, f"{small.name} re-submitted", small, card,
+                        recorder)
+                finally:
+                    plane.reset_for_tests()
+            launches = read_launches()
+            scoped = http_json(f"http://127.0.0.1:{srv.port}/debug/lanes"
+                               )[1]["by_scope"]
+        finally:
+            srv.drain_and_stop("chip check")
+    log(f"serve in-process launches [{card}]: {launches}")
+    for what in ("cold", "killbilly", 1, 2, 3, 4, "forced", "after",
+                 "healed", "stored", "cached"):
+        want = small.swc_ids if what in (
+            "killbilly", "after", "healed", "stored", "cached") \
+            else run.swc_ids
+        body = got[what]["body"]
+        check(got[what]["status"] == 200 and set(body["findings_swc"]) == want
+              and body["partial"] is False,
+              f"serve {what}: status {got[what]['status']}, {body}")
+    check(got[4]["allocated"] <= got[2]["allocated"],
+          f"serve: allocated {got[2]['allocated']} B after the second warm "
+          f"request, {got[4]['allocated']} B after the fourth")
+    forced = scoped.get(got["forced"]["body"]["request_id"], {})
+    check(forced.get("sweep", 0) + forced.get("frontier", 0) > 0,
+          f"serve forced request: lanes by tier in its scope {forced}")
+    log(f"serve forced request's scope in /debug/lanes: {forced}")
+    short = got["short"]["body"]
+    check(got["short"]["status"] == 200 and short["partial"] is True,
+          f"serve deadline request: {short}")
+    crash = got["crash"]
+    check(crash["status"] == 500
+          and crash["body"]["error"]["code"] == "analysis_failed"
+          and crash["allocated"] <= got["after"]["allocated"],
+          f"serve serve_crash: {crash['status']} {crash['body']}, "
+          f"allocated {crash['allocated']} B after the decontamination, "
+          f"{got['after']['allocated']} B before the crash")
+    cached = got["cached"]["body"]
+    check(cached.get("cached") is True
+          and cached["issues"] == got["stored"]["body"]["issues"],
+          f"serve report cache: {cached}")
+    log(f"serve walls {run.name} [{card}]: cold {got['cold']['wall']:.3f} s "
+        f"({got['cold']['states']} states), warm " + ", ".join(
+            f"{got[n]['wall']:.3f} s ({got[n]['states']})"
+            for n in range(1, 5)) + "; memory_allocated after warm 1-4: "
+        + ", ".join(str(got[n]["allocated"]) for n in range(1, 5)) + " B")
+    serve_process(card, small)
+    serve_router(card, small, got["killbilly"]["body"]["findings_swc"])
+    return launches
+
+
+def serve_process(card, small):
+    """``python3 -m mythril_tpu_torch serve`` as a process on the card:
+    ready with mode ``device``, one request, ``top --once`` against it,
+    SIGTERM to exit 0 with its trace and metrics files."""
+    import signal
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    listen = free_listen()
+    port = listen.rsplit(":", 1)[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, metrics = (os.path.join(tmp, "serve.trace.json"),
+                          os.path.join(tmp, "serve.prom"))
+        with open(os.path.join(tmp, "serve.err"), "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "mythril_tpu_torch", "serve",
+                 "--port", port, "--trace-out", trace, "--metrics-out",
+                 metrics],
+                cwd=root, env=dict(os.environ, **DETERMINISTIC),
+                stdout=subprocess.DEVNULL, stderr=err)
+            started = time.perf_counter()
+            try:
+                url = f"http://127.0.0.1:{port}"
+                ready = None
+                while time.perf_counter() - started < 300:
+                    check(proc.poll() is None, "serve process exited")
+                    try:
+                        ready = http_json(url + "/readyz", timeout=10)
+                    except OSError:
+                        ready = None
+                    if ready and ready[0] == 200:
+                        break
+                    time.sleep(0.2)
+                up = time.perf_counter() - started
+                check(ready and ready[0] == 200
+                      and ready[1]["mode"] == "device",
+                      f"serve process /readyz: {ready}")
+                status, body = http_json(url + "/analyze", {
+                    "code": small.code(), "tx_count": small.transaction_count,
+                    "name": "killbilly"})
+                check(status == 200 and set(body["findings_swc"]) ==
+                      small.swc_ids, f"serve process request: {body}")
+                top = subprocess.run(
+                    [sys.executable, "-m", "mythril_tpu_torch", "top",
+                     "--once", "--url", url],
+                    cwd=root, capture_output=True, text=True, timeout=120)
+                check(top.returncode == 0 and "server: READY" in top.stdout
+                      and "Traceback" not in top.stdout + top.stderr,
+                      f"top --once: {top.returncode} {top.stdout} "
+                      f"{top.stderr[-2000:]}")
+                proc.send_signal(signal.SIGTERM)
+                code = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(os.path.join(tmp, "serve.err")) as fh:
+            tail = fh.read()[-2000:]
+        check(code == 0, f"serve process: exit {code}: {tail}")
+        with open(trace) as fh:
+            events = len(json.load(fh)["traceEvents"])
+        with open(metrics) as fh:
+            prom = fh.read()
+        check(events > 0 and "mythril_tpu_serve_requests_total" in prom,
+              f"serve process artifacts: {events} events")
+    log(f"serve process [{card}]: ready in {up:.1f} s with mode device, "
+        f"SWC {body['findings_swc']} in {body['analysis_s']} s, top --once "
+        f"rendered {len(top.stdout.splitlines())} lines, SIGTERM: exit 0, "
+        f"{events} trace events, {len(prom.splitlines())} metrics lines")
+
+
+def serve_router(card, small, want):
+    """A server with ``fleet_listen`` on loopback and a secret file, one
+    ``worker --connect`` seat attached: a request answered by the seat
+    with the in-process server's findings."""
+    import tempfile
+
+    from mythril_tpu_torch.serve import AnalysisServer, ServeConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        secret = os.path.join(tmp, "secret")
+        with open(secret, "w") as fh:
+            fh.write(os.urandom(16).hex() + "\n")
+        listen = free_listen()
+        srv = AnalysisServer(ServeConfig(
+            port=0, fleet_listen=listen, fleet_secret_file=secret,
+            device=DEVICE))
+        srv.start()
+        with open(os.path.join(tmp, "worker.err"), "w") as err:
+            worker = subprocess.Popen(
+                [sys.executable, "-m", "mythril_tpu_torch", "worker",
+                 "--connect", listen, "--secret-file", secret, "--id",
+                 "seat-1", "--reconnect", "0"],
+                cwd=root, env=dict(os.environ, **DETERMINISTIC),
+                stdout=subprocess.DEVNULL, stderr=err)
+            try:
+                started = time.perf_counter()
+                while srv.router.seat_count() < 1:
+                    check(worker.poll() is None
+                          and time.perf_counter() - started < 300,
+                          "serve router: the seat never attached")
+                    time.sleep(0.1)
+                status, body = http_json(
+                    f"http://127.0.0.1:{srv.port}/analyze", {
+                        "code": small.code(), "name": "killbilly",
+                        "tx_count": small.transaction_count})
+            finally:
+                srv.drain_and_stop("chip check")
+                try:
+                    worker.wait(timeout=60)
+                finally:
+                    if worker.poll() is None:
+                        worker.kill()
+                        worker.wait()
+    check(status == 200 and body["mode"] == "fabric"
+          and body["findings_swc"] == want and worker.returncode == 0,
+          f"serve router: {status} {body}, the seat's exit "
+          f"{worker.returncode}")
+    log(f"serve router [{card}]: SWC {body['findings_swc']} from "
+        f"{body['worker']} in {body['analysis_s']} s (mode fabric), routed "
+        f"{srv.router.routed}, fallbacks {srv.router.fallbacks}; the seat "
+        f"exited 0")
+
+
+#: the statespace phase's contracts: -g on the serve run, -j on a run
+#: whose two-transaction dump stays small
+STATESPACE_GRAPH_RUN = SERVE_RUN
+STATESPACE_JSON_RUN = "vault_withdraw -t 2"
+
+
+def renumber_uids(nodes, edges):
+    """(nodes, edges) with node ids renumbered by first appearance."""
+    ids = {}
+    for node in nodes:
+        ids.setdefault(node["id"], str(len(ids)))
+    nodes = [dict(node, id=ids[node["id"]]) for node in nodes]
+    edges = [dict(edge, **{"from": ids.get(edge["from"], edge["from"]),
+                           "to": ids.get(edge["to"], edge["to"])})
+             for edge in edges]
+    return nodes, edges
+
+
+def graph_data(html):
+    """The node and edge lists a graph page embeds (``-g``)."""
+    import ast
+
+    nodes, edges = [
+        ast.literal_eval(chunk.split(");", 1)[0])
+        for chunk in html.split("new vis.DataSet(")[1:3]]
+    return nodes, edges
+
+
+def statespace_phase(card):
+    """``-g``, ``-j`` and ``--enable-coverage-strategy`` through the CLI
+    on the card and on the CPU (see the module docstring)."""
+    import tempfile
+
+    graph_run = run_by_name(STATESPACE_GRAPH_RUN)
+    json_run = run_by_name(STATESPACE_JSON_RUN)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for run in (graph_run, json_run):
+            paths[run.name] = os.path.join(tmp, run.name.split()[0] + ".hex")
+            with open(paths[run.name], "w") as fh:
+                fh.write(run.code())
+        jobs = {}
+        started = time.perf_counter()
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"graph.{device}.html")
+            jobs[("g", device)] = (out, cli_analyze(
+                paths[graph_run.name], "-t", str(graph_run.transaction_count),
+                "--device", device, "-g", out, popen=True))
+            out = os.path.join(tmp, f"space.{device}.json")
+            jobs[("j", device)] = (out, cli_analyze(
+                paths[json_run.name], "-t", str(json_run.transaction_count),
+                "--device", device, "-j", out, popen=True))
+        coverage = cli_analyze(paths[graph_run.name], "-t",
+                               str(graph_run.transaction_count),
+                               "--enable-coverage-strategy", popen=True)
+        files = {}
+        for key, (out, proc) in jobs.items():
+            _stdout, stderr = proc.communicate(timeout=900)
+            check(proc.returncode == 0,
+                  f"statespace {key}: exit {proc.returncode}: "
+                  f"{stderr[-2000:]}")
+            with open(out) as fh:
+                files[key] = fh.read()
+        stdout, stderr = coverage.communicate(timeout=900)
+        wall = time.perf_counter() - started
+    found, _block = cli_report(
+        "--enable-coverage-strategy", subprocess.CompletedProcess(
+            coverage.args, coverage.returncode, stdout, stderr))
+    check(found == graph_run.swc_ids,
+          f"--enable-coverage-strategy: SWC {sorted(found)}")
+    graphs = {d: renumber_uids(*graph_data(files[("g", d)]))
+              for d in ("cuda", "cpu")}
+    spaces = {d: json.loads(files[("j", d)]) for d in ("cuda", "cpu")}
+    spaces = {d: renumber_uids(s["nodes"], s["edges"])
+              for d, s in spaces.items()}
+    check(graphs["cuda"] == graphs["cpu"] and graphs["cuda"][0],
+          f"-g {graph_run.name}: the card's graph differs from the CPU's")
+    check(spaces["cuda"] == spaces["cpu"] and spaces["cuda"][0],
+          f"-j {json_run.name}: the card's statespace differs from the CPU's")
+    log(f"statespace [{card}]: -g {graph_run.name} {len(graphs['cuda'][0])} "
+        f"nodes, {len(graphs['cuda'][1])} edges, {len(files[('g', 'cuda')])} "
+        f"bytes, equal on cuda and cpu; -j {json_run.name} "
+        f"{len(spaces['cuda'][0])} nodes, {len(spaces['cuda'][1])} edges, "
+        f"{len(files[('j', 'cuda')])} bytes, equal on cuda and cpu; "
+        f"--enable-coverage-strategy {graph_run.name}: SWC {sorted(found)}; "
+        f"five processes side by side in {wall:.1f} s")
+
+
 def _add(total, launches):
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
@@ -4747,6 +5185,10 @@ def _main(torch, frontiers, default_device, edge_pool,
     phase_done("proof")
     fleet_phase(card, kind)
     phase_done("fleet")
+    _add(totals, serve_phase(card))
+    phase_done("serve")
+    statespace_phase(card)
+    phase_done("statespace")
     _add(totals, default)
     _add(kill_switch, yardstick)
     log(f"launches in the default configuration (the kernels line): "

@@ -2,8 +2,10 @@
 VM — scheduler policy, actor world state, pruning plugins, detection
 hooks — then runs it and harvests the statespace.
 
-Own copy of ``mythril_tpu/analysis/symbolic.py`` without the coverage
-search strategy.  The persistent knowledge plane's seam
+Own copy of ``mythril_tpu/analysis/symbolic.py``;
+``enable_coverage_strategy`` wraps the search strategy in the coverage
+strategy (``laser/plugin/plugins/coverage/coverage_strategy.py``), as in
+the JAX package.  The persistent knowledge plane's seam
 (``persist/plane.py``) warms the blast context before ``sym_exec`` and
 stages what it learned after; it is inert unless a store directory is
 configured.
@@ -87,6 +89,7 @@ class SymExecWrapper:
         compulsory_statespace: bool = True,
         disable_dependency_pruning: bool = False,
         run_analysis_modules: bool = True,
+        enable_coverage_strategy: bool = False,
         custom_modules_directory: str = "",
     ):
         address = _as_address(address)
@@ -110,7 +113,15 @@ class SymExecWrapper:
         )
         if loop_bound is not None:
             self.laser.extend_strategy(BoundedLoopsStrategy, loop_bound)
-        self._instrument(disable_dependency_pruning)
+        plugins = self._instrument(disable_dependency_pruning)
+        if enable_coverage_strategy and "coverage" in plugins:
+            from mythril_tpu_torch.laser.plugin.plugins.coverage.coverage_strategy import (
+                CoverageStrategy,
+            )
+
+            self.laser.extend_strategy(
+                CoverageStrategy, plugins["coverage"]
+            )
         if run_analysis_modules:
             self._attach_detection_hooks(modules)
 
@@ -188,7 +199,7 @@ class SymExecWrapper:
             )
         return accounts
 
-    def _instrument(self, disable_dependency_pruning: bool) -> None:
+    def _instrument(self, disable_dependency_pruning: bool) -> dict:
         loader = LaserPluginLoader()
         loader.load(CoveragePluginBuilder())
         loader.load(MutationPrunerBuilder())

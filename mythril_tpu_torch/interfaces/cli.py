@@ -1,13 +1,16 @@
 """The command-line interface of the PyTorch port (own copy of
 ``mythril_tpu/interfaces/cli.py``, trimmed to bytecode analysis).
 
-Commands: ``analyze`` (``a``), ``disassemble`` (``d``), ``worker``,
-``list-detectors`` and ``version``.  Run it as::
+Commands: ``analyze`` (``a``), ``disassemble`` (``d``), ``serve``,
+``worker``, ``top``, ``list-detectors`` and ``version``.  Run it as::
 
     python3 -m mythril_tpu_torch analyze -f CODE.hex --bin-runtime -t 2 \\
-        --no-onchain-data [--workers 2]
+        --no-onchain-data [--workers 2] [-j STATES.json] [-g GRAPH.html]
     python3 -m mythril_tpu_torch worker --connect HOST:PORT \\
         --secret-file FILE
+    python3 -m mythril_tpu_torch serve --port 8551 [--fleet-listen H:P]
+    python3 -m mythril_tpu_torch top --url http://127.0.0.1:8551 [--once]
+    python3 -m mythril_tpu_torch --epic version
 
 ``analyze`` runs the JAX package's analysis (no slice pin is left:
 ``support/support_args.py``), with the word tier and the host word probing on, as the JAX default
@@ -43,7 +46,16 @@ with at least ``MYTHRIL_TPU_FLEET_MIN_STATES`` (default 2) open states
 (``parallel/fleet.py``; ``MYTHRIL_TPU_FLEET=0`` is its kill switch), and
 ``worker`` runs a seat that attaches to such a coordinator from
 elsewhere (``MYTHRIL_TPU_FLEET_LISTEN`` and
-``MYTHRIL_TPU_FLEET_SECRET_FILE`` on the coordinator's side).  Options
+``MYTHRIL_TPU_FLEET_SECRET_FILE`` on the coordinator's side, or
+``serve --fleet-listen``).  ``-j`` and ``-g`` write the statespace as
+JSON and the call graph as HTML and end the command, as in the JAX CLI;
+``--enable-coverage-strategy`` and ``--parallel-solving`` are the JAX
+CLI's.  ``serve`` runs the analysis daemon (``serve/``) on the card of
+``--device``; a lost card ends it with exit 1.  ``top`` renders a
+running server's status, and ``--epic`` pipes the command's output
+through the rainbow pager (``interfaces/epic.py``).  Entry-point
+plugins (``plugin/``) are loaded before ``analyze`` and
+``disassemble``, as in the JAX CLI.  Options
 that would need a part of the JAX package the port does not have (RPC,
 solc, ...) are refused, not ignored; a
 malformed ``MYTHRIL_TPU_*`` knob exits 2 at startup
@@ -71,12 +83,11 @@ ANALYZE_LIST = ("analyze", "a")
 DISASSEMBLE_LIST = ("disassemble", "d")
 
 #: options of the JAX CLI's analyze command that need a plane this port
-#: does not have (``ROADMAP.md`` queues them); given one, the command
-#: exits 2 instead of running something else than asked
+#: does not have (the RPC client, solc, the signature lookup;
+#: ``ROADMAP.md`` queues them); given one, the command exits 2 instead of
+#: running something else than asked
 REFUSED_OPTIONS = (
     "--rpc", "--rpctls", "-a", "--address", "--solv", "--solc-json",
-    "-g", "--graph", "-j", "--statespace-json", "--enable-coverage-strategy",
-    "--parallel-solving",
     "-q", "--query-signature",
 )
 
@@ -135,6 +146,15 @@ def _add_output_args(parser: argparse.ArgumentParser) -> None:
 
 
 def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
+    commands = parser.add_argument_group("commands")
+    commands.add_argument(
+        "-g", "--graph", help="generate a control flow graph",
+        metavar="OUTPUT_FILE",
+    )
+    commands.add_argument(
+        "-j", "--statespace-json", help="dumps the statespace json",
+        metavar="OUTPUT_FILE",
+    )
     options = parser.add_argument_group("options")
     options.add_argument(
         "-m", "--modules",
@@ -177,6 +197,11 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         help="The amount of seconds to spend on the initial contract creation",
     )
     options.add_argument(
+        "--parallel-solving", action="store_true",
+        help="Enable solving parallelization (recorded; nothing reads "
+        "it, as in the JAX package)",
+    )
+    options.add_argument(
         "--no-batched-solving", action="store_true",
         help="Disable the batched frontier feasibility path (per-state "
         "solving only)",
@@ -217,8 +242,19 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         help="Default storage value is symbolic",
     )
     options.add_argument(
+        "--phrack", action="store_true", help="Phrack-style call graph",
+    )
+    options.add_argument(
+        "--enable-physics", action="store_true",
+        help="enable graph physics simulation",
+    )
+    options.add_argument(
         "--enable-iprof", action="store_true",
         help="enable the instruction profiler",
+    )
+    options.add_argument(
+        "--enable-coverage-strategy", action="store_true",
+        help="enable coverage based search strategy",
     )
     options.add_argument(
         "--disable-dependency-pruning", action="store_true",
@@ -308,6 +344,74 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
     )
 
 
+def create_serve_parser(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--host", default="127.0.0.1",
+        help="interface to bind (default 127.0.0.1)",
+    )
+    parser.add_argument(
+        "-p", "--port", type=int, default=8551,
+        help="TCP port to listen on (0 = ephemeral)",
+    )
+    parser.add_argument(
+        "--trace-out", metavar="FILE",
+        help="Write the server's Perfetto span timeline here on drain "
+        "(every request gets a serve.request span tree)",
+    )
+    parser.add_argument(
+        "--metrics-out", metavar="FILE",
+        help="Also dump the metrics registry to FILE on drain (the live "
+        "view is GET /metrics)",
+    )
+    parser.add_argument(
+        "--lane-ledger-out", metavar="FILE",
+        help="Also dump the per-lane attribution ledger to FILE on drain "
+        "(the live view is GET /debug/lanes)",
+    )
+    parser.add_argument(
+        "--fleet-listen", metavar="HOST:PORT",
+        help="HOST:PORT the serving fabric's coordinator listens on for "
+        "`worker --connect` attach (non-loopback requires --secret-file; "
+        "env: MYTHRIL_TPU_FLEET_LISTEN)",
+    )
+    parser.add_argument(
+        "--secret-file", metavar="FILE",
+        help="shared-secret file authenticating fabric workers (env: "
+        "MYTHRIL_TPU_FLEET_SECRET_FILE)",
+    )
+    parser.add_argument(
+        "--persist-dir", metavar="DIR",
+        help="directory for the persistent knowledge store: loaded at "
+        "startup, flushed on drain; a re-submitted contract is answered "
+        "from its report cache (env: MYTHRIL_TPU_PERSIST_DIR)",
+    )
+    parser.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="Where every request's analysis runs: the card (default; "
+        "an error without one) or, only when asked for, the CPU",
+    )
+    parser.add_argument(
+        "-v", type=int, help="log level (0-5)", metavar="LOG_LEVEL",
+        default=2, dest="verbosity",
+    )
+
+
+def create_top_parser(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--url", default="http://127.0.0.1:8551",
+        help="base URL of a running serve daemon (or a fleet "
+        "coordinator's MYTHRIL_TPU_FLEET_DEBUG_PORT listener)",
+    )
+    parser.add_argument(
+        "--interval", type=float, default=2.0,
+        help="refresh period in seconds",
+    )
+    parser.add_argument(
+        "--once", action="store_true",
+        help="render a single snapshot and exit (no screen clearing)",
+    )
+
+
 def create_worker_parser(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--connect", required=True, metavar="HOST:PORT",
@@ -367,6 +471,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Security analysis of Ethereum smart contracts "
         "(PyTorch/CUDA port)",
     )
+    parser.add_argument("--epic", action="store_true", help=argparse.SUPPRESS)
     subparsers = parser.add_subparsers(dest="command", help="Commands")
     analyzer_parser = subparsers.add_parser(
         ANALYZE_LIST[0], aliases=ANALYZE_LIST[1:],
@@ -381,12 +486,27 @@ def build_parser() -> argparse.ArgumentParser:
         help="Disassembles the smart contract",
     )
     _add_input_args(disassemble_parser)
+    serve_parser = subparsers.add_parser(
+        "serve",
+        help="Run the persistent analysis daemon: bounded admission, "
+        "per-request deadline budgets, request isolation, live /healthz "
+        "/readyz /metrics",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    create_serve_parser(serve_parser)
     worker_parser = subparsers.add_parser(
         "worker",
         help="Runs a fleet worker seat attached to a --workers N "
-        "coordinator",
+        "coordinator or a serve --fleet-listen endpoint",
     )
     create_worker_parser(worker_parser)
+    top_parser = subparsers.add_parser(
+        "top",
+        help="Live one-screen status of a running serve daemon or fleet "
+        "coordinator",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    create_top_parser(top_parser)
     list_parser = subparsers.add_parser(
         "list-detectors", help="Lists available detection modules",
     )
@@ -469,6 +589,8 @@ def _analyze(disassembler, address, args) -> int:
         async_dispatch=not args.no_async_dispatch,
         lockstep_dispatch=not args.no_lockstep_dispatch,
         proof_log=args.proof_log,
+        parallel_solving=args.parallel_solving,
+        enable_coverage_strategy=args.enable_coverage_strategy,
         device=args.device,
         checkpoint_dir=args.checkpoint_dir,
         resume_from=args.resume_dir,
@@ -478,6 +600,27 @@ def _analyze(disassembler, address, args) -> int:
         exit_with_error(
             args.outform, "input files do not contain any valid contracts"
         )
+    if args.graph:
+        html = analyzer.graph_html(
+            contract=analyzer.contracts[0],
+            enable_physics=args.enable_physics,
+            phrackify=args.phrack,
+            transaction_count=args.transaction_count,
+        )
+        try:
+            with open(args.graph, "w") as f:
+                f.write(html)
+        except Exception as e:
+            exit_with_error(args.outform, f"Error saving graph: {e}")
+        return 0
+    if args.statespace_json:
+        statespace = analyzer.dump_statespace(contract=analyzer.contracts[0])
+        try:
+            with open(args.statespace_json, "w") as f:
+                json.dump(statespace, f)
+        except Exception as e:
+            exit_with_error(args.outform, f"Error saving json: {e}")
+        return 0
     from mythril_tpu_torch.observability import finalize_outputs, span
     from mythril_tpu_torch.ops.device_health import DeviceLost
 
@@ -513,6 +656,53 @@ def _analyze(disassembler, address, args) -> int:
     return 0
 
 
+def run_epic(argv) -> int:
+    """``--epic``: run the command again without the flag, its output
+    piped through the rainbow pager (``interfaces/epic.py``)."""
+    import shlex
+    import subprocess
+
+    interpreter = shlex.quote(sys.executable or "python3")
+    package_root = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.realpath(__file__))))
+    pager = os.path.join(os.path.dirname(os.path.realpath(__file__)),
+                         "epic.py")
+    command = (
+        f"{interpreter} -m mythril_tpu_torch "
+        + " ".join(shlex.quote(arg) for arg in argv if arg != "--epic")
+        + f" | {interpreter} {shlex.quote(pager)}"
+    )
+    # the re-run finds this package where this process found it
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (package_root, os.environ.get("PYTHONPATH")))))
+    return subprocess.call(command, shell=True, env=env)
+
+
+def run_serve(args: argparse.Namespace) -> int:
+    """``serve``: the analysis daemon on the card of ``--device``, until
+    SIGTERM/SIGINT drains it (exit 0) or the card is lost (exit 1)."""
+    from mythril_tpu_torch.ops import default_device
+    from mythril_tpu_torch.serve import ServeConfigError, run_server
+
+    try:
+        default_device(args.device)
+    except RuntimeError as e:
+        print(f"{e} (use --device cpu)", file=sys.stderr)
+        return 2
+    try:
+        return run_server(
+            host=args.host, port=args.port,
+            fleet_listen=args.fleet_listen,
+            secret_file=args.secret_file, device=args.device,
+        )
+    except ServeConfigError as e:
+        print(f"bad serve config: {e}", file=sys.stderr)
+        return 2
+    except OSError as e:
+        print(f"cannot bind {args.host}:{args.port}: {e}", file=sys.stderr)
+        return 1
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     parser = build_parser()
@@ -522,6 +712,8 @@ def main(argv=None) -> None:
               "(see ROADMAP.md)", file=sys.stderr)
         sys.exit(2)
     args = parser.parse_args(argv)
+    if args.epic:
+        sys.exit(run_epic(argv))
     if args.command is None:
         parser.print_help()
         sys.exit(2)
@@ -565,9 +757,10 @@ def main(argv=None) -> None:
             print(f"bad fault spec: {e}", file=sys.stderr)
             sys.exit(2)
 
-    if args.command in ANALYZE_LIST:
+    if args.command in ANALYZE_LIST or args.command == "serve":
         # graceful drain: SIGTERM/SIGINT walk the cooperative boundaries,
-        # land a final journal generation and ship a partial report
+        # land a final journal generation and ship a partial report (in
+        # serve mode the same flag drains the daemon)
         from mythril_tpu_torch.resilience.checkpoint import (
             install_signal_handlers,
         )
@@ -597,7 +790,7 @@ def main(argv=None) -> None:
         logging.NOTSET, logging.CRITICAL, logging.ERROR, logging.WARNING,
         logging.INFO, logging.DEBUG,
     ]
-    level = log_levels[min(max(args.verbosity, 0), 5)]
+    level = log_levels[min(max(getattr(args, "verbosity", 2), 0), 5)]
     logging.basicConfig(
         level=level, format="%(name)s [%(levelname)s]: %(message)s"
     )
@@ -605,6 +798,18 @@ def main(argv=None) -> None:
 
     if args.command == "worker":
         sys.exit(run_worker(args))
+    if args.command == "serve":
+        sys.exit(run_serve(args))
+    if args.command == "top":
+        from mythril_tpu_torch.interfaces.top import run_top
+
+        sys.exit(run_top(args.url, interval_s=args.interval, once=args.once))
+
+    # entry-point plugins, as the JAX CLI loads them before analyze and
+    # disassemble
+    from mythril_tpu_torch.plugin.loader import MythrilPluginLoader
+
+    MythrilPluginLoader()
 
     outform = getattr(args, "outform", "text")
     try:

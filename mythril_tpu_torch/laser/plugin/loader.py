@@ -1,7 +1,8 @@
 """Registry of laser-plugin builders and the VM instrumentation hook.
 
 One process-wide registry (the executor assembly in
-analysis/symbolic.py registers the built-in pruners/trackers here);
+analysis/symbolic.py registers the built-in pruners/trackers here, and
+entry-point plugins arrive through mythril_tpu_torch/plugin/loader.py);
 ``instrument_virtual_machine`` is the single point where a fresh
 LaserEVM gets its enabled plugins constructed and attached.  Reference
 counterpart: laser/plugin/loader.py.

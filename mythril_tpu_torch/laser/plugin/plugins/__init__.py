@@ -1,5 +1,7 @@
 """Built-in laser plugins (reference: laser/plugin/plugins/__init__.py)."""
 
+from mythril_tpu_torch.laser.plugin.plugins.benchmark import BenchmarkPluginBuilder  # noqa: F401
+
 from mythril_tpu_torch.laser.plugin.plugins.call_depth_limiter import (  # noqa: F401
     CallDepthLimitBuilder,
 )

@@ -4,8 +4,12 @@
 Builds a symbolic executor per contract, harvests detection issues
 (salvaging partial results on interrupt or crash) and assembles the
 final :class:`Report`.  The port runs the JAX package's analyzer under
-the JAX defaults, without corpus sharding over devices and statespace
-or graph dumps; ``fleet_workers`` shards an analysis's frontier across
+the JAX defaults, without corpus sharding over devices; the statespace
+and graph outputs (:meth:`MythrilAnalyzer.dump_statespace`,
+:meth:`MythrilAnalyzer.graph_html`) and the coverage search strategy
+(``enable_coverage_strategy``) are the JAX package's, and
+``parallel_solving`` is recorded on the args bus and read by nothing, as
+in the JAX package; ``fleet_workers`` shards an analysis's frontier across
 worker processes (``parallel/fleet.py``) as in the JAX package.  As in
 the JAX package, a resource governor is installed for each contract and
 cleared after it (``resilience/governor.py``; its budgets are unlimited unless
@@ -103,6 +107,7 @@ class _Campaign:
     create_timeout: Optional[int] = None
     disable_dependency_pruning: bool = False
     custom_modules_directory: str = ""
+    enable_coverage_strategy: bool = False
 
 
 class MythrilAnalyzer:
@@ -121,7 +126,9 @@ class MythrilAnalyzer:
         custom_modules_directory: str = "",
         sparse_pruning: bool = False,
         unconstrained_storage: bool = False,
+        parallel_solving: bool = False,
         call_depth_limit: int = 3,
+        enable_coverage_strategy: bool = False,
         batched_solving: bool = True,
         device_force_dispatch: bool = False,
         async_dispatch: bool = True,
@@ -142,10 +149,12 @@ class MythrilAnalyzer:
             create_timeout=create_timeout,
             disable_dependency_pruning=disable_dependency_pruning,
             custom_modules_directory=custom_modules_directory,
+            enable_coverage_strategy=enable_coverage_strategy,
         )
         # the laser stack reads these through the global args bus
         args.sparse_pruning = sparse_pruning
         args.solver_timeout = solver_timeout or args.solver_timeout
+        args.parallel_solving = parallel_solving
         args.unconstrained_storage = unconstrained_storage
         args.call_depth_limit = call_depth_limit
         args.iprof = enable_iprof
@@ -193,6 +202,38 @@ class MythrilAnalyzer:
             **settings,
         )
 
+    def dump_statespace(self, contract: EVMContract = None) -> dict:
+        """The statespace of a run without detection modules, as the
+        JSON-ready dict of ``analysis/traceexplore.py``."""
+        from mythril_tpu_torch.analysis.traceexplore import (
+            get_serializable_statespace,
+        )
+
+        sym = self._symbolize(contract, run_analysis_modules=False)
+        # a prefetch still in flight is waited for, and its failure
+        # raised, as after an analysis
+        get_async_dispatcher().finish()
+        return get_serializable_statespace(sym)
+
+    def graph_html(
+        self,
+        contract: EVMContract = None,
+        enable_physics: bool = False,
+        phrackify: bool = False,
+        transaction_count: Optional[int] = None,
+    ) -> str:
+        """The call graph of a run without detection modules, as the HTML
+        page of ``analysis/callgraph.py``."""
+        from mythril_tpu_torch.analysis.callgraph import generate_graph
+
+        sym = self._symbolize(
+            contract,
+            run_analysis_modules=False,
+            transaction_count=transaction_count,
+        )
+        get_async_dispatcher().finish()
+        return generate_graph(sym, physics=enable_physics, phrackify=phrackify)
+
     def _analyze_contract(self, contract, modules, transaction_count):
         """Symbolically execute one contract and return (issues,
         execution_info, traceback-or-None).  Interrupts and crashes
@@ -215,6 +256,9 @@ class MythrilAnalyzer:
                 transaction_count=transaction_count,
                 modules=modules,
                 compulsory_statespace=False,
+                enable_coverage_strategy=(
+                    self.campaign.enable_coverage_strategy
+                ),
             )
             self.last_sym = sym
             issues = fire_lasers(sym, modules)

@@ -416,6 +416,12 @@ class LaneLedger:
                 "records_dropped": self.records_dropped,
             }
 
+    def scope_snapshot(self, scope: str) -> Dict[str, int]:
+        """Lane counts by tier of one request scope (the serve plane's
+        ``/debug/requests``)."""
+        with self._lock:
+            return dict(self.by_scope.get(scope, {}))
+
     def merge_snapshot(self, snap: Optional[dict]) -> int:
         """Fold another process's aggregate snapshot into this ledger (a
         fleet worker's lanes, riding its result).  The records stay in

@@ -182,6 +182,10 @@ class Tracer:
         self._cap = _env_cap()
         self._totals: Dict[str, float] = {}  # name -> cumulative seconds
         self._counts: Dict[str, int] = {}    # name -> completed spans
+        # thread ident -> that thread's span stack (the list itself,
+        # registered once per thread; the serve plane's /debug/requests
+        # reads it without touching the hot path)
+        self._all_stacks: Dict[int, list] = {}
         # the run's trace identity, minted at the CLI edge and carried
         # to the fleet's workers in the lease payload
         self.trace_id: Optional[str] = None
@@ -232,7 +236,18 @@ class Tracer:
         stack = getattr(self._tls, "stack", None)
         if stack is None:
             stack = self._tls.stack = []
+            self._all_stacks[threading.get_ident()] = stack
         return stack
+
+    def live_spans(self) -> Dict[int, str]:
+        """Each thread's innermost open span name (the serve plane's
+        ``/debug/requests`` phase).  Read without the lock: a torn read
+        can at worst name a span that has just closed."""
+        out = {}
+        for tid, stack in list(self._all_stacks.items()):
+            if stack:
+                out[tid] = stack[-1]
+        return out
 
     def _record_span(self, name, cat, t0_ns, dur_ns, attrs) -> None:
         event = {

@@ -20,8 +20,9 @@ store (:mod:`mythril_tpu_torch.persist.store`) and the live solver state:
   under a key derived from (bytecode digest, tx_count, max_depth,
   module set, tool version), so that an exact re-submission can be
   answered without analysis, and any module-set or version change
-  misses by key construction (its caller, the serve engine, is not
-  ported yet).
+  misses by key construction (its callers: the serve engine stores a
+  finished request's body, ``serve/admission.py`` answers an exact
+  re-submission from it at the admission edge).
 - **Flush cadence** — dirty records flush on an operator timer
   (``MYTHRIL_TPU_PERSIST_FLUSH_S``) and at process exit (atexit), each
   flush one atomic segment.

@@ -42,10 +42,12 @@ the planes it has:
                      worker becomes the zombie the epoch fence drops)
 ``remote_auth_fail`` one authenticated attach is refused at the handshake
 ``frame_corrupt``    the coordinator strikes one frame as corrupt
+``serve_crash``      one served request raises inside its analysis scope
+                     (``serve/engine.py``: that request fails alone)
 ==================  =====================================================
 
-The other points (``rpc_*``, ``serve_crash``) parse and count hits, but
-no seam of the port reaches them yet.
+The ``rpc_*`` points parse and count hits, but no seam of the port
+reaches them yet.
 
 Faults are armed through the API (:meth:`FaultPlane.arm`) or the
 environment::
@@ -318,6 +320,14 @@ def maybe_fault_prefetch() -> None:
     """Async-prefetch seam (``ops/async_dispatch.py`` worker)."""
     if get_fault_plane().fire("prefetch_error") is not None:
         raise FaultInjected("injected prefetch worker failure")
+
+
+def maybe_fault_request() -> None:
+    """Served-request seam (the ``serve_crash`` point, fired inside the
+    serve engine's analysis scope): raises when armed, so that a test
+    can crash exactly one request and check that it fails alone."""
+    if get_fault_plane().fire("serve_crash") is not None:
+        raise FaultInjected("injected served-request crash")
 
 
 def maybe_fault_worker_kill() -> None:

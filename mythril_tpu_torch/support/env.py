@@ -103,6 +103,10 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     "MYTHRIL_TPU_FLEET_RECONNECT": ("int", 0, None),
     "MYTHRIL_TPU_FLEET_LISTEN": ("listen", None, None),
     "MYTHRIL_TPU_FLEET_SECRET_FILE": ("file", None, None),
+    # the serve plane (serve/): a source's analysis-seconds in a rolling
+    # 60 s window (the other MYTHRIL_TPU_SERVE_* knobs are checked by
+    # serve/config.py when the server starts)
+    "MYTHRIL_TPU_SERVE_TENANT_QUOTA": ("float", 0.0, None),
 }
 
 #: raw values :func:`env_flag` understands; anything else on a "flag"

@@ -41,6 +41,7 @@ class Args(object, metaclass=Singleton):
         self.solver_timeout = 10000          # ms per query
         self.exact_gas_tracking = False      # concolic conformance runs only
         self.sparse_pruning = False
+        self.parallel_solving = False        # --parallel-solving; read by nothing, as in JAX
         self.unconstrained_storage = False
         self.call_depth_limit = 3
         self.iprof = False

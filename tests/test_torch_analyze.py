@@ -785,11 +785,22 @@ def test_cli_refuses_missing_card_and_unported_options():
     assert "SWC" not in run.stdout
     run = subprocess.run(
         [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
+         hexfile, "--bin-runtime", "--rpc", "localhost:8545"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert run.returncode == 2 and "--rpc" in run.stderr
+    assert "not supported by this build" in run.stderr
+    # -g is taken: without a card the command gets as far as the card
+    # check
+    run = subprocess.run(
+        [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
          hexfile, "--bin-runtime", "-g", "graph.html"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
-    assert run.returncode == 2 and "-g" in run.stderr
-    assert "not supported by this build" in run.stderr
+    assert run.returncode == 2
+    assert "CUDA" in run.stderr and "--device cpu" in run.stderr
+    assert "not supported by this build" not in run.stderr
+    assert not os.path.exists(os.path.join(ROOT, "graph.html"))
     # --workers is taken: without a card the command gets as far as the
     # card check, and on the CPU the analysis runs
     run = subprocess.run(

@@ -57,7 +57,7 @@ KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "FLEET_LEASE_TTL_S", "FLEET_SPLIT_AFTER_S", "FLEET_LEASE_RETRIES",
     "FLEET_SPAWN_RETRIES", "FLEET_CONNECT_TIMEOUT_S", "FLEET_HARD_CAP_S",
     "FLEET_MAX_FRAME", "FLEET_RECONNECT", "FLEET_LISTEN",
-    "FLEET_SECRET_FILE"))
+    "FLEET_SECRET_FILE", "SERVE_TENANT_QUOTA"))
 #: the port's entries for knobs the JAX package reads without a static
 #: entry (it checks none of them at startup but the tail share, which its
 #: policy registers when first read): the kill switches of the tracer,
@@ -387,6 +387,9 @@ TABLE = [
      False),
     ("MYTHRIL_TPU_FLEET_SECRET_FILE", os.path.join(ROOT, "no-such-secret"),
      True),
+    ("MYTHRIL_TPU_SERVE_TENANT_QUOTA", "30", False),
+    ("MYTHRIL_TPU_SERVE_TENANT_QUOTA", "-1", True),
+    ("MYTHRIL_TPU_SERVE_TENANT_QUOTA", "lots", True),
     # no entry in the JAX table: any value passes on both sides
     ("MYTHRIL_TPU_WORD_TIER", "bogus", False),
     ("MYTHRIL_TPU_WORD_XP", "gpu", False),

@@ -67,6 +67,21 @@ def reset_knowledge_planes():
         module(package, "persist.plane").reset_for_tests()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's plain CPU tiers on one intra-op thread: beside the other
+    test files' busy processes, torch's pool of threads made the d4
+    parity runs several times slower (575 s against 71-102 s alone, as
+    test_torch_keccak.py found for its plain version); the runs compute
+    the same."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def fresh_persist(monkeypatch):
     """Every test starts with both packages' knowledge planes inert and
