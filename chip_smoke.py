@@ -282,7 +282,28 @@ failure):
    the node uids are renumbered by first appearance, and
    ``--enable-coverage-strategy`` on d6 -t 1 with the default run's SWC
    set; the five processes run side by side;
-15. the launches of the main path's configurations and, apart, of the
+15. on-chain loading and the watch, from chains the check serves
+   itself on 127.0.0.1 (``contracts.onchain_chain`` and
+   ``contracts.watch_chain`` through ``contracts.serve_chain``, a stdlib
+   JSON-RPC server): ``load_from_address`` of CLONE2 (the scale contract
+   at d6 g16 behind two EIP-1167 hops) and ``fire_lasers`` with the
+   loader active at -t 1, in the default rungs and force-dispatched;
+   ``vault_withdraw`` -t 2 at VAULT (its balance from the chain; its
+   storage keys are the symbolic caller, so its storage is the loader's
+   concrete one) and ``call_constant`` -t 1 at GATE (slot 0 and the code
+   it calls read from the chain); the clone run again under
+   ``MYTHRIL_TPU_FAULT=rpc_error`` (a retry, the same SWC set and
+   states; its launches not counted); every run audited, its launches
+   counted, its SWC set the JAX package's (``contracts.ONCHAIN_RUNS``);
+   then the watch in process through ``WatchService`` and the port's
+   ``EngineBackend`` on the card (six deployments, a reverted CREATE, a
+   reorg of two blocks: four dedup hits, two analyses with the SWC sets
+   of ``contracts.WATCH_FINDINGS``; its launches counted), and as
+   processes side by side: ``analyze -a``, ``read-storage 0,2``,
+   ``function-to-hash`` and ``watch`` (the in-process watch's summary and
+   findings rows), then ``watch --resume`` from that journal, which
+   submits nothing; the phase fails past 120 s;
+16. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; the histogram of the (B, V,
    D) shapes at which every audited run launched ``dpll_step``; the
    dense tier's rounds by step budget and their hot-view steps over
@@ -296,6 +317,7 @@ Exits non-zero, printing no result, when no CUDA device is present.
 import contextlib
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -3284,6 +3306,10 @@ def analyze_once(run, batched_solving=True, force=True, proof_log=False):
     reset_analysis_state()
     disassembler = MythrilDisassembler()
     address, _ = disassembler.load_from_bytecode(run.code(), bin_runtime=True)
+    # the chip runs are ``-f CODE --no-onchain-data`` (a tree from before
+    # the on-chain loader takes no such argument: its loader is inactive)
+    offline = ({"use_onchain_data": False} if "use_onchain_data" in
+               inspect.signature(MythrilAnalyzer).parameters else {})
     analyzer = MythrilAnalyzer(
         disassembler, address=address, strategy="bfs", max_depth=128,
         execution_timeout=ANALYZE_TIMEOUT_S, create_timeout=10,
@@ -3291,7 +3317,7 @@ def analyze_once(run, batched_solving=True, force=True, proof_log=False):
         device_force_dispatch=force, async_dispatch=not force, device=DEVICE,
         # only when asked: chip_tools/analyze_times.py drives trees from
         # before the proof log with this function
-        **({"proof_log": True} if proof_log else {}),
+        **({"proof_log": True} if proof_log else {}), **offline,
     )
     started = time.perf_counter()
     with rung_args(device_coalesce=not force):
@@ -5091,6 +5117,304 @@ def statespace_phase(card):
         f"five processes side by side in {wall:.1f} s")
 
 
+#: the on-chain phase's limit on its own seconds
+ONCHAIN_LIMIT_S = 120.0
+
+
+@contextlib.contextmanager
+def served(chain):
+    """``chain`` answered over JSON-RPC on 127.0.0.1 for the block; yields
+    ``HOST:PORT``."""
+    from mythril_tpu_torch.contracts import serve_chain
+
+    server = serve_chain(chain)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+
+
+def onchain_once(run, endpoint, force):
+    """``-a`` in process: the run's account loaded from the chain at
+    ``endpoint`` (``load_from_address``: triage, the proxy chain) and
+    analyzed with the loader active, force-dispatched or in the default
+    rungs.  Returns (report, analyzer, contract, wall seconds, the RPC
+    client's retries while loading)."""
+    import torch
+
+    from mythril_tpu_torch.contracts import onchain_accounts
+    from mythril_tpu_torch.mythril import (
+        MythrilAnalyzer, MythrilConfig, MythrilDisassembler,
+    )
+    from mythril_tpu_torch.mythril.mythril_analyzer import (
+        reset_analysis_state,
+    )
+    from mythril_tpu_torch.resilience.telemetry import resilience_stats
+
+    reset_analysis_state()
+    config = MythrilConfig()
+    config.set_api_rpc(endpoint)
+    disassembler = MythrilDisassembler(eth=config.eth)
+    started = time.perf_counter()
+    address, contract = disassembler.load_from_address(
+        onchain_accounts()[run.account].address)
+    retries = resilience_stats.rpc_retries
+    analyzer = MythrilAnalyzer(
+        disassembler, address=address, strategy="bfs", max_depth=128,
+        execution_timeout=ANALYZE_TIMEOUT_S, create_timeout=10,
+        loop_bound=3, device_force_dispatch=force, async_dispatch=not force,
+        device=DEVICE, use_onchain_data=True)
+    with rung_args(device_coalesce=not force):
+        report = analyzer.fire_lasers(
+            transaction_count=run.transaction_count)
+    torch.cuda.synchronize()
+    return report, analyzer, contract, time.perf_counter() - started, retries
+
+
+def onchain_run(run, endpoint, chain, card, force, label="", audit=True):
+    """One :func:`onchain_once` with every kernel call audited (the
+    launches counted from 0 just before and read just after), logged
+    with its reads of the chain; returns (launches, SWC set, states)."""
+    from mythril_tpu_torch.laser.batch import prune_stats
+
+    calls = dict(chain.calls)
+    with audited_kernels("sample" if force else "count",
+                         "first" if force else "count",
+                         "count" if force else "every",
+                         "every" if audit else "count") as audited:
+        report, analyzer, contract, wall, retries = onchain_once(
+            run, endpoint, force)
+    wall -= audited["seconds"]
+    reads = {k: chain.calls.get(k, 0) - calls.get(k, 0)
+             for k in ("eth_getCode", "eth_getStorageAt", "eth_getBalance")}
+    found = {issue.swc_id for issue in report.issues.values()}
+    states = analyzer.last_sym.laser.total_states
+    check(not report.exceptions,
+          f"onchain {run.name}: the analysis failed:\n"
+          + "\n".join(report.exceptions))
+    log(f"onchain {run.name}{label} [{card}]: contract {contract.name}, "
+        f"triage {contract.triage}, wall {wall:.3f} s without the audits' "
+        f"{audited['seconds']:.3f} s, {states} states, "
+        f"{prune_stats.tail_states} tail lanes, chain reads {reads}, rpc "
+        f"retries {retries}, launches {audited['launches']}, SWC "
+        f"{sorted(found)}; kernels vs plain: "
+        f"{audited['sweep'].summary() or 'no sweep'}; "
+        f"{audited['step'].summary() or 'no dpll_step'}; "
+        f"{audited['frontier'].summary() or 'no frontier kernel'}; "
+        f"{audited['round_lane'].summary() or 'no round lane'}; "
+        f"{audited['word'].summary() or 'no word fixpoint'}; lockstep "
+        f"{audited['lockstep'].summary() or 'none'}; keccak "
+        f"{audited['keccak'].summary() or 'none'}")
+    check(found == run.swc_ids,
+          f"onchain {run.name}{label}: SWC {sorted(found)}, the JAX package "
+          f"finds {sorted(run.swc_ids)}")
+    check(reads["eth_getCode"] > 0,
+          f"onchain {run.name}: the code was not read from the chain")
+    if run.resolves_to is not None:
+        check(" -> " in contract.name,
+              f"onchain {run.name}: the proxy was not resolved "
+              f"({contract.name})")
+    return audited["launches"], found, states, retries
+
+
+def watch_args(endpoint, journal, findings, *extra):
+    return ["watch", "--rpc", endpoint, "--until-block", "8", "--tx-count",
+            "1", "--confirmations", "0", "--poll-s", "0", "--journal",
+            journal, "--findings-out", findings, *extra]
+
+
+def watch_rows(path):
+    """The findings rows of a watch by digest, without trace ids and
+    walls."""
+    rows = {}
+    with open(path) as fh:
+        for line in fh:
+            row = json.loads(line)
+            row.pop("trace_id", None)
+            row.pop("analysis_s", None)
+            rows.setdefault(row["digest"], []).append(row)
+    return rows
+
+
+def watch_check(what, summary, rows, want):
+    """A full watch of :func:`contracts.watch_chain`: one reorg, six
+    deployments, the reverted CREATE skipped, each unique digest analyzed
+    once with the SWC set ``want`` gives it, nothing dropped."""
+    analyzed = {d: [r for r in rs if r["status"] == "analyzed"]
+                for d, rs in rows.items()}
+    check(summary["reorgs"] == 1 and summary["deployments"] == 6
+          and summary["dedup_hits"] == 4 and summary["analyzed"] == 2
+          and summary["errors"] == 0 and summary["backlog_depth"] == 0
+          and summary["cursor"] == 8,
+          f"watch {what}: summary {summary}")
+    check(set(analyzed) == set(want)
+          and all(len(rs) == 1 for rs in analyzed.values())
+          and all(set(analyzed[d][0]["findings_swc"]) == want[d]
+                  and not analyzed[d][0]["partial"] for d in want),
+          f"watch {what}: analyzed rows {analyzed}, want {want}")
+
+
+def onchain_phase(card):
+    """On-chain loading and the watch on the card (see the module
+    docstring).  Returns the launches of its runs on the main path."""
+    import tempfile
+
+    from mythril_tpu_torch import contracts as C
+    from mythril_tpu_torch.persist.plane import code_digest
+    from mythril_tpu_torch.resilience import faults
+    from mythril_tpu_torch.watch import build_client
+    from mythril_tpu_torch.watch.stream import EngineBackend, WatchService
+
+    started = time.perf_counter()
+    runs = {r.account: r for r in C.ONCHAIN_RUNS}
+    clone2, vault = runs["CLONE2"], runs["VAULT"]
+    accounts = C.onchain_accounts()
+    want = {code_digest(C.scale_contract(6, 16, "mul")):
+            C.WATCH_FINDINGS["scale_mul d6 g16"],
+            code_digest(C.killbilly()): C.WATCH_FINDINGS["killbilly"]}
+    totals = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    chain = C.onchain_chain()
+    with tempfile.TemporaryDirectory() as tmp, env(
+            MYTHRIL_DIR=tmp, INFURA_ID=None, MYTHRIL_TPU_RPC_PROVIDERS=None,
+            **DETERMINISTIC), served(chain) as endpoint:
+        for force, label in ((False, " default rungs"),
+                             (True, " force-dispatched")):
+            launches, _found, states, _r = onchain_run(
+                clone2, endpoint, chain, card, force, label)
+            _add(totals, launches)
+        check(launches["dense_sweep"] + launches["scan_rows"] > 0,
+              f"onchain {clone2.name} force-dispatched: no device tier "
+              f"({launches})")
+        # vault_withdraw keys its storage by the (symbolic) caller, so
+        # its reads are the loader's concrete storage and its balance the
+        # chain's; call_constant reads slot 0 (set on the chain: its
+        # SUICIDE is reachable only so) and loads the code it CALLs
+        for run, what in ((vault, "eth_getBalance"),
+                          (runs["GATE"], "eth_getStorageAt")):
+            before = dict(chain.calls)
+            launches, _found, _states, _r = onchain_run(
+                run, endpoint, chain, card, False, " default rungs")
+            _add(totals, launches)
+            check(chain.calls.get(what, 0) > before.get(what, 0),
+                  f"onchain {run.name}: no {what} from the chain")
+        check(chain.calls["eth_getCode"] - before["eth_getCode"] >= 2,
+              "onchain call_constant: the callee's code was not loaded")
+        # the rpc_error fault: the first transport call fails and is
+        # retried; the findings and states are the fault-free run's (its
+        # launches stay out of the kernels line, as every faulted run's)
+        faults.reset_for_tests()
+        with env(MYTHRIL_TPU_FAULT="rpc_error"):
+            faults.reset_for_tests()
+            try:
+                _l, found, faulted_states, retries = onchain_run(
+                    clone2, endpoint, chain, card, True,
+                    " force-dispatched, MYTHRIL_TPU_FAULT=rpc_error",
+                    audit=False)
+                fired = faults.get_fault_plane().fired
+            finally:
+                faults.reset_for_tests()
+        check(retries >= 1 and found == clone2.swc_ids
+              and faulted_states == states,
+              f"onchain rpc_error: {retries} retries, SWC {sorted(found)}, "
+              f"{faulted_states} states (fault-free {states}); fired "
+              f"{fired}")
+        # the watch in process, on the port's engine on the card, in the
+        # default rungs (the serve engine builds no analyzer: the args bus
+        # still holds the last forced run's rungs), as its CLI runs it
+        watch = C.watch_chain()
+        with served(watch) as wendpoint, rung_args(
+                device_force_dispatch=False, async_dispatch=True,
+                device_coalesce=True):
+            reset_launches()
+            wall = time.perf_counter()
+            service = WatchService(
+                build_client(wendpoint), EngineBackend(device=DEVICE),
+                confirmations=0, poll_s=0, until_block=8, tx_count=1,
+                journal_path=os.path.join(tmp, "inproc.jsonl"),
+                findings_out=os.path.join(tmp, "inproc.findings.jsonl"))
+            summary = service.run()
+            wall = time.perf_counter() - wall
+            _add(totals, read_launches())
+        inproc_rows = watch_rows(os.path.join(tmp, "inproc.findings.jsonl"))
+        watch_check("in process", summary, inproc_rows, want)
+        log(f"onchain watch in process [{card}]: wall {wall:.3f} s, "
+            f"summary {summary}, chain calls {watch.calls}")
+        # the CLI: analyze -a, read-storage and function-to-hash beside a
+        # watch process, then that watch resumed from its journal
+        watch2 = C.watch_chain()
+        with served(watch2) as wendpoint2:
+            cli = [sys.executable, "-m", "mythril_tpu_torch"]
+            journal = os.path.join(tmp, "cli.jsonl")
+            findings = os.path.join(tmp, "cli.findings.jsonl")
+            procs = {what: subprocess.Popen(
+                cli + argv, cwd=root, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, env=dict(os.environ))
+                for what, argv in (
+                    ("analyze", ["analyze", "-a",
+                                 accounts[clone2.account].address, "--rpc",
+                                 endpoint, "-t", "1", "-o", "jsonv2"]),
+                    ("read-storage", ["read-storage", "0,2",
+                                      accounts["VAULT"].address, "--rpc",
+                                      endpoint]),
+                    ("function-to-hash", ["function-to-hash",
+                                          "transfer(address,uint256)"]),
+                    ("watch", watch_args(wendpoint2, journal, findings)))}
+            done = {}
+            for what, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                check(proc.returncode == 0,
+                      f"onchain CLI {what}: exit {proc.returncode}: "
+                      f"{stderr[-2000:]}")
+                done[what] = stdout
+            resumed = subprocess.run(
+                cli + watch_args(wendpoint2, journal, findings, "--resume"),
+                cwd=root, capture_output=True, text=True, timeout=600)
+            check(resumed.returncode == 0,
+                  f"onchain CLI watch --resume: {resumed.stderr[-2000:]}")
+        cli_found = {i["swcID"].replace("SWC-", "")
+                     for i in json.loads(done["analyze"])[0]["issues"]}
+        check(cli_found == clone2.swc_ids,
+              f"onchain CLI analyze -a: SWC {sorted(cli_found)}")
+        storage = done["read-storage"].split()
+        check(storage == ["0x0:", "0x" + format(0x2A, "064x"), "0x1:",
+                          "0x" + format(0x1337, "064x")],
+              f"onchain CLI read-storage: {done['read-storage']!r}")
+        check(done["function-to-hash"].strip() == "0xa9059cbb",
+              f"onchain CLI function-to-hash: {done['function-to-hash']!r}")
+        cli_summary = json.loads(done["watch"].strip().splitlines()[-1])[
+            "watch_summary"]
+        cli_rows = watch_rows(findings)
+        watch_check("CLI", cli_summary, cli_rows, want)
+        volatile = ("wall_s", "cpm", "uptime_s")
+        check({k: v for k, v in cli_summary.items() if k not in volatile}
+              == {k: v for k, v in summary.items() if k not in volatile}
+              and cli_rows == inproc_rows,
+              f"onchain CLI watch: {cli_summary} and its rows differ from "
+              f"the in-process watch's {summary}")
+        again = json.loads(resumed.stdout.strip().splitlines()[-1])[
+            "watch_summary"]
+        check(again["analyzed"] == 0 and again["cached"] == 0
+              and again["deployments"] == 0 and again["errors"] == 0
+              and watch_rows(findings) == cli_rows,
+              f"onchain CLI watch --resume submitted again: {again}")
+        log(f"onchain CLI [{card}]: analyze -a SWC {sorted(cli_found)}, "
+            f"read-storage {done['read-storage'].strip()!r}, "
+            f"function-to-hash {done['function-to-hash'].strip()}, watch "
+            f"summary {cli_summary}, --resume summary {again}")
+    seconds = time.perf_counter() - started
+    log(f"onchain phase [{card}]: {seconds:.1f} s (limit "
+        f"{ONCHAIN_LIMIT_S:.0f} s), launches {totals}")
+    check(seconds <= ONCHAIN_LIMIT_S,
+          f"onchain phase took {seconds:.1f} s, past its "
+          f"{ONCHAIN_LIMIT_S:.0f} s")
+    return totals
+
+
 def _add(total, launches):
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
@@ -5189,6 +5513,8 @@ def _main(torch, frontiers, default_device, edge_pool,
     phase_done("serve")
     statespace_phase(card)
     phase_done("statespace")
+    _add(totals, onchain_phase(card))
+    phase_done("onchain")
     _add(totals, default)
     _add(kill_switch, yardstick)
     log(f"launches in the default configuration (the kernels line): "

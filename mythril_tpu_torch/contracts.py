@@ -10,11 +10,19 @@ finds; :func:`constant_key_mapping` is the one whose SHA3 windows are
 concrete, :data:`VERITEST_RUN` the one in which the veritesting tier
 merges lanes, and :func:`diamond`, :func:`nested_diamond` and
 :func:`loop_exit` the branch shapes its tests merge on.  :func:`lockstep_gauntlet` and :func:`wide_dispatcher` are the
-lockstep interpreter's test programs.
+lockstep interpreter's test programs.  :data:`ONCHAIN_RUNS` are the
+analyses of on-chain loading (``-a``): the accounts of
+:func:`onchain_accounts` and the watch's blocks (:func:`watch_chain`)
+live in an :class:`OnchainChain`, which :func:`serve_chain` answers over
+JSON-RPC on the loopback interface; :func:`call_constant` is the
+contract whose findings depend on whether the loader is active.
 """
 
+import hashlib
+import json
 import os
-from typing import Callable, List, NamedTuple, Set, Tuple
+import threading
+from typing import Callable, Dict, List, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 
@@ -526,3 +534,290 @@ CHIP_RUNS: Tuple[ChipRun, ...] = (
 YARDSTICK_RUN = ChipRun("scale_mul d4 g16 -t 1",
                         lambda: scale_contract(4, 16, "mul"), 1, {"106"},
                         True, False, 0)
+
+
+# ---------------------------------------------------------------------------
+# on-chain loading: a chain served on the loopback interface
+# ---------------------------------------------------------------------------
+
+#: the EIP-1167 minimal-proxy runtime: PRE + the 20-byte target + POST
+EIP1167_PRE = "363d3d373d3d3d363d73"
+EIP1167_POST = "5af43d82803e903d91602b57fd5bf3"
+
+#: the constant address :func:`call_constant` calls
+CALLEE = "0x00000000000000000000000000000000000ca11e"
+
+
+def eip1167_clone(target: str) -> str:
+    """Runtime hex of an EIP-1167 minimal proxy delegating to ``target``."""
+    return EIP1167_PRE + target[2:].lower() + EIP1167_POST
+
+
+def call_constant() -> str:
+    """CALLs the constant address :data:`CALLEE`, then reads storage slot
+    0 and, when it is set, lets anyone destroy the contract (SWC-106).
+    With the loader active (``myth analyze`` without
+    ``--no-onchain-data``) the callee is loaded from the chain and the
+    target's storage is concrete: slot 0 reads the chain's value (0 when
+    no chain answers, and the SUICIDE is unreachable); with the loader
+    inactive slot 0 is symbolic."""
+    return asm(
+        f"""
+        PUSH 0; PUSH 0; PUSH 0; PUSH 0; PUSH 0
+        PUSH20 {int(CALLEE, 16)}; GAS; CALL; POP
+        PUSH 0; SLOAD; ISZERO; PUSH @done; JUMPI
+        CALLER; SUICIDE
+      done:
+        JUMPDEST; STOP
+        """
+    )
+
+
+class ChainAccount(NamedTuple):
+    address: str
+    #: runtime hex without ``0x``
+    code: str
+    balance: int = 0
+    #: slot -> value
+    storage: Dict[int, int] = {}
+
+
+def _address(n: int) -> str:
+    return "0x" + format(0xC0DE0000 + n, "040x")
+
+
+_ATTACKER = 0xDEADBEEFDEADBEEFDEADBEEFDEADBEEFDEADBEEF
+_CREATOR = 0xAFFEAFFEAFFEAFFEAFFEAFFEAFFEAFFEAFFEAFFE
+
+
+def onchain_accounts() -> Dict[str, ChainAccount]:
+    """The accounts of the on-chain runs, by name: IMPL holds the scale
+    contract at the main path's full width (d6 g16), CLONE is an EIP-1167
+    clone of IMPL and CLONE2 a clone of CLONE (a chain of two hops); VAULT
+    holds ``vault_withdraw`` with a balance, the creator's and the
+    attacker's deposits in its storage and two words in slots 0 and 1
+    (which its code never reads: ``read-storage 0,2`` reads them); KILL holds killbilly behind
+    KILL_CLONE; GATE holds :func:`call_constant` with slot 0 set on the
+    chain, and CALLEE, the address it calls, holds killbilly."""
+    impl, clone, clone2 = _address(1), _address(2), _address(3)
+    kill = _address(5)
+    accounts = [
+        ("IMPL", ChainAccount(impl, scale_contract(6, 16, "mul"))),
+        ("CLONE", ChainAccount(clone, eip1167_clone(impl))),
+        ("CLONE2", ChainAccount(clone2, eip1167_clone(clone))),
+        ("VAULT", ChainAccount(
+            _address(4), fixture("vault_withdraw"), balance=3 * 10**18,
+            storage={0: 0x2A, 1: 0x1337, _CREATOR: 2 * 10**18,
+                     _ATTACKER: 10**18})),
+        ("KILL", ChainAccount(kill, killbilly())),
+        ("KILL_CLONE", ChainAccount(_address(6), eip1167_clone(kill))),
+        ("GATE", ChainAccount(_address(7), call_constant(), storage={0: 1})),
+        ("CALLEE", ChainAccount(CALLEE, killbilly(), balance=5)),
+    ]
+    return dict(accounts)
+
+
+class OnchainRun(NamedTuple):
+    name: str
+    #: the account analyzed (``-a``), a name of :func:`onchain_accounts`
+    account: str
+    transaction_count: int
+    #: the SWC ids the JAX package finds on the same chain, on the CPU
+    #: (held by tests/test_torch_rpc.py; the full-width run's by the
+    #: command in :data:`ONCHAIN_JAX_COMMAND`)
+    swc_ids: Set[str]
+    #: the account a proxy chain resolves to (None: no proxy)
+    resolves_to: Optional[str]
+    #: small enough for the CPU tests to run on both packages
+    small: bool
+
+
+ONCHAIN_RUNS: Tuple[OnchainRun, ...] = (
+    OnchainRun("scale_mul d6 g16 via two clones -t 1", "CLONE2", 1,
+               {"106"}, "IMPL", False),
+    OnchainRun("vault_withdraw on chain -t 2", "VAULT", 2,
+               {"104", "107"}, None, True),
+    OnchainRun("killbilly via a clone -t 1", "KILL_CLONE", 1, {"106"},
+               "KILL", True),
+    OnchainRun("call_constant on chain -t 1", "GATE", 1, {"106", "107"}, None,
+               True),
+)
+
+#: how the full-width run's JAX SWC set was taken (``CHAIN`` is a served
+#: :func:`onchain_chain`, ``CLONE2`` its address)
+ONCHAIN_JAX_COMMAND = ("JAX_PLATFORMS=cpu python3 myth analyze -a CLONE2 "
+                       "--rpc CHAIN -t 1 -o jsonv2")
+
+
+def _hash32(*parts) -> str:
+    return "0x" + hashlib.sha256(
+        ":".join(str(p) for p in parts).encode()).hexdigest()
+
+
+class OnchainChain:
+    """Accounts, transaction receipts and blocks on two branches, as a
+    node would answer them.  ``heads`` are the heights ``eth_blockNumber``
+    answers, one a poll (the last repeats); from poll ``switch_poll`` on,
+    branch B is canonical above height ``fork``.  Thread-safe: the server
+    answers from handler threads."""
+
+    def __init__(self, accounts: Dict[str, ChainAccount],
+                 blocks_a: Dict[int, List[str]],
+                 blocks_b: Optional[Dict[int, List[str]]] = None,
+                 receipts: Optional[Dict[str, dict]] = None,
+                 heads: Tuple[int, ...] = (0,), fork: Optional[int] = None,
+                 switch_poll: Optional[int] = None):
+        self.accounts = {a.address.lower(): a for a in accounts.values()}
+        self.receipts = dict(receipts or {})
+        self.heads = tuple(heads)
+        self.fork = fork
+        self.switch_poll = switch_poll
+        self.polls = 0
+        self.calls: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._branch_a = self._build("A", blocks_a, 0, "0x" + "00" * 32)
+        self._branch_b = {}
+        if blocks_b is not None:
+            self._branch_b = self._build(
+                "B", blocks_b, fork + 1, self._branch_a[fork]["hash"])
+
+    @staticmethod
+    def _build(branch, txs, start, parent):
+        out = {}
+        for height in range(start, max(txs, default=start) + 1):
+            block_hash = _hash32(branch, height)
+            out[height] = {"number": hex(height), "hash": block_hash,
+                           "parentHash": parent,
+                           "transactions": list(txs.get(height, ()))}
+            parent = block_hash
+        return out
+
+    @property
+    def switched(self) -> bool:
+        return self.switch_poll is not None and self.polls > self.switch_poll
+
+    def head(self) -> int:
+        """One ``eth_blockNumber`` poll."""
+        with self._lock:
+            head = self.heads[min(self.polls, len(self.heads) - 1)]
+            self.polls += 1
+            return head
+
+    def block(self, height: int) -> Optional[dict]:
+        with self._lock:
+            seen = self.heads[min(max(self.polls - 1, 0),
+                                  len(self.heads) - 1)]
+            if height < 0 or height > seen:
+                return None
+            if self.switched and height > self.fork:
+                return self._branch_b.get(height)
+            return self._branch_a.get(height)
+
+    def answer(self, method: str, params: list):
+        """The JSON-RPC ``result`` of one call (raises ValueError for a
+        method the chain does not serve)."""
+        with self._lock:
+            self.calls[method] = self.calls.get(method, 0) + 1
+        if method == "eth_blockNumber":
+            return hex(self.head())
+        if method == "eth_getBlockByNumber":
+            return self.block(int(params[0], 16))
+        if method == "eth_getTransactionReceipt":
+            return self.receipts.get(params[0])
+        account = self.accounts.get(str(params[0]).lower())
+        if method == "eth_getCode":
+            return "0x" + account.code if account else "0x"
+        if method == "eth_getBalance":
+            return hex(account.balance if account else 0)
+        if method == "eth_getStorageAt":
+            value = account.storage.get(int(params[1], 16), 0) \
+                if account else 0
+            return "0x" + format(value, "064x")
+        raise ValueError(f"unsupported method {method}")
+
+
+def onchain_chain() -> OnchainChain:
+    """The accounts of :func:`onchain_accounts` on a chain of one block."""
+    return OnchainChain(onchain_accounts(), {0: []})
+
+
+def watch_chain() -> OnchainChain:
+    """The watch's chain of 9 blocks: IMPL (the scale contract, d6 g16)
+    deployed at height 1 beside a reverted CREATE, a clone of IMPL at 2, a
+    byte-identical redeploy of IMPL at 3, a transfer at 4, killbilly at
+    6; then a reorg of 2 blocks: branch B replaces heights 6 and 7 (its 6
+    deploys the same killbilly again, its 7 a clone of it, height 7 of
+    branch A a transfer).  The head answers 4, 7, then 8 (the switch)."""
+    impl = scale_contract(6, 16, "mul")
+    kill = killbilly()
+    accounts = {}
+    receipts = {}
+    blocks_a: Dict[int, List[str]] = {h: [] for h in range(9)}
+    blocks_b: Dict[int, List[str]] = {h: [] for h in range(6, 9)}
+
+    def deploy(name, height, code, branches, status="0x1"):
+        address = _address(0x100 + len(receipts))
+        tx = _hash32("tx", name)
+        if code is not None:
+            accounts[name] = ChainAccount(address, code)
+        receipts[tx] = {"transactionHash": tx, "blockNumber": hex(height),
+                        "contractAddress": address, "status": status}
+        for branch, blocks in (("A", blocks_a), ("B", blocks_b)):
+            if branch in branches:
+                blocks[height].append(tx)
+        return address
+
+    impl_address = deploy("W_IMPL", 1, impl, "A")
+    deploy("W_FAILED", 1, None, "A", status="0x0")
+    deploy("W_CLONE", 2, eip1167_clone(impl_address), "A")
+    deploy("W_DUP", 3, impl, "A")
+    kill_address = deploy("W_KILL", 6, kill, "AB")
+    deploy("W_KILL_CLONE", 7, eip1167_clone(kill_address), "B")
+    for height, blocks in ((4, blocks_a), (7, blocks_a)):
+        tx = _hash32("transfer", height)
+        receipts[tx] = {"transactionHash": tx, "blockNumber": hex(height),
+                        "contractAddress": None, "status": "0x1"}
+        blocks[height].append(tx)
+    return OnchainChain(accounts, blocks_a, blocks_b, receipts,
+                        heads=(4, 7, 8), fork=5, switch_poll=2)
+
+
+#: the watch chain's unique runtimes (what is analyzed, once each) and
+#: their SWC sets at one transaction: the chip runs' sets for the same
+#: contracts (:data:`CHIP_RUNS`, held by tests/test_torch_analyze.py)
+WATCH_FINDINGS = {"scale_mul d6 g16": {"106"}, "killbilly": {"106"}}
+
+
+def serve_chain(chain: OnchainChain):
+    """A ``ThreadingHTTPServer`` on ``127.0.0.1:0`` answering JSON-RPC
+    POSTs from ``chain`` (an unsupported method is a JSON-RPC error);
+    the caller runs ``serve_forever`` and shuts it down."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # noqa: A002 — stdlib name
+            pass
+
+        def do_POST(self):
+            length = int(self.headers.get("Content-Length", 0))
+            request = {}
+            try:
+                request = json.loads(self.rfile.read(length))
+                body = {"jsonrpc": "2.0", "id": request.get("id"),
+                        "result": chain.answer(request.get("method"),
+                                               request.get("params") or [])}
+            except (ValueError, TypeError, KeyError, IndexError) as exc:
+                body = {"jsonrpc": "2.0", "id": request.get("id"),
+                        "error": {"code": -32000, "message": str(exc)}}
+            payload = json.dumps(body).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    server.daemon_threads = True
+    return server

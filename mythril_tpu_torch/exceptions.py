@@ -1,5 +1,6 @@
 """Framework-level exceptions (reference: mythril/exceptions.py; own copy
-of the JAX package's, with the classes bytecode analysis raises)."""
+of the JAX package's, with the classes bytecode analysis and on-chain
+loading raise)."""
 
 
 class MythrilBaseException(Exception):
@@ -12,6 +13,10 @@ class UnsatError(MythrilBaseException):
 
 class CriticalError(MythrilBaseException):
     """Fatal user-facing error (bad input, bad flags, ...)."""
+
+
+class AddressNotFoundError(MythrilBaseException):
+    """On-chain address lookup failed."""
 
 
 class DetectorNotFoundError(CriticalError):
@@ -35,8 +40,26 @@ class LoaderError(CriticalError):
         )
 
 
+class BadAddressError(LoaderError):
+    """Malformed or checksum-failing contract address."""
+
+    code = "bad_address"
+
+
+class EmptyCodeError(LoaderError):
+    """``eth_getCode`` answered ``0x``: no contract at that address."""
+
+    code = "empty_code"
+
+
 class BytecodeInputError(LoaderError):
-    """Input is not hex-encoded bytecode (the normalizer's only
-    rejection)."""
+    """Input is not hex-encoded bytecode (triage's only rejection)."""
 
     code = "bad_bytecode"
+
+
+class ProviderExhaustedError(LoaderError):
+    """Every RPC provider in the pool is down or rate-limiting (all
+    circuit breakers open): retrying cannot help until one cools."""
+
+    code = "provider_exhausted"

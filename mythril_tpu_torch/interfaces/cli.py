@@ -2,10 +2,16 @@
 ``mythril_tpu/interfaces/cli.py``, trimmed to bytecode analysis).
 
 Commands: ``analyze`` (``a``), ``disassemble`` (``d``), ``serve``,
-``worker``, ``top``, ``list-detectors`` and ``version``.  Run it as::
+``worker``, ``top``, ``watch``, ``read-storage``, ``function-to-hash``,
+``list-detectors`` and ``version``.  Run it as::
 
     python3 -m mythril_tpu_torch analyze -f CODE.hex --bin-runtime -t 2 \\
         --no-onchain-data [--workers 2] [-j STATES.json] [-g GRAPH.html]
+    python3 -m mythril_tpu_torch analyze -a ADDRESS --rpc HOST:PORT -t 1
+    python3 -m mythril_tpu_torch read-storage 0,2 ADDRESS --rpc HOST:PORT
+    python3 -m mythril_tpu_torch function-to-hash 'transfer(address,uint256)'
+    python3 -m mythril_tpu_torch watch --rpc HOST:PORT --until-block N \\
+        [--journal FILE [--resume]] [--findings-out FILE] [--serve URL]
     python3 -m mythril_tpu_torch worker --connect HOST:PORT \\
         --secret-file FILE
     python3 -m mythril_tpu_torch serve --port 8551 [--fleet-listen H:P]
@@ -55,9 +61,20 @@ CLI's.  ``serve`` runs the analysis daemon (``serve/``) on the card of
 running server's status, and ``--epic`` pipes the command's output
 through the rainbow pager (``interfaces/epic.py``).  Entry-point
 plugins (``plugin/``) are loaded before ``analyze`` and
-``disassemble``, as in the JAX CLI.  Options
-that would need a part of the JAX package the port does not have (RPC,
-solc, ...) are refused, not ignored; a
+``disassemble``, as in the JAX CLI.  On-chain data is the JAX CLI's:
+``-a ADDRESS`` loads the runtime code at an address through the RPC
+client (``--rpc HOST:PORT``, a comma-separated pool, ``ganache`` or
+``infura-NET``; ``--rpctls``), triaged and with an EIP-1167 proxy chain
+resolved; without ``--rpc`` the provider comes from
+``~/.mythril_tpu/config.ini`` (``MYTHRIL_DIR``), and the executor's
+loader is active unless ``--no-onchain-data`` is given.  The card is
+checked before any RPC traffic.  ``read-storage`` reads storage slots
+over RPC and ``function-to-hash`` prints a selector; neither uses the
+card.  ``watch`` follows a chain and analyzes every new deployment on
+the card of ``--device`` (or through ``--serve URL``): a lost card ends
+it with exit 1, and ``--resume`` from its journal loses no block.
+Options that would need a part of the JAX package the port does not
+have (solc, the online signature lookup) are refused, not ignored; a
 malformed ``MYTHRIL_TPU_*`` knob exits 2 at startup
 (``support/env.py:validate_env``).
 """
@@ -74,8 +91,13 @@ from mythril_tpu_torch.exceptions import (
     CriticalError,
     DetectorNotFoundError,
     LoaderError,
+    ProviderExhaustedError,
 )
-from mythril_tpu_torch.mythril import MythrilAnalyzer, MythrilDisassembler
+from mythril_tpu_torch.mythril import (
+    MythrilAnalyzer,
+    MythrilConfig,
+    MythrilDisassembler,
+)
 
 log = logging.getLogger(__name__)
 
@@ -83,13 +105,10 @@ ANALYZE_LIST = ("analyze", "a")
 DISASSEMBLE_LIST = ("disassemble", "d")
 
 #: options of the JAX CLI's analyze command that need a plane this port
-#: does not have (the RPC client, solc, the signature lookup;
-#: ``ROADMAP.md`` queues them); given one, the command exits 2 instead of
-#: running something else than asked
-REFUSED_OPTIONS = (
-    "--rpc", "--rpctls", "-a", "--address", "--solv", "--solc-json",
-    "-q", "--query-signature",
-)
+#: does not have (solc, the online signature lookup; ``ROADMAP.md``
+#: queues them); given one, the command exits 2 instead of running
+#: something else than asked
+REFUSED_OPTIONS = ("--solv", "--solc-json", "-q", "--query-signature")
 
 
 def exit_with_error(format_: str, message: str, code: int = 1) -> None:
@@ -120,11 +139,17 @@ def _add_input_args(parser: argparse.ArgumentParser) -> None:
         type=argparse.FileType("r"),
     )
     parser.add_argument(
+        "-a", "--address",
+        help="pull contract from the blockchain",
+        metavar="CONTRACT_ADDRESS",
+    )
+    parser.add_argument(
         "--bin-runtime",
         action="store_true",
         help="Consider the input bytecode as binary runtime code, default "
         "being the contract creation bytecode.",
     )
+    _add_rpc_args(parser)
     parser.add_argument(
         "solidity_files", nargs="*",
         help="Solidity inputs (refused: this build takes bytecode only)",
@@ -132,6 +157,17 @@ def _add_input_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "-v", type=int, help="log level (0-5)", metavar="LOG_LEVEL",
         default=2, dest="verbosity",
+    )
+
+
+def _add_rpc_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--rpc",
+        help="custom RPC settings",
+        metavar="HOST:PORT / ganache / infura-[network_name]",
+    )
+    parser.add_argument(
+        "--rpctls", type=bool, default=False, help="RPC connection over TLS"
     )
 
 
@@ -231,7 +267,7 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
     options.add_argument(
         "--no-onchain-data", action="store_true",
         help="Don't retrieve contract code, variables and balances from "
-        "the blockchain (this build has no RPC client: always in effect)",
+        "the blockchain",
     )
     options.add_argument(
         "--sparse-pruning", action="store_true",
@@ -445,6 +481,86 @@ def create_worker_parser(parser: argparse.ArgumentParser) -> None:
     )
 
 
+def create_watch_parser(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--rpc",
+        help="comma-separated RPC providers (URL or HOST[:PORT] each; "
+        "env: MYTHRIL_TPU_RPC_PROVIDERS) the chain follower polls",
+        metavar="SPEC",
+    )
+    parser.add_argument(
+        "--serve",
+        help="base URL of a running `serve` daemon to stream deployments "
+        "into (default: an in-process engine on the card of --device)",
+        metavar="URL",
+    )
+    parser.add_argument(
+        "--from-block", type=int, default=None, metavar="N",
+        help="backfill start height (env: MYTHRIL_TPU_WATCH_FROM_BLOCK; "
+        "default 0)",
+    )
+    parser.add_argument(
+        "--until-block", type=int, default=None, metavar="N",
+        help="stop once the cursor reaches N and the backlog is empty "
+        "(default: follow forever until drained)",
+    )
+    parser.add_argument(
+        "--confirmations", type=int, default=None, metavar="N",
+        help="confirmation-depth lag behind the head (env: "
+        "MYTHRIL_TPU_WATCH_CONFIRMATIONS; default 2)",
+    )
+    parser.add_argument(
+        "--poll-s", type=float, default=None, metavar="S",
+        help="head poll period in seconds when caught up (env: "
+        "MYTHRIL_TPU_WATCH_POLL_S; default 2.0)",
+    )
+    parser.add_argument(
+        "--journal", metavar="FILE",
+        help="fsynced cursor journal; with --resume a killed watcher "
+        "continues losing no block and re-analyzing nothing",
+    )
+    parser.add_argument(
+        "--resume", action="store_true",
+        help="replay --journal before following (cursor, seen digests, "
+        "pending submissions)",
+    )
+    parser.add_argument(
+        "--findings-out", metavar="FILE",
+        help="JSONL findings sink: one row per submission outcome "
+        "(analyzed / cached / duplicate / error)",
+    )
+    parser.add_argument(
+        "--tx-count", type=int, default=2, metavar="N",
+        help="transaction depth per analysis",
+    )
+    parser.add_argument(
+        "--deadline-s", type=float, default=None, metavar="S",
+        help="per-analysis wall-clock budget (default: the serve plane's "
+        "default deadline)",
+    )
+    parser.add_argument(
+        "--trace-out", metavar="FILE",
+        help="Write the watcher's Perfetto span timeline here on exit "
+        "(watch.poll/block/extract/submit spans)",
+    )
+    parser.add_argument(
+        "--metrics-out", metavar="FILE",
+        help="Dump the metrics registry (mythril_tpu_watch_*) to FILE on "
+        "exit",
+    )
+    parser.add_argument(
+        "--persist-dir", metavar="DIR",
+        help="directory for the persistent knowledge store: the report "
+        "cache that makes re-submissions answer cached (env: "
+        "MYTHRIL_TPU_PERSIST_DIR)",
+    )
+    parser.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="Where the in-process engine analyzes: the card (default; an "
+        "error without one) or, only when asked for, the CPU",
+    )
+
+
 def run_worker(args: argparse.Namespace) -> int:
     """A worker seat attached to a coordinator (``parallel/fleet.py``);
     the caller has set ``MYTHRIL_TPU_FLEET_ROLE=worker``."""
@@ -507,6 +623,34 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     create_top_parser(top_parser)
+    watch_parser = subparsers.add_parser(
+        "watch",
+        help="Follow new blocks on a live chain and stream every newly "
+        "deployed contract through the serve plane: reorg-tolerant "
+        "cursor, clone/proxy dedup, backpressure backlog",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    create_watch_parser(watch_parser)
+    read_storage_parser = subparsers.add_parser(
+        "read-storage",
+        help="Retrieves storage slots from a given address through rpc",
+    )
+    read_storage_parser.add_argument(
+        "storage_slots",
+        help="read state variables from storage index",
+        metavar="INDEX,NUM_SLOTS,[array] / mapping,INDEX,[KEY1, KEY2...]",
+    )
+    read_storage_parser.add_argument(
+        "address", help="contract address", metavar="CONTRACT_ADDRESS"
+    )
+    _add_rpc_args(read_storage_parser)
+    func_to_hash_parser = subparsers.add_parser(
+        "function-to-hash", help="Returns the hash of a function signature"
+    )
+    func_to_hash_parser.add_argument(
+        "func_name", help="calculate function signature hash",
+        metavar="SIGNATURE",
+    )
     list_parser = subparsers.add_parser(
         "list-detectors", help="Lists available detection modules",
     )
@@ -516,6 +660,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_output_args(version_parser)
     return parser
+
+
+def set_config(args: argparse.Namespace) -> MythrilConfig:
+    """The JAX CLI's ``set_config``: ``--rpc`` wins; else, unless
+    ``--no-onchain-data`` is given (or the command has no such flag),
+    the provider of ``config.ini`` (``eth`` stays None when it names
+    Infura and ``INFURA_ID`` is unset)."""
+    config = MythrilConfig()
+    if getattr(args, "rpc", None):
+        config.set_api_rpc(rpc=args.rpc, rpctls=args.rpctls)
+    elif not getattr(args, "no_onchain_data", True):
+        config.set_api_from_config_path()
+    return config
 
 
 def load_code(disassembler: MythrilDisassembler, args: argparse.Namespace):
@@ -530,13 +687,15 @@ def load_code(disassembler: MythrilDisassembler, args: argparse.Namespace):
         address, _ = disassembler.load_from_bytecode(
             bytecode, args.bin_runtime
         )
+    elif args.address:
+        address, _ = disassembler.load_from_address(args.address)
     elif args.solidity_files:
         address, _ = disassembler.load_from_solidity(args.solidity_files)
     else:
         exit_with_error(
             getattr(args, "outform", "text"),
-            "No input bytecode. Please provide EVM code via -c BYTECODE "
-            "or -f BYTECODE_FILE",
+            "No input bytecode. Please provide EVM code via -c BYTECODE, "
+            "-a ADDRESS or -f BYTECODE_FILE",
         )
     return address
 
@@ -548,13 +707,17 @@ def _refused(argv) -> list:
     ]
 
 
-def _analyze(disassembler, address, args) -> int:
+def _check_device(args) -> None:
+    """Exit 2 without the card of ``--device`` (before any RPC traffic)."""
     from mythril_tpu_torch.ops import default_device
 
     try:
         default_device(args.device)
     except RuntimeError as e:
         exit_with_error(args.outform, f"{e} (use --device cpu)", code=2)
+
+
+def _analyze(disassembler, address, args) -> int:
     if args.attacker_address or args.creator_address:
         from mythril_tpu_torch.laser.ethereum.transaction.symbolic import (
             ACTORS,
@@ -579,6 +742,7 @@ def _analyze(disassembler, address, args) -> int:
         create_timeout=args.create_timeout,
         enable_iprof=args.enable_iprof,
         disable_dependency_pruning=args.disable_dependency_pruning,
+        use_onchain_data=not args.no_onchain_data,
         solver_timeout=args.solver_timeout,
         custom_modules_directory=args.custom_modules_directory or "",
         sparse_pruning=args.sparse_pruning,
@@ -703,6 +867,41 @@ def run_serve(args: argparse.Namespace) -> int:
         return 1
 
 
+def run_read_storage(args: argparse.Namespace) -> int:
+    """``read-storage``: the slots over RPC (``--rpc``, else
+    ``localhost:8545``), one ``SLOT: VALUE`` line each."""
+    try:
+        config = set_config(args)
+        if config.eth is None:
+            config.set_api_rpc(args.rpc or "localhost:8545", args.rpctls)
+        disassembler = MythrilDisassembler(eth=config.eth)
+        print(disassembler.get_state_variable_from_storage(
+            address=args.address,
+            params=[a.strip() for a in args.storage_slots.strip().split(",")],
+        ))
+    except CriticalError as e:
+        print(e, file=sys.stderr)
+        return 1
+    return 0
+
+
+def run_watch_command(args: argparse.Namespace) -> int:
+    """``watch``, with the JAX CLI's one-line exit 2 for provider
+    exhaustion and a bad serve config."""
+    from mythril_tpu_torch.serve import ServeConfigError
+    from mythril_tpu_torch.watch import run_watch
+
+    try:
+        return run_watch(args)
+    except ProviderExhaustedError as e:
+        print(json.dumps({"error": {"code": e.code, "message": str(e)}}),
+              file=sys.stderr)
+        return 2
+    except ServeConfigError as e:
+        print(f"bad serve config: {e}", file=sys.stderr)
+        return 2
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     parser = build_parser()
@@ -757,7 +956,7 @@ def main(argv=None) -> None:
             print(f"bad fault spec: {e}", file=sys.stderr)
             sys.exit(2)
 
-    if args.command in ANALYZE_LIST or args.command == "serve":
+    if args.command in ANALYZE_LIST or args.command in ("serve", "watch"):
         # graceful drain: SIGTERM/SIGINT walk the cooperative boundaries,
         # land a final journal generation and ship a partial report (in
         # serve mode the same flag drains the daemon)
@@ -772,7 +971,7 @@ def main(argv=None) -> None:
         from mythril_tpu_torch.observability import configure_from_cli
 
         configure_from_cli(args.trace_out, args.metrics_out,
-                           args.lane_ledger_out)
+                           getattr(args, "lane_ledger_out", None))
 
     if args.command == "list-detectors":
         modules = [
@@ -804,6 +1003,11 @@ def main(argv=None) -> None:
         from mythril_tpu_torch.interfaces.top import run_top
 
         sys.exit(run_top(args.url, interval_s=args.interval, once=args.once))
+    if args.command == "watch":
+        sys.exit(run_watch_command(args))
+    if args.command == "function-to-hash":
+        print(MythrilDisassembler.hash_for_function_signature(args.func_name))
+        sys.exit(0)
 
     # entry-point plugins, as the JAX CLI loads them before analyze and
     # disassemble
@@ -811,9 +1015,15 @@ def main(argv=None) -> None:
 
     MythrilPluginLoader()
 
+    if args.command == "read-storage":
+        sys.exit(run_read_storage(args))
+
     outform = getattr(args, "outform", "text")
+    if args.command in ANALYZE_LIST:
+        _check_device(args)
     try:
-        disassembler = MythrilDisassembler()
+        config = set_config(args)
+        disassembler = MythrilDisassembler(eth=config.eth)
         address = load_code(disassembler, args)
         if args.command in DISASSEMBLE_LIST:
             contract = disassembler.contracts[0]

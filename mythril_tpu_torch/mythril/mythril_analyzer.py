@@ -15,7 +15,10 @@ the JAX package, a resource governor is installed for each contract and
 cleared after it (``resilience/governor.py``; its budgets are unlimited unless
 the ``MYTHRIL_TPU_GOVERNOR_*`` knobs set them), and ``checkpoint_dir`` /
 ``resume_from`` journal the analysis and resume it
-(``resilience/checkpoint.py``).  A lost card
+(``resilience/checkpoint.py``).  As in the JAX package, the executor's
+loader (``support/loader.DynLoader``) is built over the disassembler's
+RPC client and is active unless ``use_onchain_data`` is False (the CLI's
+``--no-onchain-data``).  A lost card
 (``ops/device_health.DeviceLost``) ends the analysis with that error.
 As in the JAX package, the dispatcher pre-split (``lockstep_dispatch``)
 and the lockstep replay of each issue's exploit sequence
@@ -107,6 +110,7 @@ class _Campaign:
     create_timeout: Optional[int] = None
     disable_dependency_pruning: bool = False
     custom_modules_directory: str = ""
+    use_onchain_data: bool = True
     enable_coverage_strategy: bool = False
 
 
@@ -122,6 +126,7 @@ class MythrilAnalyzer:
         create_timeout: Optional[int] = None,
         enable_iprof: bool = False,
         disable_dependency_pruning: bool = False,
+        use_onchain_data: bool = True,
         solver_timeout: Optional[int] = None,
         custom_modules_directory: str = "",
         sparse_pruning: bool = False,
@@ -139,6 +144,7 @@ class MythrilAnalyzer:
         resume_from: Optional[str] = None,
         fleet_workers: Optional[int] = None,
     ):
+        self.eth = disassembler.eth
         self.contracts: List[EVMContract] = disassembler.contracts or []
         self.campaign = _Campaign(
             strategy=strategy,
@@ -149,6 +155,7 @@ class MythrilAnalyzer:
             create_timeout=create_timeout,
             disable_dependency_pruning=disable_dependency_pruning,
             custom_modules_directory=custom_modules_directory,
+            use_onchain_data=use_onchain_data,
             enable_coverage_strategy=enable_coverage_strategy,
         )
         # the laser stack reads these through the global args bus
@@ -182,7 +189,7 @@ class MythrilAnalyzer:
     def _symbolize(self, contract, **overrides) -> SymExecWrapper:
         cfg = self.campaign
         settings = dict(
-            dynloader=DynLoader(),
+            dynloader=DynLoader(self.eth, active=cfg.use_onchain_data),
             max_depth=cfg.max_depth,
             execution_timeout=cfg.execution_timeout,
             create_timeout=cfg.create_timeout,

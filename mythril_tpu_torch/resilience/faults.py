@@ -44,10 +44,13 @@ the planes it has:
 ``frame_corrupt``    the coordinator strikes one frame as corrupt
 ``serve_crash``      one served request raises inside its analysis scope
                      (``serve/engine.py``: that request fails alone)
+``rpc_error``        the RPC transport raises a transient ``OSError``
+``rpc_http_500``     the RPC transport answers HTTP 500
+``rpc_flap``         the provider pool's current provider drops the
+                     connection mid-call (rotation and breaker)
+``rpc_code_cache``   one on-disk code-cache read answers as a miss (the
+                     loader falls through to the network)
 ==================  =====================================================
-
-The ``rpc_*`` points parse and count hits, but no seam of the port
-reaches them yet.
 
 Faults are armed through the API (:meth:`FaultPlane.arm`) or the
 environment::
@@ -344,3 +347,32 @@ def maybe_fault_governor() -> bool:
     """Governor seam (``governor.poll``): True when ``governor_breach``
     fires; that poll observes a breach and applies the next rung."""
     return get_fault_plane().fire("governor_breach") is not None
+
+
+def maybe_fault_rpc() -> None:
+    """RPC-transport seam (``ethereum/interface/rpc/client.py``): raises
+    the exception types the real transport does, so the injected failure
+    walks the client's own classification and retry path."""
+    if get_fault_plane().fire("rpc_error") is not None:
+        raise OSError("injected connection reset")
+    if get_fault_plane().fire("rpc_http_500") is not None:
+        import urllib.error
+
+        raise urllib.error.HTTPError(
+            "http://injected", 500, "injected server error", None, None
+        )
+
+
+def maybe_fault_rpc_flap() -> None:
+    """Provider-pool seam (``ProviderPool._call``, per provider attempt):
+    a transient connection drop against the current provider; the pool
+    rotates and the provider's breaker counts it."""
+    if get_fault_plane().fire("rpc_flap") is not None:
+        raise OSError("injected provider flap")
+
+
+def maybe_fault_code_cache() -> bool:
+    """Code-cache seam (``ProviderPool.eth_getCode``'s cache read): True
+    when ``rpc_code_cache`` fires; the read answers as a miss and the
+    loader falls through to the network."""
+    return get_fault_plane().fire("rpc_code_cache") is not None

@@ -9,11 +9,11 @@ registry counter, ``mythril_tpu_resilience_<field>``: a Prometheus dump
 and no counter is counted twice.  They reset per analyzed contract with
 ``DispatchStats``.
 
-The port keeps the counters whose seams it has: the dispatch ladder
+The port keeps the JAX package's counters: the dispatch ladder
 (watchdog, retry, bisection and quarantine, demotion), the fault plane,
 the checkpoint plane, the request budget, the knowledge store
-(``persist/store.py``) and the governor.  The JAX package's ``rpc_*``
-counters come with the RPC plane.  The fleet's counters are kept beside
+(``persist/store.py``), the governor and the RPC client and provider
+pool (``ethereum/interface/rpc/client.py``).  The fleet's counters are kept beside
 these, in ``parallel/fleet.py`` (``fleet_stats``,
 ``mythril_tpu_fleet_*``), and join ``DispatchStats.as_dict`` and the
 jsonv2 ``meta.resilience`` block as ``fleet_<field>``.
@@ -31,6 +31,7 @@ _FIELDS = {
         "contexts demoted to the native CDCL tail "
         "(or prefetch channel abandoned)"
     ),
+    "rpc_retries": "transient RPC failures retried",
     "faults_fired": "injected faults actually fired",
     # poisoned-lane bisection (ops/batched_sat._dispatch_round): only
     # the offending lane(s) go to the CDCL tail, the context stays on
@@ -58,6 +59,12 @@ _FIELDS = {
     "governor_disable_planes": "lockstep-plane shutoffs applied",
     "governor_cap_tx_depth": "transaction-depth caps applied",
     "governor_drain_partial": "governor-forced partial drains",
+    # RPC provider pool (ethereum/interface/rpc/client.py): breaker
+    # trips, 429/-32005 backoffs, failovers and code-cache hits
+    "rpc_breaker_opens": "provider circuit breakers opened",
+    "rpc_rate_limited": "rate-limit (429/-32005) backoffs taken",
+    "rpc_provider_rotations": "failovers to another provider",
+    "rpc_code_cache_hits": "on-disk code cache hits",
 }
 
 

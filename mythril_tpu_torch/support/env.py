@@ -17,8 +17,9 @@ class EnvSpecError(RuntimeError):
 #: name -> (kind, floor, ceil), kind "int", "float", "flag", "dir" (a
 #: usable directory path: created on demand by its owner, so it only has
 #: not to be an existing non-directory), "listen" (a ``HOST:PORT``),
-#: "file" (an existing non-empty file) or "policy" (a name
-#: :func:`autopilot.policy.make_policy` knows): the JAX package's
+#: "file" (an existing non-empty file), "providers" (a comma-separated
+#: list of RPC endpoints, a URL or ``HOST[:PORT]`` each) or "policy" (a
+#: name :func:`autopilot.policy.make_policy` knows): the JAX package's
 #: entries (``KNOWN_SPECS``) for the knobs this port reads, and the
 #: tracer's, the ledger's and the autopilot's kill switches and policy
 #: name, which the JAX package reads without checking them.  The port
@@ -107,6 +108,27 @@ KNOWN_SPECS: Dict[str, Tuple[str, Optional[float], Optional[float]]] = {
     # 60 s window (the other MYTHRIL_TPU_SERVE_* knobs are checked by
     # serve/config.py when the server starts)
     "MYTHRIL_TPU_SERVE_TENANT_QUOTA": ("float", 0.0, None),
+    # wild-bytecode triage (disassembler/triage.py): code-size cap and
+    # the proxy-chain resolution depth through DynLoader
+    "MYTHRIL_TPU_TRIAGE_MAX_CODE": ("int", 1, None),
+    "MYTHRIL_TPU_PROXY_DEPTH": ("int", 0, None),
+    # RPC provider pool (ethereum/interface/rpc/client.py): provider
+    # list, per-provider circuit breaker, rate-limit backoff cap, and
+    # the digest-keyed on-disk code cache
+    "MYTHRIL_TPU_RPC_PROVIDERS": ("providers", None, None),
+    "MYTHRIL_TPU_RPC_BREAKER_FAILS": ("int", 1, None),
+    "MYTHRIL_TPU_RPC_BREAKER_COOLDOWN_S": ("float", 0.0, None),
+    "MYTHRIL_TPU_RPC_BACKOFF_CAP_S": ("float", 0.0, None),
+    "MYTHRIL_TPU_RPC_POOL_ATTEMPTS": ("int", 1, None),
+    "MYTHRIL_TPU_RPC_CACHE": ("flag", None, None),
+    "MYTHRIL_TPU_RPC_CACHE_DIR": ("dir", None, None),
+    # live-chain ingestion (watch/): confirmation-depth lag behind the
+    # head, poll cadence, the bounded backpressure backlog, and the
+    # backfill start height (--from-block's env twin)
+    "MYTHRIL_TPU_WATCH_CONFIRMATIONS": ("int", 0, None),
+    "MYTHRIL_TPU_WATCH_POLL_S": ("float", 0.0, None),
+    "MYTHRIL_TPU_WATCH_BACKLOG": ("int", 1, None),
+    "MYTHRIL_TPU_WATCH_FROM_BLOCK": ("int", 0, None),
 }
 
 #: raw values :func:`env_flag` understands; anything else on a "flag"
@@ -193,6 +215,19 @@ def validate_env(environ=None) -> None:
             if os.path.exists(raw) and not os.path.isdir(raw):
                 raise EnvSpecError(
                     f"{name}={raw!r}: exists and is not a directory")
+            continue
+        if kind == "providers":
+            entries = [e.strip() for e in raw.split(",") if e.strip()]
+            if not entries:
+                raise EnvSpecError(f"{name}={raw!r}: no provider endpoints")
+            for entry in entries:
+                if entry.startswith(("http://", "https://")):
+                    continue
+                host, _, port = entry.partition(":")
+                if not host or (port and not port.isdigit()):
+                    raise EnvSpecError(
+                        f"{name}: bad provider entry {entry!r} "
+                        "(expected URL or HOST[:PORT])")
             continue
         if kind == "policy":
             from mythril_tpu_torch.autopilot.policy import POLICIES

@@ -785,10 +785,10 @@ def test_cli_refuses_missing_card_and_unported_options():
     assert "SWC" not in run.stdout
     run = subprocess.run(
         [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
-         hexfile, "--bin-runtime", "--rpc", "localhost:8545"],
+         hexfile, "--bin-runtime", "--solv", "0.8.0"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
-    assert run.returncode == 2 and "--rpc" in run.stderr
+    assert run.returncode == 2 and "--solv" in run.stderr
     assert "not supported by this build" in run.stderr
     # -g is taken: without a card the command gets as far as the card
     # check

@@ -57,7 +57,11 @@ KNOBS = tuple(f"MYTHRIL_TPU_{name}" for name in (
     "FLEET_LEASE_TTL_S", "FLEET_SPLIT_AFTER_S", "FLEET_LEASE_RETRIES",
     "FLEET_SPAWN_RETRIES", "FLEET_CONNECT_TIMEOUT_S", "FLEET_HARD_CAP_S",
     "FLEET_MAX_FRAME", "FLEET_RECONNECT", "FLEET_LISTEN",
-    "FLEET_SECRET_FILE", "SERVE_TENANT_QUOTA"))
+    "FLEET_SECRET_FILE", "SERVE_TENANT_QUOTA", "TRIAGE_MAX_CODE",
+    "PROXY_DEPTH", "RPC_PROVIDERS", "RPC_BREAKER_FAILS",
+    "RPC_BREAKER_COOLDOWN_S", "RPC_BACKOFF_CAP_S", "RPC_POOL_ATTEMPTS",
+    "RPC_CACHE", "RPC_CACHE_DIR", "WATCH_CONFIRMATIONS", "WATCH_POLL_S",
+    "WATCH_BACKLOG", "WATCH_FROM_BLOCK"))
 #: the port's entries for knobs the JAX package reads without a static
 #: entry (it checks none of them at startup but the tail share, which its
 #: policy registers when first read): the kill switches of the tracer,
@@ -489,9 +493,9 @@ def test_persist_dir_and_proof_log_run_from_the_cli(tmp_path, monkeypatch,
         reset_blast_context()
     with pytest.raises(SystemExit) as done:
         port_cli.main(["analyze", "-c", "0x00", "--bin-runtime",
-                       "--rpc", "localhost:8545"])
+                       "--solv", "0.8.0"])
     assert done.value.code == 2
-    assert "--rpc" in capsys.readouterr().err
+    assert "--solv" in capsys.readouterr().err
 
 
 def test_workers_runs_from_the_cli(monkeypatch, capsys):

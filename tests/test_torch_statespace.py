@@ -84,8 +84,9 @@ def _analyzer(side, code, **kwargs):
     of the runtime), with the CLI's defaults."""
     disassembler = mod(side, "mythril").MythrilDisassembler()
     disassembler.load_from_bytecode(code, True)
-    extra = {"use_onchain_data": False} if side == "jax" else {
-        "device": "cpu"}
+    extra = {"use_onchain_data": False}
+    if side == "port":
+        extra["device"] = "cpu"
     return mod(side, "mythril").MythrilAnalyzer(
         disassembler=disassembler, strategy="bfs", address=hex(ADDRESS),
         max_depth=128, execution_timeout=EXEC_TIMEOUT, loop_bound=3,
