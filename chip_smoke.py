@@ -239,8 +239,9 @@ failure):
    card and its allocator's peak bytes); ``nvidia-smi
    --query-compute-apps`` polled while the fleet runs (printed: where the
    machine's processes share one container it lists them as one entry,
-   pid 1, so per-process memory comes from the workers' reports); walls single, fleet, fleet, single
-   with states, ``segments_declined``, leases and rebalances; once more
+   pid 1, so per-process memory comes from the workers' reports); walls single, then fleet
+   (cut from single, fleet, fleet, single to keep the check within its
+   time) with states, ``segments_declined``, leases and rebalances; once more
    force-dispatched with ``--lane-ledger-out``: the merged ledger holds
    device-tier lanes under the leases' scopes, from the workers'
    snapshots; then on ``erc20_transfer -t 2`` (the cheapest chip run
@@ -303,7 +304,33 @@ failure):
    ``function-to-hash`` and ``watch`` (the in-process watch's summary and
    findings rows), then ``watch --resume`` from that journal, which
    submits nothing; the phase fails past 120 s;
-16. the launches of the main path's configurations and, apart, of the
+16. inputs, under ``DETERMINISTIC`` with ``HOME`` and
+   ``MYTHRIL_DIR`` in a temporary directory: the stand-in compiler
+   (``contracts.write_solc_standin``: a stdlib script answering ``solc
+   --standard-json`` from the fixtures of ``contracts.SOURCE_FIXTURES``,
+   no compiler) first on ``PATH``; ``load_from_solidity`` of
+   ``SCALE.sol:Scale`` (the scale contract at d6 g16 behind a creation
+   stub, beside a second contract and an interface, importing
+   ``ScaleBase.sol``) and ``fire_lasers`` at -t 1 with the loader active,
+   in the default rungs and force-dispatched, every kernel call audited
+   and the launches counted; each finding's SWC set and function names
+   those of the JAX package (``contracts.SOURCE_RUNS``), its file, line
+   and code those the plain decoding of the fixture's map gives;
+   ``truffle -t 2`` through the CLI's ``main`` in this process on a
+   project of killbilly, ``erc20_transfer`` and an interface (the JAX
+   package's SWC sets, ``contracts.TRUFFLE_SWC``; its launches counted);
+   a geth LevelDB of ``onchain_accounts`` and 1,000 generated contracts
+   (``contracts.write_geth_db``: a table of snappy blocks and a
+   write-ahead log tail) written, opened and indexed, and searched in
+   process; then as processes side by side: ``analyze SCALE.sol:Scale``,
+   ``analyze SCALE.sol:Helper --solv V --solc-json S -q`` (``solc-V``
+   asked, the settings on its stdin, the function named ``retire()``
+   from the fixture's ``methodIdentifiers``), ``leveldb-search`` and
+   ``hash-to-address`` (the hits and IMPL's address), and ``pro`` against
+   ``contracts.serve_analysis_api`` on 127.0.0.1 (the issues as the JAX
+   package converts them, the sources submitted as text); the phase
+   fails past 75 s;
+17. the launches of the main path's configurations and, apart, of the
    ``MYTHRIL_TPU_RESIDENT_KERNEL=0`` runs; the histogram of the (B, V,
    D) shapes at which every audited run launched ``dpll_step``; the
    dense tier's rounds by step budget and their hot-view steps over
@@ -4561,9 +4588,10 @@ def fleet_phase(card, kind):
                 fh.write(code())
         tx = ("-t", str(run.transaction_count))
 
-        # single, fleet, fleet, single; the first fleet run is checked
+        # single, then fleet (cut from single, fleet, fleet, single to
+        # keep the check within its time); the fleet run is checked
         walls = []
-        for n, workers in enumerate((0, 2, 2, 0)):
+        for n, workers in enumerate((0, 2)):
             what = f"{run.name} --workers {workers}"
             apps = ComputeApps() if n == 1 else None
             if apps is not None:
@@ -4607,8 +4635,7 @@ def fleet_phase(card, kind):
                   f"fleet {what}: leases ran in pids {pids} (this script "
                   f"{os.getpid()}), on the card: {len(on_card)} of "
                   f"{len(results)}")
-        log(f"fleet walls {run.name} [{card}] (single, fleet, fleet, "
-            f"single; wall, states, segments_declined, leases, "
+        log(f"fleet walls {run.name} [{card}] (single, fleet; wall, states, segments_declined, leases, "
             f"rebalances): " + ", ".join(
                 f"{'--workers ' + str(w) if w else 'single'} "
                 f"{got['wall']:.3f} s, {got['states'] + ws}, "
@@ -5415,6 +5442,335 @@ def onchain_phase(card):
     return totals
 
 
+#: the inputs phase's limit on its own seconds
+INPUTS_LIMIT_S = 75.0
+#: the settings ``--solc-json`` hands the stand-in compiler in the check
+SOLC_SETTINGS = {"optimizer": {"enabled": True, "runs": 7},
+                 "evmVersion": "paris"}
+
+
+def sol_once(target, transaction_count, force):
+    """``analyze TARGET`` in process (``FILE:NAME`` compiled by the
+    stand-in on ``PATH``, the loader active as the CLI's default leaves
+    it), force-dispatched or in the default rungs: (report, analyzer,
+    wall seconds, the loaded contract)."""
+    import torch
+
+    from mythril_tpu_torch.mythril import MythrilAnalyzer, MythrilDisassembler
+    from mythril_tpu_torch.mythril.mythril_analyzer import (
+        reset_analysis_state,
+    )
+
+    reset_analysis_state()
+    started = time.perf_counter()
+    disassembler = MythrilDisassembler()
+    address, loaded = disassembler.load_from_solidity([target])
+    analyzer = MythrilAnalyzer(
+        disassembler, address=address, strategy="bfs", max_depth=128,
+        execution_timeout=ANALYZE_TIMEOUT_S, create_timeout=10,
+        loop_bound=3, device_force_dispatch=force, async_dispatch=not force,
+        device=DEVICE, use_onchain_data=True)
+    with rung_args(device_coalesce=not force):
+        report = analyzer.fire_lasers(transaction_count=transaction_count)
+    torch.cuda.synchronize()
+    return report, analyzer, time.perf_counter() - started, loaded[0]
+
+
+def source_findings(what, issues, run, src):
+    """``issues`` (``(swc, address, function, filename, lineno, code)``)
+    held to the run's JAX SWC set and function names and, each, to the
+    plain decoding of the fixture's map."""
+    from mythril_tpu_torch.contracts import plain_source_info
+
+    found = {i[0] for i in issues}
+    check(found == run.swc_ids,
+          f"inputs {what}: SWC {sorted(found)}, the JAX package finds "
+          f"{sorted(run.swc_ids)}")
+    functions = {i[2] for i in issues}
+    check(functions == run.functions,
+          f"inputs {what}: functions {sorted(functions)}, want "
+          f"{sorted(run.functions)}")
+    for swc, address, _function, filename, lineno, code in issues:
+        name, want_line, want_code = plain_source_info(
+            run.file, run.contract, address)
+        check((filename, lineno, code) == (os.path.join(src, name)
+                                           if src else name,
+                                           want_line, want_code),
+              f"inputs {what}: SWC-{swc} at {address}: {filename}:{lineno} "
+              f"{code!r}, the fixture's map gives {name}:{want_line} "
+              f"{want_code!r}")
+
+
+def sol_run(run, src, card, force, label):
+    """One :func:`sol_once` of ``run`` with every kernel call audited
+    (the launches counted from 0 just before and read just after);
+    returns the launches."""
+    from mythril_tpu_torch.laser.batch import prune_stats
+
+    target = f"{os.path.join(src, run.file)}:{run.contract}"
+    with audited_kernels("sample" if force else "count",
+                         "first" if force else "count",
+                         "count" if force else "every") as audited:
+        report, analyzer, wall, contract = sol_once(
+            target, run.transaction_count, force)
+    wall -= audited["seconds"]
+    check(not report.exceptions,
+          f"inputs {run.name}{label}: the analysis failed:\n"
+          + "\n".join(report.exceptions))
+    issues = sorted((i.swc_id, i.address, i.function, i.filename, i.lineno,
+                     i.code) for i in report.issues.values())
+    states = analyzer.last_sym.laser.total_states
+    log(f"inputs {run.name}{label} [{card}]: contract {contract.name} "
+        f"({len(contract.code) // 2} runtime bytes, "
+        f"{len(contract.creation_code) // 2} creation bytes, files "
+        f"{[os.path.basename(f.filename) for f in contract.solidity_files]}"
+        f"), wall {wall:.3f} s without the audits' "
+        f"{audited['seconds']:.3f} s, {states} states, "
+        f"{prune_stats.tail_states} tail lanes, segments_declined "
+        f"{segments_declined()}, launches {audited['launches']}, findings "
+        + ", ".join(f"SWC-{s} at {a} in {f} "
+                    f"{os.path.basename(n or '')}:{n_}"
+                    for s, a, f, n, n_, _c in issues)
+        + f"; kernels vs plain: {audited['sweep'].summary() or 'no sweep'}; "
+        f"{audited['step'].summary() or 'no dpll_step'}; "
+        f"{audited['frontier'].summary() or 'no frontier kernel'}; "
+        f"{audited['round_lane'].summary() or 'no round lane'}; "
+        f"{audited['word'].summary() or 'no word fixpoint'}; lockstep "
+        f"{audited['lockstep'].summary() or 'none'}; keccak "
+        f"{audited['keccak'].summary() or 'none'}")
+    source_findings(f"{run.name}{label}", issues, run, src)
+    return audited["launches"]
+
+
+def truffle_in_process(project):
+    """``truffle -t N -o json`` through the CLI's ``main`` in this process,
+    in ``project`` (the launches counted from 0 just before and read just
+    after): (issues, launches, wall)."""
+    import io
+
+    from mythril_tpu_torch.contracts import TRUFFLE_TX_COUNT
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.mythril import mythril_analyzer as MA
+    from mythril_tpu_torch.resilience.checkpoint import (
+        restore_signal_handlers,
+    )
+
+    out, err = io.StringIO(), io.StringIO()
+    MA.reset_analysis_state()
+    here = os.getcwd()
+    started = time.perf_counter()
+    try:
+        os.chdir(project)
+        with audited_kernels("count", "count", "count", "count") as audited, \
+                contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            try:
+                cli.main(["truffle", "-t", str(TRUFFLE_TX_COUNT), "-o",
+                          "json"])
+                code = 0
+            except SystemExit as done:
+                code = done.code or 0
+    finally:
+        os.chdir(here)
+        restore_signal_handlers()
+    wall = time.perf_counter() - started
+    check(code == 0, f"inputs truffle: exit {code}: {err.getvalue()[-3000:]}")
+    return json.loads(out.getvalue())["issues"], audited["launches"], wall
+
+
+def inputs_phase(card):
+    """Solidity input through the stand-in compiler, ``truffle``, the
+    LevelDB commands and ``pro`` on the card (see the module docstring).
+    Returns the launches of its in-process runs."""
+    import io
+    import tempfile
+
+    from mythril_tpu_torch import contracts as C
+    from mythril_tpu_torch.ethereum.interface.leveldb.client import (
+        EthLevelDB,
+    )
+    from mythril_tpu_torch.mythril.mythril_leveldb import MythrilLevelDB
+    from mythril_tpu_torch.support.crypto import keccak256
+
+    started = time.perf_counter()
+    runs = {r.contract: r for r in C.SOURCE_RUNS}
+    scale, helper = runs["Scale"], runs["Helper"]
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        home = os.path.join(tmp, "home")
+        bin_dir = C.write_solc_standin(os.path.join(tmp, "bin"))
+        src = os.path.join(tmp, "src")
+        os.makedirs(src)
+        for main_file in C.SOURCE_FIXTURES:
+            C.write_sources(src, main_file)
+        path = bin_dir + os.pathsep + os.environ.get("PATH", "")
+        with env(HOME=home, MYTHRIL_DIR=os.path.join(home, ".mythril_tpu"),
+                 INFURA_ID=None, MYTHRIL_TPU_RPC_PROVIDERS=None, PATH=path,
+                 MYTHX_API_URL=None, **DETERMINISTIC):
+            # SCALE.sol:Scale (d6 g16) in process, in both rungs
+            for force, label in ((False, " default rungs"),
+                                 (True, " force-dispatched")):
+                launches = sol_run(scale, src, card, force, label)
+                _add(totals, launches)
+            check(launches["dense_sweep"] + launches["scan_rows"] > 0,
+                  f"inputs {scale.name} force-dispatched: no device tier "
+                  f"({launches})")
+            compiled = C.standin_requests(bin_dir)
+            check(len(compiled) == 2
+                  and all(r["binary"] == "solc" for r in compiled),
+                  f"inputs: the stand-in was asked {len(compiled)} times")
+            # truffle in process: killbilly, erc20_transfer, an interface
+            project = os.path.join(tmp, "truffle")
+            C.write_truffle_project(project)
+            issues, launches, wall = truffle_in_process(project)
+            _add(totals, launches)
+            found = {}
+            for issue in issues:
+                found.setdefault(issue["contract"], set()).add(
+                    issue["swc-id"])
+            log(f"inputs truffle -t {C.TRUFFLE_TX_COUNT} [{card}]: wall "
+                f"{wall:.3f} s, findings {found}, launches {launches}")
+            check(found == C.TRUFFLE_SWC,
+                  f"inputs truffle: SWC by contract {found}, the JAX "
+                  f"package finds {C.TRUFFLE_SWC}")
+            # the geth database, written here, indexed once in process
+            chaindata = os.path.join(tmp, "chaindata")
+            wall = time.perf_counter()
+            built = C.write_geth_db(chaindata)
+            written = time.perf_counter() - wall
+            files = {n: os.path.getsize(os.path.join(chaindata, n))
+                     for n in sorted(os.listdir(chaindata))}
+            wall = time.perf_counter()
+            db = EthLevelDB(chaindata)
+            indexed = time.perf_counter() - wall
+            printed = io.StringIO()
+            wall = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                MythrilLevelDB(db).search_db(C.GETH_SEARCH)
+            searched = time.perf_counter() - wall
+            want_hits = C.geth_search_hits()
+            hits = {line.split()[1].rstrip(",")
+                    for line in printed.getvalue().splitlines()}
+            log(f"inputs LevelDB [{card}]: {len(built['accounts'])} "
+                f"accounts ({C.GETH_GENERATED} generated), "
+                f"{len(built['records'])} records in the table, "
+                f"{len(built['tail'])} in the log tail, files {files}; "
+                f"written in {written:.3f} s, opened and indexed in "
+                f"{indexed:.3f} s, search {C.GETH_SEARCH!r} in process "
+                f"{searched:.3f} s: {len(hits)} hits")
+            check(hits == want_hits and len(built["accounts"]) >= 1000,
+                  f"inputs LevelDB search: {len(hits)} hits, want "
+                  f"{len(want_hits)}")
+            impl = C.onchain_accounts()["IMPL"]
+            code_hash = "0x" + keccak256(bytes.fromhex(impl.code)).hex()
+            # the CLI's processes side by side, with the analysis API
+            api = C.serve_analysis_api()
+            server = threading.Thread(target=api.serve_forever, daemon=True)
+            server.start()
+            url = f"http://127.0.0.1:{api.server_address[1]}"
+            cli = [sys.executable, "-m", "mythril_tpu_torch"]
+            root = os.path.dirname(os.path.abspath(__file__))
+            settings = json.dumps(SOLC_SETTINGS)
+            commands = {
+                "analyze": (["analyze", f"{scale.file}:{scale.contract}",
+                             "-t", str(scale.transaction_count), "-o",
+                             "json"], {}),
+                "analyze --solv": (["analyze",
+                                    f"{helper.file}:{helper.contract}",
+                                    "--solv", C.SOLC_VERSION, "--solc-json",
+                                    settings, "-q", "-t",
+                                    str(helper.transaction_count), "-o",
+                                    "json"], {}),
+                "leveldb-search": (["leveldb-search", C.GETH_SEARCH,
+                                    "--leveldb-dir", chaindata], {}),
+                "hash-to-address": (["hash-to-address", code_hash,
+                                     "--leveldb-dir", chaindata], {}),
+                "pro": (["pro", f"{helper.file}:{helper.contract}", "-o",
+                         "json"], {"MYTHX_API_URL": url}),
+            }
+            before = len(C.standin_requests(bin_dir))
+            try:
+                procs = {}
+                for what, (argv, extra) in commands.items():
+                    procs[what] = (time.perf_counter(), subprocess.Popen(
+                        cli + argv, cwd=src, text=True,
+                        env=dict(os.environ, PYTHONPATH=root, **extra),
+                        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+                        stderr=subprocess.PIPE))
+                outs, walls = {}, {}
+
+                def finish(what, began, proc):
+                    outs[what] = proc.communicate(timeout=300)
+                    walls[what] = time.perf_counter() - began
+
+                waiters = [threading.Thread(target=finish, args=(w, b, p))
+                           for w, (b, p) in procs.items()]
+                for waiter in waiters:
+                    waiter.start()
+                for waiter in waiters:
+                    waiter.join()
+                done = {}
+                for what, (_began, proc) in procs.items():
+                    stdout, stderr = outs[what]
+                    check(proc.returncode == 0,
+                          f"inputs CLI {what}: exit {proc.returncode}: "
+                          f"{stderr[-2000:]}")
+                    done[what] = stdout
+            finally:
+                api.shutdown()
+                api.server_close()
+                server.join(10)
+            requests = C.standin_requests(bin_dir)[before:]
+            for what, run in (("analyze", scale), ("analyze --solv", helper)):
+                issues = sorted(
+                    (i["swc-id"], i["address"], i["function"],
+                     i.get("filename"), i.get("lineno"), i.get("code"))
+                    for i in json.loads(done[what])["issues"])
+                source_findings(f"CLI {what} {run.name}", issues, run, None)
+                log(f"inputs CLI {what} {run.name} [{card}]: process wall "
+                    f"{walls[what]:.3f} s, findings " + ", ".join(
+                        f"SWC-{s} at {a} in {f} {n}:{n_} {c!r}"
+                        for s, a, f, n, n_, c in issues))
+            solv = [r for r in requests
+                    if r["binary"] == f"solc-{C.SOLC_VERSION}"]
+            check(len(solv) == 1 and all(
+                solv[0]["input"]["settings"].get(k) == v
+                for k, v in SOLC_SETTINGS.items()),
+                  f"inputs CLI --solv: the stand-in's requests {requests}")
+            lines = done["leveldb-search"].splitlines()
+            cli_hits = {line.split()[1].rstrip(",") for line in lines}
+            check(cli_hits == want_hits and len(lines) == len(want_hits),
+                  f"inputs CLI leveldb-search: {len(lines)} lines")
+            check(done["hash-to-address"].strip() == impl.address,
+                  f"inputs CLI hash-to-address: {done['hash-to-address']!r}")
+            pro = sorted((i["swc-id"], i["address"], i["severity"],
+                          i["title"], i["function"],
+                          i["description"].split("\n")[0])
+                         for i in json.loads(done["pro"])["issues"])
+            submitted = api.submissions
+            check(pro == sorted(C.PRO_EXPECTED) and len(submitted) == 1
+                  and submitted[0]["contractName"] == helper.contract
+                  and submitted[0]["sources"]["SCALE.sol"]["source"]
+                  == C.solc_output("SCALE.sol")[0]["SCALE.sol"],
+                  f"inputs CLI pro: issues {pro}, submitted "
+                  f"{[s.get('contractName') for s in submitted]}")
+            log(f"inputs CLI [{card}]: leveldb-search {len(lines)} hits in "
+                f"{walls['leveldb-search']:.3f} s (process), hash-to-address "
+                f"{done['hash-to-address'].strip()} in "
+                f"{walls['hash-to-address']:.3f} s, pro {pro} in "
+                f"{walls['pro']:.3f} s ({len(submitted)} submission, "
+                f"sources {sorted(submitted[0]['sources'])}), --solv "
+                f"{C.SOLC_VERSION}: binary {solv[0]['binary']}, settings "
+                f"{ {k: solv[0]['input']['settings'][k] for k in SOLC_SETTINGS} }")
+    seconds = time.perf_counter() - started
+    log(f"inputs phase [{card}]: {seconds:.1f} s (limit "
+        f"{INPUTS_LIMIT_S:.0f} s), launches {totals}")
+    check(seconds <= INPUTS_LIMIT_S,
+          f"inputs phase took {seconds:.1f} s, past its "
+          f"{INPUTS_LIMIT_S:.0f} s")
+    return totals
+
+
 def _add(total, launches):
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
@@ -5515,6 +5871,8 @@ def _main(torch, frontiers, default_device, edge_pool,
     phase_done("statespace")
     _add(totals, onchain_phase(card))
     phase_done("onchain")
+    _add(totals, inputs_phase(card))
+    phase_done("inputs")
     _add(totals, default)
     _add(kill_switch, yardstick)
     log(f"launches in the default configuration (the kernels line): "

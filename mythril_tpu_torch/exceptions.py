@@ -1,14 +1,21 @@
 """Framework-level exceptions (reference: mythril/exceptions.py; own copy
-of the JAX package's, with the classes bytecode analysis and on-chain
-loading raise)."""
+of the JAX package's)."""
 
 
 class MythrilBaseException(Exception):
     """Base class for all framework errors."""
 
 
+class CompilerError(MythrilBaseException):
+    """Solidity compilation failed (or no compiler is available)."""
+
+
 class UnsatError(MythrilBaseException):
     """No model exists for the queried constraints (or solver gave up)."""
+
+
+class NoContractFoundError(MythrilBaseException):
+    """Input file contained no contract."""
 
 
 class CriticalError(MythrilBaseException):

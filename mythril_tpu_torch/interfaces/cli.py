@@ -1,12 +1,21 @@
 """The command-line interface of the PyTorch port (own copy of
-``mythril_tpu/interfaces/cli.py``, trimmed to bytecode analysis).
+``mythril_tpu/interfaces/cli.py``).
 
-Commands: ``analyze`` (``a``), ``disassemble`` (``d``), ``serve``,
-``worker``, ``top``, ``watch``, ``read-storage``, ``function-to-hash``,
-``list-detectors`` and ``version``.  Run it as::
+Commands: ``analyze`` (``a``), ``disassemble`` (``d``), ``pro``,
+``truffle``, ``serve``, ``worker``, ``top``, ``watch``, ``read-storage``,
+``leveldb-search``, ``function-to-hash``, ``hash-to-address``,
+``list-detectors``, ``version`` and ``help``.  Run it as::
 
     python3 -m mythril_tpu_torch analyze -f CODE.hex --bin-runtime -t 2 \\
         --no-onchain-data [--workers 2] [-j STATES.json] [-g GRAPH.html]
+    python3 -m mythril_tpu_torch analyze X.sol[:NAME] [--solv 0.8.19] \\
+        [--solc-json SETTINGS] -t 1
+    python3 -m mythril_tpu_torch truffle -t 1      # in a truffle project
+    python3 -m mythril_tpu_torch leveldb-search 'code#PUSH1#' \\
+        --leveldb-dir CHAINDATA
+    python3 -m mythril_tpu_torch hash-to-address 0xCODEHASH \\
+        --leveldb-dir CHAINDATA
+    MYTHX_API_URL=URL python3 -m mythril_tpu_torch pro -f CODE.hex
     python3 -m mythril_tpu_torch analyze -a ADDRESS --rpc HOST:PORT -t 1
     python3 -m mythril_tpu_torch read-storage 0,2 ADDRESS --rpc HOST:PORT
     python3 -m mythril_tpu_torch function-to-hash 'transfer(address,uint256)'
@@ -73,10 +82,20 @@ over RPC and ``function-to-hash`` prints a selector; neither uses the
 card.  ``watch`` follows a chain and analyzes every new deployment on
 the card of ``--device`` (or through ``--serve URL``): a lost card ends
 it with exit 1, and ``--resume`` from its journal loses no block.
-Options that would need a part of the JAX package the port does not
-have (solc, the online signature lookup) are refused, not ignored; a
-malformed ``MYTHRIL_TPU_*`` knob exits 2 at startup
-(``support/env.py:validate_env``).
+Solidity input (``X.sol``, ``X.sol:NAME``) is compiled by the ``solc`` on
+``PATH`` (``--solv V`` picks ``solc-V``, ``solcV`` or ``solc``; nothing is
+downloaded; ``--solc-json`` passes solc's settings), and its findings
+carry the source's file, line and code through solc's source maps
+(``solidity/soliditycontract.py``); without a solc the command ends with
+a one-line compiler error.  ``truffle`` analyzes every artifact of a
+truffle project's ``build/contracts`` on the card of ``--device``.
+``leveldb-search`` and ``hash-to-address`` read a geth LevelDB
+(``--leveldb-dir``, else the config's ``leveldb_dir``;
+``ethereum/interface/leveldb/``), and ``pro`` submits contracts to the
+analysis API at ``MYTHX_API_URL`` (``mythx/``); none of the three uses
+the card.  ``-q`` is the JAX CLI's: the online signature lookup it asks
+for does nothing, as in the JAX package.  A malformed ``MYTHRIL_TPU_*``
+knob exits 2 at startup (``support/env.py:validate_env``).
 """
 
 import argparse
@@ -103,12 +122,6 @@ log = logging.getLogger(__name__)
 
 ANALYZE_LIST = ("analyze", "a")
 DISASSEMBLE_LIST = ("disassemble", "d")
-
-#: options of the JAX CLI's analyze command that need a plane this port
-#: does not have (solc, the online signature lookup; ``ROADMAP.md``
-#: queues them); given one, the command exits 2 instead of running
-#: something else than asked
-REFUSED_OPTIONS = ("--solv", "--solc-json", "-q", "--query-signature")
 
 
 def exit_with_error(format_: str, message: str, code: int = 1) -> None:
@@ -150,9 +163,25 @@ def _add_input_args(parser: argparse.ArgumentParser) -> None:
         "being the contract creation bytecode.",
     )
     _add_rpc_args(parser)
+    _add_solidity_files(parser)
+    _add_utility_args(parser)
+
+
+def _add_solidity_files(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "solidity_files", nargs="*",
-        help="Solidity inputs (refused: this build takes bytecode only)",
+        help="Inputs file name and contract name. usage: file:contractName",
+    )
+
+
+def _add_utility_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--solc-json",
+        help="Json for the optional 'settings' parameter of solc's "
+        "standard-json input",
+    )
+    parser.add_argument(
+        "--solv", help="specify solidity compiler version.", metavar="SOLV",
     )
     parser.add_argument(
         "-v", type=int, help="log level (0-5)", metavar="LOG_LEVEL",
@@ -179,9 +208,15 @@ def _add_output_args(parser: argparse.ArgumentParser) -> None:
         help="report output format",
         metavar="<text/markdown/json/jsonv2>",
     )
+    parser.add_argument(
+        "--verbose-report", action="store_true",
+        help="Include debugging information in report (recorded; nothing "
+        "reads it, as in the JAX package)",
+    )
 
 
-def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
+def create_analyzer_parser(parser: argparse.ArgumentParser,
+                           device: bool = True) -> None:
     commands = parser.add_argument_group("commands")
     commands.add_argument(
         "-g", "--graph", help="generate a control flow graph",
@@ -285,6 +320,12 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         help="enable graph physics simulation",
     )
     options.add_argument(
+        "-q", "--query-signature", action="store_true",
+        help="Lookup function signatures through www.4byte.directory "
+        "(accepted; there is no network, so the lookup does nothing, as "
+        "in the JAX package)",
+    )
+    options.add_argument(
         "--enable-iprof", action="store_true",
         help="enable the instruction profiler",
     )
@@ -373,11 +414,12 @@ def create_analyzer_parser(parser: argparse.ArgumentParser) -> None:
         "certify every UNSAT verdict with the independent checker "
         "before reporting (wrong-UNSAT defense; adds memory and time)",
     )
-    options.add_argument(
-        "--device", choices=["cuda", "cpu"], default="cuda",
-        help="Where the dense tier runs: the card (default; an error "
-        "without one) or, only when asked for, the CPU",
-    )
+    if device:
+        options.add_argument(
+            "--device", choices=["cuda", "cpu"], default="cuda",
+            help="Where the dense tier runs: the card (default; an error "
+            "without one) or, only when asked for, the CPU",
+        )
 
 
 def create_serve_parser(parser: argparse.ArgumentParser) -> None:
@@ -426,10 +468,9 @@ def create_serve_parser(parser: argparse.ArgumentParser) -> None:
         help="Where every request's analysis runs: the card (default; "
         "an error without one) or, only when asked for, the CPU",
     )
-    parser.add_argument(
-        "-v", type=int, help="log level (0-5)", metavar="LOG_LEVEL",
-        default=2, dest="verbosity",
-    )
+    # the JAX CLI's serve takes them too; a request brings its own
+    # bytecode and solc settings
+    _add_utility_args(parser)
 
 
 def create_top_parser(parser: argparse.ArgumentParser) -> None:
@@ -602,6 +643,24 @@ def build_parser() -> argparse.ArgumentParser:
         help="Disassembles the smart contract",
     )
     _add_input_args(disassemble_parser)
+    pro_parser = subparsers.add_parser(
+        "pro",
+        help="Submits the contract to a cloud analysis endpoint "
+        "(requires MYTHX_API_URL)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    _add_input_args(pro_parser)
+    _add_output_args(pro_parser)
+    create_analyzer_parser(pro_parser, device=False)
+    truffle_parser = subparsers.add_parser(
+        "truffle",
+        help="Analyze a truffle project (run from the project directory)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    _add_solidity_files(truffle_parser)
+    _add_utility_args(truffle_parser)
+    _add_output_args(truffle_parser)
+    create_analyzer_parser(truffle_parser)
     serve_parser = subparsers.add_parser(
         "serve",
         help="Run the persistent analysis daemon: bounded admission, "
@@ -651,6 +710,24 @@ def build_parser() -> argparse.ArgumentParser:
         "func_name", help="calculate function signature hash",
         metavar="SIGNATURE",
     )
+    hash_to_addr_parser = subparsers.add_parser(
+        "hash-to-address",
+        help="Returns the address for a contract code hash (LevelDB)",
+    )
+    hash_to_addr_parser.add_argument(
+        "hash",
+        help="contract code hash (0x + 64 hex chars) to resolve to an "
+        "address",
+        metavar="HASH",
+    )
+    _add_leveldb_dir(hash_to_addr_parser)
+    leveldb_search_parser = subparsers.add_parser(
+        "leveldb-search", help="Searches the code fragment in local leveldb"
+    )
+    leveldb_search_parser.add_argument(
+        "search", help="search expression", metavar="EXPRESSION"
+    )
+    _add_leveldb_dir(leveldb_search_parser)
     list_parser = subparsers.add_parser(
         "list-detectors", help="Lists available detection modules",
     )
@@ -659,7 +736,17 @@ def build_parser() -> argparse.ArgumentParser:
         "version", help="Outputs the version",
     )
     _add_output_args(version_parser)
+    subparsers.add_parser("help", add_help=False)
     return parser
+
+
+def _add_leveldb_dir(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--leveldb-dir",
+        help="specify leveldb directory for search or direct access "
+        "operations",
+        metavar="LEVELDB_PATH",
+    )
 
 
 def set_config(args: argparse.Namespace) -> MythrilConfig:
@@ -695,16 +782,9 @@ def load_code(disassembler: MythrilDisassembler, args: argparse.Namespace):
         exit_with_error(
             getattr(args, "outform", "text"),
             "No input bytecode. Please provide EVM code via -c BYTECODE, "
-            "-a ADDRESS or -f BYTECODE_FILE",
+            "-a ADDRESS, -f BYTECODE_FILE or <SOLIDITY_FILE>",
         )
     return address
-
-
-def _refused(argv) -> list:
-    return [
-        arg for arg in argv
-        if arg.split("=", 1)[0] in REFUSED_OPTIONS
-    ]
 
 
 def _check_device(args) -> None:
@@ -732,34 +812,8 @@ def _analyze(disassembler, address, args) -> int:
             except ValueError:
                 exit_with_error(args.outform,
                                 f"{actor.title()} address is invalid")
-    analyzer = MythrilAnalyzer(
-        disassembler=disassembler,
-        strategy=args.strategy,
-        address=address,
-        max_depth=args.max_depth,
-        execution_timeout=args.execution_timeout,
-        loop_bound=args.loop_bound,
-        create_timeout=args.create_timeout,
-        enable_iprof=args.enable_iprof,
-        disable_dependency_pruning=args.disable_dependency_pruning,
-        use_onchain_data=not args.no_onchain_data,
-        solver_timeout=args.solver_timeout,
-        custom_modules_directory=args.custom_modules_directory or "",
-        sparse_pruning=args.sparse_pruning,
-        unconstrained_storage=args.unconstrained_storage,
-        call_depth_limit=args.call_depth_limit,
-        batched_solving=not args.no_batched_solving,
-        device_force_dispatch=args.device_force_dispatch,
-        async_dispatch=not args.no_async_dispatch,
-        lockstep_dispatch=not args.no_lockstep_dispatch,
-        proof_log=args.proof_log,
-        parallel_solving=args.parallel_solving,
-        enable_coverage_strategy=args.enable_coverage_strategy,
-        device=args.device,
-        checkpoint_dir=args.checkpoint_dir,
-        resume_from=args.resume_dir,
-        fleet_workers=args.workers,
-    )
+    analyzer = _build_analyzer(disassembler, address, args,
+                               use_onchain_data=not args.no_onchain_data)
     if not disassembler.contracts:
         exit_with_error(
             args.outform, "input files do not contain any valid contracts"
@@ -785,6 +839,45 @@ def _analyze(disassembler, address, args) -> int:
         except Exception as e:
             exit_with_error(args.outform, f"Error saving json: {e}")
         return 0
+    return _fire_and_print(analyzer, args)
+
+
+def _build_analyzer(disassembler, address, args,
+                    use_onchain_data: bool) -> MythrilAnalyzer:
+    """The analyzer of ``analyze`` and ``truffle`` from the CLI's flags
+    (one construction point, as in the JAX CLI)."""
+    return MythrilAnalyzer(
+        disassembler=disassembler,
+        strategy=args.strategy,
+        address=address,
+        max_depth=args.max_depth,
+        execution_timeout=args.execution_timeout,
+        loop_bound=args.loop_bound,
+        create_timeout=args.create_timeout,
+        enable_iprof=args.enable_iprof,
+        disable_dependency_pruning=args.disable_dependency_pruning,
+        use_onchain_data=use_onchain_data,
+        solver_timeout=args.solver_timeout,
+        custom_modules_directory=args.custom_modules_directory or "",
+        sparse_pruning=args.sparse_pruning,
+        unconstrained_storage=args.unconstrained_storage,
+        call_depth_limit=args.call_depth_limit,
+        batched_solving=not args.no_batched_solving,
+        device_force_dispatch=args.device_force_dispatch,
+        async_dispatch=not args.no_async_dispatch,
+        lockstep_dispatch=not args.no_lockstep_dispatch,
+        proof_log=args.proof_log,
+        parallel_solving=args.parallel_solving,
+        enable_coverage_strategy=args.enable_coverage_strategy,
+        device=args.device,
+        checkpoint_dir=args.checkpoint_dir,
+        resume_from=args.resume_dir,
+        fleet_workers=args.workers,
+    )
+
+
+def _fire_and_print(analyzer: MythrilAnalyzer, args) -> int:
+    """Run the analysis and print its report; the exit code."""
     from mythril_tpu_torch.observability import finalize_outputs, span
     from mythril_tpu_torch.ops.device_health import DeviceLost
 
@@ -867,6 +960,86 @@ def run_serve(args: argparse.Namespace) -> int:
         return 1
 
 
+def run_truffle(args: argparse.Namespace) -> int:
+    """``truffle``: every ``build/contracts/*.json`` artifact of the
+    project in the working directory with runtime code, analyzed as
+    ``analyze --bin-runtime`` and named by its ``contractName``
+    (interfaces and unreadable JSON skipped), without on-chain data, as
+    the JAX CLI's ``execute_truffle`` does."""
+    outform = args.outform
+    build_dir = os.path.join(os.getcwd(), "build", "contracts")
+    if not os.path.isdir(build_dir):
+        exit_with_error(
+            outform,
+            "No build/contracts directory here. Run `truffle compile` in "
+            "the project first, then `myth truffle` from the project root.",
+        )
+    _check_device(args)
+    disassembler = MythrilDisassembler(eth=None)
+    address = None
+    for filename in sorted(os.listdir(build_dir)):
+        if not filename.endswith(".json"):
+            continue
+        with open(os.path.join(build_dir, filename)) as fh:
+            try:
+                artifact = json.load(fh)
+            except json.JSONDecodeError:
+                continue
+        runtime = (artifact.get("deployedBytecode") or "").strip()
+        if runtime in ("", "0x"):
+            continue  # interfaces and abstract contracts have no code
+        loaded_address, _ = disassembler.load_from_bytecode(
+            runtime, bin_runtime=True
+        )
+        address = address or loaded_address
+        disassembler.contracts[-1].name = artifact.get(
+            "contractName", filename[:-5]
+        )
+    if not disassembler.contracts:
+        exit_with_error(
+            outform, "No deployable contracts found in build/contracts."
+        )
+    return _fire_and_print(
+        _build_analyzer(disassembler, address, args, use_onchain_data=False),
+        args,
+    )
+
+
+def run_leveldb(args: argparse.Namespace) -> int:
+    """``leveldb-search`` and ``hash-to-address`` over the geth LevelDB
+    of ``--leveldb-dir`` (else the config's ``leveldb_dir``)."""
+    from mythril_tpu_torch.mythril.mythril_leveldb import MythrilLevelDB
+
+    config = MythrilConfig()
+    leveldb_dir = args.leveldb_dir or config.leveldb_dir
+    try:
+        config.set_api_leveldb(leveldb_dir)
+    except Exception as e:  # noqa: BLE001 — any unreadable database
+        exit_with_error("text", f"Cannot open LevelDB at {leveldb_dir}: {e}")
+    searcher = MythrilLevelDB(config.eth_db)
+    try:
+        if args.command == "leveldb-search":
+            searcher.search_db(args.search)
+        else:
+            searcher.contract_hash_to_address(args.hash)
+    except CriticalError as e:
+        exit_with_error("text", str(e))
+    return 0
+
+
+def run_pro(disassembler: MythrilDisassembler, args) -> int:
+    """``pro``: the loaded contracts submitted to the analysis API at
+    ``MYTHX_API_URL`` (``mythx/``), its issues printed as a report."""
+    from mythril_tpu_torch import mythx
+
+    try:
+        report = mythx.analyze(disassembler.contracts)
+    except mythx.MythXApiError as e:
+        raise CriticalError(str(e)) from e
+    print(report.as_json() if args.outform == "json" else report.as_text())
+    return 0
+
+
 def run_read_storage(args: argparse.Namespace) -> int:
     """``read-storage``: the slots over RPC (``--rpc``, else
     ``localhost:8545``), one ``SLOT: VALUE`` line each."""
@@ -905,17 +1078,15 @@ def run_watch_command(args: argparse.Namespace) -> int:
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     parser = build_parser()
-    refused = _refused(argv)
-    if refused:
-        print(f"not supported by this build: {' '.join(refused)} "
-              "(see ROADMAP.md)", file=sys.stderr)
-        sys.exit(2)
     args = parser.parse_args(argv)
     if args.epic:
         sys.exit(run_epic(argv))
     if args.command is None:
         parser.print_help()
         sys.exit(2)
+    if args.command == "help":
+        parser.print_help()
+        sys.exit(0)
     if args.command == "worker":
         # before anything of the fleet loads: a seat never shards again
         os.environ["MYTHRIL_TPU_FLEET_ROLE"] = "worker"
@@ -956,7 +1127,8 @@ def main(argv=None) -> None:
             print(f"bad fault spec: {e}", file=sys.stderr)
             sys.exit(2)
 
-    if args.command in ANALYZE_LIST or args.command in ("serve", "watch"):
+    if args.command in ANALYZE_LIST or args.command in (
+            "truffle", "serve", "watch"):
         # graceful drain: SIGTERM/SIGINT walk the cooperative boundaries,
         # land a final journal generation and ship a partial report (in
         # serve mode the same flag drains the daemon)
@@ -985,6 +1157,19 @@ def main(argv=None) -> None:
                 print(f"{module_data['classname']}: {module_data['title']}")
         sys.exit(0)
 
+    if args.command == "pro":
+        # before any compile or load: the endpoint is what the command
+        # needs first
+        from mythril_tpu_torch import mythx
+
+        if mythx.api_url() is None:
+            exit_with_error(
+                args.outform,
+                "The 'pro' command submits contracts to a cloud analysis "
+                "endpoint; set MYTHX_API_URL to use it (this environment "
+                "has no network egress by default).",
+            )
+
     log_levels = [
         logging.NOTSET, logging.CRITICAL, logging.ERROR, logging.WARNING,
         logging.INFO, logging.DEBUG,
@@ -1008,6 +1193,10 @@ def main(argv=None) -> None:
     if args.command == "function-to-hash":
         print(MythrilDisassembler.hash_for_function_signature(args.func_name))
         sys.exit(0)
+    if args.command in ("hash-to-address", "leveldb-search"):
+        sys.exit(run_leveldb(args))
+    if args.command == "truffle":
+        sys.exit(run_truffle(args))
 
     # entry-point plugins, as the JAX CLI loads them before analyze and
     # disassemble
@@ -1023,9 +1212,20 @@ def main(argv=None) -> None:
         _check_device(args)
     try:
         config = set_config(args)
-        disassembler = MythrilDisassembler(eth=config.eth)
+        disassembler = MythrilDisassembler(
+            eth=config.eth,
+            solc_version=args.solv,
+            solc_settings_json=args.solc_json,
+            enable_online_lookup=getattr(args, "query_signature", False),
+        )
         address = load_code(disassembler, args)
+        if args.command == "pro":
+            sys.exit(run_pro(disassembler, args))
         if args.command in DISASSEMBLE_LIST:
+            if not disassembler.contracts:
+                exit_with_error(
+                    outform, "input files do not contain any valid contracts"
+                )
             contract = disassembler.contracts[0]
             if contract.code:
                 print("Runtime Disassembly: \n" + contract.get_easm())

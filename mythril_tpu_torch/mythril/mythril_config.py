@@ -1,5 +1,5 @@
-"""Config handling: ~/.mythril_tpu/config.ini + RPC setup (own copy of
-the RPC half of ``mythril_tpu/mythril/mythril_config.py``; reference:
+"""Config handling: ~/.mythril_tpu/config.ini, RPC and LevelDB setup (own
+copy of ``mythril_tpu/mythril/mythril_config.py``; reference:
 mythril/mythril/mythril_config.py).  The directory and the file are the
 JAX package's (``MYTHRIL_DIR`` overrides the directory), so both
 packages read one configuration."""
@@ -26,13 +26,12 @@ class MythrilConfig:
         self.eth_db = None
 
     def set_api_leveldb(self, leveldb_path: str) -> None:
-        """Direct (offline) chain access through a geth LevelDB: the
-        LevelDB plane (``ethereum/interface/leveldb/``) is not part of
-        this build."""
-        raise CriticalError(
-            f"cannot open the LevelDB at {leveldb_path}: this build has no "
-            "LevelDB plane (ethereum/interface/leveldb); use --rpc"
+        """Open a geth LevelDB for direct (offline) chain access."""
+        from mythril_tpu_torch.ethereum.interface.leveldb.client import (
+            EthLevelDB,
         )
+
+        self.eth_db = EthLevelDB(leveldb_path)
 
     @staticmethod
     def _init_mythril_dir() -> str:

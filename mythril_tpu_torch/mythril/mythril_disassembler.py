@@ -1,18 +1,22 @@
 """MythrilDisassembler: input loading (reference:
-mythril/mythril/mythril_disassembler.py; own copy of the JAX package's,
-without the solc parts: bytecode input, on-chain loading through the RPC
-client (``load_from_address``) and storage reads (``read-storage``))."""
+mythril/mythril/mythril_disassembler.py; own copy of the JAX package's:
+bytecode input, Solidity input through solc (``load_from_solidity``),
+on-chain loading through the RPC client (``load_from_address``) and
+storage reads (``read-storage``))."""
 
 import logging
+import os
 import re
 from typing import List, Optional, Tuple
 
 from mythril_tpu_torch.exceptions import (
     BadAddressError,
+    CompilerError,
     CriticalError,
     EmptyCodeError,
     LoaderError,
 )
+from mythril_tpu_torch.ethereum.util import solc_exists
 from mythril_tpu_torch.solidity.evmcontract import EVMContract
 from mythril_tpu_torch.support.crypto import keccak256
 from mythril_tpu_torch.support.signatures import SignatureDB
@@ -21,11 +25,37 @@ log = logging.getLogger(__name__)
 
 
 class MythrilDisassembler:
-    def __init__(self, eth=None, enable_online_lookup: bool = False) -> None:
+    def __init__(
+        self,
+        eth=None,
+        solc_version: Optional[str] = None,
+        solc_settings_json: Optional[str] = None,
+        enable_online_lookup: bool = False,
+    ) -> None:
+        self.solc_binary = self._init_solc_binary(solc_version)
+        self.solc_settings_json = solc_settings_json
         self.eth = eth
         self.enable_online_lookup = enable_online_lookup
         self.sigs = SignatureDB(enable_online_lookup=enable_online_lookup)
         self.contracts: List[EVMContract] = []
+
+    @staticmethod
+    def _init_solc_binary(version: Optional[str]) -> Optional[str]:
+        """The solc binary to run: ``solc`` from ``PATH`` without a
+        version (None when there is none), else ``solc-VERSION``,
+        ``solcVERSION`` or ``solc``, whichever ``PATH`` has first; never
+        a download."""
+        if not version:
+            return solc_exists("solc")
+        if version.startswith("v"):
+            version = version[1:]
+        for candidate in (f"solc-{version}", f"solc{version}", "solc"):
+            path = solc_exists(candidate)
+            if path:
+                return path
+        raise CriticalError(
+            f"No matching solc binary found for version {version}"
+        )
 
     def load_from_bytecode(
         self, code: str, bin_runtime: bool = False, address: Optional[str] = None
@@ -140,14 +170,48 @@ class MythrilDisassembler:
         self.contracts.append(contract)
         return address, self.contracts[-1]
 
-    @staticmethod
-    def load_from_solidity(solidity_files: List[str]):
-        """Solidity input needs solc, which the port does not drive."""
-        raise CriticalError(
-            "Solidity input needs the solc compiler, which this build does "
-            f"not use ({', '.join(solidity_files)}); pass compiled bytecode "
-            "with -f BYTECODE_FILE or -c BYTECODE"
+    def load_from_solidity(self, solidity_files: List[str]):
+        """Compile and load .sol files through solc: ``FILE:NAME`` takes
+        the named contract, ``FILE`` every contract with runtime code."""
+        from mythril_tpu_torch.solidity.soliditycontract import (
+            SolidityContract,
+            get_contracts_from_file,
         )
+
+        address = "0x" + "0" * 40
+        contracts = []
+        for file in solidity_files:
+            if not os.path.exists(
+                    file.rsplit(":", 1)[0] if ":" in file else file):
+                raise CriticalError(f"Input file not found: {file}")
+            if ":" in file:
+                file, contract_name = file.rsplit(":", 1)
+            else:
+                contract_name = None
+            file = file.replace("~", "")  # fix npm path oddities
+            try:
+                if contract_name is not None:
+                    contract = SolidityContract(
+                        input_file=file,
+                        name=contract_name,
+                        solc_settings_json=self.solc_settings_json,
+                        solc_binary=self.solc_binary,
+                    )
+                    self.contracts.append(contract)
+                    contracts.append(contract)
+                else:
+                    for contract in get_contracts_from_file(
+                        file,
+                        solc_settings_json=self.solc_settings_json,
+                        solc_binary=self.solc_binary,
+                    ):
+                        self.contracts.append(contract)
+                        contracts.append(contract)
+            except FileNotFoundError:
+                raise CriticalError(f"Input file not found: {file}")
+            except CompilerError as e:
+                raise CriticalError(str(e))
+        return address, contracts
 
     def get_state_variable_from_storage(
         self, address: str, params: Optional[List[str]] = None

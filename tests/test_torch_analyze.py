@@ -783,13 +783,16 @@ def test_cli_refuses_missing_card_and_unported_options():
     assert run.returncode == 2
     assert "CUDA" in run.stderr and "--device cpu" in run.stderr
     assert "SWC" not in run.stdout
+    # --solv is taken: without a matching binary on PATH (solc-0.8.0,
+    # solc0.8.0 or solc) the command ends with the JAX CLI's message
     run = subprocess.run(
         [sys.executable, "-m", "mythril_tpu_torch", "analyze", "-f",
-         hexfile, "--bin-runtime", "--solv", "0.8.0"],
+         hexfile, "--bin-runtime", "--solv", "0.8.0", "--device", "cpu"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
-    assert run.returncode == 2 and "--solv" in run.stderr
-    assert "not supported by this build" in run.stderr
+    assert run.returncode == 1, run.stderr[-2000:]
+    assert "No matching solc binary found for version 0.8.0" in run.stderr
+    assert "not supported by this build" not in run.stderr
     # -g is taken: without a card the command gets as far as the card
     # check
     run = subprocess.run(

@@ -878,12 +878,25 @@ def test_config_rpc_vocabulary(side, tmp_path, monkeypatch):
 
 
 def test_port_config_refuses_leveldb_by_name(tmp_path, monkeypatch):
-    from mythril_tpu_torch.exceptions import CriticalError
-    from mythril_tpu_torch.mythril.mythril_config import MythrilConfig
-
+    """A directory that is no LevelDB is refused by both packages'
+    ``set_api_leveldb`` with the same error; a geth database opens."""
     monkeypatch.setenv("MYTHRIL_DIR", str(tmp_path))
-    with pytest.raises(CriticalError, match="LevelDB"):
-        MythrilConfig().set_api_leveldb(str(tmp_path))
+    errors = {}
+    for side in SIDES:
+        config = mod(side, "mythril.mythril_config").MythrilConfig()
+        with pytest.raises(Exception) as refused:
+            config.set_api_leveldb(str(tmp_path))
+        errors[side] = (type(refused.value).__name__, str(refused.value))
+        assert config.eth_db is None
+    assert errors["port"] == errors["jax"]
+    assert errors["port"][0] == "CorruptionError"
+    chaindata = str(tmp_path / "chaindata")
+    contracts.write_geth_db(chaindata, n_generated=4)
+    config = mod("port", "mythril.mythril_config").MythrilConfig()
+    config.set_api_leveldb(chaindata)
+    impl = contracts.onchain_accounts()["IMPL"]
+    assert config.eth_db.eth_getCode(bytes.fromhex(impl.address[2:])) == (
+        "0x" + impl.code)
 
 
 # ---------------------------------------------------------------------------
